@@ -1,0 +1,31 @@
+"""Architecture registry: ``--arch <id>`` -> ModelConfig.
+
+Arch ids accept dashes, underscores or dots interchangeably.  Only the
+dense architectures the port serves so far are registered.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import DENSE, ModelConfig  # noqa: F401
+
+# arch id -> module name under repro_torch.configs
+ARCHS: dict[str, str] = {
+    "llama3.2-1b": "llama3_2_1b",
+}
+
+
+def _canon(arch: str) -> str:
+    key = arch.strip().lower().replace("_", "-")
+    for k in ARCHS:
+        if key == k or key == k.replace(".", "-") or key.replace("-", "") == k.replace(
+            ".", ""
+        ).replace("-", ""):
+            return k
+    raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    mod = importlib.import_module(f"repro_torch.configs.{ARCHS[_canon(arch)]}")
+    return mod.CONFIG
+

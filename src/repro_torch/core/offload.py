@@ -1,0 +1,33 @@
+"""Decode and prefill attention routed to the device that holds the data.
+
+Single-device counterpart of ``repro.core.offload`` (``decode_attention``
+and ``prefill_attention``).  On the TPU mesh that module split the KV
+cache into an "HPU layout"; on one GPU the cache is already where the
+attention runs, so what is left is the choice of implementation: the
+Hopper kernels for CUDA tensors, the model-level plain versions
+(``models/attention.py``, the reference engine's numerics) for CPU
+tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     lengths: torch.Tensor, *, scale: float | None = None) -> torch.Tensor:
+    """q (B, Hq, D); caches (B, S, Hkv, D); lengths (B,) -> (B, Hq, D)."""
+    if q.is_cuda:
+        return ops.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+    return attn.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      q_offset: int = 0, chunk: int = 1024) -> torch.Tensor:
+    """Causal prefill attention; ``q_offset`` places q[:, 0] at an
+    absolute position."""
+    if q.is_cuda:
+        return ops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    return attn.chunked_attention(q, k, v, causal=True, q_offset=q_offset, chunk=chunk)

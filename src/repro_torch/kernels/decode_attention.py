@@ -1,0 +1,93 @@
+"""Flash-decode attention on Hopper: wrapper and plain version.
+
+``kernel`` launches ``csrc/decode_attention.cu`` (the port of the TPU
+kernel ``repro/kernels/decode_attention.py:decode_attention_pallas``) on
+CUDA tensors and raises on anything it does not take; ``plain`` is the
+same function in PyTorch (``ref.naive_decode_attention``).  The kernel
+reads the cache in its model layout ``(B, S, Hkv, D)`` through strides —
+no transpose, no padding of S.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import LaunchCounter, ref
+
+REPLACES = "src/repro/kernels/decode_attention.py:92"
+SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
+COUNTER = LaunchCounter("decode_attention")
+MAX_G = 8
+MAX_D = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def plain(q, k_cache, v_cache, lengths, *, scale: float | None = None):
+    return ref.naive_decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+
+
+def _lib():
+    from repro_torch.kernels import _build
+
+    lib = _build.load("decode_attention")
+    fn = lib.decode_attention_launch
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i64, i64, i64, i64,
+                       ctypes.c_float, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_operand(name: str, x: torch.Tensor, D: int, vec: int) -> None:
+    if x.stride(-1) != 1 or x.stride(-2) != D:
+        raise ValueError(f"{name}: heads and head_dim must be contiguous, got "
+                         f"strides {x.stride()}")
+    if x.data_ptr() % 16 or x.stride(0) % vec or x.stride(1) % vec:
+        raise ValueError(f"{name}: needs 16-byte aligned rows for vector loads")
+
+
+def kernel(q, k_cache, v_cache, lengths, *, scale: float | None = None):
+    """q (B, Hq, D), k/v (B, S, Hkv, D), lengths (B,) -> (B, Hq, D) on the
+    GPU, in q's dtype.  Positions at or past ``min(lengths[b], S)`` are
+    masked.  q and the cache may differ in dtype (f32 activations over a
+    bf16 cache)."""
+    if not (q.is_cuda and k_cache.is_cuda and v_cache.is_cuda and lengths.is_cuda):
+        raise ValueError("decode_attention kernel needs CUDA tensors")
+    if (q.dtype not in _DTYPES or k_cache.dtype not in _DTYPES
+            or v_cache.dtype != k_cache.dtype):
+        raise TypeError(f"decode_attention: dtypes {q.dtype}/{k_cache.dtype}/"
+                        f"{v_cache.dtype}; q and the cache each f32 or bf16, "
+                        "k and v alike")
+    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"decode_attention: shapes {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    B, Hq, D = q.shape
+    Bk, S, Hkv, Dk = k_cache.shape
+    if Bk != B or Dk != D or Hq % Hkv or lengths.shape != (B,):
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} vs cache "
+                         f"{tuple(k_cache.shape)}, lengths {tuple(lengths.shape)}")
+    G = Hq // Hkv
+    vec = 16 // k_cache.element_size()
+    if G > MAX_G or D > MAX_D or D % vec:
+        raise ValueError(f"decode_attention kernel takes G <= {MAX_G}, D <= {MAX_D}, "
+                         f"D % {vec} == 0; got G={G} D={D}")
+    if not q.is_contiguous():
+        raise ValueError("decode_attention: q must be contiguous")
+    _check_operand("k_cache", k_cache, D, vec)
+    _check_operand("v_cache", v_cache, D, vec)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 lengths.data_ptr(), out.data_ptr(), B, S, Hkv, G, D,
+                 k_cache.stride(0), k_cache.stride(1), v_cache.stride(0),
+                 v_cache.stride(1), scale, _DTYPES[q.dtype], _DTYPES[k_cache.dtype],
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
+    COUNTER.launches += 1
+    return out

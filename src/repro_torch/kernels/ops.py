@@ -1,0 +1,66 @@
+"""Model-layout entry points to the attention kernels.
+
+Counterpart of ``repro.kernels.ops``.  A CUDA tensor goes to the Hopper
+kernel (or the wrapper raises); a CPU tensor goes to the kernel's plain
+PyTorch version and never touches the kernel library.  Each kernel
+counts its launches (:func:`launch_counts`).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import prefill_attention as _prefill
+
+KERNELS = {"decode_attention": _decode, "prefill_attention": _prefill}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: mod.COUNTER.launches for name, mod in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNELS.values():
+        mod.COUNTER.launches = 0
+
+
+def _on_cpu(x: torch.Tensor, op: str) -> bool:
+    if x.is_cuda:
+        return False
+    if x.device.type == "cpu":
+        return True
+    raise ValueError(f"{op}: no kernel or plain path for device {x.device}")
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, Hq, D) — model layout
+    k_cache: torch.Tensor,  # (B, S, Hkv, D)
+    v_cache: torch.Tensor,  # (B, S, Hkv, D)
+    lengths: torch.Tensor,  # (B,)
+    scale: float | None = None,
+) -> torch.Tensor:
+    if _on_cpu(q, "decode_attention"):
+        return _decode.plain(q, k_cache, v_cache, lengths, scale=scale)
+    return _decode.kernel(q, k_cache, v_cache, lengths, scale=scale)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, Hq, D) — model layout
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,  # (B, Sk, Hkv, D)
+    scale: float | None = None,
+    causal: bool = True,
+    q_offset: int = 0,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``q_offset`` is the absolute position of q[:, 0] (a host int).
+    The int8/fp8 ``k_scale``/``v_scale`` variant is not ported yet."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "flash_attention with k_scale/v_scale (tiered KV) is not ported yet: "
+            "ROADMAP.md queue 2 item 2, scaled variant"
+        )
+    if _on_cpu(q, "flash_attention"):
+        return _prefill.plain(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
+    return _prefill.kernel(q, k, v, causal=causal, scale=scale, q_offset=q_offset)

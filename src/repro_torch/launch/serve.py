@@ -1,0 +1,141 @@
+"""End-to-end serving driver: continuous batching on one GPU.
+
+  python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --requests 64 --slots 16 --max-seq 1024 --max-new 64
+
+Counterpart of the default-flag path of ``repro.launch.serve``: the
+dense per-slot KV cache, the decode-only schedule, the ``random``
+workload, greedy sampling (or ``--sample temperature|top-k``) and the
+async dispatch-ahead engine (``--async off`` for the synchronous one).
+Weights are random, drawn from ``--seed`` on the device.  The run is on
+the GPU; ``--device cpu`` runs the plain PyTorch path (with
+``--reduced``, the test scale).  It prints the reference's stats and
+latency lines; the balancer line, telemetry, paged/hybrid, speculation
+and cluster flags arrive with later slices.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.reduced import reduce_config
+from repro_torch.models.registry import Model, build_model
+from repro_torch.serving.engine import Engine, EngineStats
+from repro_torch.serving.sampler import SamplerConfig
+from repro_torch.serving.workload import WORKLOADS, WorkloadDriver, build_workload
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=64)
+    ap.add_argument("--max-new", type=int, default=12)
+    ap.add_argument("--async", dest="async_mode", choices=("on", "off"), default="on",
+                    help="on: dispatch-ahead pipeline with on-device sampling; "
+                         "off: synchronous (greedy token-identical)")
+    ap.add_argument("--sample", choices=("greedy", "temperature", "top-k"),
+                    default=None,
+                    help="sampling mode; default: greedy, or top-k when "
+                         "--temperature > 0 is passed")
+    ap.add_argument("--temperature", type=float, default=None)
+    ap.add_argument("--top-k", type=int, default=40)
+    ap.add_argument("--workload", choices=WORKLOADS, default="random")
+    ap.add_argument("--workload-seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the plain path)")
+    return ap
+
+
+def make_sampler(args) -> tuple[str, SamplerConfig]:
+    mode = args.sample
+    if mode is None:
+        mode = "greedy" if not args.temperature else "top-k"
+    if mode == "greedy":
+        return mode, SamplerConfig()
+    # an explicit sampling mode must sample: temperature 0 would be greedy
+    temp = args.temperature if args.temperature else 1.0
+    return mode, SamplerConfig(temperature=temp,
+                               top_k=args.top_k if mode == "top-k" else 0)
+
+
+def load_model(args) -> tuple[Model, dict]:
+    cfg = reduce_config(args.arch) if args.reduced else get_config(args.arch)
+    model = build_model(cfg, args.device)
+    return model, model.init(args.seed)
+
+
+@dataclasses.dataclass
+class ServeResult:
+    engine: Engine
+    driver: WorkloadDriver
+    rounds: int
+    wall_s: float
+
+    @property
+    def stats(self) -> EngineStats:
+        return self.engine.stats
+
+
+def serve(args, model: Model, params: dict) -> ServeResult:
+    """Run the workload of ``args`` through a fresh engine."""
+    _, sampler = make_sampler(args)
+    eng = Engine(model, params, n_slots=args.slots, max_seq=args.max_seq,
+                 sampler=sampler, async_mode=args.async_mode == "on",
+                 seed=args.seed)
+    arrivals = build_workload(args.workload, args.requests, vocab=model.cfg.vocab,
+                              max_seq=args.max_seq, max_new=args.max_new,
+                              seed=args.workload_seed)
+    driver = WorkloadDriver(eng, arrivals)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+    t0 = time.perf_counter()
+    rounds = driver.run()
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+    return ServeResult(eng, driver, rounds, time.perf_counter() - t0)
+
+
+def stats_line(n_requests: int, stats: EngineStats) -> str:
+    return (f"requests={n_requests} prefills={stats.prefills} "
+            f"prefill_chunks={stats.prefill_chunks} "
+            f"boundary_packs={stats.boundary_packs} "
+            f"decode_steps={stats.decode_steps} "
+            f"engine_steps={stats.engine_steps} "
+            f"generated={stats.generated} peak_active={stats.peak_active}")
+
+
+def report(args, res: ServeResult) -> list[str]:
+    mode, sampler = make_sampler(args)
+    s = res.stats
+    return [
+        f"mode: async={args.async_mode} sample={mode} "
+        f"(T={sampler.temperature} top_k={sampler.top_k})",
+        f"workload: {args.workload} seed={args.workload_seed} "
+        f"submitted={len(res.driver.submitted)} resubmits=0 rounds={res.rounds}",
+        stats_line(len(res.driver.submitted), s),
+        f"latency: TTFT mean {s.mean_ttft_steps:.1f} "
+        f"p50 {s.ttft_percentile(50):.0f} p99 {s.ttft_percentile(99):.0f} "
+        f"engine steps, {s.tokens_per_step:.2f} tokens/step",
+        f"wall {res.wall_s:.2f}s -> {s.generated / res.wall_s:.1f} tok/s "
+        f"(batch efficiency {s.generated / max(s.decode_steps * args.slots, 1):.0%}) "
+        f"device={res.engine.device}",
+    ]
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    model, params = load_model(args)
+    for line in report(args, serve(args, model, params)):
+        print(line)
+
+
+if __name__ == "__main__":
+    main()

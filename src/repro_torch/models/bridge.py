@@ -1,0 +1,36 @@
+"""Carry a parameter tree across from numpy into the port's tensors.
+
+The tests build weights with the JAX package, convert them with
+``jax.tree.map(np.asarray, params)`` and hand the numpy tree to
+:func:`params_from_numpy`, so both frameworks compute the same function
+key for key.  numpy has no native bfloat16; arrays of the ``ml_dtypes``
+bfloat16 dtype that JAX hands out are widened to f32 (exact) and cast
+back, which is exact too.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+Pytree = Any
+
+
+def _tensor(a: np.ndarray, device, dtype: torch.dtype | None) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))       # a writable copy
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_numpy(tree: Pytree, device: str | torch.device = "cpu",
+                      dtype: torch.dtype | None = None) -> Pytree:
+    """Nested dict of numpy arrays -> the same dict of tensors on
+    ``device``; floating leaves are cast to ``dtype`` when given."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    return _tensor(np.asarray(tree), device, dtype)

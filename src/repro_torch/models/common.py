@@ -1,0 +1,128 @@
+"""Shared layers and parameter definitions (plain PyTorch).
+
+Counterpart of ``repro.models.common``.  Parameters are nested dicts of
+tensors; every family defines its tree once as :class:`ParamDef` leaves
+and :func:`init_params` samples it.  Layouts follow the JAX package
+(weights ``(d_in, ..., d_out)``, activations ``(B, S, H, D)``) so the
+tests compare like with like.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+Pytree = Any
+
+
+def param_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    logical: tuple[str | None, ...]
+    init: str = "normal"        # normal | zeros | embed
+    scale: float | None = None  # override fan-in scale
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.logical), (self.shape, self.logical)
+
+
+def _std(defn: ParamDef) -> float:
+    """The reference's distribution (``repro.models.common._sample``):
+    fan-in scaled normal, 0.02 for ``embed``."""
+    if defn.init == "embed":
+        return 0.02
+    fan_in = defn.shape[-2] if len(defn.shape) >= 2 else defn.shape[-1]
+    return defn.scale if defn.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+
+
+def _leaves(tree: Pytree, prefix: tuple = ()):
+    """(path, ParamDef) pairs in sorted-key order (JAX's dict order)."""
+    if isinstance(tree, ParamDef):
+        yield prefix, tree
+        return
+    for key in sorted(tree):
+        yield from _leaves(tree[key], prefix + (key,))
+
+
+def init_params(tree: Pytree, generator: torch.Generator, dtype: torch.dtype,
+                device: torch.device) -> Pytree:
+    """Sample every ParamDef leaf from ``generator`` (a seeded
+    ``torch.Generator`` on ``device``).  Same distributions as the
+    reference; not the same numbers, since torch cannot reproduce
+    ``jax.random``."""
+    out: dict = {}
+    for path, defn in _leaves(tree):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        if defn.init == "zeros":
+            val = torch.zeros(defn.shape, dtype=dtype, device=device)
+        else:
+            val = torch.randn(defn.shape, generator=generator, device=device,
+                              dtype=torch.float32).mul_(_std(defn)).to(dtype)
+        node[path[-1]] = val
+    return out
+
+
+def count_params(tree: Pytree) -> int:
+    return sum(math.prod(d.shape) for _, d in _leaves(tree))
+
+
+# ---------------------------------------------------------------------------
+# core layers
+# ---------------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm that scales by ``1 + scale`` (zero-initialised scales)."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, half split.  x: (..., S, H, D), positions: (..., S)."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(
+        -math.log(theta) * torch.arange(0, half, dtype=torch.float32, device=x.device)
+        / half
+    )
+    ang = positions.float()[..., None] * freqs            # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                    # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:
+    """Contract the trailing ``n_in`` dims of ``x`` with the leading
+    ``n_in`` dims of ``w`` (the einsums ``...d,d...->...`` of the
+    reference)."""
+    k = math.prod(w.shape[:n_in])
+    out = x.reshape(*x.shape[: x.dim() - n_in], k) @ w.reshape(k, -1)
+    return out.reshape(*x.shape[: x.dim() - n_in], *w.shape[n_in:])
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    return linear(F.silu(linear(x, w_gate)) * linear(x, w_up), w_down)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens.long()]
+
+
+def unembed(x: torch.Tensor, table: torch.Tensor,
+            true_vocab: int | None = None) -> torch.Tensor:
+    """x (..., d_model), table (vocab_padded, d_model) -> logits.  Pad
+    logits past ``true_vocab`` are set to -1e30."""
+    logits = x @ table.t()
+    if true_vocab is not None and true_vocab < table.shape[0]:
+        logits[..., true_vocab:] = -1e30
+    return logits

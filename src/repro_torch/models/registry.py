@@ -1,0 +1,64 @@
+"""Model API: ``build_model(cfg, device)`` -> :class:`Model`.
+
+Counterpart of ``repro.models.registry`` for the dense family.  A Model
+binds a config and a device to the family's step functions.  The device
+is CUDA unless the caller asks for another (``device="cpu"``); with no
+GPU and no explicit device, :func:`build_model` raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import common as cm
+
+Pytree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+    param_defs: Pytree
+    # prefill(params, tokens (B, S), cache) -> (logits (B, V), cache)
+    prefill: Callable[..., tuple[torch.Tensor, Pytree]]
+    # decode_step(params, cache, tokens (B,)) -> (logits (B, V), cache)
+    decode_step: Callable[..., tuple[torch.Tensor, Pytree]]
+    # decode_sample_step(params, cache, tokens, generator, eos_ids, *, sampler)
+    #   -> (tokens' (B,), eos_hit (B,), cache)
+    decode_sample_step: Callable[..., tuple[torch.Tensor, torch.Tensor, Pytree]]
+    cache_defs: Callable[[int, int], Pytree]
+    init_cache: Callable[..., Pytree]
+
+    def init(self, seed: int = 0) -> Pytree:
+        """Random weights from a seeded generator on the model's device."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return cm.init_params(self.param_defs, gen, cm.param_dtype(self.cfg), self.device)
+
+    def n_params(self) -> int:
+        return cm.count_params(self.param_defs)
+
+
+def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> Model:
+    dev = resolve_device(device)
+    if cfg.family != DENSE:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.kv_quant:
+        raise NotImplementedError("kv_quant (int8 dense KV cache) is not ported yet")
+    from repro_torch.models import dense as fam
+
+    return Model(
+        cfg=cfg,
+        device=dev,
+        param_defs=fam.param_defs(cfg),
+        prefill=functools.partial(fam.prefill, cfg),
+        decode_step=functools.partial(fam.decode_step, cfg),
+        decode_sample_step=functools.partial(fam.decode_sample_step, cfg),
+        cache_defs=functools.partial(fam.cache_defs, cfg),
+        init_cache=functools.partial(fam.init_cache, cfg, device=dev),
+    )
