@@ -6,20 +6,30 @@
 2. Builds every kernel in ``src/repro_torch/kernels/csrc/`` with nvcc
    (one process per source, in parallel) and prints the build time.
 3. Kernel phase: each kernel against its plain PyTorch version at the
-   main path's shapes, with its time beside the plain version's, one
-   ``scaled_dot_product_attention`` call on the same work (a yardstick,
-   never used by the port) and the least time the card could take.
+   main paths' shapes, with its time beside the plain version's, a
+   PyTorch yardstick on the same work (``scaled_dot_product_attention``;
+   for the paged kernel ``gather_paged_cache`` then SDPA, two calls,
+   since no single call computes paged attention; never used by the
+   port) and the least time the card could take.  The paged kernel is
+   also checked with f32 queries and with a ``starts`` window + lse.
 4. Serve phase: full-width llama3.2-1b with seeded random weights through
-   ``repro_torch.launch.serve``: the random workload with async
-   dispatch-ahead (the main path, with every launch counter zeroed
-   before and read after), then again synchronously; the greedy tokens
-   must be identical and each kernel must have launched once per layer
-   of every prefill and decode step.
-5. A profile of steady decode steps (torch.profiler), for where the
-   time goes.
-6. A small-input check: reduced llama3.2-1b in float32, prefill and
-   decode through the kernels on the GPU against the plain path on the
-   CPU, same weights.
+   ``repro_torch.launch.serve``, two paths, each with every launch
+   counter zeroed before its async run and read after it:
+   a. dense cache, decode-only schedule (slice 1's main path);
+   b. paged cache, hybrid chunked-prefill schedule, a pool of 385 blocks
+      (6144 positions for up to 16 x 576: admission waits on blocks).
+   Each runs async (dispatch-ahead) and then sync; the greedy tokens must
+   be identical and each kernel must have launched once per layer of
+   every prefill, chunk and decode step of its path.
+5. Profiles (torch.profiler) of steady async decode steps on path a and
+   of steady async hybrid steps on path b, for where the time goes.
+6. A small-input check: reduced llama3.2-1b in float32 through the
+   kernels on the GPU against the plain path on the CPU, same weights:
+   prefill and decode on the dense cache, chunked ``prefill_step`` and
+   ``paged_decode_step`` on the paged pool.
+7. A preemption check: reduced llama3.2-1b on a pool too small for both
+   sequences, on the GPU, async against sync (greedy tokens) and both
+   against the CPU engine (step clock), decode-only and hybrid.
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object with one entry per kernel; the last is
@@ -27,6 +37,7 @@ object with one entry per kernel; the last is
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -42,11 +53,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs.reduced import reduce_config  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as kdec  # noqa: E402
+from repro_torch.kernels import paged_decode_attention as kpaged  # noqa: E402
 from repro_torch.kernels import prefill_attention as kpre  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
-from repro_torch.serving.sampler import SamplerConfig  # noqa: E402
+from repro_torch.serving.paged import device as pdev  # noqa: E402
 from repro_torch.serving.workload import build_workload  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 flop/s
@@ -58,6 +71,8 @@ BF16_TOL = 2e-2           # bf16 output, as tests/test_kernels.py holds the Pall
 SERVE_FLAGS = ["--arch", "llama3.2-1b", "--requests", "64", "--slots", "16",
                "--max-seq", "1024", "--max-new", "64", "--workload", "random",
                "--workload-seed", "0", "--seed", "0", "--device", "cuda"]
+PAGED_FLAGS = ["--cache", "paged", "--schedule", "hybrid", "--blocks", "385"]
+LENGTHS = [1, 1024, 1033, 2, 37, 100, 255, 256, 257, 511, 512, 513, 700, 900, 1000, 1023]
 
 
 def _time_ms(fns, iters: int = 30) -> float:
@@ -89,8 +104,7 @@ def decode_phase(dev) -> dict:
     """llama3.2-1b decode attention at 16 slots, max_seq 1024, bf16."""
     B, S, Hkv, G, D = 16, 1024, 8, 4, 64
     gen = torch.Generator(device=dev).manual_seed(1)
-    lengths = torch.tensor([1, S, S + 9, 2, 37, 100, 255, 256, 257, 511, 512, 513,
-                            700, 900, 1000, 1023], dtype=torch.int32, device=dev)
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
     cache_bytes = 2 * B * S * Hkv * D * 2
     n_copies = max(1, math.ceil(2 * L2_BYTES / cache_bytes))
     sets = []
@@ -178,10 +192,91 @@ def prefill_phase(dev) -> dict:
         "cases": cases,
     }
 
+def paged_phase(dev) -> dict:
+    """llama3.2-1b paged decode attention at the serve shapes: 16 slots,
+    block 16, 64 blocks per row, a pool of 1025 blocks, bf16; the decode
+    row's ragged lengths (clamped to 1024 by the kernel), a scrambled
+    table and garbage in null block 0."""
+    B, Hkv, G, D, bs, MB = 16, 8, 4, 64, 16, 64
+    N = B * MB + 1
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    perm = torch.randperm(N - 1, generator=torch.Generator().manual_seed(5)) + 1
+    tables = torch.zeros(B, MB, dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(LENGTHS):
+        k = min(-(-n // bs), MB)
+        tables[b, :k] = perm[used:used + k]
+        used += k
+    tables = tables.to(dev)
+    pool_bytes = 2 * N * Hkv * bs * D * 2
+    n_copies = max(1, math.ceil(2 * L2_BYTES / pool_bytes))
+    sets = []
+    for _ in range(n_copies):
+        q = torch.randn(B, Hkv * G, D, generator=gen, device=dev).bfloat16()
+        kp = torch.randn(N, Hkv, bs, D, generator=gen, device=dev).bfloat16()
+        vp = torch.randn(N, Hkv, bs, D, generator=gen, device=dev).bfloat16()
+        kp[0], vp[0] = 99.0, -99.0
+        sets.append((q, kp, vp))
+    q, kp, vp = sets[0]
+    out = ops.paged_decode_attention(q, kp, vp, tables, lengths)
+    exp = kpaged.plain(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    err = _max_err(out, exp)
+    # float32 mode: f32 queries over the bf16 pool
+    out32 = ops.paged_decode_attention(q.float(), kp, vp, tables, lengths)
+    err32 = _max_err(out32, kpaged.plain(q.float(), kp, vp, tables, lengths))
+    # a hot window and the lse (row 0's window is empty: out 0, lse <= -1e30)
+    starts = (lengths // 3).to(torch.int32)
+    starts[0] = 5
+    out_w, lse = ops.paged_decode_attention(q, kp, vp, tables, lengths, starts=starts,
+                                            return_lse=True)
+    exp_w, exp_lse = kpaged.plain(q, kp, vp, tables, lengths, starts=starts,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    err_w = max(_max_err(out_w, exp_w), _max_err(lse[1:], exp_lse[1:]))
+    print(f"paged kernel checks: bf16 err {err:.2e}, f32-query err {err32:.2e}, "
+          f"window+lse err {err_w:.2e}, empty window lse {float(lse[0].max()):.3e}")
+    if not (err <= BF16_TOL and err32 <= 1e-4 and err_w <= BF16_TOL
+            and float(out_w[0].abs().max()) == 0.0 and float(lse[0].max()) <= -1e30):
+        raise AssertionError(f"paged_decode_attention kernel vs plain: {err}, {err32}, "
+                             f"{err_w}")
+
+    S = MB * bs
+    mask = (torch.arange(S, device=dev)[None] < lengths[:, None])[:, None, None, :]
+
+    def library(q, kp, vp):
+        k = ref.gather_paged_cache(kp, tables)
+        v = ref.gather_paged_cache(vp, tables)
+        return F.scaled_dot_product_attention(
+            q.view(B, Hkv * G, 1, D), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    lib_err = _max_err(library(q, kp, vp).view(B, Hkv * G, D), exp)
+    live = int(lengths.clamp(max=S).sum())
+    nbytes = 2 * live * Hkv * D * 2 + 2 * q.numel() * 2 + B * 4 + tables.numel() * 4
+    flops = 4 * live * Hkv * G * D
+    bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_FLOPS)
+    return {
+        "name": "paged_decode_attention", "route": "cuda", "source": kpaged.SOURCE,
+        "replaces": kpaged.REPLACES, "max_abs_err": max(err, err_w), "tol": BF16_TOL,
+        "f32_query_max_abs_err": err32,
+        "ms": _time_ms([lambda s=s: ops.paged_decode_attention(*s, tables, lengths)
+                        for s in sets]),
+        "plain_ms": _time_ms([lambda s=s: kpaged.plain(*s, tables, lengths)
+                              for s in sets], 10),
+        "library_ms": _time_ms([lambda s=s: library(*s) for s in sets]),
+        "library": "ref.gather_paged_cache (k, v) + scaled_dot_product_attention",
+        "library_max_abs_err": lib_err,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+        "shape": f"B={B} Hkv={Hkv} G={G} D={D} block={bs} MB={MB} N={N} bf16 "
+                 f"live={live}",
+    }
+
 
 # ------------------------------------------------------------ serve phase
-def serve_phase(dev):
-    args = serve.build_parser().parse_args(SERVE_FLAGS + ["--async", "on"])
+def load_model():
+    args = serve.build_parser().parse_args(SERVE_FLAGS)
     t0 = time.perf_counter()
     model, params = serve.load_model(args)
     torch.cuda.synchronize()
@@ -189,53 +284,66 @@ def serve_phase(dev):
     print(f"serve: {cfg.name} n_params={model.n_params()} layers={cfg.n_layers} "
           f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
           f"weights {time.perf_counter() - t0:.1f}s")
-    warm = serve.build_parser().parse_args(SERVE_FLAGS + ["--requests", "4"])
+    return model, params
+
+
+def serve_phase(model, params, label: str, flags: list[str], want) -> dict[str, int]:
+    """One path through the serve entry point: a short warm-up, the async
+    run with every launch counter zeroed before it and read after it,
+    then the sync run; checks launches (``want(stats)``), completion and
+    sync/async greedy identity.  Returns the async run's launch counts."""
+    cfg = model.cfg
+    args = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--async", "on"])
+    warm = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--requests", "4"])
     serve.serve(warm, model, params)           # warm-up: cuBLAS handles, allocator
 
     ops.reset_launch_counts()
-    res = serve.serve(args, model, params)     # the main path
+    res = serve.serve(args, model, params)     # the path's main run
     launches = ops.launch_counts()
+    print(f"[{label}] serve {' '.join(flags) or '(dense, decode-only)'}")
     for line in serve.report(args, res):
-        print(line)
+        print(f"[{label}] {line}")
     st = res.stats
-    want = {"prefill_attention": st.prefills * cfg.n_layers,
-            "decode_attention": st.decode_steps * cfg.n_layers}
-    print(f"launches: {launches} expected {want}")
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != expected {want}")
+    expected = want(st)
+    print(f"[{label}] preemptions={st.preemptions} victim_drains={st.victim_drains} "
+          f"launches: {launches} expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"[{label}] kernel launches {launches} != expected {expected}")
     reqs = res.driver.submitted
     for r in reqs:
         if not (r.done and len(r.out_tokens) == args.max_new
                 and all(0 <= t < cfg.vocab for t in r.out_tokens)):
-            raise AssertionError(f"request {r.uid}: done={r.done} "
+            raise AssertionError(f"[{label}] request {r.uid}: done={r.done} "
                                  f"tokens={len(r.out_tokens)}")
 
-    sync_args = serve.build_parser().parse_args(SERVE_FLAGS + ["--async", "off"])
+    sync_args = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--async", "off"])
     sync = serve.serve(sync_args, model, params)
     for line in serve.report(sync_args, sync):
-        print(line)
+        print(f"[{label}] {line}")
     same = [a.out_tokens == b.out_tokens for a, b in zip(reqs, sync.driver.submitted)]
-    print(f"sync vs async greedy: {sum(same)}/{len(same)} requests token-identical")
+    print(f"[{label}] sync vs async greedy: {sum(same)}/{len(same)} requests "
+          "token-identical")
     if not all(same):
-        raise AssertionError("sync and async greedy tokens differ")
-    return launches, model, params
+        raise AssertionError(f"[{label}] sync and async greedy tokens differ")
+    return launches
 
 
-def profile_phase(model, params, n_steps: int = 8) -> None:
-    """Where a steady decode step's time goes: ``torch.profiler`` over
-    ``n_steps`` async steps with all 16 slots decoding.  Prints wall time
-    per step, device busy time per step and the top kernels; reports "not
-    measured" if the profiler sees no device time."""
-    args = serve.build_parser().parse_args(SERVE_FLAGS + ["--max-new", "40"])
-    eng = Engine(model, params, n_slots=args.slots, max_seq=args.max_seq,
-                 sampler=SamplerConfig(), async_mode=True)
-    for i, arr in enumerate(build_workload("random", args.slots, vocab=model.cfg.vocab,
+def profile_phase(model, params, label: str, flags: list[str], warm_steps: int,
+                  n_steps: int = 8) -> None:
+    """Where a steady step's time goes: ``torch.profiler`` over ``n_steps``
+    async steps after ``warm_steps`` (32 requests over 16 slots).  Prints
+    wall time per step, device busy time per step and the top kernels;
+    reports "not measured" if the profiler sees no device time."""
+    args = serve.build_parser().parse_args(SERVE_FLAGS + flags)
+    eng = serve.make_engine(args, model, params)
+    for i, arr in enumerate(build_workload("random", 2 * args.slots, vocab=model.cfg.vocab,
                                            max_seq=args.max_seq, max_new=args.max_new,
                                            seed=1)):
         eng.submit(Request(uid=i, prompt=arr.prompt, max_new_tokens=arr.max_new_tokens))
-    for _ in range(4):                      # admit all, reach steady decode
+    for _ in range(warm_steps):
         eng.step()
     torch.cuda.synchronize()
+    st0 = dataclasses.replace(eng.stats)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -243,27 +351,34 @@ def profile_phase(model, params, n_steps: int = 8) -> None:
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    st = eng.stats
+    mix = (f"{st.decode_steps - st0.decode_steps} decode batches (mean "
+           f"{(st.generated - st0.generated) / n_steps:.1f} tokens/step), "
+           f"{st.prefill_chunks - st0.prefill_chunks} prefill chunks in {n_steps} steps")
     eng.run()
     rows = [e for e in prof.key_averages()
             if getattr(e, "self_device_time_total", 0) > 0]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / n_steps
     if not rows:
-        print(f"profile: wall {wall_ms:.2f} ms/decode step; device time not measured "
-              "(the profiler saw no device activity)")
+        print(f"[{label}] profile: wall {wall_ms:.2f} ms/step; device time not "
+              f"measured (the profiler saw no device activity); {mix}")
         return
-    print(f"profile: wall {wall_ms:.2f} ms/decode step, device busy {busy_ms:.2f} "
+    print(f"[{label}] profile: wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} "
           f"ms/step ({busy_ms / wall_ms:.0%}), {sum(e.count for e in rows) // n_steps} "
-          f"device ops/step, batch {args.slots}")
+          f"device ops/step; {mix}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / n_steps:8.3f} ms/step "
-              f"{e.count // n_steps:5d}x  {e.key[:90]}")
+              f"{e.count / n_steps:7.1f}x  {e.key[:90]}")
 
 
 def reference_check(dev) -> None:
     """Reduced llama3.2-1b in float32: kernels on the GPU vs the plain path
-    on the CPU, same weights, prefill + 4 decode steps.  Tolerance 5e-2 on
-    logits: the plain decode path rounds p to the bf16 cache dtype before
-    P·V (as the JAX reference does), the kernel keeps it in f32."""
+    on the CPU, same weights.  Dense cache: prefill + 4 decode steps.
+    Paged pool: two prompts in chunks of 16 through ``prefill_step`` into
+    the two staging lanes, their blocks written to scrambled pool blocks,
+    then 4 ``paged_decode_step``s.  Tolerance 5e-2 on logits: the plain
+    decode path rounds p to the bf16 cache dtype before P·V (as the JAX
+    reference does), the kernels keep it in f32."""
     cfg = reduce_config("llama3.2-1b").with_overrides(dtype="float32")
     gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
     p_gpu = gpu.init(seed=3)
@@ -280,10 +395,78 @@ def reference_check(dev) -> None:
         lg, _ = gpu.decode_step(p_gpu, caches[0], tok.to(dev))
         lc, _ = cpu.decode_step(p_cpu, caches[1], tok)
         worst = max(worst, _max_err(lg.cpu(), lc))
-    print(f"reference check (reduced f32, GPU kernels vs CPU plain): "
+    print(f"reference check, dense (reduced f32, GPU kernels vs CPU plain): "
           f"max |logit diff| {worst:.3e}")
-    if not worst <= 5e-2:
-        raise AssertionError(f"GPU vs CPU logits differ by {worst}")
+
+    bs, MB, N = 8, 8, 17
+    tables = torch.zeros(2, MB, dtype=torch.int32)
+    tables[0, :4] = torch.tensor([9, 2, 14, 5])       # 29 prompt + 4 decode positions
+    tables[1, :3] = torch.tensor([16, 1, 11])          # 17 + 4
+    lens = (29, 17)
+    runs = []
+    for model, params, d in ((gpu, p_gpu, dev), (cpu, p_cpu, torch.device("cpu"))):
+        staging = model.init_cache(2, MB * bs)
+        pool = model.init_paged_cache(2, N, bs, MB)
+        pool["k"][:, 0], pool["v"][:, 0] = 50.0, -50.0          # null-block garbage
+        logits = []
+        for lane, n in enumerate(lens):
+            for start in range(0, n, 16):
+                nv = min(16, n - start)
+                chunk = torch.zeros(1, 16, dtype=torch.int32)
+                chunk[0, :nv] = prompt[lane, start:start + nv]
+                lg, _ = model.prefill_step(params, staging, chunk.to(d), lane, start, nv)
+            logits.append(lg)
+            for j in range(-(-n // bs)):
+                pdev.write_prompt_block(pool, staging, int(tables[lane, j]), j * bs, lane)
+            pdev.sync_slot(pool, lane, tables[lane].numpy(), n)
+        runs.append((model, params, pool, torch.cat(logits)))
+    (gm, gp, gpool, glog), (cm_, cp, cpool, clog) = runs
+    worst_paged = _max_err(glog.cpu(), clog)
+    for _ in range(4):
+        tok = clog.argmax(-1).to(torch.int32)
+        glog, _ = gm.paged_decode_step(gp, gpool, tok.to(dev))
+        clog, _ = cm_.paged_decode_step(cp, cpool, tok)
+        worst_paged = max(worst_paged, _max_err(glog.cpu(), clog))
+    print(f"reference check, paged + chunked prefill (reduced f32, GPU kernels vs CPU "
+          f"plain): max |logit diff| {worst_paged:.3e}")
+    if not (worst <= 5e-2 and worst_paged <= 5e-2):
+        raise AssertionError(f"GPU vs CPU logits differ by {worst}, {worst_paged}")
+
+
+def preemption_check(dev) -> None:
+    """Reduced llama3.2-1b on a pool too small for both sequences (8
+    usable blocks of 4 tokens): the youngest is preempted and refolded.
+    On the GPU, async (victim-only drain) and sync give the same greedy
+    tokens, and the step clock equals the CPU engine's (it does not
+    depend on token values)."""
+    cfg = reduce_config("llama3.2-1b").with_overrides(dtype="float32")
+    gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+    p_gpu = gpu.init(seed=3)
+    p_cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+             for k, v in p_gpu.items()}
+    prompts = [torch.arange(1, 10, dtype=torch.int32).numpy(),
+               torch.arange(3, 8, dtype=torch.int32).numpy()]
+    for schedule in ("decode-only", "hybrid"):
+        runs = []
+        for model, params, async_mode in ((gpu, p_gpu, True), (gpu, p_gpu, False),
+                                          (cpu, p_cpu, False)):
+            eng = Engine(model, params, n_slots=2, max_seq=32, cache_kind="paged",
+                         block_size=4, n_blocks=9, schedule=schedule, prefill_chunk=8,
+                         async_mode=async_mode)
+            reqs = [Request(uid=i, prompt=p, max_new_tokens=10)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            runs.append((eng.run(), [r.out_tokens for r in reqs], eng.pool.in_use))
+        (a, a_tok, a_use), (s_, s_tok, s_use), (c, _, _) = runs
+        print(f"preemption check ({schedule}, GPU): preemptions={a.preemptions} "
+              f"victim_drains={a.victim_drains} sync/async tokens equal: {a_tok == s_tok}")
+        if not (a.preemptions >= 1 and a.victim_drains >= 1 and a_tok == s_tok
+                and a_use == s_use == 0
+                and (a.engine_steps, a.preemptions, a.decode_steps, a.prefill_chunks)
+                == (s_.engine_steps, s_.preemptions, s_.decode_steps, s_.prefill_chunks)
+                == (c.engine_steps, c.preemptions, c.decode_steps, c.prefill_chunks)):
+            raise AssertionError(f"preemption check ({schedule}) failed: {a} / {s_} / {c}")
 
 
 def main() -> None:
@@ -305,18 +488,32 @@ def main() -> None:
             if "registers" in line:
                 print(f"ptxas {name}: {line.split(':', 1)[1].strip()}")
 
-    rows = [decode_phase(dev), prefill_phase(dev)]
+    rows = [decode_phase(dev), prefill_phase(dev), paged_phase(dev)]
     for r in rows:
         print(f"kernel {r['name']}: err {r['max_abs_err']:.2e} (tol {r['tol']}) "
               f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-              f"sdpa {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+              f"library {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) at {r['shape']}")
-    launches, model, params = serve_phase(dev)
-    profile_phase(model, params)
+    model, params = load_model()
+    L = model.cfg.n_layers
+    by_path = {
+        "dense": serve_phase(model, params, "dense", [], lambda st: {
+            "decode_attention": st.decode_steps * L, "prefill_attention": st.prefills * L,
+            "paged_decode_attention": 0}),
+        "paged-hybrid": serve_phase(model, params, "paged-hybrid", PAGED_FLAGS, lambda st: {
+            "decode_attention": 0, "prefill_attention": st.prefill_chunks * L,
+            "paged_decode_attention": st.decode_steps * L}),
+    }
+    profile_phase(model, params, "dense", [], warm_steps=4)
+    profile_phase(model, params, "paged-hybrid", PAGED_FLAGS, warm_steps=48)
     del model, params
     reference_check(dev)
+    preemption_check(dev)
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches_by_path"] = {path: n[r["name"]] for path, n in by_path.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
+        if not r["launches"]:
+            raise AssertionError(f"{r['name']} never launched on the main paths")
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

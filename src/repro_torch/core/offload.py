@@ -1,18 +1,18 @@
 """Decode and prefill attention routed to the device that holds the data.
 
-Single-device counterpart of ``repro.core.offload`` (``decode_attention``
-and ``prefill_attention``).  On the TPU mesh that module split the KV
-cache into an "HPU layout"; on one GPU the cache is already where the
-attention runs, so what is left is the choice of implementation: the
-Hopper kernels for CUDA tensors, the model-level plain versions
-(``models/attention.py``, the reference engine's numerics) for CPU
-tensors.
+Single-device counterpart of ``repro.core.offload`` (``decode_attention``,
+``paged_decode_attention`` and ``prefill_attention``).  On the TPU mesh
+that module split the KV cache into an "HPU layout"; on one GPU the
+cache is already where the attention runs, so what is left is the
+choice of implementation: the Hopper kernels for CUDA tensors, the
+model-level plain versions (``models/attention.py``, the reference
+engine's numerics) for CPU tensors.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn
 
 
@@ -22,6 +22,29 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if q.is_cuda:
         return ops.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
     return attn.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           block_tables: torch.Tensor, lengths: torch.Tensor, *,
+                           scale: float | None = None, starts: torch.Tensor | None = None,
+                           return_lse: bool = False):
+    """q (B, Hq, D); pools (N, Hkv, bs, D) kernel-native; block_tables
+    (B, MB) int32; lengths (B,) -> (B, Hq, D) [, lse (B, Hkv, G)].
+
+    CPU tensors take the reference engine's branch: gather the blocks into
+    a contiguous cache and run the model-level decode attention (same
+    numerics as the dense cache); with ``starts`` or ``return_lse``, the
+    kernel-level oracle."""
+    if q.is_cuda:
+        return ops.paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
+                                          scale=scale, starts=starts,
+                                          return_lse=return_lse)
+    if starts is None and not return_lse:
+        k = ref.gather_paged_cache(k_pool, block_tables)
+        v = ref.gather_paged_cache(v_pool, block_tables)
+        return attn.decode_attention(q, k, v, lengths, scale=scale)
+    return ref.paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
+                                      scale=scale, starts=starts, return_lse=return_lse)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

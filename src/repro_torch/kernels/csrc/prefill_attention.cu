@@ -23,6 +23,9 @@
 //  * the ragged edges of Sq and Sk are masked here (any length works; the
 //    TPU wrapper instead halves its blocks until they divide Sq and Sk);
 //  * a row with no visible key gives 0, not NaN (max(l, 1e-30) guard);
+//  * templated on the query/output type and the K/V type: the chunked
+//    prefill of the reference's float32 mode attends f32 queries against
+//    the bf16 cache;
 //  * Q, K, V tiles and the probability tile live in shared memory as f32,
 //    rows padded by one word against bank conflicts.  Each thread owns a
 //    4 x 8 block of scores and a 4 x D/8 block of the output.
@@ -45,10 +48,11 @@ size_t smem_bytes(int D) {
                           (size_t)BK * D + (size_t)BQ * (BK + 1));
 }
 
-template <typename T>
+// TQ: query/output type, TKV: key/value type.
+template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(THREADS)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
+flash_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                     const TKV* __restrict__ v, TQ* __restrict__ out, int Sq, int Sk,
                      int Hq, int Hkv, int D, int q_offset, int causal, float scale) {
   extern __shared__ float smem[];
   const int QS = D + 1;
@@ -65,23 +69,25 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & 7;            // key / output column group
   const int ty = tid >> 3;           // rows ty*4 .. ty*4+3
-  constexpr int VN = Vec<T>::N;
+  constexpr int VQ = Vec<TQ>::N;
+  constexpr int VN = Vec<TKV>::N;
+  const int q_chunks = D / VQ;
   const int row_chunks = D / VN;
   const int DC = D / 8;
 
   // Q tile (rows past Sq are zero and fully masked below)
-  for (int c = tid; c < BQ * row_chunks; c += THREADS) {
-    const int r = c / row_chunks;
-    const int d0 = (c % row_chunks) * VN;
-    float f[VN];
+  for (int c = tid; c < BQ * q_chunks; c += THREADS) {
+    const int r = c / q_chunks;
+    const int d0 = (c % q_chunks) * VQ;
+    float f[VQ];
     if (q0 + r < Sq) {
       load16(q + (((long long)b * Sq + q0 + r) * Hq + h) * D + d0, f);
     } else {
 #pragma unroll
-      for (int e = 0; e < VN; ++e) f[e] = 0.f;
+      for (int e = 0; e < VQ; ++e) f[e] = 0.f;
     }
 #pragma unroll
-    for (int e = 0; e < VN; ++e) q_s[r * QS + d0 + e] = f[e];
+    for (int e = 0; e < VQ; ++e) q_s[r * QS + d0 + e] = f[e];
   }
 
   float m[RQ], l[RQ], o[RQ][MAX_DC];
@@ -188,46 +194,50 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty * RQ + i;
     if (r < Sq) {
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
-      T* orow = out + (((long long)b * Sq + r) * Hq + h) * D;
+      TQ* orow = out + (((long long)b * Sq + r) * Hq + h) * D;
 #pragma unroll
       for (int dd = 0; dd < MAX_DC; ++dd)
-        if (dd < DC) orow[tx + 8 * dd] = from_float<T>(o[i][dd] * inv);
+        if (dd < DC) orow[tx + 8 * dd] = from_float<TQ>(o[i][dd] * inv);
     }
   }
 }
 
-template <typename T>
+template <typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
            int Sk, int Hq, int Hkv, int D, int q_offset, int causal, float scale,
            cudaStream_t st) {
-  if (D % Vec<T>::N) return (int)cudaErrorInvalidValue;
+  if (D % Vec<TQ>::N || D % Vec<TKV>::N) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel<TQ, TKV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_prefill_kernel<T><<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Sk, Hq, Hkv, D, q_offset, causal, scale);
+  flash_prefill_kernel<TQ, TKV><<<grid, THREADS, smem, st>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
+      static_cast<TQ*>(out), Sq, Sk, Hq, Hkv, D, q_offset, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), out (B, Sq, Hq, D), all contiguous
-// (the model layout).  Launches on `stream`, returns cudaGetLastError().
+// q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), out (B, Sq, Hq, D) of q's type, all
+// contiguous (the model layout).  Launches on `stream`, returns
+// cudaGetLastError().
 extern "C" int prefill_attention_launch(const void* q, const void* k, const void* v,
                                         void* out, int B, int Sq, int Sk, int Hq,
                                         int Hkv, int D, int q_offset, int causal,
-                                        float scale, int dtype, void* stream) {
+                                        float scale, int q_dtype, int kv_dtype,
+                                        void* stream) {
   if (D < 8 || D > MAX_D || D % 8 || Hkv < 1 || Hq % Hkv) return (int)cudaErrorInvalidValue;
   if (Sq < 1 || Sk < 1) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == F32)
-    return launch<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, q_offset, causal, scale, st);
-  if (dtype == BF16)
-    return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, q_offset, causal,
-                                 scale, st);
+#define REPRO_LAUNCH(TQ, TKV) \
+  launch<TQ, TKV>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, q_offset, causal, scale, st)
+  if (q_dtype == BF16 && kv_dtype == BF16) return REPRO_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  if (q_dtype == F32 && kv_dtype == BF16) return REPRO_LAUNCH(float, __nv_bfloat16);
+  if (q_dtype == F32 && kv_dtype == F32) return REPRO_LAUNCH(float, float);
+  if (q_dtype == BF16 && kv_dtype == F32) return REPRO_LAUNCH(__nv_bfloat16, float);
+#undef REPRO_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

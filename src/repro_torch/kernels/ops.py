@@ -10,9 +10,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import prefill_attention as _prefill
 
-KERNELS = {"decode_attention": _decode, "prefill_attention": _prefill}
+KERNELS = {"decode_attention": _decode, "prefill_attention": _prefill,
+           "paged_decode_attention": _paged}
 
 
 def launch_counts() -> dict[str, int]:
@@ -42,6 +44,32 @@ def decode_attention(
     if _on_cpu(q, "decode_attention"):
         return _decode.plain(q, k_cache, v_cache, lengths, scale=scale)
     return _decode.kernel(q, k_cache, v_cache, lengths, scale=scale)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,             # (B, Hq, D) — model layout
+    k_pool: torch.Tensor,        # (N, Hkv, block_size, D) — kernel-native
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, max_blocks) int32
+    lengths: torch.Tensor,       # (B,)
+    *,
+    scale: float | None = None,
+    starts: torch.Tensor | None = None,
+    return_lse: bool = False,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+):
+    """``starts`` restricts attention to the window ``[start, length)``;
+    ``return_lse`` also returns the per-row log-sum-exp (B, Hkv, G) f32.
+    The fp8/int8 pools' ``k_scale``/``v_scale`` are not ported yet."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "paged_decode_attention with k_scale/v_scale (fp8/int8 pools, tiered KV) "
+            "is not ported yet: ROADMAP.md queue 2 item 3, scaled variant"
+        )
+    fn = _paged.plain if _on_cpu(q, "paged_decode_attention") else _paged.kernel
+    return fn(q, k_pool, v_pool, block_tables, lengths, scale=scale, starts=starts,
+              return_lse=return_lse)
 
 
 def flash_attention(

@@ -34,20 +34,22 @@ def _lib():
     fn = lib.prefill_attention_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def kernel(q, k, v, *, causal: bool = True, scale: float | None = None,
            q_offset: int = 0):
-    """q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D) on the GPU.
-    ``q_offset`` (a host int) is the absolute position of q[:, 0]."""
+    """q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D) on the GPU,
+    in q's dtype.  ``q_offset`` (a host int) is the absolute position of
+    q[:, 0].  q and k/v may differ in dtype (the chunked prefill of
+    float32 mode attends f32 queries against the bf16 cache)."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("prefill_attention kernel needs CUDA tensors")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype:
         raise TypeError(f"prefill_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
-                        "needs one of f32, bf16 for all")
+                        "q and k/v each f32 or bf16, k and v alike")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"prefill_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -67,7 +69,7 @@ def kernel(q, k, v, *, causal: bool = True, scale: float | None = None,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Sq, Sk, Hq, Hkv, D, int(q_offset), int(causal), scale,
-                 _DTYPES[q.dtype], stream)
+                 _DTYPES[q.dtype], _DTYPES[k.dtype], stream)
     if err != 0:
         raise RuntimeError(f"prefill_attention kernel launch failed: CUDA error {err}")
     COUNTER.launches += 1

@@ -1,9 +1,11 @@
 """Plain PyTorch oracles for the attention kernels (naive, O(S^2) memory).
 
-Counterparts of ``repro.kernels.ref.naive_attention`` and
-``naive_decode_attention``: the kernel-level plain versions that the
-CUDA kernels are held against, and that ``kernels.ops`` runs for CPU
-tensors.  Both work in f32 and cast the result to the query's dtype.
+Counterparts of ``repro.kernels.ref.naive_attention``,
+``naive_decode_attention``, ``gather_paged_cache`` and
+``paged_decode_attention`` (without the quantized pools' scales): the
+kernel-level plain versions that the CUDA kernels are held against, and
+that ``kernels.ops`` runs for CPU tensors.  They work in f32 and cast
+the result to the query's dtype.
 """
 from __future__ import annotations
 
@@ -51,11 +53,15 @@ def naive_decode_attention(
     lengths: torch.Tensor,
     *,
     scale: float | None = None,
-) -> torch.Tensor:
+    starts: torch.Tensor | None = None,
+    return_lse: bool = False,
+):
     """q (B,Hq,D), caches (B,S,Hkv,D), lengths (B,) -> (B,Hq,D).
 
-    Positions at or past ``lengths[b]`` are masked; a row with no valid
-    position yields 0 (never NaN)."""
+    Positions at or past ``lengths[b]`` are masked, and below
+    ``starts[b]`` when given (a hot attention window); ``return_lse``
+    also returns the per-row log-sum-exp ``(B, Hkv, G)`` f32.  A row with
+    no valid position yields output 0 and lse <= -1e30 (never NaN)."""
     B, Hq, D = q.shape
     _, S, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -63,10 +69,45 @@ def naive_decode_attention(
     qf = q.float().reshape(B, Hkv, G, D)
     s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float()) * scale
     pos = torch.arange(S, device=q.device)
-    mask = (pos[None] < lengths.to(q.device)[:, None])[:, None, None]   # (B,1,1,S)
+    valid = pos[None] < lengths.to(q.device)[:, None]                    # (B,S)
+    if starts is not None:
+        valid &= pos[None] >= starts.to(q.device)[:, None]
+    mask = valid[:, None, None]                                          # (B,1,1,S)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float()) / l.clamp_min(1e-30)
-    return o.reshape(B, Hq, v_cache.shape[-1]).to(q.dtype)
+    out = o.reshape(B, Hq, v_cache.shape[-1]).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l.clamp_min(1e-30)))[..., 0]
+    return out
+
+
+def gather_paged_cache(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """Kernel-native pool (N, Hkv, bs, D) + tables (B, MB) -> contiguous
+    dense-layout cache (B, MB*bs, Hkv, D), positions in logical order."""
+    _, Hkv, bs, D = pool.shape
+    B, MB = block_tables.shape
+    return pool[block_tables.long()].transpose(2, 3).reshape(B, MB * bs, Hkv, D)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,             # (B, Hq, D)
+    k_pool: torch.Tensor,        # (N, Hkv, bs, D) — kernel-native
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, MB) int32
+    lengths: torch.Tensor,       # (B,)
+    *,
+    scale: float | None = None,
+    starts: torch.Tensor | None = None,
+    return_lse: bool = False,
+):
+    """Oracle of the paged kernel: gather each row's blocks into a
+    contiguous cache, then the dense decode oracle.  Positions past
+    ``lengths`` (whatever the null block holds) and below ``starts`` are
+    masked there."""
+    k = gather_paged_cache(k_pool, block_tables).float()
+    v = gather_paged_cache(v_pool, block_tables).float()
+    return naive_decode_attention(q, k, v, lengths, scale=scale, starts=starts,
+                                  return_lse=return_lse)

@@ -3,15 +3,22 @@
   python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --requests 64 --slots 16 --max-seq 1024 --max-new 64
 
-Counterpart of the default-flag path of ``repro.launch.serve``: the
-dense per-slot KV cache, the decode-only schedule, the ``random``
-workload, greedy sampling (or ``--sample temperature|top-k``) and the
-async dispatch-ahead engine (``--async off`` for the synchronous one).
-Weights are random, drawn from ``--seed`` on the device.  The run is on
-the GPU; ``--device cpu`` runs the plain PyTorch path (with
-``--reduced``, the test scale).  It prints the reference's stats and
-latency lines; the balancer line, telemetry, paged/hybrid, speculation
-and cluster flags arrive with later slices.
+  python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --requests 64 --slots 16 --max-seq 1024 --max-new 64 \\
+      --cache paged --schedule hybrid --blocks 385
+
+Counterpart of ``repro.launch.serve`` for the dense per-slot KV cache
+and the paged block pool (``--cache``, ``--block-size``, ``--blocks``;
+bf16 pool, no host tier), the decode-only and hybrid chunked-prefill
+schedules (``--schedule``, ``--prefill-chunk``, ``--token-budget``), the
+``random`` workload, greedy sampling (or ``--sample temperature|top-k``)
+and the async dispatch-ahead engine (``--async off`` for the synchronous
+one).  Weights are random, drawn from ``--seed`` on the device.  The run
+is on the GPU; ``--device cpu`` runs the plain PyTorch path (with
+``--reduced``, the test scale).  It prints the reference's stats,
+latency and ``pool:`` lines; the balancer line, telemetry, tiered KV
+(``--kv-dtype fp8|int8``, ``--host-blocks``), speculation and cluster
+flags arrive with later slices.
 """
 from __future__ import annotations
 
@@ -46,6 +53,24 @@ def build_parser() -> argparse.ArgumentParser:
                          "--temperature > 0 is passed")
     ap.add_argument("--temperature", type=float, default=None)
     ap.add_argument("--top-k", type=int, default=40)
+    ap.add_argument("--cache", choices=("dense", "paged"), default="dense")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="paged: tokens per physical KV block")
+    ap.add_argument("--blocks", type=int, default=None,
+                    help="paged: pool size incl. null block "
+                         "(default: dense-equivalent budget)")
+    ap.add_argument("--kv-dtype", choices=("bf16", "fp8", "int8"), default="bf16",
+                    help="paged: KV block storage dtype (fp8/int8 come with "
+                         "the tiered-KV slice)")
+    ap.add_argument("--host-blocks", type=int, default=0,
+                    help="paged: host-tier KV blocks (comes with the tiered-KV slice)")
+    ap.add_argument("--schedule", choices=("decode-only", "hybrid"),
+                    default="decode-only",
+                    help="hybrid: fuse chunked prefill into decode steps")
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="hybrid: max prompt tokens prefilled per step")
+    ap.add_argument("--token-budget", type=int, default=None,
+                    help="hybrid: per-step token budget (default: slots + prefill_chunk)")
     ap.add_argument("--workload", choices=WORKLOADS, default="random")
     ap.add_argument("--workload-seed", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
@@ -84,12 +109,28 @@ class ServeResult:
         return self.engine.stats
 
 
+def check_args(args) -> None:
+    """Refuse the flags whose features are not ported yet."""
+    if args.kv_dtype != "bf16" or args.host_blocks:
+        raise SystemExit("--kv-dtype fp8|int8 and --host-blocks come with the "
+                         "tiered-KV slice (ROADMAP.md queue 1 item 8); this port "
+                         "takes --kv-dtype bf16 --host-blocks 0")
+
+
+def make_engine(args, model: Model, params: dict) -> Engine:
+    """A fresh engine configured by ``args``."""
+    check_args(args)
+    _, sampler = make_sampler(args)
+    return Engine(model, params, n_slots=args.slots, max_seq=args.max_seq,
+                  sampler=sampler, async_mode=args.async_mode == "on",
+                  seed=args.seed, cache_kind=args.cache, block_size=args.block_size,
+                  n_blocks=args.blocks, schedule=args.schedule,
+                  prefill_chunk=args.prefill_chunk, token_budget=args.token_budget)
+
+
 def serve(args, model: Model, params: dict) -> ServeResult:
     """Run the workload of ``args`` through a fresh engine."""
-    _, sampler = make_sampler(args)
-    eng = Engine(model, params, n_slots=args.slots, max_seq=args.max_seq,
-                 sampler=sampler, async_mode=args.async_mode == "on",
-                 seed=args.seed)
+    eng = make_engine(args, model, params)
     arrivals = build_workload(args.workload, args.requests, vocab=model.cfg.vocab,
                               max_seq=args.max_seq, max_new=args.max_new,
                               seed=args.workload_seed)
@@ -115,7 +156,7 @@ def stats_line(n_requests: int, stats: EngineStats) -> str:
 def report(args, res: ServeResult) -> list[str]:
     mode, sampler = make_sampler(args)
     s = res.stats
-    return [
+    lines = [
         f"mode: async={args.async_mode} sample={mode} "
         f"(T={sampler.temperature} top_k={sampler.top_k})",
         f"workload: {args.workload} seed={args.workload_seed} "
@@ -128,6 +169,9 @@ def report(args, res: ServeResult) -> list[str]:
         f"(batch efficiency {s.generated / max(s.decode_steps * args.slots, 1):.0%}) "
         f"device={res.engine.device}",
     ]
+    if args.cache == "paged":
+        lines.append(f"pool: {res.engine.pool.stats} kv_bytes={res.engine.kv_bytes()}")
+    return lines
 
 
 def main(argv=None):

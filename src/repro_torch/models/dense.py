@@ -1,15 +1,20 @@
 """Dense llama-family decoder LM: the serving path.
 
 Counterpart of ``repro.models.dense`` for ``param_defs``, ``cache_defs``
-/ ``init_cache``, ``prefill``, ``decode_step`` and ``decode_sample_step``
-(no ``kv_quant``).  Layers are stacked on a leading dim as in the
+/ ``init_cache``, ``prefill``, ``decode_step``, ``decode_sample_step``,
+the paged pool (``paged_cache_defs`` / ``init_paged_cache``,
+``paged_decode_step``, ``paged_decode_sample_step``) and chunked prefill
+(``prefill_step``, ``prefill_sample_step``); no ``kv_quant``, no fp8/int8
+pools and no host tier.  Layers are stacked on a leading dim as in the
 reference and iterated with a Python loop.  Attention goes through
 ``core.offload``: the Hopper kernels on the GPU, the plain versions on
 the CPU.
 
 The KV cache is updated **in place** (``k[l].index_put_``, slice
 copies), where the reference builds a new cache with ``.at[].set``; the
-returned cache dict is the one passed in.
+returned cache dict is the one passed in.  Where the reference leans on
+JAX's clamped gathers and dropped out-of-range scatters, the port clamps
+or skips on the host or with masks, never with a host sync.
 """
 from __future__ import annotations
 
@@ -80,6 +85,89 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                        device=device)
         for k, d in defs.items()
     }
+
+
+# ---------------------------------------------------------------------------
+# paged cache (block pool + per-slot block tables; serving/paged/)
+# ---------------------------------------------------------------------------
+def paged_cache_defs(cfg, n_slots: int, n_blocks: int, block_size: int,
+                     max_blocks: int, kv_dtype: str = "bf16",
+                     host_blocks: int = 0) -> Pytree:
+    """Physical KV as a pool of fixed-size blocks shared by all slots,
+    kernel-native ``(L, n_blocks, Hkv, block_size, Dh)`` (heads before
+    positions); ``block_tables`` maps (slot, logical block) -> physical
+    block, entry 0 being the null block."""
+    if kv_dtype != "bf16":
+        raise NotImplementedError(
+            f"kv_dtype={kv_dtype!r} (quantized pools, tiered KV) is not ported yet: "
+            "ROADMAP.md queue 1 item 8")
+    if host_blocks:
+        raise NotImplementedError(
+            "host_blocks > 0 (the host tier, tiered KV) is not ported yet: "
+            "ROADMAP.md queue 1 item 8")
+    L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim()
+    kv = ParamDef((L, n_blocks, Hkv, block_size, Dh),
+                  ("layers", "kv_blocks", "kv_heads", "kv_seq", "head_dim"), "zeros")
+    return {
+        "k": kv,
+        "v": kv,
+        "block_tables": ParamDef((n_slots, max_blocks), ("kv_batch", None), "zeros"),
+        "lengths": ParamDef((n_slots,), ("kv_batch",), "zeros"),
+    }
+
+
+def init_paged_cache(cfg, n_slots: int, n_blocks: int, block_size: int,
+                     max_blocks: int, dtype=torch.bfloat16, kv_dtype: str = "bf16",
+                     host_blocks: int = 0, device: torch.device | str = "cpu") -> Pytree:
+    defs = paged_cache_defs(cfg, n_slots, n_blocks, block_size, max_blocks,
+                            kv_dtype=kv_dtype, host_blocks=host_blocks)
+    return {
+        k: torch.zeros(d.shape, dtype=dtype if k in ("k", "v") else torch.int32,
+                       device=device)
+        for k, d in defs.items()
+    }
+
+
+def paged_decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
+    """One autoregressive step against the paged pool: ``decode_step``'s
+    math, with the new K/V scattered to ``(tables[b, len // bs], len %
+    bs)`` and attention reading each row's blocks through its table.
+
+    Idle slots (table all-null) write into null block 0; several may hit
+    the same position there, and the winner is left undefined, which is
+    harmless because no kernel reads a position at or past ``lengths``.
+    An idle slot whose length ran past ``max_blocks * bs`` reads table
+    column ``max_blocks - 1`` (JAX clamps that gather; the port clamps the
+    index without a host sync) — still the null block."""
+    lengths = cache["lengths"]
+    tables = cache["block_tables"]
+    bs = cache["k"].shape[3]
+    MB = tables.shape[1]
+    B = tokens.shape[0]
+    x = cm.embed_lookup(params["embed"], tokens)                # (B, D)
+    pos = lengths.long()
+    bidx = torch.arange(B, device=x.device)
+    phys = tables[bidx, (pos // bs).clamp(max=MB - 1)].long()   # (B,) append block
+    off = pos % bs
+    attn_len = lengths + 1
+    for l in range(cfg.n_layers):
+        p = _layer(params, l)
+        h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        q = cm.rope(cm.linear(h, p["wq"])[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+        k = cm.rope(cm.linear(h, p["wk"])[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+        v = cm.linear(h, p["wv"])
+        k_l, v_l = cache["k"][l], cache["v"][l]                 # (N, Hkv, bs, Dh)
+        # advanced indices around the head slice: the selection is (B, Hkv, Dh)
+        k_l[phys, :, off] = k.to(k_l.dtype)
+        v_l[phys, :, off] = v.to(v_l.dtype)
+        o = offload.paged_decode_attention(q, k_l, v_l, tables, attn_len)
+        x = x + cm.linear(o, p["wo"], n_in=2)
+        h = cm.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        x = x + cm.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = cm.unembed(x, _unembed_table(params), cfg.vocab)
+    lengths.add_(1)
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------
@@ -161,11 +249,72 @@ def decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
     return logits, cache
 
 
+# ---------------------------------------------------------------------------
+# chunked prefill (Sarathi-style continuation; serving/scheduler.py)
+# ---------------------------------------------------------------------------
+def prefill_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot: int,
+                 q_offset: int, n_valid: int):
+    """One chunk of one slot's prompt against the live cache.
+
+    ``tokens`` (1, C) is the chunk padded to its bucket; ``slot``,
+    ``q_offset`` and ``n_valid`` are host ints (the engine knows them at
+    dispatch).  The chunk's K/V land at positions ``q_offset ..
+    q_offset+C-1`` of ``slot``'s stripe — positions past the stripe are
+    skipped, as JAX drops them; in-range pad garbage is causally masked and
+    overwritten by the next chunk or decode append.  Attention runs at
+    ``q_offset`` against the stripe, ``lengths[slot]`` becomes ``q_offset +
+    n_valid``, and the logits (1, V) are those of chunk position
+    ``n_valid - 1``.  ``cache`` may be the dense cache or the paged
+    engine's staging cache (``slot`` is then the staging lane)."""
+    C = tokens.shape[1]
+    S = cache["k"].shape[2]
+    x = cm.embed_lookup(params["embed"], tokens)                # (1, C, D)
+    positions = (q_offset + torch.arange(C, device=x.device))[None]
+    n_write = max(0, min(C, S - q_offset))
+    for l in range(cfg.n_layers):
+        p = _layer(params, l)
+        h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        q = cm.rope(cm.linear(h, p["wq"]), positions, cfg.rope_theta)
+        k = cm.rope(cm.linear(h, p["wk"]), positions, cfg.rope_theta)
+        v = cm.linear(h, p["wv"])
+        k_row = cache["k"][l, slot:slot + 1]                    # (1, S, Hkv, Dh) view
+        v_row = cache["v"][l, slot:slot + 1]
+        k_row[:, q_offset:q_offset + n_write].copy_(k[:, :n_write])
+        v_row[:, q_offset:q_offset + n_write].copy_(v[:, :n_write])
+        o = offload.prefill_attention(q, k_row, v_row, q_offset=q_offset)
+        x = x + cm.linear(o, p["wo"], n_in=2)
+        h = cm.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        x = x + cm.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = cm.unembed(x[:, n_valid - 1], _unembed_table(params), cfg.vocab)
+    cache["lengths"][slot] = q_offset + n_valid
+    return logits, cache
+
+
+def prefill_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot: int,
+                        q_offset: int, n_valid: int, generator: torch.Generator | None,
+                        *, sampler):
+    """Chunked prefill with the first generated token sampled on the
+    device: (token (1,), cache).  Only a prompt's final chunk's token is
+    used."""
+    logits, cache = prefill_step(cfg, params, cache, tokens, slot, q_offset, n_valid)
+    return sample_on_device(logits, generator, sampler), cache
+
+
 def decode_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor,
                        generator: torch.Generator | None, eos_ids: torch.Tensor, *,
                        sampler):
     """One decode step with sampling fused: (tokens', eos_hit, cache).
     Only ``(B,)`` ids leave the device; nothing here waits on it."""
     logits, cache = decode_step(cfg, params, cache, tokens)
+    tok = sample_on_device(logits, generator, sampler)
+    return tok, tok == eos_ids, cache
+
+
+def paged_decode_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor,
+                             generator: torch.Generator | None, eos_ids: torch.Tensor, *,
+                             sampler):
+    """Paged-pool analogue of :func:`decode_sample_step`."""
+    logits, cache = paged_decode_step(cfg, params, cache, tokens)
     tok = sample_on_device(logits, generator, sampler)
     return tok, tok == eos_ids, cache

@@ -34,6 +34,19 @@ class Model:
     decode_sample_step: Callable[..., tuple[torch.Tensor, torch.Tensor, Pytree]]
     cache_defs: Callable[[int, int], Pytree]
     init_cache: Callable[..., Pytree]
+    # chunked prefill: prefill_step(params, cache, tokens (1, C), slot,
+    #   q_offset, n_valid) -> (logits (1, V), cache), slot/q_offset/n_valid
+    #   host ints; prefill_sample_step(..., n_valid, generator, *, sampler)
+    #   -> (token (1,), cache)
+    prefill_step: Callable[..., tuple[torch.Tensor, Pytree]]
+    prefill_sample_step: Callable[..., tuple[torch.Tensor, Pytree]]
+    # paged pool: (n_slots, n_blocks, block_size, max_blocks) -> cache;
+    # paged_decode_step / paged_decode_sample_step as decode_step /
+    # decode_sample_step, against the pool
+    paged_cache_defs: Callable[..., Pytree]
+    init_paged_cache: Callable[..., Pytree]
+    paged_decode_step: Callable[..., tuple[torch.Tensor, Pytree]]
+    paged_decode_sample_step: Callable[..., tuple[torch.Tensor, torch.Tensor, Pytree]]
 
     def init(self, seed: int = 0) -> Pytree:
         """Random weights from a seeded generator on the model's device."""
@@ -61,4 +74,10 @@ def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> M
         decode_sample_step=functools.partial(fam.decode_sample_step, cfg),
         cache_defs=functools.partial(fam.cache_defs, cfg),
         init_cache=functools.partial(fam.init_cache, cfg, device=dev),
+        prefill_step=functools.partial(fam.prefill_step, cfg),
+        prefill_sample_step=functools.partial(fam.prefill_sample_step, cfg),
+        paged_cache_defs=functools.partial(fam.paged_cache_defs, cfg),
+        init_paged_cache=functools.partial(fam.init_paged_cache, cfg, device=dev),
+        paged_decode_step=functools.partial(fam.paged_decode_step, cfg),
+        paged_decode_sample_step=functools.partial(fam.paged_decode_sample_step, cfg),
     )

@@ -1,35 +1,55 @@
-"""Continuous-batching serving engine: dense KV cache, decode-only schedule.
+"""Continuous-batching serving engine: dense or paged KV cache, decode-only
+or hybrid schedule, synchronous or dispatch-ahead.
 
-Counterpart of ``repro.serving.engine`` for ``cache_kind="dense"`` and
-``schedule="decode-only"``, in both execution modes; the paged cache,
-the hybrid schedule, speculation and sub-batch pipelining raise
-``NotImplementedError`` until their slices are ported.
+Counterpart of ``repro.serving.engine`` for ``cache_kind`` in {"dense",
+"paged"} (bf16 pool, no host tier) and ``schedule`` in {"decode-only",
+"hybrid"}, in both execution modes.  Speculation, sub-batch pipelining,
+the fp8/int8 pools, the host tier, telemetry and cross-replica migration
+raise ``NotImplementedError`` or are absent until their slices are
+ported.
 
 Slot-based continuous batching (Orca-style): a fixed decode batch of
 ``n_slots`` sequences; a finished sequence frees its slot and the next
-queued request is prefilled into it (one whole-prompt prefill) while the
-others keep decoding.
+queued request is prefilled into it while the others keep decoding.
+
+* ``cache_kind="dense"`` — every slot owns a ``max_seq`` stripe; a
+  released slot is zeroed.  Decode-only admission writes the prompt's
+  K/V straight into the slot's stripe (a view), after zeroing it — the
+  contents the reference gets by prefilling a fresh batch-1 cache and
+  copying the whole stripe in.
+* ``cache_kind="paged"`` — physical KV is a pool of fixed-size blocks
+  (:class:`~repro_torch.serving.paged.BlockPool`); admission waits on
+  free blocks, shared prompt prefixes share blocks (copy-on-write on the
+  first divergent append), and a dry pool preempts the youngest sequence
+  back to the queue, to be re-prefilled from prompt plus generated
+  tokens (greedy-exact).
+* ``schedule="hybrid"`` — the token-budget :class:`Scheduler` packs each
+  step as one decode token per active slot plus one bucket-padded chunk
+  of the head-of-queue prompt (two at a prompt boundary: Sarathi-SC
+  boundary packing).  The reference's fused/solo/fused2/solo2 jit
+  programs are :meth:`Engine._exec_sync` / :meth:`Engine._exec_async`:
+  the chunk(s) first, then the decode batch, the same calls in the same
+  order.  The paged cache stages chunks in a two-lane dense staging
+  cache and flushes completed blocks into the pool.
 
 * ``async_mode=False`` — synchronous: every decode step's logits come
   back to the host and are sampled there (:func:`sampler.sample`).
 * ``async_mode=True`` (default) — dispatch-ahead: each step samples on
   the device and feeds its ``(B,)`` token ids to the next step through
   the device-resident ``tok_state``.  CUDA stream order takes the place
-  of JAX's async dispatch: step *t+1* is enqueued before step *t*'s ids
-  are read, and those ids travel by a non-blocking copy into pinned
-  memory with a CUDA event, waited on only after *t+1* is in flight.
-  Length and max-new retirements are known on the host at dispatch; EOS
-  is seen one step late, and the one token dispatched past an EOS is
-  masked.  Greedy output is token-identical to sync mode.
+  of JAX's data-flow ordering: step *t+1* is enqueued before step *t*'s
+  ids are read, those ids travel by a non-blocking copy into pinned
+  memory with a CUDA event (waited on only after *t+1* is in flight), and
+  host bookkeeping issued at dispatch (table rows, block copies, slot
+  resets) lands after the in-flight step.  Length and max-new
+  retirements are known at dispatch; EOS is seen one step late and the
+  token dispatched past it is masked.  A preemption observes only the
+  victim's in-flight tokens first; greedy output is token-identical to
+  sync mode.
 
 Step accounting (``EngineStats.engine_steps``) matches the reference: a
-decode step is one step, a whole prefill of ``L`` tokens costs
-``ceil(L / prefill_chunk)`` steps.
-
-Admission writes the prompt's K/V straight into the slot's stripe of the
-shared cache (a view), after zeroing that stripe — the same contents the
-reference gets by prefilling a fresh batch-1 cache and copying the whole
-stripe in.  A released slot is zeroed as in the reference.
+model dispatch is one step, a decode-only whole prefill of ``L`` tokens
+costs ``ceil(L / prefill_chunk)`` steps.
 """
 from __future__ import annotations
 
@@ -43,8 +63,10 @@ import torch
 
 from repro_torch.models.registry import Model
 from repro_torch.serving import kv_cache
+from repro_torch.serving.paged import BlockPool, PagedCacheManager
+from repro_torch.serving.paged import device as paged_dev
 from repro_torch.serving.sampler import SamplerConfig, sample, sample_on_device
-from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.scheduler import PrefillChunk, Scheduler
 
 Pytree = Any
 
@@ -74,11 +96,11 @@ class Request:
     admit_step: int = -1
     first_token_step: int = -1
     finish_step: int = -1
-    # async bookkeeping: dispatched-but-unobserved tokens (one per step:
-    # the reference's separate per-step count differs only under
-    # speculation, which is not ported)
+    # async bookkeeping: token charges and steps dispatched but not yet
+    # observed (equal without speculation, which is not ported)
     in_flight: int = 0
-    admit_base: int = 0             # len(out_tokens) at last admission
+    in_flight_steps: int = 0
+    admit_base: int = 0             # len(out_tokens) at last (re-)admission
 
 
 @dataclasses.dataclass
@@ -139,7 +161,8 @@ class EngineStats:
 class _Fetch:
     """Small device tensors on their way to the host.  On CUDA: a
     non-blocking copy into pinned memory plus an event, enqueued in
-    stream order; :meth:`numpy` waits on that event only."""
+    stream order (so later in-place writes to the tensors do not reach
+    it); :meth:`numpy` waits on that event only."""
 
     def __init__(self, *tensors: torch.Tensor):
         self._event = None
@@ -161,22 +184,17 @@ class _Fetch:
 
 @dataclasses.dataclass
 class _PendingStep:
-    """One dispatched-but-unobserved decode step.  ``reqs`` pins the
-    requests in the batch at dispatch (a slot may be re-admitted to
-    another request before the step is observed)."""
+    """One dispatched-but-unobserved step.  ``reqs`` pins the requests in
+    the decode batch at dispatch (a slot may be re-admitted to another
+    request before the step is observed)."""
 
     step: int                            # engine_steps value at dispatch
     reqs: dict[int, Request]             # slot -> request in decode batch
-    fetch: _Fetch                        # (B,) sampled ids, (B,) EOS hits
-
-
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> device tensor without waiting on the device (pinned
-    staging + non-blocking copy)."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
+    fetch: _Fetch | None                 # (B,) sampled ids, (B,) EOS hits
+    work: PrefillChunk | None = None     # chunk fused into this step
+    pre: _Fetch | None = None            # (1,) its first token when work.last
+    work2: PrefillChunk | None = None    # boundary-packed second chunk
+    pre2: _Fetch | None = None
 
 
 class Engine:
@@ -190,24 +208,38 @@ class Engine:
         sub_batches: int = 1,
         seed: int = 0,
         cache_kind: str = "dense",
+        block_size: int = 16,
+        n_blocks: int | None = None,
+        kv_dtype: str = "bf16",
+        host_blocks: int = 0,
         schedule: str = "decode-only",
         prefill_chunk: int = 32,
+        token_budget: int | None = None,
         async_mode: bool = True,
         spec_depth: int = 0,
     ):
-        if cache_kind != "dense":
-            raise NotImplementedError(f"cache_kind={cache_kind!r} is not ported yet")
-        if schedule != "decode-only":
-            raise NotImplementedError(f"schedule={schedule!r} is not ported yet")
         if spec_depth:
-            raise NotImplementedError("speculative decoding is not ported yet")
+            raise NotImplementedError(
+                "speculative decoding is not ported yet: ROADMAP.md queue 1 item 9")
         if sub_batches != 1:
-            raise NotImplementedError("sub-batch pipelining is not ported yet")
+            raise NotImplementedError(
+                "sub-batch pipelining is not ported yet: ROADMAP.md queue 1 item 15")
+        if cache_kind not in ("dense", "paged"):
+            raise ValueError(f"unknown cache_kind {cache_kind!r}")
+        if cache_kind != "paged" and (kv_dtype != "bf16" or host_blocks):
+            raise ValueError("kv_dtype / host_blocks are paged-cache features "
+                             f"(cache_kind={cache_kind!r})")
+        if kv_dtype != "bf16" or host_blocks:
+            raise NotImplementedError(
+                "fp8/int8 pools and the host tier (tiered KV) are not ported yet: "
+                "ROADMAP.md queue 1 item 8")
         self.model = model
         self.params = params
         self.device = model.device
         self.max_seq = max_seq
         self.sampler = sampler
+        self.cache_kind = cache_kind
+        self.schedule = schedule
         self.prefill_chunk = prefill_chunk
         self.async_mode = async_mode
         self.slots: list[Request | None] = [None] * n_slots
@@ -216,15 +248,48 @@ class Engine:
         # one on the host for the synchronous oracle sampler
         self._gen_dev = torch.Generator(device=self.device).manual_seed(seed)
         self._gen_host = torch.Generator().manual_seed(seed)
-        self.cache = model.init_cache(n_slots, max_seq)
+        if cache_kind == "paged":
+            self.block_size = block_size
+            self.max_blocks = -(-max_seq // block_size)
+            # default: the dense cache's physical budget, + the null block
+            self.n_blocks = n_slots * self.max_blocks + 1 if n_blocks is None else n_blocks
+            if self.n_blocks - 1 < self.max_blocks:
+                raise ValueError(
+                    f"pool of {self.n_blocks - 1} usable blocks cannot hold one "
+                    f"max_seq={max_seq} sequence ({self.max_blocks} blocks)")
+            self.pool = BlockPool(self.n_blocks, block_size)
+            self.manager = PagedCacheManager(self.pool, n_slots, self.max_blocks)
+            self.cache = model.init_paged_cache(n_slots, self.n_blocks, block_size,
+                                                self.max_blocks)
+            self._decode = model.paged_decode_step
+            self._decode_sampled = model.paged_decode_sample_step
+        else:
+            self.cache = model.init_cache(n_slots, max_seq)
+            self._decode = model.decode_step
+            self._decode_sampled = model.decode_sample_step
         self._pending: deque[_PendingStep] = deque()
         self._first_pending: list[tuple[Request, _Fetch]] = []
         if async_mode:
             self._tok_state = torch.zeros(n_slots, dtype=torch.int32, device=self.device)
             self._eos_dev = torch.full((n_slots,), -1, dtype=torch.int32,
                                        device=self.device)
-        self.sched = Scheduler(n_slots=n_slots, max_seq=max_seq, mode=schedule,
-                               prefill_chunk=prefill_chunk)
+        self.sched = Scheduler(
+            n_slots=n_slots, max_seq=max_seq, mode=schedule,
+            prefill_chunk=prefill_chunk, token_budget=token_budget,
+            block_size=block_size if cache_kind == "paged" else None,
+        )
+        if schedule == "hybrid":
+            # per-slot chunked-prefill state (set by _begin_prefill): the
+            # pinned token stream, prefix-cache-hit block count and (paged)
+            # the staging lane — boundary packing keeps two prompts
+            # mid-flight for one dispatch
+            self._pf_tokens: dict[int, np.ndarray] = {}
+            self._pf_prefix: dict[int, int] = {}
+            self._pf_lane: dict[int, int] = {}
+            if cache_kind == "paged":
+                # persistent two-lane staging cache: chunks accumulate here
+                # and completed blocks flush into the pool
+                self.staging = model.init_cache(2, self.max_blocks * block_size)
 
     # ------------------------------------------------------------- requests
     def submit(self, req: Request):
@@ -241,12 +306,21 @@ class Engine:
     def _free_slots(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
 
+    @staticmethod
+    def _refold(req: Request) -> np.ndarray:
+        """Prompt plus already-generated tokens: prefilling this exactly
+        reproduces a preempted request's decode state (greedy-exact)."""
+        assert req.in_flight == 0 and req.in_flight_steps == 0, (
+            "refold needs every dispatched token observed")
+        return np.concatenate([np.asarray(req.prompt, np.int32),
+                               np.asarray(req.out_tokens, np.int32)])
+
     # --------------------------------------------- async pipeline primitives
     def _predicted_done(self, req: Request) -> bool:
         """Will the sync engine have marked ``req`` done once every
-        dispatched token is observed?  The first token after admission
-        comes from the prefill and is never length-checked."""
-        c = len(req.out_tokens) + req.in_flight
+        dispatched token is observed?  The first token after a
+        (re-)admission comes from the prefill and is never length-checked."""
+        c = len(req.out_tokens) + req.in_flight_steps
         if c < req.admit_base + 2:
             return False
         return c >= req.max_new_tokens or len(req.prompt) + c >= self.max_seq - 1
@@ -262,35 +336,78 @@ class Engine:
         if len(self._pending) > 1:
             self._observe(self._pending.popleft())
 
+    @staticmethod
+    def _take_first(req: Request, fetch: _Fetch) -> None:
+        req.in_flight -= 1
+        req.in_flight_steps -= 1
+        req.out_tokens.append(int(fetch.numpy()[0][0]))
+
     def _flush_first(self) -> None:
         for req, fetch in self._first_pending:
-            req.in_flight -= 1
-            req.out_tokens.append(int(fetch.numpy()[0][0]))
+            self._take_first(req, fetch)
         self._first_pending.clear()
 
-    def _observe(self, rec: _PendingStep) -> None:
-        """Read one step's ids and EOS flags and apply completions.  An
-        EOS found here is one step late: the token a later in-flight step
-        sampled for the now-done request is masked (``req.done``)."""
-        self._flush_first()
+    def _take_decode(self, slot: int, req: Request, rec: _PendingStep) -> None:
+        """Apply one observed decode token of ``req`` from ``rec``; a token
+        dispatched past an EOS (``req.done``) is masked."""
+        req.in_flight -= 1
+        req.in_flight_steps -= 1
+        if req.done:
+            return
         toks, eos = rec.fetch.numpy()
+        req.out_tokens.append(int(toks[slot]))
+        self.stats.generated += 1
+        length = len(req.prompt) + len(req.out_tokens)
+        if (bool(eos[slot]) or len(req.out_tokens) >= req.max_new_tokens
+                or length >= self.max_seq - 1):
+            self._finish(slot, req, rec.step)
+
+    def _observe(self, rec: _PendingStep) -> None:
+        """Read one step's ids and EOS flags and apply completions."""
+        self._flush_first()
+        for work, pre in ((rec.work, rec.pre), (rec.work2, rec.pre2)):
+            if work is not None and work.last:
+                self._take_first(work.req, pre)
+        if rec.fetch is None:
+            return
         for i, req in rec.reqs.items():
-            req.in_flight -= 1
-            if req.done:
-                continue            # token dispatched past EOS: masked
-            tok = int(toks[i])
-            req.out_tokens.append(tok)
-            self.stats.generated += 1
-            length = len(req.prompt) + len(req.out_tokens)
-            if (bool(eos[i]) or len(req.out_tokens) >= req.max_new_tokens
-                    or length >= self.max_seq - 1):
-                self._finish(i, req, rec.step)
+            self._take_decode(i, req, rec)
 
     def _drain(self) -> None:
         """Observe every in-flight step (``out_tokens`` become exact)."""
         while self._pending:
             self._observe(self._pending.popleft())
         self._flush_first()
+
+    def _observe_victim(self, slot: int) -> None:
+        """Observe only ``slot``'s in-flight tokens, in dispatch order,
+        leaving every other slot's in flight: the preemption refold needs
+        one slot's exact history.  The victim's entries are consumed out of
+        each record so a later :meth:`_observe` skips them.  No-op when
+        nothing of the victim's is in flight (sync mode always)."""
+        req = self.slots[slot]
+        if req is None or req.in_flight == 0:
+            return
+        self.stats.victim_drains += 1
+        kept = []
+        for r, fetch in self._first_pending:
+            if r is req:
+                self._take_first(r, fetch)
+            else:
+                kept.append((r, fetch))
+        self._first_pending[:] = kept
+        for rec in self._pending:
+            if rec.work is not None and rec.work.last and rec.work.req is req:
+                self._take_first(req, rec.pre)
+                rec.work = None          # consumed; _observe must not re-apply
+            if rec.work2 is not None and rec.work2.last and rec.work2.req is req:
+                self._take_first(req, rec.pre2)
+                rec.work2 = None
+            if rec.fetch is not None and rec.reqs.get(slot) is req:
+                del rec.reqs[slot]
+                self._take_decode(slot, req, rec)
+        assert req.in_flight == 0 and req.in_flight_steps == 0, (
+            "victim drain left tokens in flight")
 
     def _finish(self, slot: int, req: Request, step: int) -> None:
         req.done = True
@@ -300,16 +417,28 @@ class Engine:
             self.stats.per_token_samples.append(
                 (req.finish_step - req.first_token_step) / n_decode_tokens
             )
-        if self.slots[slot] is req:
-            self.slots[slot] = None
+        self._release_slot(slot, req)
+
+    def _release_slot(self, slot: int, req: Request) -> None:
+        if self.slots[slot] is not req:
+            return                  # slot already recycled past this record
+        self.slots[slot] = None
+        if self.cache_kind == "paged":
+            self.manager.free_slot(slot)
+            self._apply_pool_directives()
+            paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot], 0)
+        else:
             kv_cache.reset_slot(self.cache, slot)
 
-    # ------------------------------------------------------------ admission
+    # ------------------------------------------- admission (whole prefill)
     def _prefill_cost(self, n_tokens: int) -> int:
         """Whole-prefill step cost, in fixed hybrid-batch units."""
         return max(1, -(-n_tokens // self.prefill_chunk))
 
     def _admit(self):
+        if self.cache_kind == "paged":
+            self._admit_paged()
+            return
         for slot in self._free_slots():
             if not len(self.sched):
                 break
@@ -317,10 +446,42 @@ class Engine:
             self.stats.engine_steps += self._prefill_cost(len(req.prompt))
             if req.admit_step < 0:
                 req.admit_step = self.stats.engine_steps
-            prompt = _to_device(np.asarray(req.prompt, np.int64)[None], self.device)
+            prompt = paged_dev.to_device(np.asarray(req.prompt, np.int64)[None],
+                                         self.device)
             kv_cache.reset_slot(self.cache, slot)
             logits, _ = self.model.prefill(self.params, prompt,
                                            kv_cache.slot_view(self.cache, slot))
+            self.slots[slot] = req
+            self._sample_prefill(req, slot, logits)
+
+    def _admit_paged(self):
+        """Admit while slots AND blocks allow; the head of the queue waits
+        for blocks (FCFS).  A preempted request re-enters with its
+        generated tokens folded into the prefill."""
+        bs = self.block_size
+        for slot in self._free_slots():
+            if not len(self.sched):
+                break
+            req = self.sched.peek()
+            full = self._refold(req)
+            res = self.manager.try_admit(slot, full)
+            if res is None:
+                break                       # out of blocks: wait
+            self.sched.pop()
+            self.stats.engine_steps += self._prefill_cost(len(full))
+            if req.admit_step < 0:
+                req.admit_step = self.stats.engine_steps
+            blocks, n_cached = res
+            self._apply_pool_directives()
+            pad = -(-len(full) // bs) * bs
+            sub_cache = self.model.init_cache(1, pad)
+            logits, _ = self.model.prefill(
+                self.params, paged_dev.to_device(full.astype(np.int64)[None], self.device),
+                sub_cache)
+            # fill only the blocks the prefix cache does not already hold
+            for j in range(n_cached, len(blocks)):
+                paged_dev.write_prompt_block(self.cache, sub_cache, blocks[j], j * bs)
+            paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot], len(full))
             self.slots[slot] = req
             self._sample_prefill(req, slot, logits)
 
@@ -330,9 +491,10 @@ class Engine:
             # sample on the device and feed tok_state; the id is read
             # lazily with the step stream, the host never waits here
             tok = sample_on_device(logits, self._gen_dev, self.sampler)
-            self._tok_state[slot:slot + 1].copy_(tok)
-            self._eos_dev[slot] = req.eos_id
+            paged_dev.feed_token(self._tok_state, slot, tok)
+            paged_dev.set_stop_id(self._eos_dev, slot, req.eos_id)
             req.in_flight += 1
+            req.in_flight_steps += 1
             self._first_pending.append((req, _Fetch(tok)))
         else:
             req.out_tokens.append(int(sample(logits, self._gen_host, self.sampler)[0]))
@@ -348,13 +510,295 @@ class Engine:
         self.stats.prefills += 1
         self.stats.generated += 1
 
+    # --------------------------------------------- admission (chunked/hybrid)
+    def _begin_prefill(self, req: Request, slot: int) -> tuple[int, int]:
+        """Pin ``req``'s (possibly re-folded) prompt for chunked prefill;
+        returns (first chunk position, total tokens)."""
+        full = self._refold(req)
+        self._pf_tokens[slot] = full
+        if self.cache_kind != "paged":
+            self._pf_prefix[slot] = 0
+            return 0, len(full)
+        bs = self.block_size
+        # a free staging lane: the boundary-packed newcomer takes the lane
+        # the finishing prompt does not hold
+        lane = 0 if 0 not in self._pf_lane.values() else 1
+        self._pf_lane[slot] = lane
+        matched = self.manager.begin_chunked(slot, full)
+        self._apply_pool_directives()
+        self._pf_prefix[slot] = len(matched)
+        for j, phys in enumerate(matched):
+            paged_dev.read_block(self.staging, self.cache, phys, j * bs, lane)
+        # a fully prefix-cached prompt still recomputes its last chunk for
+        # the first-token logits (pool writes for matched blocks skip)
+        start = min(len(matched) * bs, (len(full) - 1) // bs * bs)
+        return start, len(full)
+
+    def _begin_next(self) -> None:
+        """Pin the head of the queue as the in-flight prefill when no
+        prompt is mid-flight and a slot is free."""
+        sched = self.sched
+        if sched.inflight is None and len(sched):
+            free = self._free_slots()
+            if free:
+                req = sched.pop()
+                slot = free[0]
+                start, total = self._begin_prefill(req, slot)
+                sched.begin(req, slot, start, total)
+                if req.admit_step < 0:
+                    req.admit_step = self.stats.engine_steps + 1
+
+    def _complete_chunk(self, work: PrefillChunk, pre_logits, advance: bool = True):
+        """Commit an executed chunk (sync mode: the first token is sampled
+        on the host when the chunk completes the prompt).  ``advance=False``
+        when the scheduler was already advanced at boundary-packing time."""
+        self._flush_chunk_blocks(work)
+        if advance:
+            self.sched.advance(work)
+        if work.last:
+            req = work.req
+            self.slots[work.slot] = req
+            if self.cache_kind == "paged":
+                paged_dev.sync_slot(self.cache, work.slot, self.manager.tables[work.slot],
+                                    work.start + work.n_valid)
+            self._end_prefill(work.slot)
+            self._sample_prefill(req, work.slot, pre_logits)
+
+    def _complete_chunk_async(self, work: PrefillChunk, advance: bool = True):
+        """Async twin of :meth:`_complete_chunk`: the step already sampled
+        the first token on the device and spliced it into ``tok_state``;
+        the host does block/table bookkeeping (stream order puts it after
+        the step) and records one more token in flight."""
+        self._flush_chunk_blocks(work)
+        if advance:
+            self.sched.advance(work)
+        if work.last:
+            req = work.req
+            self.slots[work.slot] = req
+            if self.cache_kind == "paged":
+                paged_dev.sync_slot(self.cache, work.slot, self.manager.tables[work.slot],
+                                    work.start + work.n_valid)
+            self._end_prefill(work.slot)
+            req.admit_base = len(req.out_tokens)
+            req.in_flight += 1
+            req.in_flight_steps += 1
+            paged_dev.set_stop_id(self._eos_dev, work.slot, req.eos_id)
+            self._record_first_token(req)
+
+    def _end_prefill(self, slot: int) -> None:
+        self._pf_tokens.pop(slot, None)
+        self._pf_prefix.pop(slot, None)
+        self._pf_lane.pop(slot, None)
+
+    def _flush_chunk_blocks(self, work: PrefillChunk) -> None:
+        if self.cache_kind != "paged":
+            return
+        bs = self.block_size
+        lane = self._pf_lane.get(work.slot, 0)
+        end = work.start + work.n_valid
+        for j in range(work.start // bs, (end - 1) // bs + 1):
+            if j < self._pf_prefix.get(work.slot, 0):
+                continue            # prefix-cache hit: already valid
+            paged_dev.write_prompt_block(self.cache, self.staging,
+                                         self.manager.blocks[work.slot][j], j * bs, lane)
+
+    # ----------------------------------------------------- block management
+    def _apply_pool_directives(self) -> None:
+        """Drain the pool's device<->host copy directives into device ops.
+        Only the host tier emits them, and it is not ported: a directive
+        here is a fault."""
+        for kind, _, _ in self.pool.drain_directives():
+            raise NotImplementedError(f"pool directive {kind!r} needs the host tier "
+                                      "(tiered KV, ROADMAP.md queue 1 item 8)")
+
+    def _append_span(self, slot: int) -> tuple[int, int]:
+        """Inclusive position range [lo, hi] the slot's next dispatch may
+        write: the single append position after every dispatched token."""
+        req = self.slots[slot]
+        base = len(req.prompt) + len(req.out_tokens)
+        return base + req.in_flight_steps - 1, base + req.in_flight - 1
+
+    def _preempt(self, slot: int):
+        """Evict ``slot`` to the queue front; its blocks return to the
+        pool and its tokens are recomputed at re-admission."""
+        req = self.slots[slot]
+        self.slots[slot] = None
+        self.manager.free_slot(slot)
+        self._apply_pool_directives()
+        paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot], 0)
+        self.sched.push_front(req)
+        self.stats.preemptions += 1
+        self.pool.stats.preemptions += 1
+
+    def _prepare_append(self, active: list[int]) -> list[int]:
+        """Guarantee every active slot can write its next token: allocate
+        boundary blocks, copy-on-write shared tails, preempt the youngest
+        sequence when the pool runs dry.  Returns the surviving slots.
+
+        Async: only the victim's in-flight tokens are observed first
+        (:meth:`_observe_victim`); they may reveal it already finished,
+        and then nothing is evicted.  Only when the victim is alive is the
+        rest of the pipeline drained, since an unobserved EOS elsewhere
+        may free enough blocks to avoid the re-prefill."""
+        alive = set(active)
+        limit = self.max_blocks * self.block_size
+        for slot in sorted(active, key=lambda s: self.manager.admit_seq[s]):
+            pos = None
+            while slot in alive:
+                if self.slots[slot] is None:
+                    alive.discard(slot)     # retired during a drain below
+                    break
+                lo, hi = self._append_span(slot)
+                if pos is None or pos < lo:
+                    pos = lo
+                if pos > hi or pos >= limit:
+                    break       # mapped (or at the cache top: the write is clamped)
+                directive, payload = self.manager.ensure_append(slot, pos)
+                if directive == "oom":
+                    victim = self.manager.youngest(alive)
+                    self._observe_victim(victim)
+                    if self.slots[victim] is None:
+                        alive.discard(victim)   # finished: blocks already free
+                        continue
+                    if self._pending or self._first_pending:
+                        self._drain()           # settle completions elsewhere
+                        alive = {s for s in alive if self.slots[s] is not None}
+                        continue
+                    self._preempt(victim)
+                    alive.discard(victim)
+                    continue
+                if directive == "cow":
+                    src, dst = payload
+                    paged_dev.copy_block(self.cache, src, dst)
+                if directive in ("cow", "new"):
+                    paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot])
+                pos += 1
+        return [s for s in active if s in alive]
+
+    # ------------------------------------------------------ hybrid dispatch
+    def _plan(self, decision) -> tuple[list[int], PrefillChunk | None]:
+        """The scheduler's decode batch and chunk; a paged chunk runs only
+        if its blocks can be had (else a decode-only step)."""
+        work = decision.prefill
+        if work is not None and self.cache_kind == "paged":
+            if not self.manager.extend_chunked(
+                    work.slot, len(self._pf_tokens[work.slot]),
+                    work.start + work.n_valid, work.last):
+                work = None
+        return decision.decode_slots, work
+
+    def _boundary_chunk(self, budget: int, taken: int) -> PrefillChunk | None:
+        """The final chunk of the prompt on slot ``taken`` left ``budget``
+        tokens of this step unused: begin the next queued prompt and pack
+        its head chunk into the same dispatch (Sarathi-SC).  ``taken`` is
+        excluded from the slot choice: the finishing prompt claims it only
+        after this dispatch."""
+        sched = self.sched
+        if budget <= 0 or sched.inflight is not None or not len(sched):
+            return None
+        if self.cache_kind == "paged" and len(self._pf_lane) >= 2:
+            return None             # both staging lanes held
+        free = [s for s in self._free_slots() if s != taken]
+        if not free:
+            return None
+        req = sched.pop()
+        slot = free[0]
+        start, total = self._begin_prefill(req, slot)
+        sched.begin(req, slot, start, total)
+        if req.admit_step < 0:
+            req.admit_step = self.stats.engine_steps
+        work2 = sched.pack_boundary(budget)
+        if work2 is not None and self.cache_kind == "paged":
+            if not self.manager.extend_chunked(
+                    work2.slot, len(self._pf_tokens[work2.slot]),
+                    work2.start + work2.n_valid, work2.last):
+                return None         # pool dry now: B's chunks run later
+        return work2
+
+    def _pack(self, active: list[int], work: PrefillChunk | None):
+        """The chunks of this dispatch with their device token arrays:
+        ``work``, plus a boundary-packed second chunk when ``work``
+        finishes its prompt.  Returns (chunks, whether the scheduler was
+        already advanced past ``work``)."""
+        if work is None:
+            return [], False
+        chunks = [(work, self._chunk_tokens(work))]
+        if not (work.last and len(self.sched)):
+            return chunks, False
+        self.sched.advance(work)        # A rides this dispatch regardless
+        work2 = self._boundary_chunk(
+            self.sched.token_budget - len(active) - work.n_valid, work.slot)
+        if work2 is not None:
+            chunks.append((work2, self._chunk_tokens(work2)))
+            self.stats.boundary_packs += 1
+        return chunks, True
+
+    def _chunk_tokens(self, work: PrefillChunk) -> torch.Tensor:
+        chunk = np.zeros((1, work.bucket), np.int32)
+        chunk[0, :work.n_valid] = self._pf_tokens[work.slot][
+            work.start:work.start + work.n_valid]
+        return paged_dev.to_device(chunk, self.device)
+
+    def _run_chunk(self, work: PrefillChunk, tokens: torch.Tensor) -> torch.Tensor:
+        """One chunk through ``prefill_step``: into the slot's stripe of the
+        dense cache, or into the paged engine's staging lane."""
+        if self.cache_kind == "paged":
+            cache, row = self.staging, self._pf_lane.get(work.slot, 0)
+        else:
+            cache, row = self.cache, work.slot
+        logits, _ = self.model.prefill_step(self.params, cache, tokens, row,
+                                            work.start, work.n_valid)
+        return logits
+
+    def _hold_lengths(self, chunks) -> None:
+        """Dense cache: the decode advanced every slot's length, the
+        mid-prefill slots' too; set those back to their chunk ends (their
+        garbage append is overwritten by the next chunk or decode token)."""
+        if self.cache_kind == "dense":
+            for work, _ in chunks:
+                self.cache["lengths"][work.slot] = work.start + work.n_valid
+
+    def _exec_sync(self, active: list[int], chunks):
+        """The reference's fused/solo/fused2/solo2 programs, sync mode: the
+        chunk(s), then the decode batch.  Returns (decode logits or None,
+        chunk logits)."""
+        pre = [self._run_chunk(w, t) for w, t in chunks]
+        dec = None
+        if active:
+            dec, _ = self._decode(self.params, self.cache, self._decode_tokens())
+            self._hold_lengths(chunks)
+        return dec, pre
+
+    def _exec_async(self, active: list[int], chunks):
+        """Async twin of :meth:`_exec_sync`: sampling on the device; a
+        chunk that completes its prompt splices its first token into
+        ``tok_state`` for the next decode step.  Returns (decode fetch or
+        None, chunk fetches).  Every fetch is enqueued before the splice,
+        so it holds the unspliced ids."""
+        logits = [self._run_chunk(w, t) for w, t in chunks]
+        fetch = None
+        if active:
+            toks, eos, _ = self._decode_sampled(
+                self.params, self.cache, self._tok_state, self._gen_dev, self._eos_dev,
+                sampler=self.sampler)
+            self._hold_lengths(chunks)
+            self._tok_state = toks
+            fetch = _Fetch(toks, eos)
+        pre = []
+        for (work, _), lg in zip(chunks, logits):
+            tok = sample_on_device(lg, self._gen_dev, self.sampler)
+            pre.append(_Fetch(tok))
+            if work.last:
+                paged_dev.feed_token(self._tok_state, work.slot, tok)
+        return fetch, pre
+
     # ----------------------------------------------------------------- step
     def _decode_tokens(self) -> torch.Tensor:
         tokens = np.zeros((len(self.slots),), np.int32)
         for i, req in enumerate(self.slots):
             if req is not None and req.out_tokens:
                 tokens[i] = req.out_tokens[-1]
-        return _to_device(tokens, self.device)
+        return paged_dev.to_device(tokens, self.device)
 
     def _finish_decode(self, active: list[int], logits: torch.Tensor):
         next_host = sample(logits, self._gen_host, self.sampler).numpy()
@@ -370,44 +814,104 @@ class Engine:
 
     def step(self) -> bool:
         """One engine iteration.  Returns whether any work remains."""
+        if self.schedule == "hybrid":
+            return self._step_hybrid_async() if self.async_mode else self._step_hybrid()
         if self.async_mode:
             return self._step_decode_only_async()
         return self._step_decode_only()
 
+    def _busy(self) -> bool:
+        return any(s is not None for s in self.slots) or self.sched.has_work()
+
     def _step_decode_only(self) -> bool:
         self._admit()
         active = [i for i, s in enumerate(self.slots) if s is not None]
+        if self.cache_kind == "paged" and active:
+            active = self._prepare_append(active)
         if not active:
             return self.sched.has_work()
         self.stats.peak_active = max(self.stats.peak_active, len(active))
-        logits, self.cache = self.model.decode_step(self.params, self.cache,
-                                                    self._decode_tokens())
+        logits, _ = self._decode(self.params, self.cache, self._decode_tokens())
         self.stats.decode_steps += 1
         self.stats.engine_steps += 1
         self._finish_decode(active, logits)
-        return any(s is not None for s in self.slots) or self.sched.has_work()
+        return self._busy()
 
     def _step_decode_only_async(self) -> bool:
         self._admit()
         active = self._predicted_active()
+        if self.cache_kind == "paged" and active:
+            active = self._prepare_append(active)
         if not active:
             self._drain()               # nothing to dispatch: settle state
-            return any(s is not None for s in self.slots) or self.sched.has_work()
+            return self._busy()
         self.stats.peak_active = max(self.stats.peak_active, len(active))
-        toks, eos, self.cache = self.model.decode_sample_step(
+        toks, eos, _ = self._decode_sampled(
             self.params, self.cache, self._tok_state, self._gen_dev, self._eos_dev,
             sampler=self.sampler,
         )
         self._tok_state = toks
         self.stats.decode_steps += 1
         self.stats.engine_steps += 1
+        self._dispatch(_PendingStep(step=self.stats.engine_steps,
+                                    reqs=self._charge(active), fetch=_Fetch(toks, eos)))
+        return True
+
+    def _charge(self, active: list[int]) -> dict[int, Request]:
+        """One in-flight token for every slot of a dispatched decode batch."""
         reqs = {}
         for i in active:
             req = self.slots[i]
             req.in_flight += 1
+            req.in_flight_steps += 1
             reqs[i] = req
-        self._dispatch(_PendingStep(step=self.stats.engine_steps, reqs=reqs,
-                                    fetch=_Fetch(toks, eos)))
+        return reqs
+
+    def _step_hybrid(self) -> bool:
+        self._begin_next()
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        if self.cache_kind == "paged" and active:
+            active = self._prepare_append(active)
+        active, work = self._plan(self.sched.schedule(active))
+        if not active and work is None:
+            return self.sched.has_work()
+        self.stats.engine_steps += 1
+        self.stats.peak_active = max(self.stats.peak_active, len(active))
+        chunks, pre_advanced = self._pack(active, work)
+        dec_logits, pre_logits = self._exec_sync(active, chunks)
+        if active:
+            self.stats.decode_steps += 1
+            self._finish_decode(active, dec_logits)
+        for i, ((w, _), lg) in enumerate(zip(chunks, pre_logits)):
+            self.stats.prefill_chunks += 1
+            self._complete_chunk(w, lg, advance=not (i == 0 and pre_advanced))
+        return self._busy()
+
+    def _step_hybrid_async(self) -> bool:
+        self._begin_next()
+        active = self._predicted_active()
+        if self.cache_kind == "paged" and active:
+            active = self._prepare_append(active)
+        active, work = self._plan(self.sched.plan_ahead(active))
+        if not active and work is None:
+            self._drain()
+            return self._busy()
+        self.stats.engine_steps += 1
+        self.stats.peak_active = max(self.stats.peak_active, len(active))
+        chunks, pre_advanced = self._pack(active, work)
+        fetch, pre = self._exec_async(active, chunks)
+        if active:
+            self.stats.decode_steps += 1
+        rec = _PendingStep(step=self.stats.engine_steps, reqs=self._charge(active),
+                           fetch=fetch)
+        if chunks:
+            rec.work, rec.pre = chunks[0][0], pre[0]
+        if len(chunks) == 2:
+            rec.work2, rec.pre2 = chunks[1][0], pre[1]
+        for i, (w, _) in enumerate(chunks):
+            self.stats.prefill_chunks += 1
+            self._complete_chunk_async(w, advance=not (i == 0 and pre_advanced))
+        self._dispatch(rec)
         return True
 
     def run(self, max_steps: int = 10_000) -> EngineStats:
@@ -419,5 +923,6 @@ class Engine:
         return self.stats
 
     def kv_bytes(self) -> int:
-        """Physical KV footprint of the resident cache."""
+        """Physical KV footprint of the resident cache (the staging cache
+        excluded, as in the reference)."""
         return kv_cache.kv_bytes(self.cache)

@@ -27,6 +27,17 @@ DECODE_CASES = [
     (1, 33, 1, 2, 128),
     (16, 1024, 8, 4, 64),        # llama3.2-1b decode at 16 slots
 ]
+PAGED_CASES = [
+    # (B, Hkv, G, D, block_size, max_blocks, lengths) — tests/test_paged.py's
+    # cases, then llama3.2-1b's serve shape (bs 16, 64 blocks per row)
+    (1, 1, 1, 8, 8, 2, (5,)),
+    (3, 2, 4, 16, 8, 4, (5, 17, 32)),
+    (2, 2, 8, 32, 16, 3, (1, 48)),
+    (2, 1, 3, 16, 8, 4, (9, 25)),
+    (3, 2, 4, 128, 4, 9, (0, 33, 36)),
+    (16, 8, 4, 64, 16, 64, (1, 1024, 1033, 2, 37, 100, 255, 256, 257, 511, 512, 513,
+                            700, 900, 1000, 1023)),
+]
 PREFILL_CASES = [
     # (B, Sq, Sk, Hkv, G, D, causal)
     (1, 16, 16, 1, 1, 8, True),
@@ -136,4 +147,90 @@ def test_decode_kernel_f32_queries_over_bf16_cache(cuda):
     out = ops.decode_attention(q, k, v, lengths)
     assert out.dtype == torch.float32
     exp = ref.naive_decode_attention(q, k, v, lengths)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=1e-5, rtol=1e-5)
+
+
+def _paged_inputs(case, dev, dtype, q_dtype=None, seed=0):
+    """Scrambled tables (null block 0 for unused entries), garbage in
+    block 0; lengths past the table are clamped by the kernel."""
+    B, Hkv, G, D, bs, MB, lens = case
+    rng = np.random.default_rng(seed)
+    N = 1 + B * MB
+    q = _randn(rng, (B, Hkv * G, D), dev, q_dtype or dtype)
+    kp = _randn(rng, (N, Hkv, bs, D), dev, dtype)
+    vp = _randn(rng, (N, Hkv, bs, D), dev, dtype)
+    kp[0], vp[0] = 99.0, -99.0
+    perm = iter(rng.permutation(np.arange(1, N)))
+    tables = np.zeros((B, MB), np.int32)
+    for b in range(B):
+        for j in range(min(-(-int(lens[b]) // bs), MB)):
+            tables[b, j] = next(perm)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kp, vp, torch.from_numpy(tables).to(dev), lengths
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_kernel_matches_plain(cuda, case, dtype):
+    q, kp, vp, tables, lengths = _paged_inputs(case, cuda, getattr(torch, dtype))
+    before = ops.launch_counts()["paged_decode_attention"]
+    out = ops.paged_decode_attention(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode_attention"] == before + 1
+    exp = ref.paged_decode_attention(q, kp, vp, tables, lengths)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("case", PAGED_CASES[1:])
+def test_paged_kernel_window_and_lse(cuda, case):
+    """``starts`` masks a prefix (including whole blocks below it and an
+    empty window); the lse equals the oracle's."""
+    q, kp, vp, tables, lengths = _paged_inputs(case, cuda, torch.bfloat16, seed=1)
+    starts = (lengths // 3).to(torch.int32)
+    starts[0] = lengths[0] + 2                 # empty window: out 0, lse <= -1e30
+    out, lse = ops.paged_decode_attention(q, kp, vp, tables, lengths, starts=starts,
+                                          return_lse=True)
+    exp, exp_lse = ref.paged_decode_attention(q, kp, vp, tables, lengths, starts=starts,
+                                              return_lse=True)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(_np(lse)[1:], _np(exp_lse)[1:], atol=1e-3, rtol=1e-4)
+    assert float(out[0].abs().max()) == 0.0 and float(lse[0].max()) <= -1e30
+
+
+def test_paged_kernel_f32_queries_over_bf16_pool(cuda):
+    """float32 mode: f32 activations attend over the bf16 pool."""
+    q, kp, vp, tables, lengths = _paged_inputs(PAGED_CASES[1], cuda, torch.bfloat16,
+                                               q_dtype=torch.float32, seed=2)
+    out = ops.paged_decode_attention(q, kp, vp, tables, lengths)
+    assert out.dtype == torch.float32
+    exp = ref.paged_decode_attention(q, kp, vp, tables, lengths)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=1e-5, rtol=1e-5)
+
+
+def test_paged_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(2, 4, 16, device=cuda)
+    pool = torch.zeros(5, 2, 128, 16, device=cuda)          # block_size 128 > 64
+    tables = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    lengths = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ops.paged_decode_attention(q, pool, pool, tables, lengths)
+    with pytest.raises(TypeError):
+        ops.paged_decode_attention(q, pool[:, :, :8], pool[:, :, :8], tables.long(),
+                                   lengths)
+    with pytest.raises(NotImplementedError):
+        ops.paged_decode_attention(q, pool, pool, tables, lengths,
+                                   k_scale=torch.ones(1), v_scale=torch.ones(1))
+
+
+@pytest.mark.parametrize("sq,sk,off", [(16, 64, 0), (8, 64, 29), (37, 40, 3)])
+def test_prefill_kernel_f32_queries_over_bf16_cache(cuda, sq, sk, off):
+    """float32 mode's chunked prefill: f32 queries attend a bf16 cache
+    stripe at a q_offset."""
+    rng = np.random.default_rng(sq + off)
+    q = _randn(rng, (1, sq, 8, 64), cuda, torch.float32)
+    k = _randn(rng, (1, sk, 2, 64), cuda, torch.bfloat16)
+    v = _randn(rng, (1, sk, 2, 64), cuda, torch.bfloat16)
+    out = ops.flash_attention(q, k, v, q_offset=off)
+    assert out.dtype == torch.float32
+    exp = ref.naive_attention(q, k, v, q_offset=off)
     np.testing.assert_allclose(_np(out), _np(exp), atol=1e-5, rtol=1e-5)

@@ -128,12 +128,17 @@ def test_sync_and_async_are_token_identical(models):
     assert dataclasses.asdict(s_stats) == dataclasses.asdict(a_stats)
 
 
-def test_unported_engine_options_raise(models):
+@pytest.mark.parametrize("kw", [
+    dict(spec_depth=2),
+    dict(sub_batches=2),
+    dict(cache_kind="paged", kv_dtype="fp8"),
+    dict(cache_kind="paged", kv_dtype="int8"),
+    dict(cache_kind="paged", host_blocks=4),
+], ids=["spec_depth", "sub_batches", "fp8", "int8", "host_blocks"])
+def test_unported_engine_options_raise(models, kw):
     _, _, model, params = models
-    for kw in (dict(cache_kind="paged"), dict(schedule="hybrid"), dict(spec_depth=2),
-               dict(sub_batches=2)):
-        with pytest.raises(NotImplementedError):
-            Engine(model, params, n_slots=1, max_seq=16, **kw)
+    with pytest.raises(NotImplementedError):
+        Engine(model, params, n_slots=1, max_seq=16, **kw)
 
 
 def test_serve_cli_prints_reference_stats(capsys, monkeypatch):

@@ -175,8 +175,12 @@ def test_ops_on_cpu_never_touch_the_kernel_library():
         "offload.decode_attention(q, k, k, torch.tensor([3, 8]))\n"
         "x = torch.randn(1, 5, 4, 16); y = torch.randn(1, 5, 2, 16)\n"
         "ops.flash_attention(x, y, y); offload.prefill_attention(x, y, y)\n"
+        "pool = torch.randn(5, 2, 4, 16); t = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32)\n"
+        "ops.paged_decode_attention(q, pool, pool, t, torch.tensor([6, 3]))\n"
+        "offload.paged_decode_attention(q, pool, pool, t, torch.tensor([6, 3]))\n"
         "assert 'repro_torch.kernels._build' not in sys.modules\n"
-        "assert ops.launch_counts() == {'decode_attention': 0, 'prefill_attention': 0}\n"
+        "assert ops.launch_counts() == {'decode_attention': 0, 'prefill_attention': 0,\n"
+        "                               'paged_decode_attention': 0}\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
