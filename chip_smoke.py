@@ -5,31 +5,50 @@
 1. Requires CUDA and prints the card's name and power limit.
 2. Builds every kernel in ``src/repro_torch/kernels/csrc/`` with nvcc
    (one process per source, in parallel) and prints the build time.
-3. Kernel phase: each kernel against its plain PyTorch version at the
-   main paths' shapes, with its time beside the plain version's, a
-   PyTorch yardstick on the same work (``scaled_dot_product_attention``;
-   for the paged kernel ``gather_paged_cache`` then SDPA, two calls,
-   since no single call computes paged attention; never used by the
-   port) and the least time the card could take.  The paged kernel is
-   also checked with f32 queries and with a ``starts`` window + lse.
+3. Kernel phase: each kernel variant against its plain PyTorch version
+   at the main paths' shapes, with its time beside the plain version's,
+   a PyTorch yardstick on the same work (``scaled_dot_product_attention``;
+   for the paged kernel ``gather_paged_cache`` then SDPA, since no single
+   call computes paged attention; for the fp8/int8 variants the
+   dequantization too; never used by the port) and the least time the
+   card could take.  Seven rows: decode; prefill unscaled, int8 and fp8
+   K/V; paged unscaled, fp8 and int8 pools.  The paged variants are also
+   checked with f32 queries and with a ``starts`` window + lse.  The
+   scaled prefill variants are on no serving path (the reference's
+   quantized pools prefill into the bf16 staging cache): kernel level
+   only.
 4. Serve phase: full-width llama3.2-1b with seeded random weights through
-   ``repro_torch.launch.serve``, two paths, each with every launch
+   ``repro_torch.launch.serve``, four paths, each with every launch
    counter zeroed before its async run and read after it:
    a. dense cache, decode-only schedule (slice 1's main path);
    b. paged cache, hybrid chunked-prefill schedule, a pool of 385 blocks
-      (6144 positions for up to 16 x 576: admission waits on blocks).
+      (6144 positions for up to 16 x 576: admission waits on blocks);
+   c. paged-tiered (slice 3's main path): hybrid schedule, fp8 pool of
+      129 blocks (2048 positions: the pool must spill) and a host tier
+      of 512 blocks;
+   d. the same tier with an int8 pool on the decode-only schedule.
    Each runs async (dispatch-ahead) and then sync; the greedy tokens must
-   be identical and each kernel must have launched once per layer of
-   every prefill, chunk and decode step of its path.
-5. Profiles (torch.profiler) of steady async decode steps on path a and
-   of steady async hybrid steps on path b, for where the time goes.
+   be identical, each kernel variant must have launched once per layer of
+   every prefill, chunk and decode step of its path (twice per layer of a
+   decode step on the tiered paths: hot and cold windows), and the paged
+   paths' pools must drain; the tiered paths must spill and not preempt.
+5. Profiles (torch.profiler) of steady async steps on paths a, b and c,
+   for where the time goes; on path c also the hot and the cold paged
+   launch of one layer, timed on the profiled state.
 6. A small-input check: reduced llama3.2-1b in float32 through the
    kernels on the GPU against the plain path on the CPU, same weights:
    prefill and decode on the dense cache, chunked ``prefill_step`` and
-   ``paged_decode_step`` on the paged pool.
+   ``paged_decode_step`` on the paged pool — bf16, fp8 and int8 pools,
+   the quantized ones also with their first blocks spilled to the host
+   tier.
 7. A preemption check: reduced llama3.2-1b on a pool too small for both
    sequences, on the GPU, async against sync (greedy tokens) and both
    against the CPU engine (step clock), decode-only and hybrid.
+8. A host-tier check: the same model on the GPU with a host tier, async
+   and sync: live spills instead of preemption with the unspilled run's
+   tokens, a freed prefix re-hydrated with the same continuation, a
+   spilled slot reused by another prompt, and the step clock of the CPU
+   engine.
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object with one entry per kernel; the last is
@@ -65,6 +84,7 @@ from repro_torch.serving.workload import build_workload  # noqa: E402
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 flop/s
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_8BIT_OPS = 1979e12   # fp8 flop/s and int8 op/s
 PEAK_F32_FLOPS = 67e12
 L2_BYTES = 50 * 2**20
 BF16_TOL = 2e-2           # bf16 output, as tests/test_kernels.py holds the Pallas kernels
@@ -72,6 +92,11 @@ SERVE_FLAGS = ["--arch", "llama3.2-1b", "--requests", "64", "--slots", "16",
                "--max-seq", "1024", "--max-new", "64", "--workload", "random",
                "--workload-seed", "0", "--seed", "0", "--device", "cuda"]
 PAGED_FLAGS = ["--cache", "paged", "--schedule", "hybrid", "--blocks", "385"]
+# 128 usable blocks against the ~185 the paged-hybrid run holds at its peak
+TIER = ["--host-blocks", "512", "--blocks", "129"]
+TIERED_FLAGS = ["--cache", "paged", "--schedule", "hybrid", "--kv-dtype", "fp8", *TIER]
+TIERED_INT8_FLAGS = ["--cache", "paged", "--schedule", "decode-only", "--kv-dtype", "int8",
+                     *TIER]
 LENGTHS = [1, 1024, 1033, 2, 37, 100, 255, 256, 257, 511, 512, 513, 700, 900, 1000, 1023]
 
 
@@ -136,7 +161,8 @@ def decode_phase(dev) -> dict:
     flops = 4 * live * Hkv * G * D
     bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_FLOPS)
     return {
-        "name": "decode_attention", "route": "cuda", "source": kdec.SOURCE,
+        "name": "decode_attention", "kernel": "decode_attention", "variant": "unscaled",
+        "route": "cuda", "source": kdec.SOURCE,
         "replaces": kdec.REPLACES, "max_abs_err": err, "tol": BF16_TOL,
         "ms": _time_ms([lambda s=s: ops.decode_attention(*s, lengths) for s in sets]),
         "plain_ms": _time_ms([lambda s=s: kdec.plain(*s, lengths) for s in sets], 10),
@@ -147,58 +173,84 @@ def decode_phase(dev) -> dict:
     }
 
 
-def prefill_phase(dev) -> dict:
-    """llama3.2-1b prefill attention (Hq 32, Hkv 8, D 64, bf16, B 1) at odd
-    prompt lengths, q_offset 0 (the main path) and 17."""
+def _quantize(x: torch.Tensor, kv: str | None):
+    """``(payload, scale)`` of ``x`` in the pool's storage: bf16 and no
+    scale for the unscaled kernels, fp8/int8 with f32 scales else."""
+    if kv is None:
+        return x.bfloat16(), None
+    return ref.kv_quantize(x, kv)
+
+
+def _row_name(kernel: str, kv: str | None) -> str:
+    return kernel if kv is None else f"{kernel}[{kv}]"
+
+
+def prefill_phase(dev, kv: str | None = None) -> dict:
+    """llama3.2-1b prefill attention (Hq 32, Hkv 8, D 64, bf16 queries, B 1)
+    at odd prompt lengths, q_offset 0 (the main path) and 17; ``kv``:
+    int8/fp8 K/V with (B, Sk, Hkv) f32 scales (the scaled variant)."""
     Hq, Hkv, D = 32, 8, 64
     gen = torch.Generator(device=dev).manual_seed(2)
     cases, timed = [], None
     for sq, off in ((37, 0), (37, 17), (509, 17), (509, 0)):
         sk = sq + off
         q = torch.randn(1, sq, Hq, D, generator=gen, device=dev).bfloat16()
-        k = torch.randn(1, sk, Hkv, D, generator=gen, device=dev).bfloat16()
-        v = torch.randn(1, sk, Hkv, D, generator=gen, device=dev).bfloat16()
-        out = ops.flash_attention(q, k, v, q_offset=off)
-        exp = kpre.plain(q, k, v, q_offset=off)
+        k, ks = _quantize(torch.randn(1, sk, Hkv, D, generator=gen, device=dev), kv)
+        v, vs = _quantize(torch.randn(1, sk, Hkv, D, generator=gen, device=dev), kv)
+        out = ops.flash_attention(q, k, v, q_offset=off, k_scale=ks, v_scale=vs)
+        exp = kpre.plain(q, k, v, q_offset=off, k_scale=ks, v_scale=vs)
         torch.cuda.synchronize()
         err = _max_err(out, exp)
         if not err <= BF16_TOL:
-            raise AssertionError(f"prefill_attention kernel vs plain at Sq={sq} "
-                                 f"q_offset={off}: max err {err}")
+            raise AssertionError(f"{_row_name('prefill_attention', kv)} kernel vs plain at "
+                                 f"Sq={sq} q_offset={off}: max err {err}")
         cases.append({"sq": sq, "sk": sk, "q_offset": off, "max_abs_err": err})
-        timed = (q, k, v, sq, sk, off)
-    q, k, v, sq, sk, off = timed          # the main path's case: q_offset 0, Sq 509
+        timed = (q, k, v, ks, vs, sq, sk, off)
+    q, k, v, ks, vs, sq, sk, off = timed      # the main path's case: q_offset 0, Sq 509
 
     def library():
+        kd = k if kv is None else ref.kv_dequantize(k, ks)
+        vd = v if kv is None else ref.kv_dequantize(v, vs)
         return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
             is_causal=True, enable_gqa=True)
 
-    lib_err = _max_err(library().transpose(1, 2), kpre.plain(q, k, v))
+    exp = kpre.plain(q, k, v, k_scale=ks, v_scale=vs)
+    lib_err = _max_err(library().transpose(1, 2), exp)
     pairs = sum(min(sk, off + i + 1) for i in range(sq))    # visible (q, k) pairs
     flops = 4 * pairs * Hq * D
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_FLOPS)
+    scale_bytes = 0 if kv is None else 2 * ks.numel() * 4
+    nbytes = 2 * 2 * q.numel() + k.numel() * k.element_size() * 2 + scale_bytes
+    bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_FLOPS if kv is None
+                                else PEAK_8BIT_OPS)
     return {
-        "name": "prefill_attention", "route": "cuda", "source": kpre.SOURCE,
+        "name": _row_name("prefill_attention", kv), "kernel": "prefill_attention",
+        "variant": kv or "unscaled", "route": "cuda", "source": kpre.SOURCE,
         "replaces": kpre.REPLACES,
         "max_abs_err": max(c["max_abs_err"] for c in cases), "tol": BF16_TOL,
-        "ms": _time_ms([lambda: ops.flash_attention(q, k, v)]),
-        "plain_ms": _time_ms([lambda: kpre.plain(q, k, v)], 10),
-        "library_ms": _time_ms([library]), "library_max_abs_err": lib_err,
+        "ms": _time_ms([lambda: ops.flash_attention(q, k, v, k_scale=ks, v_scale=vs)]),
+        "plain_ms": _time_ms([lambda: kpre.plain(q, k, v, k_scale=ks, v_scale=vs)], 10),
+        "library_ms": _time_ms([library]),
+        "library": "scaled_dot_product_attention" if kv is None
+                   else "ref.kv_dequantize (k, v) + scaled_dot_product_attention",
+        "library_max_abs_err": lib_err,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
         "f32_fma_bound_ms": flops / PEAK_F32_FLOPS * 1e3,
-        "shape": f"B=1 Sq=Sk={sq} Hq={Hq} Hkv={Hkv} D={D} bf16 causal q_offset=0",
+        "shape": f"B=1 Sq=Sk={sq} Hq={Hq} Hkv={Hkv} D={D} q bf16, K/V {kv or 'bf16'} "
+                 "causal q_offset=0",
         "cases": cases,
     }
 
-def paged_phase(dev) -> dict:
+
+def paged_phase(dev, kv: str | None = None) -> dict:
     """llama3.2-1b paged decode attention at the serve shapes: 16 slots,
-    block 16, 64 blocks per row, a pool of 1025 blocks, bf16; the decode
-    row's ragged lengths (clamped to 1024 by the kernel), a scrambled
-    table and garbage in null block 0."""
+    block 16, 64 blocks per row, a pool of 1025 blocks, bf16 queries; the
+    decode row's ragged lengths (clamped to 1024 by the kernel), a
+    scrambled table and garbage in null block 0 (of the scale pools too).
+    ``kv``: an fp8/int8 pool with its f32 scale pools."""
     B, Hkv, G, D, bs, MB = 16, 8, 4, 64, 16, 64
     N = B * MB + 1
+    name = _row_name("paged_decode_attention", kv)
     gen = torch.Generator(device=dev).manual_seed(5)
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
     perm = torch.randperm(N - 1, generator=torch.Generator().manual_seed(5)) + 1
@@ -209,68 +261,80 @@ def paged_phase(dev) -> dict:
         tables[b, :k] = perm[used:used + k]
         used += k
     tables = tables.to(dev)
-    pool_bytes = 2 * N * Hkv * bs * D * 2
+    elem = 2 if kv is None else 1
+    pool_bytes = 2 * N * Hkv * bs * D * elem
     n_copies = max(1, math.ceil(2 * L2_BYTES / pool_bytes))
     sets = []
     for _ in range(n_copies):
         q = torch.randn(B, Hkv * G, D, generator=gen, device=dev).bfloat16()
-        kp = torch.randn(N, Hkv, bs, D, generator=gen, device=dev).bfloat16()
-        vp = torch.randn(N, Hkv, bs, D, generator=gen, device=dev).bfloat16()
-        kp[0], vp[0] = 99.0, -99.0
-        sets.append((q, kp, vp))
-    q, kp, vp = sets[0]
-    out = ops.paged_decode_attention(q, kp, vp, tables, lengths)
-    exp = kpaged.plain(q, kp, vp, tables, lengths)
+        kf = torch.randn(N, Hkv, bs, D, generator=gen, device=dev)
+        vf = torch.randn(N, Hkv, bs, D, generator=gen, device=dev)
+        kf[0], vf[0] = 99.0, -99.0
+        (kp, ks), (vp, vs) = _quantize(kf, kv), _quantize(vf, kv)
+        if kv is not None:
+            ks[0], vs[0] = 7.5, -3.0
+        sets.append((q, kp, vp, ks, vs))
+
+    def call(fn, q, kp, vp, ks, vs, **kw):
+        return fn(q, kp, vp, tables, lengths, k_scale=ks, v_scale=vs, **kw)
+
+    q, kp, vp, ks, vs = sets[0]
+    out = call(ops.paged_decode_attention, *sets[0])
+    exp = call(kpaged.plain, *sets[0])
     torch.cuda.synchronize()
     err = _max_err(out, exp)
-    # float32 mode: f32 queries over the bf16 pool
-    out32 = ops.paged_decode_attention(q.float(), kp, vp, tables, lengths)
-    err32 = _max_err(out32, kpaged.plain(q.float(), kp, vp, tables, lengths))
+    # float32 mode: f32 queries over the bf16 / quantized pool
+    err32 = _max_err(call(ops.paged_decode_attention, q.float(), kp, vp, ks, vs),
+                     call(kpaged.plain, q.float(), kp, vp, ks, vs))
     # a hot window and the lse (row 0's window is empty: out 0, lse <= -1e30)
     starts = (lengths // 3).to(torch.int32)
     starts[0] = 5
-    out_w, lse = ops.paged_decode_attention(q, kp, vp, tables, lengths, starts=starts,
-                                            return_lse=True)
-    exp_w, exp_lse = kpaged.plain(q, kp, vp, tables, lengths, starts=starts,
-                                  return_lse=True)
+    out_w, lse = call(ops.paged_decode_attention, *sets[0], starts=starts, return_lse=True)
+    exp_w, exp_lse = call(kpaged.plain, *sets[0], starts=starts, return_lse=True)
     torch.cuda.synchronize()
     err_w = max(_max_err(out_w, exp_w), _max_err(lse[1:], exp_lse[1:]))
-    print(f"paged kernel checks: bf16 err {err:.2e}, f32-query err {err32:.2e}, "
+    print(f"{name} kernel checks: bf16 err {err:.2e}, f32-query err {err32:.2e}, "
           f"window+lse err {err_w:.2e}, empty window lse {float(lse[0].max()):.3e}")
     if not (err <= BF16_TOL and err32 <= 1e-4 and err_w <= BF16_TOL
             and float(out_w[0].abs().max()) == 0.0 and float(lse[0].max()) <= -1e30):
-        raise AssertionError(f"paged_decode_attention kernel vs plain: {err}, {err32}, "
-                             f"{err_w}")
+        raise AssertionError(f"{name} kernel vs plain: {err}, {err32}, {err_w}")
 
     S = MB * bs
     mask = (torch.arange(S, device=dev)[None] < lengths[:, None])[:, None, None, :]
 
-    def library(q, kp, vp):
+    def library(q, kp, vp, ks, vs):
         k = ref.gather_paged_cache(kp, tables)
         v = ref.gather_paged_cache(vp, tables)
+        if kv is not None:
+            k = ref.kv_dequantize(k, ref.gather_paged_scales(ks, tables))
+            v = ref.kv_dequantize(v, ref.gather_paged_scales(vs, tables))
         return F.scaled_dot_product_attention(
             q.view(B, Hkv * G, 1, D), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask, enable_gqa=True)
 
-    lib_err = _max_err(library(q, kp, vp).view(B, Hkv * G, D), exp)
+    lib_err = _max_err(library(*sets[0]).view(B, Hkv * G, D), exp)
     live = int(lengths.clamp(max=S).sum())
-    nbytes = 2 * live * Hkv * D * 2 + 2 * q.numel() * 2 + B * 4 + tables.numel() * 4
+    scale_bytes = 0 if kv is None else 2 * live * Hkv * 4
+    nbytes = (2 * live * Hkv * D * elem + scale_bytes + 2 * q.numel() * 2 + B * 4
+              + tables.numel() * 4)
     flops = 4 * live * Hkv * G * D
-    bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_FLOPS)
+    bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_FLOPS if kv is None
+                                else PEAK_8BIT_OPS)
     return {
-        "name": "paged_decode_attention", "route": "cuda", "source": kpaged.SOURCE,
+        "name": name, "kernel": "paged_decode_attention", "variant": kv or "unscaled",
+        "route": "cuda", "source": kpaged.SOURCE,
         "replaces": kpaged.REPLACES, "max_abs_err": max(err, err_w), "tol": BF16_TOL,
         "f32_query_max_abs_err": err32,
-        "ms": _time_ms([lambda s=s: ops.paged_decode_attention(*s, tables, lengths)
-                        for s in sets]),
-        "plain_ms": _time_ms([lambda s=s: kpaged.plain(*s, tables, lengths)
-                              for s in sets], 10),
+        "ms": _time_ms([lambda s=s: call(ops.paged_decode_attention, *s) for s in sets]),
+        "plain_ms": _time_ms([lambda s=s: call(kpaged.plain, *s) for s in sets], 10),
         "library_ms": _time_ms([lambda s=s: library(*s) for s in sets]),
-        "library": "ref.gather_paged_cache (k, v) + scaled_dot_product_attention",
+        "library": "ref.gather_paged_cache (k, v) + scaled_dot_product_attention"
+                   if kv is None else "ref.gather_paged_cache + gather_paged_scales + "
+                   "kv_dequantize (k, v) + scaled_dot_product_attention",
         "library_max_abs_err": lib_err,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-        "shape": f"B={B} Hkv={Hkv} G={G} D={D} block={bs} MB={MB} N={N} bf16 "
-                 f"live={live}",
+        "shape": f"B={B} Hkv={Hkv} G={G} D={D} block={bs} MB={MB} N={N} q bf16, pool "
+                 f"{kv or 'bf16'} live={live}",
     }
 
 
@@ -287,11 +351,14 @@ def load_model():
     return model, params
 
 
-def serve_phase(model, params, label: str, flags: list[str], want) -> dict[str, int]:
+def serve_phase(model, params, label: str, flags: list[str], want,
+                tiered: bool = False) -> dict[str, dict[str, int]]:
     """One path through the serve entry point: a short warm-up, the async
     run with every launch counter zeroed before it and read after it,
-    then the sync run; checks launches (``want(stats)``), completion and
-    sync/async greedy identity.  Returns the async run's launch counts."""
+    then the sync run; checks launches per kernel variant
+    (``want(stats)``), completion, a drained pool, sync/async greedy
+    identity and (``tiered``) spills without preemption.  Returns the
+    async run's launch counts per kernel and variant."""
     cfg = model.cfg
     args = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--async", "on"])
     warm = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--requests", "4"])
@@ -299,16 +366,23 @@ def serve_phase(model, params, label: str, flags: list[str], want) -> dict[str, 
 
     ops.reset_launch_counts()
     res = serve.serve(args, model, params)     # the path's main run
-    launches = ops.launch_counts()
+    launches = ops.variant_counts()
     print(f"[{label}] serve {' '.join(flags) or '(dense, decode-only)'}")
     for line in serve.report(args, res):
         print(f"[{label}] {line}")
     st = res.stats
     expected = want(st)
     print(f"[{label}] preemptions={st.preemptions} victim_drains={st.victim_drains} "
+          f"spills={st.spills} rehydrations={st.rehydrations} "
           f"launches: {launches} expected {expected}")
     if launches != expected:
         raise AssertionError(f"[{label}] kernel launches {launches} != expected {expected}")
+    if args.cache == "paged" and res.engine.pool.in_use:
+        raise AssertionError(f"[{label}] pool holds {res.engine.pool.in_use} blocks after "
+                             "the run")
+    if tiered and not (st.spills >= 1 and st.preemptions == 0):
+        raise AssertionError(f"[{label}] spills={st.spills} preemptions={st.preemptions}: "
+                             "the tiered pool should spill, not preempt")
     reqs = res.driver.submitted
     for r in reqs:
         if not (r.done and len(r.out_tokens) == args.max_new
@@ -320,11 +394,28 @@ def serve_phase(model, params, label: str, flags: list[str], want) -> dict[str, 
     sync = serve.serve(sync_args, model, params)
     for line in serve.report(sync_args, sync):
         print(f"[{label}] {line}")
-    same = [a.out_tokens == b.out_tokens for a, b in zip(reqs, sync.driver.submitted)]
+    pairs = list(zip(reqs, sync.driver.submitted))
+    same = [a.out_tokens == b.out_tokens for a, b in pairs]
+    same_clock = sync.stats.engine_steps == st.engine_steps
     print(f"[{label}] sync vs async greedy: {sum(same)}/{len(same)} requests "
-          "token-identical")
-    if not all(same):
+          f"token-identical; engine steps async {st.engine_steps}, sync "
+          f"{sync.stats.engine_steps}")
+    if same_clock and not all(same):
         raise AssertionError(f"[{label}] sync and async greedy tokens differ")
+    if not same_clock:
+        # Only with a host tier under pool pressure: the reference's async
+        # engine spills before it observes the slots that finish this step
+        # (sync frees their blocks first), so its chunks and hot/cold
+        # splits land elsewhere and bf16 rounding may flip near-ties.  Hold
+        # the runs to the reference's own quantized-pool criterion
+        # (tests/test_kv_tiering.py): every first token equal, >= 60% of all.
+        tokens = [(x, y) for a, b in pairs for x, y in zip(a.out_tokens, b.out_tokens)]
+        agree = sum(x == y for x, y in tokens) / len(tokens)
+        print(f"[{label}] step clocks differ (async spills before observing); "
+              f"{agree:.1%} of tokens equal")
+        if not (tiered and agree >= 0.6
+                and all(a.out_tokens[0] == b.out_tokens[0] for a, b in pairs)):
+            raise AssertionError(f"[{label}] sync and async runs diverge")
     return launches
 
 
@@ -333,7 +424,9 @@ def profile_phase(model, params, label: str, flags: list[str], warm_steps: int,
     """Where a steady step's time goes: ``torch.profiler`` over ``n_steps``
     async steps after ``warm_steps`` (32 requests over 16 slots).  Prints
     wall time per step, device busy time per step and the top kernels;
-    reports "not measured" if the profiler sees no device time."""
+    reports "not measured" if the profiler sees no device time.  With a
+    host tier, also times one layer's hot and cold paged launches on the
+    state the window ended in."""
     args = serve.build_parser().parse_args(SERVE_FLAGS + flags)
     eng = serve.make_engine(args, model, params)
     for i, arr in enumerate(build_workload("random", 2 * args.slots, vocab=model.cfg.vocab,
@@ -355,6 +448,8 @@ def profile_phase(model, params, label: str, flags: list[str], warm_steps: int,
     mix = (f"{st.decode_steps - st0.decode_steps} decode batches (mean "
            f"{(st.generated - st0.generated) / n_steps:.1f} tokens/step), "
            f"{st.prefill_chunks - st0.prefill_chunks} prefill chunks in {n_steps} steps")
+    if "host_k" in eng.cache:
+        tier_launches(eng, label)
     eng.run()
     rows = [e for e in prof.key_averages()
             if getattr(e, "self_device_time_total", 0) > 0]
@@ -371,14 +466,74 @@ def profile_phase(model, params, label: str, flags: list[str], warm_steps: int,
               f"{e.count / n_steps:7.1f}x  {e.key[:90]}")
 
 
+def _kernel_device_ms(fn, name: str, n: int = 20) -> float | None:
+    """Device time of one ``fn()`` in the kernels whose name holds
+    ``name``, from torch.profiler over ``n`` calls (None if it saw none)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if name in e.key
+            and getattr(e, "self_device_time_total", 0) > 0]
+    return sum(e.self_device_time_total for e in rows) / 1e3 / n if rows else None
+
+
+def tier_launches(eng, label: str) -> None:
+    """The two paged launches of one layer of a tiered decode step, on the
+    engine's current cache (layer 0, random bf16 queries): the hot window
+    ``[cold_len, len)`` of the device pool and the cold prefix in the host
+    pool.  Device time per launch from the profiler, and the host's time
+    per call (wrapper included) over 30 back-to-back calls."""
+    c, cfg = eng.cache, eng.model.cfg
+    gen = torch.Generator(device=eng.device).manual_seed(7)
+    q = torch.randn(len(eng.slots), cfg.n_heads, cfg.resolved_head_dim(), generator=gen,
+                    device=eng.device).bfloat16()
+    scales = "k_scale" in c
+
+    def hot():
+        return ops.paged_decode_attention(
+            q, c["k"][0], c["v"][0], c["block_tables"], c["lengths"],
+            starts=c["cold_lengths"], return_lse=True,
+            k_scale=c["k_scale"][0] if scales else None,
+            v_scale=c["v_scale"][0] if scales else None)
+
+    def cold():
+        return ops.paged_decode_attention(
+            q, c["host_k"][0], c["host_v"][0], c["host_tables"], c["cold_lengths"],
+            return_lse=True, k_scale=c["host_k_scale"][0] if scales else None,
+            v_scale=c["host_v_scale"][0] if scales else None)
+
+    def host_ms(fn, n=30):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    cap = c["block_tables"].shape[1] * eng.block_size
+    live = c["lengths"].clamp(max=cap)
+    cold_n = int(c["cold_lengths"].sum())
+    hot_n = int((live - c["cold_lengths"]).clamp(min=0).sum())
+    dev = {k: _kernel_device_ms(fn, "paged_decode_attention_kernel")
+           for k, fn in (("hot", hot), ("cold", cold))}
+    fmt = {k: "not measured" if v is None else f"{v:.4f} ms" for k, v in dev.items()}
+    print(f"[{label}] tier launches (layer 0, this state): hot device {fmt['hot']} over "
+          f"{hot_n} positions, cold device {fmt['cold']} over {cold_n} positions in "
+          f"{int((c['cold_lengths'] > 0).sum())} slots; host per call {host_ms(hot):.4f} / "
+          f"{host_ms(cold):.4f} ms; spills so far {eng.stats.spills}")
+
+
 def reference_check(dev) -> None:
     """Reduced llama3.2-1b in float32: kernels on the GPU vs the plain path
     on the CPU, same weights.  Dense cache: prefill + 4 decode steps.
-    Paged pool: two prompts in chunks of 16 through ``prefill_step`` into
-    the two staging lanes, their blocks written to scrambled pool blocks,
-    then 4 ``paged_decode_step``s.  Tolerance 5e-2 on logits: the plain
-    decode path rounds p to the bf16 cache dtype before P·V (as the JAX
-    reference does), the kernels keep it in f32."""
+    Paged pool (bf16, fp8 and int8, the quantized ones also with a host
+    tier holding spilled blocks): :func:`_paged_reference`.  Tolerance
+    5e-2 on logits: the plain decode path rounds p to the bf16 cache dtype
+    before P·V (as the JAX reference does), the kernels keep it in f32."""
     cfg = reduce_config("llama3.2-1b").with_overrides(dtype="float32")
     gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
     p_gpu = gpu.init(seed=3)
@@ -398,16 +553,38 @@ def reference_check(dev) -> None:
     print(f"reference check, dense (reduced f32, GPU kernels vs CPU plain): "
           f"max |logit diff| {worst:.3e}")
 
+    worst_paged = {f"{kv}{'+host' if host else ''}":
+                   _paged_reference(dev, gpu, cpu, p_gpu, p_cpu, prompt, kv, host)
+                   for kv, host in (("bf16", 0), ("fp8", 0), ("fp8", 4), ("int8", 0),
+                                    ("int8", 4))}
+    print("reference check, paged + chunked prefill (reduced f32, GPU kernels vs CPU "
+          "plain): max |logit diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst_paged.items()))
+    if not (worst <= 5e-2 and max(worst_paged.values()) <= 5e-2):
+        raise AssertionError(f"GPU vs CPU logits differ by {worst}, {worst_paged}")
+
+
+def _paged_reference(dev, gpu, cpu, p_gpu, p_cpu, prompt, kv: str, host: int) -> float:
+    """Two prompts in chunks of 16 through ``prefill_step`` into the two
+    staging lanes, their blocks written (quantized when ``kv`` is fp8 or
+    int8) into scrambled pool blocks, garbage in null block 0 of every
+    pool; with ``host`` blocks, lane 0's first two blocks and lane 1's
+    first spill to the host tier (cold lengths 16 and 8).  Then 4
+    ``paged_decode_step``s.  Max |logit diff|, GPU kernels vs CPU plain."""
     bs, MB, N = 8, 8, 17
     tables = torch.zeros(2, MB, dtype=torch.int32)
     tables[0, :4] = torch.tensor([9, 2, 14, 5])       # 29 prompt + 4 decode positions
     tables[1, :3] = torch.tensor([16, 1, 11])          # 17 + 4
-    lens = (29, 17)
+    lens, spilled = (29, 17), (2, 1)
     runs = []
     for model, params, d in ((gpu, p_gpu, dev), (cpu, p_cpu, torch.device("cpu"))):
         staging = model.init_cache(2, MB * bs)
-        pool = model.init_paged_cache(2, N, bs, MB)
-        pool["k"][:, 0], pool["v"][:, 0] = 50.0, -50.0          # null-block garbage
+        pool = model.init_paged_cache(2, N, bs, MB, kv_dtype=kv, host_blocks=host)
+        for key in ("k", "v", "host_k", "host_v"):                # null-block garbage
+            if key in pool:
+                ref.byte_view(pool[key])[:, 0] = 50 if key.endswith("k") else 60
+                if f"{key}_scale" in pool:
+                    pool[f"{key}_scale"][:, 0] = 5.0
         logits = []
         for lane, n in enumerate(lens):
             for start in range(0, n, 16):
@@ -416,21 +593,26 @@ def reference_check(dev) -> None:
                 chunk[0, :nv] = prompt[lane, start:start + nv]
                 lg, _ = model.prefill_step(params, staging, chunk.to(d), lane, start, nv)
             logits.append(lg)
+            row = tables[lane].clone()
             for j in range(-(-n // bs)):
-                pdev.write_prompt_block(pool, staging, int(tables[lane, j]), j * bs, lane)
-            pdev.sync_slot(pool, lane, tables[lane].numpy(), n)
+                pdev.write_prompt_block(pool, staging, int(row[j]), j * bs, lane)
+            if host:
+                host_row = torch.zeros(MB, dtype=torch.int32)
+                for j in range(spilled[lane]):
+                    host_row[j] = 1 + lane * 2 + j
+                    pdev.spill_block(pool, int(row[j]), int(host_row[j]))
+                    row[j] = 0
+                pdev.sync_host_slot(pool, lane, host_row.numpy(), spilled[lane] * bs)
+            pdev.sync_slot(pool, lane, row.numpy(), n)
         runs.append((model, params, pool, torch.cat(logits)))
     (gm, gp, gpool, glog), (cm_, cp, cpool, clog) = runs
-    worst_paged = _max_err(glog.cpu(), clog)
+    worst = _max_err(glog.cpu(), clog)
     for _ in range(4):
         tok = clog.argmax(-1).to(torch.int32)
         glog, _ = gm.paged_decode_step(gp, gpool, tok.to(dev))
         clog, _ = cm_.paged_decode_step(cp, cpool, tok)
-        worst_paged = max(worst_paged, _max_err(glog.cpu(), clog))
-    print(f"reference check, paged + chunked prefill (reduced f32, GPU kernels vs CPU "
-          f"plain): max |logit diff| {worst_paged:.3e}")
-    if not (worst <= 5e-2 and worst_paged <= 5e-2):
-        raise AssertionError(f"GPU vs CPU logits differ by {worst}, {worst_paged}")
+        worst = max(worst, _max_err(glog.cpu(), clog))
+    return worst
 
 
 def preemption_check(dev) -> None:
@@ -469,6 +651,57 @@ def preemption_check(dev) -> None:
             raise AssertionError(f"preemption check ({schedule}) failed: {a} / {s_} / {c}")
 
 
+def host_tier_check(dev) -> None:
+    """Reduced llama3.2-1b in float32 with a host tier (block 4, 8 usable
+    device blocks, 8 host blocks), on the GPU, async and sync — the cases
+    of ``tests/test_kv_tiering.py``:
+    * two sequences that do not fit: live spills, no preemption, and the
+      greedy tokens of an unspilled run (the hot/cold lse merge is exact);
+    * a finished prompt's prefix spills at free time and re-hydrates for
+      the same prompt, which continues identically;
+    * a third prompt in the slot the first spilled from decodes as in an
+      unspilled run (its cold window starts empty);
+    and the step clock of each equals the CPU engine's."""
+    cfg = reduce_config("llama3.2-1b").with_overrides(dtype="float32")
+    gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+    p_gpu = gpu.init(seed=3)
+    p_cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+             for k, v in p_gpu.items()}
+    a, b, c = (torch.arange(lo, hi, dtype=torch.int32).numpy()
+               for lo, hi in ((1, 10), (3, 8), (40, 49)))
+
+    def run(model, params, prompts, n_slots=2, **kw):
+        eng = Engine(model, params, n_slots=n_slots, max_seq=32, cache_kind="paged",
+                     block_size=4, **kw)
+        reqs = []
+        for i, p in enumerate(prompts):          # one run() per prompt when n_slots == 1
+            reqs.append(Request(uid=i, prompt=p, max_new_tokens=10))
+            eng.submit(reqs[-1])
+            if n_slots == 1:
+                eng.run()
+        st = eng.run()
+        return st, [r.out_tokens for r in reqs], eng.pool.in_use
+
+    for case, prompts, kw in (
+            ("spill", [a, b], dict(n_blocks=9, host_blocks=8)),
+            ("reuse", [a, b, c], dict(n_blocks=9, host_blocks=8)),
+            ("rehydrate", [a, a], dict(n_slots=1, host_blocks=8))):
+        _, base, _ = run(gpu, p_gpu, prompts, n_slots=kw.get("n_slots", 2))
+        (st, toks, use), (st_s, toks_s, use_s), (st_c, _, _) = (
+            run(m, p, prompts, async_mode=am, **kw)
+            for m, p, am in ((gpu, p_gpu, True), (gpu, p_gpu, False), (cpu, p_cpu, False)))
+        clock = [(x.engine_steps, x.decode_steps, x.spills, x.rehydrations, x.preemptions)
+                 for x in (st, st_s, st_c)]
+        print(f"host-tier check ({case}, GPU): spills={st.spills} "
+              f"rehydrations={st.rehydrations} preemptions={st.preemptions}; tokens == "
+              f"unspilled: {toks == base}, sync == async: {toks == toks_s}; step clock "
+              f"async/sync/CPU {clock}")
+        moved = st.rehydrations >= 2 if case == "rehydrate" else st.spills >= 1
+        if not (moved and st.preemptions == 0 and toks == toks_s == base
+                and use == use_s == 0 and clock[0] == clock[1] == clock[2]):
+            raise AssertionError(f"host-tier check ({case}) failed: {clock}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -488,7 +721,9 @@ def main() -> None:
             if "registers" in line:
                 print(f"ptxas {name}: {line.split(':', 1)[1].strip()}")
 
-    rows = [decode_phase(dev), prefill_phase(dev), paged_phase(dev)]
+    rows = [decode_phase(dev), prefill_phase(dev), prefill_phase(dev, "int8"),
+            prefill_phase(dev, "fp8"), paged_phase(dev), paged_phase(dev, "fp8"),
+            paged_phase(dev, "int8")]
     for r in rows:
         print(f"kernel {r['name']}: err {r['max_abs_err']:.2e} (tol {r['tol']}) "
               f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
@@ -498,21 +733,39 @@ def main() -> None:
     L = model.cfg.n_layers
     by_path = {
         "dense": serve_phase(model, params, "dense", [], lambda st: {
-            "decode_attention": st.decode_steps * L, "prefill_attention": st.prefills * L,
-            "paged_decode_attention": 0}),
+            "decode_attention": {"unscaled": st.decode_steps * L},
+            "prefill_attention": {"unscaled": st.prefills * L},
+            "paged_decode_attention": {}}),
         "paged-hybrid": serve_phase(model, params, "paged-hybrid", PAGED_FLAGS, lambda st: {
-            "decode_attention": 0, "prefill_attention": st.prefill_chunks * L,
-            "paged_decode_attention": st.decode_steps * L}),
+            "decode_attention": {}, "prefill_attention": {"unscaled": st.prefill_chunks * L},
+            "paged_decode_attention": {"unscaled": st.decode_steps * L}}),
+        # tiered: every decode step attends twice per layer (hot and cold
+        # windows); prefill runs unscaled on the bf16 staging cache
+        "paged-tiered": serve_phase(model, params, "paged-tiered", TIERED_FLAGS, lambda st: {
+            "decode_attention": {}, "prefill_attention": {"unscaled": st.prefill_chunks * L},
+            "paged_decode_attention": {"fp8": 2 * st.decode_steps * L}}, tiered=True),
+        "paged-tiered-int8": serve_phase(
+            model, params, "paged-tiered-int8", TIERED_INT8_FLAGS, lambda st: {
+                "decode_attention": {}, "prefill_attention": {"unscaled": st.prefills * L},
+                "paged_decode_attention": {"int8": 2 * st.decode_steps * L}}, tiered=True),
     }
     profile_phase(model, params, "dense", [], warm_steps=4)
     profile_phase(model, params, "paged-hybrid", PAGED_FLAGS, warm_steps=48)
+    # 60 steps in, the profile's 32 requests have filled the pool and begun to spill
+    profile_phase(model, params, "paged-tiered", TIERED_FLAGS, warm_steps=60)
     del model, params
     reference_check(dev)
     preemption_check(dev)
+    host_tier_check(dev)
     for r in rows:
-        r["launches_by_path"] = {path: n[r["name"]] for path, n in by_path.items()}
+        r["launches_by_path"] = {path: n[r["kernel"]].get(r["variant"], 0)
+                                 for path, n in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
-        if not r["launches"]:
+        # the scaled prefill variants are on no serving path of the
+        # reference (its quantized pools prefill into the bf16 staging cache)
+        r["on_main_path"] = not (r["kernel"] == "prefill_attention"
+                                 and r["variant"] != "unscaled")
+        if r["on_main_path"] and not r["launches"]:
             raise AssertionError(f"{r['name']} never launched on the main paths")
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))

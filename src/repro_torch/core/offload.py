@@ -27,24 +27,30 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                            block_tables: torch.Tensor, lengths: torch.Tensor, *,
                            scale: float | None = None, starts: torch.Tensor | None = None,
-                           return_lse: bool = False):
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None, return_lse: bool = False):
     """q (B, Hq, D); pools (N, Hkv, bs, D) kernel-native; block_tables
     (B, MB) int32; lengths (B,) -> (B, Hq, D) [, lse (B, Hkv, G)].
 
-    CPU tensors take the reference engine's branch: gather the blocks into
-    a contiguous cache and run the model-level decode attention (same
-    numerics as the dense cache); with ``starts`` or ``return_lse``, the
-    kernel-level oracle."""
+    ``starts`` restricts attention to the hot window ``[start, length)``;
+    ``k_scale``/``v_scale`` (N, Hkv, bs) f32 mark an fp8/int8 pool;
+    ``return_lse`` also returns the log-sum-exp for an lse merge with
+    another window's partial.  CPU tensors take the reference engine's
+    branch: gather the blocks into a contiguous cache and run the
+    model-level decode attention (same numerics as the dense cache); with
+    ``starts``, scales or ``return_lse``, the kernel-level oracle."""
     if q.is_cuda:
         return ops.paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
                                           scale=scale, starts=starts,
-                                          return_lse=return_lse)
-    if starts is None and not return_lse:
+                                          return_lse=return_lse, k_scale=k_scale,
+                                          v_scale=v_scale)
+    if starts is None and k_scale is None and not return_lse:
         k = ref.gather_paged_cache(k_pool, block_tables)
         v = ref.gather_paged_cache(v_pool, block_tables)
         return attn.decode_attention(q, k, v, lengths, scale=scale)
     return ref.paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
-                                      scale=scale, starts=starts, return_lse=return_lse)
+                                      scale=scale, starts=starts, return_lse=return_lse,
+                                      k_scale=k_scale, v_scale=v_scale)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

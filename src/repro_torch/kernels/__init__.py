@@ -7,11 +7,32 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+# storage dtype of a quantized K/V -> the name of the kernels' scaled variant
+SCALED = {torch.float8_e4m3fn: "fp8", torch.int8: "int8"}
+
+
+def variant(kv_dtype: torch.dtype) -> str:
+    """The launch counters' variant name for a K/V storage dtype."""
+    return SCALED.get(kv_dtype, "unscaled")
+
 
 @dataclasses.dataclass
 class LaunchCounter:
     """Kernel launches made by one wrapper; a run that should have gone
-    through the kernel reads ``launches`` to prove it did."""
+    through the kernel reads ``launches`` to prove it did, and
+    ``variants`` to see which of the kernel's variants ("unscaled", or the
+    "fp8"/"int8" scaled ones) it launched."""
 
     name: str
     launches: int = 0
+    variants: dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def count(self, variant: str = "unscaled") -> None:
+        self.launches += 1
+        self.variants[variant] = self.variants.get(variant, 0) + 1
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.variants.clear()

@@ -9,8 +9,9 @@
 //
 // What bounds it on the H100: bytes.  Each call reads K and V of every
 // live position once, 2 * sum_b (min(len_b, MB*bs) - start_b) * Hkv * D
-// * 2 bytes in bf16, plus the tables, against ~2 * G flops per byte (G =
-// 4 for llama3.2-1b): far below the ~295 flop/byte where the tensor cores
+// * 2 bytes in bf16 (1 byte in fp8/int8, plus one f32 scale per vector),
+// plus the tables, against ~2 * G flops per byte (G = 4 for
+// llama3.2-1b): far below the ~295 flop/byte where the tensor cores
 // would be the limit.
 //
 // Design:
@@ -26,6 +27,14 @@
 //    it are skipped) and stops at min(lengths[b], MB * bs), so idle slots
 //    whose lengths ran past the table and the null block's garbage beyond
 //    lengths[b] are never read; positions below starts[b] are masked;
+//  * fp8-e4m3 and int8 pools (tiered KV) come with f32 scale pools
+//    (N, Hkv, bs), one scale per stored (head, position) vector.  As in
+//    the TPU kernel, a tile is dequantized right after its load: each
+//    row's two scales go to shared memory once per tile, and the row's
+//    payload is widened to f32 and multiplied by its scale before the
+//    shared-memory store, so K and V stream at 1 byte per element and
+//    the rest of the kernel is the bf16 kernel's.  A zero vector has
+//    payload 0 and scale 0 and dequantizes to exactly 0;
 //  * the running max, denominator and G x D accumulator stay in f32, with
 //    the reference's max(l, 1e-30) guard: an empty window gives output 0
 //    and lse = m + log(1e-30) <= -1e30, never NaN.  The lse is written
@@ -48,11 +57,15 @@ constexpr int MAX_T = 64;                    // positions per tile (D <= 64)
 constexpr int ACC_PER_THREAD = MAX_G * MAX_D / THREADS;
 
 // TQ: query/output type, TKV: pool type (f32 activations may read a bf16
-// pool, as the reference engine does in float32 mode).
+// pool, as the reference engine does in float32 mode; a 1-byte TKV is a
+// quantized pool read with k_scale/v_scale).
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-                              const TKV* __restrict__ v, const int* __restrict__ tables,
+                              const TKV* __restrict__ v,
+                              const float* __restrict__ k_scale,
+                              const float* __restrict__ v_scale,
+                              const int* __restrict__ tables,
                               const int* __restrict__ lengths,
                               const int* __restrict__ starts, TQ* __restrict__ out,
                               float* __restrict__ lse, int MB, int Hkv, int bs, int G,
@@ -72,6 +85,7 @@ paged_decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ 
   __shared__ float v_s[MAX_T * 64];
   __shared__ float p_s[MAX_G * MAX_T];
   __shared__ float m_s[MAX_G], l_s[MAX_G], c_s[MAX_G];
+  __shared__ float ks_s[MAX_T], vs_s[MAX_T];   // the tile rows' scales (quantized)
 
   const int cap = MB * bs;
   int len = lengths[b];
@@ -97,19 +111,30 @@ paged_decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ 
   for (int t0 = first; t0 < len; t0 += TS) {
     const int n = min(TS, len - t0);
     __syncthreads();                           // previous tile fully consumed
+    if constexpr (Quantized<TKV>::value) {
+      for (int r = tid; r < n; r += THREADS) {   // one scale pair per row
+        const int p = t0 + r;
+        const long long at = ((long long)table[p / bs] * Hkv + h) * bs + p % bs;
+        ks_s[r] = k_scale[at];
+        vs_s[r] = v_scale[at];
+      }
+      __syncthreads();
+    }
     for (int c = tid; c < n * row_chunks; c += THREADS) {
       const int r = c / row_chunks;
       const int d0 = (c % row_chunks) * VN;
       const int p = t0 + r;
       const long long row = (long long)table[p / bs] * block_stride + head_off +
                             (long long)(p % bs) * D + d0;
+      const float ks = Quantized<TKV>::value ? ks_s[r] : 1.f;
+      const float vs = Quantized<TKV>::value ? vs_s[r] : 1.f;
       float f[VN];
       load16(k + row, f);
 #pragma unroll
-      for (int e = 0; e < VN; ++e) k_s[r * KS + d0 + e] = f[e];
+      for (int e = 0; e < VN; ++e) k_s[r * KS + d0 + e] = Quantized<TKV>::value ? f[e] * ks : f[e];
       load16(v + row, f);
 #pragma unroll
-      for (int e = 0; e < VN; ++e) v_s[r * D + d0 + e] = f[e];
+      for (int e = 0; e < VN; ++e) v_s[r * D + d0 + e] = Quantized<TKV>::value ? f[e] * vs : f[e];
     }
     __syncthreads();
     // scores (G x TS): rows are the GQA group, columns the tile's positions
@@ -176,13 +201,18 @@ paged_decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ 
 }
 
 template <typename TQ, typename TKV>
-int launch(const void* q, const void* k, const void* v, const void* tables,
-           const void* lengths, const void* starts, void* out, void* lse, int B, int MB,
-           int Hkv, int bs, int G, int D, float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, const void* k_scale,
+           const void* v_scale, const void* tables, const void* lengths,
+           const void* starts, void* out, void* lse, int B, int MB, int Hkv, int bs,
+           int G, int D, float scale, cudaStream_t st) {
   if (D % Vec<TKV>::N) return (int)cudaErrorInvalidValue;
+  // scales exactly when the pool is quantized
+  if (Quantized<TKV>::value != (k_scale != nullptr) || (k_scale == nullptr) != (v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(Hkv, B);
   paged_decode_attention_kernel<TQ, TKV><<<grid, THREADS, 0, st>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const int*>(tables), static_cast<const int*>(lengths),
       static_cast<const int*>(starts), static_cast<TQ*>(out), static_cast<float*>(lse),
       MB, Hkv, bs, G, D, scale);
@@ -192,11 +222,13 @@ int launch(const void* q, const void* k, const void* v, const void* tables,
 }  // namespace
 
 // q (B, Hkv*G, D) contiguous; k/v pools (N, Hkv, bs, D) contiguous;
-// tables (B, MB) int32 contiguous, entries in [0, N); lengths (B,) int32;
+// k_scale/v_scale (N, Hkv, bs) f32 contiguous for an fp8/int8 pool, else
+// null; tables (B, MB) int32 contiguous, entries in [0, N); lengths (B,) int32;
 // starts (B,) int32 or null (0); out (B, Hkv*G, D) contiguous, of q's
 // type; lse (B, Hkv, G) f32 or null (not written).  Launches on `stream`
 // and returns cudaGetLastError().
 extern "C" int paged_decode_attention_launch(const void* q, const void* k, const void* v,
+                                             const void* k_scale, const void* v_scale,
                                              const void* tables, const void* lengths,
                                              const void* starts, void* out, void* lse,
                                              int B, int MB, int Hkv, int bs, int G, int D,
@@ -207,12 +239,16 @@ extern "C" int paged_decode_attention_launch(const void* q, const void* k, const
   if (B == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_LAUNCH(TQ, TKV)                                                          \
-  launch<TQ, TKV>(q, k, v, tables, lengths, starts, out, lse, B, MB, Hkv, bs, G, D, scale, \
-                  st)
+  launch<TQ, TKV>(q, k, v, k_scale, v_scale, tables, lengths, starts, out, lse, B, MB, \
+                  Hkv, bs, G, D, scale, st)
   if (q_dtype == BF16 && kv_dtype == BF16) return REPRO_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (q_dtype == F32 && kv_dtype == BF16) return REPRO_LAUNCH(float, __nv_bfloat16);
   if (q_dtype == F32 && kv_dtype == F32) return REPRO_LAUNCH(float, float);
   if (q_dtype == BF16 && kv_dtype == F32) return REPRO_LAUNCH(__nv_bfloat16, float);
+  if (q_dtype == BF16 && kv_dtype == FP8_E4M3) return REPRO_LAUNCH(__nv_bfloat16, __nv_fp8_e4m3);
+  if (q_dtype == F32 && kv_dtype == FP8_E4M3) return REPRO_LAUNCH(float, __nv_fp8_e4m3);
+  if (q_dtype == BF16 && kv_dtype == INT8) return REPRO_LAUNCH(__nv_bfloat16, int8_t);
+  if (q_dtype == F32 && kv_dtype == INT8) return REPRO_LAUNCH(float, int8_t);
 #undef REPRO_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

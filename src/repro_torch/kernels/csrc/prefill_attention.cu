@@ -26,6 +26,14 @@
 //  * templated on the query/output type and the K/V type: the chunked
 //    prefill of the reference's float32 mode attends f32 queries against
 //    the bf16 cache;
+//  * int8/fp8 K/V (the TPU kernel's `quantized` variant): K/V are 1-byte
+//    payloads with f32 scales k_scale/v_scale in the model layout
+//    (B, Sk, Hkv), read through their strides (no transposed copy).  Each
+//    K/V row is widened to f32 and multiplied by its scale right after
+//    its load, before the shared-memory store, as the TPU kernel
+//    dequantizes right after its VMEM load; everything after the load is
+//    the unscaled kernel's.  Unscaled calls pass null scales and run the
+//    unscaled template unchanged;
 //  * Q, K, V tiles and the probability tile live in shared memory as f32,
 //    rows padded by one word against bank conflicts.  Each thread owns a
 //    4 x 8 block of scores and a 4 x D/8 block of the output.
@@ -48,12 +56,16 @@ size_t smem_bytes(int D) {
                           (size_t)BK * D + (size_t)BQ * (BK + 1));
 }
 
-// TQ: query/output type, TKV: key/value type.
+// TQ: query/output type, TKV: key/value type (a 1-byte TKV is a quantized
+// payload read with k_scale/v_scale; scale of key s of kv head h of batch b
+// at b * ss_b + s * ss_s + h * ss_h).
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(THREADS)
 flash_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-                     const TKV* __restrict__ v, TQ* __restrict__ out, int Sq, int Sk,
-                     int Hq, int Hkv, int D, int q_offset, int causal, float scale) {
+                     const TKV* __restrict__ v, const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale, long long ss_b, long long ss_s,
+                     long long ss_h, TQ* __restrict__ out, int Sq, int Sk, int Hq, int Hkv,
+                     int D, int q_offset, int causal, float scale) {
   extern __shared__ float smem[];
   const int QS = D + 1;
   const int PS = BK + 1;
@@ -111,6 +123,15 @@ flash_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
         const long long off = (((long long)b * Sk + k0 + r) * Hkv + hk) * D + d0;
         load16(k + off, fk);
         load16(v + off, fv);
+        if constexpr (Quantized<TKV>::value) {    // dequantize right after the load
+          const long long at = b * ss_b + (long long)(k0 + r) * ss_s + hk * ss_h;
+          const float ks = k_scale[at], vs = v_scale[at];
+#pragma unroll
+          for (int e = 0; e < VN; ++e) {
+            fk[e] *= ks;
+            fv[e] *= vs;
+          }
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < VN; ++e) fk[e] = fv[e] = 0.f;
@@ -203,10 +224,14 @@ flash_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 }
 
 template <typename TQ, typename TKV>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-           int Sk, int Hq, int Hkv, int D, int q_offset, int causal, float scale,
-           cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, const void* k_scale,
+           const void* v_scale, long long ss_b, long long ss_s, long long ss_h, void* out,
+           int B, int Sq, int Sk, int Hq, int Hkv, int D, int q_offset, int causal,
+           float scale, cudaStream_t st) {
   if (D % Vec<TQ>::N || D % Vec<TKV>::N) return (int)cudaErrorInvalidValue;
+  // scales exactly when K/V are quantized
+  if (Quantized<TKV>::value != (k_scale != nullptr) || (k_scale == nullptr) != (v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel<TQ, TKV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -215,16 +240,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_prefill_kernel<TQ, TKV><<<grid, THREADS, smem, st>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      static_cast<TQ*>(out), Sq, Sk, Hq, Hkv, D, q_offset, causal, scale);
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale), ss_b, ss_s,
+      ss_h, static_cast<TQ*>(out), Sq, Sk, Hq, Hkv, D, q_offset, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), out (B, Sq, Hq, D) of q's type, all
-// contiguous (the model layout).  Launches on `stream`, returns
-// cudaGetLastError().
+// contiguous (the model layout).  k_scale/v_scale: f32 (B, Sk, Hkv) with
+// element strides ss_b, ss_s, ss_h (the same for both) for int8/fp8 K/V,
+// else null.  Launches on `stream`, returns cudaGetLastError().
 extern "C" int prefill_attention_launch(const void* q, const void* k, const void* v,
+                                        const void* k_scale, const void* v_scale,
+                                        long long ss_b, long long ss_s, long long ss_h,
                                         void* out, int B, int Sq, int Sk, int Hq,
                                         int Hkv, int D, int q_offset, int causal,
                                         float scale, int q_dtype, int kv_dtype,
@@ -233,11 +262,16 @@ extern "C" int prefill_attention_launch(const void* q, const void* k, const void
   if (Sq < 1 || Sk < 1) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_LAUNCH(TQ, TKV) \
-  launch<TQ, TKV>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, q_offset, causal, scale, st)
+  launch<TQ, TKV>(q, k, v, k_scale, v_scale, ss_b, ss_s, ss_h, out, B, Sq, Sk, Hq, Hkv, D, \
+                  q_offset, causal, scale, st)
   if (q_dtype == BF16 && kv_dtype == BF16) return REPRO_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (q_dtype == F32 && kv_dtype == BF16) return REPRO_LAUNCH(float, __nv_bfloat16);
   if (q_dtype == F32 && kv_dtype == F32) return REPRO_LAUNCH(float, float);
   if (q_dtype == BF16 && kv_dtype == F32) return REPRO_LAUNCH(__nv_bfloat16, float);
+  if (q_dtype == BF16 && kv_dtype == FP8_E4M3) return REPRO_LAUNCH(__nv_bfloat16, __nv_fp8_e4m3);
+  if (q_dtype == F32 && kv_dtype == FP8_E4M3) return REPRO_LAUNCH(float, __nv_fp8_e4m3);
+  if (q_dtype == BF16 && kv_dtype == INT8) return REPRO_LAUNCH(__nv_bfloat16, int8_t);
+  if (q_dtype == F32 && kv_dtype == INT8) return REPRO_LAUNCH(float, int8_t);
 #undef REPRO_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -89,5 +89,5 @@ def kernel(q, k_cache, v_cache, lengths, *, scale: float | None = None):
                  stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
-    COUNTER.launches += 1
+    COUNTER.count()
     return out

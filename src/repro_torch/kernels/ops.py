@@ -3,7 +3,8 @@
 Counterpart of ``repro.kernels.ops``.  A CUDA tensor goes to the Hopper
 kernel (or the wrapper raises); a CPU tensor goes to the kernel's plain
 PyTorch version and never touches the kernel library.  Each kernel
-counts its launches (:func:`launch_counts`).
+counts its launches (:func:`launch_counts`), by variant too
+(:func:`variant_counts`: "unscaled", or the fp8/int8 scaled ones).
 """
 from __future__ import annotations
 
@@ -21,9 +22,13 @@ def launch_counts() -> dict[str, int]:
     return {name: mod.COUNTER.launches for name, mod in KERNELS.items()}
 
 
+def variant_counts() -> dict[str, dict[str, int]]:
+    return {name: dict(mod.COUNTER.variants) for name, mod in KERNELS.items()}
+
+
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
-        mod.COUNTER.launches = 0
+        mod.COUNTER.reset()
 
 
 def _on_cpu(x: torch.Tensor, op: str) -> bool:
@@ -32,6 +37,11 @@ def _on_cpu(x: torch.Tensor, op: str) -> bool:
     if x.device.type == "cpu":
         return True
     raise ValueError(f"{op}: no kernel or plain path for device {x.device}")
+
+
+def _pair(op: str, k_scale, v_scale) -> None:
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{op}: give both k_scale and v_scale or neither")
 
 
 def decode_attention(
@@ -61,15 +71,12 @@ def paged_decode_attention(
 ):
     """``starts`` restricts attention to the window ``[start, length)``;
     ``return_lse`` also returns the per-row log-sum-exp (B, Hkv, G) f32.
-    The fp8/int8 pools' ``k_scale``/``v_scale`` are not ported yet."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "paged_decode_attention with k_scale/v_scale (fp8/int8 pools, tiered KV) "
-            "is not ported yet: ROADMAP.md queue 2 item 3, scaled variant"
-        )
+    ``k_scale``/``v_scale`` (N, Hkv, block_size) f32 mark the pools as
+    fp8-e4m3/int8 payloads, dequantized per stored vector."""
+    _pair("paged_decode_attention", k_scale, v_scale)
     fn = _paged.plain if _on_cpu(q, "paged_decode_attention") else _paged.kernel
     return fn(q, k_pool, v_pool, block_tables, lengths, scale=scale, starts=starts,
-              return_lse=return_lse)
+              return_lse=return_lse, k_scale=k_scale, v_scale=v_scale)
 
 
 def flash_attention(
@@ -83,12 +90,9 @@ def flash_attention(
     v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``q_offset`` is the absolute position of q[:, 0] (a host int).
-    The int8/fp8 ``k_scale``/``v_scale`` variant is not ported yet."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "flash_attention with k_scale/v_scale (tiered KV) is not ported yet: "
-            "ROADMAP.md queue 2 item 2, scaled variant"
-        )
-    if _on_cpu(q, "flash_attention"):
-        return _prefill.plain(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
-    return _prefill.kernel(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
+    ``k_scale``/``v_scale`` (B, Sk, Hkv) f32 mark k/v as int8/fp8
+    payloads, dequantized per stored vector."""
+    _pair("flash_attention", k_scale, v_scale)
+    fn = _prefill.plain if _on_cpu(q, "flash_attention") else _prefill.kernel
+    return fn(q, k, v, causal=causal, scale=scale, q_offset=q_offset, k_scale=k_scale,
+              v_scale=v_scale)

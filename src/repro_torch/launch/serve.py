@@ -7,18 +7,23 @@
       --requests 64 --slots 16 --max-seq 1024 --max-new 64 \\
       --cache paged --schedule hybrid --blocks 385
 
+  python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --requests 64 --slots 16 --max-seq 1024 --max-new 64 \
+      --cache paged --schedule hybrid --kv-dtype fp8 --host-blocks 512 --blocks 129
+
 Counterpart of ``repro.launch.serve`` for the dense per-slot KV cache
-and the paged block pool (``--cache``, ``--block-size``, ``--blocks``;
-bf16 pool, no host tier), the decode-only and hybrid chunked-prefill
-schedules (``--schedule``, ``--prefill-chunk``, ``--token-budget``), the
-``random`` workload, greedy sampling (or ``--sample temperature|top-k``)
-and the async dispatch-ahead engine (``--async off`` for the synchronous
-one).  Weights are random, drawn from ``--seed`` on the device.  The run
-is on the GPU; ``--device cpu`` runs the plain PyTorch path (with
+and the paged block pool (``--cache``, ``--block-size``, ``--blocks``),
+tiered KV on the pool (``--kv-dtype fp8|int8`` stores it quantized,
+``--host-blocks`` adds the host tier that cold blocks spill to), the
+decode-only and hybrid chunked-prefill schedules (``--schedule``,
+``--prefill-chunk``, ``--token-budget``), the ``random`` workload,
+greedy sampling (or ``--sample temperature|top-k``) and the async
+dispatch-ahead engine (``--async off`` for the synchronous one).
+Weights are random, drawn from ``--seed`` on the device.  The run is on
+the GPU; ``--device cpu`` runs the plain PyTorch path (with
 ``--reduced``, the test scale).  It prints the reference's stats,
-latency and ``pool:`` lines; the balancer line, telemetry, tiered KV
-(``--kv-dtype fp8|int8``, ``--host-blocks``), speculation and cluster
-flags arrive with later slices.
+latency, ``pool:`` and ``kv tier:`` lines; the balancer line,
+telemetry, speculation and cluster flags arrive with later slices.
 """
 from __future__ import annotations
 
@@ -60,10 +65,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged: pool size incl. null block "
                          "(default: dense-equivalent budget)")
     ap.add_argument("--kv-dtype", choices=("bf16", "fp8", "int8"), default="bf16",
-                    help="paged: KV block storage dtype (fp8/int8 come with "
-                         "the tiered-KV slice)")
+                    help="paged: KV block storage dtype; fp8/int8 store quantized "
+                         "blocks with per-vector f32 scales")
     ap.add_argument("--host-blocks", type=int, default=0,
-                    help="paged: host-tier KV blocks (comes with the tiered-KV slice)")
+                    help="paged: host-tier KV blocks; cold blocks spill here instead "
+                         "of forcing preemption, and a spilled sequence keeps "
+                         "decoding over its hot and cold windows (lse-merged)")
     ap.add_argument("--schedule", choices=("decode-only", "hybrid"),
                     default="decode-only",
                     help="hybrid: fuse chunked prefill into decode steps")
@@ -109,22 +116,14 @@ class ServeResult:
         return self.engine.stats
 
 
-def check_args(args) -> None:
-    """Refuse the flags whose features are not ported yet."""
-    if args.kv_dtype != "bf16" or args.host_blocks:
-        raise SystemExit("--kv-dtype fp8|int8 and --host-blocks come with the "
-                         "tiered-KV slice (ROADMAP.md queue 1 item 8); this port "
-                         "takes --kv-dtype bf16 --host-blocks 0")
-
-
 def make_engine(args, model: Model, params: dict) -> Engine:
     """A fresh engine configured by ``args``."""
-    check_args(args)
     _, sampler = make_sampler(args)
     return Engine(model, params, n_slots=args.slots, max_seq=args.max_seq,
                   sampler=sampler, async_mode=args.async_mode == "on",
                   seed=args.seed, cache_kind=args.cache, block_size=args.block_size,
-                  n_blocks=args.blocks, schedule=args.schedule,
+                  n_blocks=args.blocks, kv_dtype=args.kv_dtype,
+                  host_blocks=args.host_blocks, schedule=args.schedule,
                   prefill_chunk=args.prefill_chunk, token_budget=args.token_budget)
 
 
@@ -171,6 +170,10 @@ def report(args, res: ServeResult) -> list[str]:
     ]
     if args.cache == "paged":
         lines.append(f"pool: {res.engine.pool.stats} kv_bytes={res.engine.kv_bytes()}")
+        if args.host_blocks:
+            lines.append(f"kv tier: spills={s.spills} rehydrations={s.rehydrations} "
+                         f"host_peak={res.engine.pool.stats.host_peak_in_use}"
+                         f"/{args.host_blocks} blocks")
     return lines
 
 

@@ -3,9 +3,10 @@
 Counterpart of ``repro.models.dense`` for ``param_defs``, ``cache_defs``
 / ``init_cache``, ``prefill``, ``decode_step``, ``decode_sample_step``,
 the paged pool (``paged_cache_defs`` / ``init_paged_cache``,
-``paged_decode_step``, ``paged_decode_sample_step``) and chunked prefill
-(``prefill_step``, ``prefill_sample_step``); no ``kv_quant``, no fp8/int8
-pools and no host tier.  Layers are stacked on a leading dim as in the
+``paged_decode_step``, ``paged_decode_sample_step``) with its tiered-KV
+leaves (fp8/int8 pools with f32 scale pools, the host tier) and chunked
+prefill (``prefill_step``, ``prefill_sample_step``); not the dense
+cache's ``kv_quant``.  Layers are stacked on a leading dim as in the
 reference and iterated with a Python loop.  Attention goes through
 ``core.offload``: the Hopper kernels on the GPU, the plain versions on
 the CPU.
@@ -23,6 +24,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import offload
+from repro_torch.kernels import ref
 from repro_torch.models import common as cm
 from repro_torch.models.common import ParamDef
 from repro_torch.serving.sampler import sample_on_device
@@ -96,36 +98,76 @@ def paged_cache_defs(cfg, n_slots: int, n_blocks: int, block_size: int,
     """Physical KV as a pool of fixed-size blocks shared by all slots,
     kernel-native ``(L, n_blocks, Hkv, block_size, Dh)`` (heads before
     positions); ``block_tables`` maps (slot, logical block) -> physical
-    block, entry 0 being the null block."""
-    if kv_dtype != "bf16":
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r} (quantized pools, tiered KV) is not ported yet: "
-            "ROADMAP.md queue 1 item 8")
-    if host_blocks:
-        raise NotImplementedError(
-            "host_blocks > 0 (the host tier, tiered KV) is not ported yet: "
-            "ROADMAP.md queue 1 item 8")
+    block, entry 0 being the null block.
+
+    Tiered KV: ``kv_dtype`` in {"fp8", "int8"} stores the pool quantized,
+    with f32 scale pools ``k_scale``/``v_scale`` (one scale per stored
+    (head, position) vector); ``host_blocks > 0`` adds the host tier —
+    ``host_k``/``host_v`` (with ``host_k_scale``/``host_v_scale`` when
+    quantized) of ``host_blocks + 1`` blocks, host id 0 being its null
+    block, plus per-slot ``host_tables`` and ``cold_lengths``.  The host
+    pool lives on the same device as the rest of the cache, as the
+    reference's unsharded host leaves live on its one device."""
     L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim()
     kv = ParamDef((L, n_blocks, Hkv, block_size, Dh),
                   ("layers", "kv_blocks", "kv_heads", "kv_seq", "head_dim"), "zeros")
-    return {
+    defs = {
         "k": kv,
         "v": kv,
         "block_tables": ParamDef((n_slots, max_blocks), ("kv_batch", None), "zeros"),
         "lengths": ParamDef((n_slots,), ("kv_batch",), "zeros"),
     }
+    quant = kv_dtype in ("fp8", "int8")
+    if quant:
+        sc = ParamDef((L, n_blocks, Hkv, block_size),
+                      ("layers", "kv_blocks", "kv_heads", "kv_seq"), "zeros")
+        defs["k_scale"] = sc
+        defs["v_scale"] = sc
+    if host_blocks > 0:
+        hkv = ParamDef((L, host_blocks + 1, Hkv, block_size, Dh),
+                       ("layers", None, "kv_heads", "kv_seq", "head_dim"), "zeros")
+        defs["host_k"] = hkv
+        defs["host_v"] = hkv
+        defs["host_tables"] = ParamDef((n_slots, max_blocks), ("kv_batch", None), "zeros")
+        defs["cold_lengths"] = ParamDef((n_slots,), ("kv_batch",), "zeros")
+        if quant:
+            hsc = ParamDef((L, host_blocks + 1, Hkv, block_size),
+                           ("layers", None, "kv_heads", "kv_seq"), "zeros")
+            defs["host_k_scale"] = hsc
+            defs["host_v_scale"] = hsc
+    return defs
+
+
+# kv_dtype name -> pool storage dtype (scales are always f32)
+PAGED_KV_DTYPES = {
+    "bf16": torch.bfloat16,
+    "fp8": torch.float8_e4m3fn,
+    "int8": torch.int8,
+}
+
+
+def _kv_dtype_name(dtype: torch.dtype) -> str | None:
+    """Storage dtype -> quantization name (None = unquantized)."""
+    if dtype == torch.int8:
+        return "int8"
+    if dtype == torch.float8_e4m3fn:
+        return "fp8"
+    return None
 
 
 def init_paged_cache(cfg, n_slots: int, n_blocks: int, block_size: int,
                      max_blocks: int, dtype=torch.bfloat16, kv_dtype: str = "bf16",
                      host_blocks: int = 0, device: torch.device | str = "cpu") -> Pytree:
+    if cfg.kv_quant and kv_dtype == "bf16":
+        kv_dtype = "int8"           # cfg-level quant maps onto the int8 tier
     defs = paged_cache_defs(cfg, n_slots, n_blocks, block_size, max_blocks,
                             kv_dtype=kv_dtype, host_blocks=host_blocks)
-    return {
-        k: torch.zeros(d.shape, dtype=dtype if k in ("k", "v") else torch.int32,
-                       device=device)
-        for k, d in defs.items()
-    }
+    pool_dt = PAGED_KV_DTYPES[kv_dtype] if kv_dtype != "bf16" else dtype
+    dt = {"k": pool_dt, "v": pool_dt, "host_k": pool_dt, "host_v": pool_dt,
+          "k_scale": torch.float32, "v_scale": torch.float32,
+          "host_k_scale": torch.float32, "host_v_scale": torch.float32}
+    return {k: torch.zeros(d.shape, dtype=dt.get(k, torch.int32), device=device)
+            for k, d in defs.items()}
 
 
 def paged_decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
@@ -133,17 +175,31 @@ def paged_decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
     math, with the new K/V scattered to ``(tables[b, len // bs], len %
     bs)`` and attention reading each row's blocks through its table.
 
-    Idle slots (table all-null) write into null block 0; several may hit
-    the same position there, and the winner is left undefined, which is
-    harmless because no kernel reads a position at or past ``lengths``.
-    An idle slot whose length ran past ``max_blocks * bs`` reads table
-    column ``max_blocks - 1`` (JAX clamps that gather; the port clamps the
-    index without a host sync) — still the null block."""
+    Idle slots (table all-null) write into null block 0 (of the scale
+    pools too); several may hit the same position there, and the winner
+    is left undefined, which is harmless because no kernel reads a
+    position at or past ``lengths``.  An idle slot whose length ran past
+    ``max_blocks * bs`` reads table column ``max_blocks - 1`` (JAX clamps
+    that gather; the port clamps the index without a host sync) — still
+    the null block.
+
+    The cache's leaves select the tier, as in the reference: an fp8/int8
+    pool (``k_scale`` present) appends the new K/V quantized and the
+    attention dequantizes it; with a host tier (``host_k`` present) every
+    layer attends twice — the hot window ``[cold_len, len]`` of the device
+    pool and the cold prefix ``[0, cold_len)`` in the host pool, each
+    through the paged kernel on the GPU (the kernel-level oracle on the
+    CPU) — and merges the two by log-sum-exp, so a spilled sequence
+    keeps decoding without a re-prefill.  A slot with nothing spilled has
+    an empty cold window, whose merge weight is 0."""
     lengths = cache["lengths"]
     tables = cache["block_tables"]
     bs = cache["k"].shape[3]
     MB = tables.shape[1]
     B = tokens.shape[0]
+    quant = _kv_dtype_name(cache["k"].dtype)            # None | "fp8" | "int8"
+    hosted = "host_k" in cache
+    cold = cache["cold_lengths"] if hosted else None
     x = cm.embed_lookup(params["embed"], tokens)                # (B, D)
     pos = lengths.long()
     bidx = torch.arange(B, device=x.device)
@@ -157,10 +213,29 @@ def paged_decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
         k = cm.rope(cm.linear(h, p["wk"])[:, None], pos[:, None], cfg.rope_theta)[:, 0]
         v = cm.linear(h, p["wv"])
         k_l, v_l = cache["k"][l], cache["v"][l]                 # (N, Hkv, bs, Dh)
+        ks_l = vs_l = None
         # advanced indices around the head slice: the selection is (B, Hkv, Dh)
-        k_l[phys, :, off] = k.to(k_l.dtype)
-        v_l[phys, :, off] = v.to(v_l.dtype)
-        o = offload.paged_decode_attention(q, k_l, v_l, tables, attn_len)
+        if quant:
+            ks_l, vs_l = cache["k_scale"][l], cache["v_scale"][l]   # (N, Hkv, bs)
+            for pool, spool, new in ((k_l, ks_l, k), (v_l, vs_l, v)):
+                payload, sc = ref.kv_quantize(new, quant)
+                ref.byte_view(pool)[phys, :, off] = ref.byte_view(payload)
+                spool[phys, :, off] = sc
+        else:
+            k_l[phys, :, off] = k.to(k_l.dtype)
+            v_l[phys, :, off] = v.to(v_l.dtype)
+        if hosted:
+            o, lse_hot = offload.paged_decode_attention(
+                q, k_l, v_l, tables, attn_len, starts=cold, k_scale=ks_l, v_scale=vs_l,
+                return_lse=True)
+            o_cold, lse_cold = offload.paged_decode_attention(
+                q, cache["host_k"][l], cache["host_v"][l], cache["host_tables"], cold,
+                k_scale=cache["host_k_scale"][l] if quant else None,
+                v_scale=cache["host_v_scale"][l] if quant else None, return_lse=True)
+            o = ref.lse_merge([(o, lse_hot), (o_cold, lse_cold)])
+        else:
+            o = offload.paged_decode_attention(q, k_l, v_l, tables, attn_len,
+                                               k_scale=ks_l, v_scale=vs_l)
         x = x + cm.linear(o, p["wo"], n_in=2)
         h = cm.rmsnorm(x, p["ln2"], cfg.norm_eps)
         x = x + cm.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])

@@ -40,9 +40,9 @@ class Model:
     #   -> (token (1,), cache)
     prefill_step: Callable[..., tuple[torch.Tensor, Pytree]]
     prefill_sample_step: Callable[..., tuple[torch.Tensor, Pytree]]
-    # paged pool: (n_slots, n_blocks, block_size, max_blocks) -> cache;
-    # paged_decode_step / paged_decode_sample_step as decode_step /
-    # decode_sample_step, against the pool
+    # paged pool: (n_slots, n_blocks, block_size, max_blocks, *, kv_dtype,
+    # host_blocks) -> cache; paged_decode_step / paged_decode_sample_step
+    # as decode_step / decode_sample_step, against the pool
     paged_cache_defs: Callable[..., Pytree]
     init_paged_cache: Callable[..., Pytree]
     paged_decode_step: Callable[..., tuple[torch.Tensor, Pytree]]

@@ -2,9 +2,9 @@
 or hybrid schedule, synchronous or dispatch-ahead.
 
 Counterpart of ``repro.serving.engine`` for ``cache_kind`` in {"dense",
-"paged"} (bf16 pool, no host tier) and ``schedule`` in {"decode-only",
-"hybrid"}, in both execution modes.  Speculation, sub-batch pipelining,
-the fp8/int8 pools, the host tier, telemetry and cross-replica migration
+"paged"} (bf16, fp8 or int8 pool, with or without the host tier) and
+``schedule`` in {"decode-only", "hybrid"}, in both execution modes.
+Speculation, sub-batch pipelining, telemetry and cross-replica migration
 raise ``NotImplementedError`` or are absent until their slices are
 ported.
 
@@ -22,7 +22,12 @@ queued request is prefilled into it while the others keep decoding.
   free blocks, shared prompt prefixes share blocks (copy-on-write on the
   first divergent append), and a dry pool preempts the youngest sequence
   back to the queue, to be re-prefilled from prompt plus generated
-  tokens (greedy-exact).
+  tokens (greedy-exact).  ``kv_dtype="fp8"|"int8"`` stores the pool
+  quantized (the staging cache stays full precision).  ``host_blocks >
+  0`` adds a host tier: freed prefix blocks spill there and re-hydrate
+  as cache hits, and a dry pool first spills the oldest sequence's cold
+  prefix blocks (spill-before-evict) — that sequence keeps decoding over
+  its hot and cold windows, merged by log-sum-exp.
 * ``schedule="hybrid"`` — the token-budget :class:`Scheduler` packs each
   step as one decode token per active slot plus one bucket-padded chunk
   of the head-of-queue prompt (two at a prompt boundary: Sarathi-SC
@@ -229,16 +234,13 @@ class Engine:
         if cache_kind != "paged" and (kv_dtype != "bf16" or host_blocks):
             raise ValueError("kv_dtype / host_blocks are paged-cache features "
                              f"(cache_kind={cache_kind!r})")
-        if kv_dtype != "bf16" or host_blocks:
-            raise NotImplementedError(
-                "fp8/int8 pools and the host tier (tiered KV) are not ported yet: "
-                "ROADMAP.md queue 1 item 8")
         self.model = model
         self.params = params
         self.device = model.device
         self.max_seq = max_seq
         self.sampler = sampler
         self.cache_kind = cache_kind
+        self.host_blocks = host_blocks
         self.schedule = schedule
         self.prefill_chunk = prefill_chunk
         self.async_mode = async_mode
@@ -257,10 +259,11 @@ class Engine:
                 raise ValueError(
                     f"pool of {self.n_blocks - 1} usable blocks cannot hold one "
                     f"max_seq={max_seq} sequence ({self.max_blocks} blocks)")
-            self.pool = BlockPool(self.n_blocks, block_size)
+            self.pool = BlockPool(self.n_blocks, block_size, host_blocks=host_blocks)
             self.manager = PagedCacheManager(self.pool, n_slots, self.max_blocks)
             self.cache = model.init_paged_cache(n_slots, self.n_blocks, block_size,
-                                                self.max_blocks)
+                                                self.max_blocks, kv_dtype=kv_dtype,
+                                                host_blocks=host_blocks)
             self._decode = model.paged_decode_step
             self._decode_sampled = model.paged_decode_sample_step
         else:
@@ -425,10 +428,22 @@ class Engine:
         self.slots[slot] = None
         if self.cache_kind == "paged":
             self.manager.free_slot(slot)
+            # dying registered blocks may spill host-ward: copy before the
+            # freed device blocks can be reallocated and rewritten
             self._apply_pool_directives()
-            paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot], 0)
+            self._sync_freed(slot)
         else:
             kv_cache.reset_slot(self.cache, slot)
+
+    def _sync_freed(self, slot: int) -> None:
+        """Push a freed slot's empty rows: its block table and length, and
+        with a host tier its host table and cold length.  (The reference
+        leaves a freed slot's device cold length as it was, so a later
+        request in a slot that had spilled would attend with the old
+        request's cold window; the port resets it here.)"""
+        paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot], 0)
+        if self.host_blocks:
+            paged_dev.sync_host_slot(self.cache, slot, self.manager.host_tables[slot], 0)
 
     # ------------------------------------------- admission (whole prefill)
     def _prefill_cost(self, n_tokens: int) -> int:
@@ -472,6 +487,8 @@ class Engine:
             if req.admit_step < 0:
                 req.admit_step = self.stats.engine_steps
             blocks, n_cached = res
+            # host-tier prefix hits re-hydrate: apply the copies before the
+            # prefill's own block writes go out
             self._apply_pool_directives()
             pad = -(-len(full) // bs) * bs
             sub_cache = self.model.init_cache(1, pad)
@@ -525,6 +542,8 @@ class Engine:
         lane = 0 if 0 not in self._pf_lane.values() else 1
         self._pf_lane[slot] = lane
         matched = self.manager.begin_chunked(slot, full)
+        # host-tier hits re-hydrate into fresh device blocks: the copies
+        # land before the staging reads below consume them
         self._apply_pool_directives()
         self._pf_prefix[slot] = len(matched)
         for j, phys in enumerate(matched):
@@ -604,12 +623,41 @@ class Engine:
 
     # ----------------------------------------------------- block management
     def _apply_pool_directives(self) -> None:
-        """Drain the pool's device<->host copy directives into device ops.
-        Only the host tier emits them, and it is not ported: a directive
-        here is a fault."""
-        for kind, _, _ in self.pool.drain_directives():
-            raise NotImplementedError(f"pool directive {kind!r} needs the host tier "
-                                      "(tiered KV, ROADMAP.md queue 1 item 8)")
+        """Drain the pool's device<->host copy directives into block copies.
+        Runs after every manager/pool call that can spill or re-hydrate,
+        before anything else is issued that could rewrite an involved
+        block: stream order then puts the copy ahead of it."""
+        for kind, a, b in self.pool.drain_directives():
+            if kind == "spill":
+                paged_dev.spill_block(self.cache, a, b)
+                self.stats.spills += 1
+            else:
+                paged_dev.rehydrate_block(self.cache, a, b)
+                self.stats.rehydrations += 1
+
+    def _try_spill(self, alive) -> bool:
+        """Spill-before-evict: free one device block by moving the oldest
+        sequence's coldest hot block to the host tier.  That sequence keeps
+        decoding (hot and cold windows, lse-merged), with no re-prefill.
+        False when nothing can spill (no qualifying block, or the host tier
+        is full)."""
+        for s in sorted(alive, key=lambda x: self.manager.admit_seq[x]):
+            if self.slots[s] is None:
+                continue
+            if self.manager.spill_live_prefix(s, self._kv_len(s)):
+                self._apply_pool_directives()
+                paged_dev.sync_slot(self.cache, s, self.manager.tables[s])
+                paged_dev.sync_host_slot(self.cache, s, self.manager.host_tables[s],
+                                         self.manager.cold_len(s))
+                return True
+        return False
+
+    def _kv_len(self, slot: int) -> int:
+        """KV positions held for ``slot`` (its last sampled token is the
+        next step's input, not yet appended), counting in-flight tokens:
+        the async engine plans from dispatched, not observed, state."""
+        req = self.slots[slot]
+        return len(req.prompt) + len(req.out_tokens) + req.in_flight - 1
 
     def _append_span(self, slot: int) -> tuple[int, int]:
         """Inclusive position range [lo, hi] the slot's next dispatch may
@@ -625,15 +673,16 @@ class Engine:
         self.slots[slot] = None
         self.manager.free_slot(slot)
         self._apply_pool_directives()
-        paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot], 0)
+        self._sync_freed(slot)
         self.sched.push_front(req)
         self.stats.preemptions += 1
         self.pool.stats.preemptions += 1
 
     def _prepare_append(self, active: list[int]) -> list[int]:
         """Guarantee every active slot can write its next token: allocate
-        boundary blocks, copy-on-write shared tails, preempt the youngest
-        sequence when the pool runs dry.  Returns the surviving slots.
+        boundary blocks, copy-on-write shared tails, and when the pool runs
+        dry spill a cold prefix block to the host tier (if there is one)
+        or else preempt the youngest sequence.  Returns the surviving slots.
 
         Async: only the victim's in-flight tokens are observed first
         (:meth:`_observe_victim`); they may reveal it already finished,
@@ -655,6 +704,8 @@ class Engine:
                     break       # mapped (or at the cache top: the write is clamped)
                 directive, payload = self.manager.ensure_append(slot, pos)
                 if directive == "oom":
+                    if self.host_blocks and self._try_spill(alive):
+                        continue        # freed a block without evicting anyone
                     victim = self.manager.youngest(alive)
                     self._observe_victim(victim)
                     if self.slots[victim] is None:

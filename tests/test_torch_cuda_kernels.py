@@ -6,7 +6,9 @@ imports torch and the port only, so it runs where JAX is not installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: f32 2e-6 and bf16 2e-2, as ``tests/test_kernels.py`` holds
-the Pallas kernels to their oracles.
+the Pallas kernels to their oracles; the scaled (fp8/int8) variants 1e-5
+for f32 queries (dequantized values up to a few units make the scores
+larger than the unit-normal cases') and 2e-2 for bf16.
 """
 import numpy as np
 import pytest
@@ -130,11 +132,27 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         ops.decode_attention(q, k, k, torch.ones(2, dtype=torch.int32, device=cuda))
     x = torch.zeros(1, 4, 2, 8, device=cuda)
-    with pytest.raises(NotImplementedError):
-        ops.flash_attention(x, x, x, k_scale=torch.ones(1, 4, 2, device=cuda),
-                            v_scale=torch.ones(1, 4, 2, device=cuda))
     with pytest.raises(ValueError):
         ops.flash_attention(x[:, :, :, :4].contiguous(), x, x)
+
+
+def test_scaled_flash_kernel_rejects_bad_scales(cuda):
+    """Scales only in pairs, only f32, only with 1-byte K/V, in the
+    (B, Sk, Hkv) layout."""
+    q = torch.zeros(1, 4, 4, 16, device=cuda)
+    k = torch.zeros(1, 4, 2, 16, device=cuda, dtype=torch.int8)
+    s = torch.ones(1, 4, 2, device=cuda)
+    with pytest.raises(ValueError, match="both"):
+        ops.flash_attention(q, k, k, k_scale=s)
+    with pytest.raises(TypeError, match="float32"):
+        ops.flash_attention(q, k, k, k_scale=s.bfloat16(), v_scale=s.bfloat16())
+    with pytest.raises(ValueError, match="shape"):
+        ops.flash_attention(q, k, k, k_scale=s[:, :2], v_scale=s[:, :2])
+    with pytest.raises(ValueError, match="need"):
+        ops.flash_attention(q, k, k)                       # int8 K/V without scales
+    with pytest.raises(ValueError, match="take no"):
+        ops.flash_attention(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous(),
+                            k_scale=s, v_scale=s)
 
 
 def test_decode_kernel_f32_queries_over_bf16_cache(cuda):
@@ -217,9 +235,30 @@ def test_paged_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         ops.paged_decode_attention(q, pool[:, :, :8], pool[:, :, :8], tables.long(),
                                    lengths)
-    with pytest.raises(NotImplementedError):
-        ops.paged_decode_attention(q, pool, pool, tables, lengths,
-                                   k_scale=torch.ones(1), v_scale=torch.ones(1))
+
+
+
+def test_scaled_paged_kernel_rejects_bad_scales(cuda):
+    """Scale pools only in pairs, only f32, only for an fp8/int8 pool, of
+    shape (N, Hkv, bs)."""
+    q = torch.zeros(2, 4, 16, device=cuda)
+    pool = torch.zeros(5, 2, 8, 16, device=cuda).to(torch.float8_e4m3fn)
+    s = torch.ones(5, 2, 8, device=cuda)
+    tables = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    lengths = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="both"):
+        ops.paged_decode_attention(q, pool, pool, tables, lengths, v_scale=s)
+    with pytest.raises(TypeError, match="float32"):
+        ops.paged_decode_attention(q, pool, pool, tables, lengths, k_scale=s.double(),
+                                   v_scale=s.double())
+    with pytest.raises(ValueError, match="shape"):
+        ops.paged_decode_attention(q, pool, pool, tables, lengths, k_scale=s[:4],
+                                   v_scale=s[:4])
+    with pytest.raises(ValueError, match="needs"):
+        ops.paged_decode_attention(q, pool, pool, tables, lengths)
+    with pytest.raises(ValueError, match="takes no"):
+        ops.paged_decode_attention(q, pool.float(), pool.float(), tables, lengths,
+                                   k_scale=s, v_scale=s)
 
 
 @pytest.mark.parametrize("sq,sk,off", [(16, 64, 0), (8, 64, 29), (37, 40, 3)])
@@ -234,3 +273,72 @@ def test_prefill_kernel_f32_queries_over_bf16_cache(cuda, sq, sk, off):
     assert out.dtype == torch.float32
     exp = ref.naive_attention(q, k, v, q_offset=off)
     np.testing.assert_allclose(_np(out), _np(exp), atol=1e-5, rtol=1e-5)
+
+
+def _quantized(x: torch.Tensor, kv: str):
+    return ref.kv_quantize(x * 3, kv)
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv", ["fp8", "int8"])
+@pytest.mark.parametrize("case", PAGED_CASES[1:])
+def test_scaled_paged_kernel_matches_plain(cuda, case, kv, q_dtype):
+    """fp8/int8 pools with their scale pools (garbage in null block 0 of
+    both), plain and with a ``starts`` window + lse (row 0's window
+    empty)."""
+    dt = getattr(torch, q_dtype)
+    q, kp, vp, tables, lengths = _paged_inputs(case, cuda, torch.float32, q_dtype=dt,
+                                               seed=3)
+    (kq, ks), (vq, vs) = _quantized(kp, kv), _quantized(vp, kv)
+    ks[0], vs[0] = 7.5, -3.0
+    tol = 1e-5 if q_dtype == "float32" else 2e-2
+    before = ops.variant_counts()["paged_decode_attention"].get(kv, 0)
+    out = ops.paged_decode_attention(q, kq, vq, tables, lengths, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert ops.variant_counts()["paged_decode_attention"][kv] == before + 1
+    exp = ref.paged_decode_attention(q, kq, vq, tables, lengths, k_scale=ks, v_scale=vs)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=tol, rtol=tol)
+    starts = (lengths // 3).to(torch.int32)
+    starts[0] = lengths[0] + 2
+    out, lse = ops.paged_decode_attention(q, kq, vq, tables, lengths, starts=starts,
+                                          return_lse=True, k_scale=ks, v_scale=vs)
+    exp, exp_lse = ref.paged_decode_attention(q, kq, vq, tables, lengths, starts=starts,
+                                              return_lse=True, k_scale=ks, v_scale=vs)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(lse)[1:], _np(exp_lse)[1:], atol=1e-3, rtol=1e-4)
+    assert float(out[0].abs().max()) == 0.0 and float(lse[0].max()) <= -1e30
+
+
+@pytest.mark.parametrize("kv", ["fp8", "int8"])
+def test_scaled_paged_kernel_zero_vectors_dequantize_to_zero(cuda, kv):
+    """An all-zero V has payload 0 and scale 0: the output is exactly 0."""
+    q, kp, vp, tables, lengths = _paged_inputs(PAGED_CASES[1], cuda, torch.float32, seed=4)
+    (kq, ks), (vq, vs) = _quantized(kp, kv), _quantized(torch.zeros_like(vp), kv)
+    assert float(vs.abs().max()) == 0.0
+    out = ops.paged_decode_attention(q, kq, vq, tables, lengths, k_scale=ks, v_scale=vs)
+    assert float(out.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv", ["fp8", "int8"])
+@pytest.mark.parametrize("sq,off,causal", [(37, 0, True), (16, 29, True), (48, 0, False)])
+def test_scaled_flash_kernel_matches_plain(cuda, sq, off, causal, kv, q_dtype):
+    """int8/fp8 K/V with (B, Sk, Hkv) f32 scales at llama3.2-1b's heads,
+    ragged lengths and a q_offset; one scale tensor read through
+    non-contiguous strides (a transposed (B, Hkv, Sk) buffer)."""
+    dt = getattr(torch, q_dtype)
+    rng = np.random.default_rng(sq + off)
+    q = _randn(rng, (2, sq, 8, 64), cuda, dt)
+    (kq, ks), (vq, vs) = (_quantized(_randn(rng, (2, sq + off, 2, 64), cuda, torch.float32),
+                                     kv) for _ in range(2))
+    ks_t = ks.transpose(1, 2).contiguous().transpose(1, 2)      # same values, other strides
+    vs_t = vs.transpose(1, 2).contiguous().transpose(1, 2)
+    tol = 1e-5 if q_dtype == "float32" else 2e-2
+    before = ops.variant_counts()["prefill_attention"].get(kv, 0)
+    out = ops.flash_attention(q, kq, vq, causal=causal, q_offset=off, k_scale=ks_t,
+                              v_scale=vs_t)
+    torch.cuda.synchronize()
+    assert ops.variant_counts()["prefill_attention"][kv] == before + 1
+    exp = ref.naive_attention(q, kq, vq, causal=causal, q_offset=off, k_scale=ks,
+                              v_scale=vs)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=tol, rtol=tol)

@@ -131,14 +131,30 @@ def test_sync_and_async_are_token_identical(models):
 @pytest.mark.parametrize("kw", [
     dict(spec_depth=2),
     dict(sub_batches=2),
-    dict(cache_kind="paged", kv_dtype="fp8"),
-    dict(cache_kind="paged", kv_dtype="int8"),
-    dict(cache_kind="paged", host_blocks=4),
-], ids=["spec_depth", "sub_batches", "fp8", "int8", "host_blocks"])
+], ids=["spec_depth", "sub_batches"])
 def test_unported_engine_options_raise(models, kw):
     _, _, model, params = models
     with pytest.raises(NotImplementedError):
         Engine(model, params, n_slots=1, max_seq=16, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kv_dtype="fp8"),
+    dict(kv_dtype="int8"),
+    dict(host_blocks=4),
+], ids=["fp8", "int8", "host_blocks"])
+def test_tiered_engine_cache_has_reference_leaves(models, kw):
+    """The engine's paged cache with an fp8/int8 pool or a host tier has
+    the leaves, shapes and dtypes of the reference's
+    ``init_paged_cache(kv_dtype=..., host_blocks=...)``."""
+    jmodel, _, model, params = models
+    eng = Engine(model, params, n_slots=2, max_seq=16, cache_kind="paged", block_size=4,
+                 **kw)
+    jcache = jmodel.init_paged_cache(2, eng.n_blocks, 4, eng.max_blocks, **kw)
+    assert set(eng.cache) == set(jcache)
+    for key, t in eng.cache.items():
+        assert tuple(t.shape) == jcache[key].shape, key
+        assert str(t.dtype).removeprefix("torch.") == str(jcache[key].dtype), key
 
 
 def test_serve_cli_prints_reference_stats(capsys, monkeypatch):

@@ -182,25 +182,41 @@ def test_temperature_sampling_runs_on_paged_hybrid(models, mode):
     assert stats.generated == 25 and eng.pool.in_use == 0
 
 
-def test_serve_cli_paged_hybrid_prints_reference_lines(capsys, monkeypatch):
+def _pick(lines, prefix):
+    return next(line for line in lines if line.startswith(prefix))
+
+
+@pytest.mark.parametrize("tier", [
+    [],
+    # int8 pool and a host tier on a pool that spills (12 blocks of 4 for 3 slots)
+    ["--blocks", "12", "--kv-dtype", "int8", "--host-blocks", "16", "--max-new", "6"],
+], ids=["bf16", "int8-host-tier"])
+def test_serve_cli_paged_hybrid_prints_reference_lines(capsys, monkeypatch, tier):
     flags = ["--reduced", "--requests", "5", "--slots", "3", "--max-new", "4",
              "--max-seq", "32", "--workload-seed", "1", "--cache", "paged",
              "--block-size", "4", "--blocks", "16", "--schedule", "hybrid",
-             "--prefill-chunk", "8"]
+             "--prefill-chunk", "8", *tier]
     monkeypatch.setattr(sys, "argv", ["repro.launch.serve", *flags])
     jserve.main()
     theirs = capsys.readouterr().out.splitlines()
     serve.main([*flags, "--device", "cpu"])
     mine = capsys.readouterr().out.splitlines()
+    prefixes = ["mode:", "workload:", "requests=", "latency:", "pool:"]
+    if tier:
+        prefixes.append("kv tier:")
+        assert "spills=0 " not in _pick(mine, "kv tier:")
+    for prefix in prefixes:
+        assert _pick(mine, prefix) == _pick(theirs, prefix), prefix
 
-    def pick(lines, prefix):
-        return next(line for line in lines if line.startswith(prefix))
 
-    for prefix in ("mode:", "workload:", "requests=", "latency:", "pool:"):
-        assert pick(mine, prefix) == pick(theirs, prefix), prefix
-
-
-def test_serve_cli_refuses_tiered_kv_flags():
+def test_serve_cli_accepts_tiered_kv_flags(capsys):
+    """``--kv-dtype fp8|int8`` and ``--host-blocks`` serve to completion;
+    the host tier adds the reference's ``kv tier:`` line."""
     for flag in (["--kv-dtype", "fp8"], ["--kv-dtype", "int8"], ["--host-blocks", "4"]):
-        with pytest.raises(SystemExit, match="tiered-KV"):
-            serve.main(["--reduced", "--device", "cpu", "--cache", "paged", *flag])
+        serve.main(["--reduced", "--device", "cpu", "--cache", "paged", "--requests", "3",
+                    "--max-new", "3", *flag])
+        out = capsys.readouterr().out
+        assert "generated=9 " in out and "pool: PoolStats(" in out
+        assert ("kv tier: spills=" in out) == (flag[0] == "--host-blocks"), flag
+        if flag[0] == "--host-blocks":
+            assert "/4 blocks" in _pick(out.splitlines(), "kv tier:")

@@ -156,11 +156,25 @@ def test_prefill_q_offset_matches_jax(off):
         atol=1e-5, rtol=1e-5)
 
 
-def test_flash_attention_scaled_variant_not_ported():
-    q, k, v = (torch.zeros(1, 4, 2, 8) for _ in range(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.flash_attention(q, k, v, k_scale=torch.ones(1, 4, 2),
-                            v_scale=torch.ones(1, 4, 2))
+@pytest.mark.parametrize("kv", ["fp8", "int8"])
+def test_flash_attention_scaled_variant_matches_reference(kv):
+    """The scaled flash plain version (int8/fp8 K/V with (B, Sk, Hkv) f32
+    scales) against ``ref.naive_attention(k_scale=..., v_scale=...)``, at
+    a chunked-prefill offset; scales must come in pairs."""
+    B, Sq, Sk, Hkv, G, D = 2, 8, 24, 2, 2, 16
+    q, k, v = _prefill_inputs(B, Sq, Sk, Hkv * G, Hkv, D, seed=4)
+    jk, jks = jref.kv_quantize(jnp.asarray(k * 3), kv)
+    jv, jvs = jref.kv_quantize(jnp.asarray(v * 3), kv)
+    tk, tv = (torch.from_numpy(np.array(a).view(np.uint8)).view(torch.float8_e4m3fn)
+              if kv == "fp8" else torch.from_numpy(np.array(a)) for a in (jk, jv))
+    tks, tvs = torch.from_numpy(np.array(jks)), torch.from_numpy(np.array(jvs))
+    out = ops.flash_attention(torch.from_numpy(q), tk, tv, q_offset=16, k_scale=tks,
+                              v_scale=tvs)
+    exp = jref.naive_attention(jnp.asarray(q), jk, jv, q_offset=16, k_scale=jks,
+                               v_scale=jvs)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="both"):
+        ops.flash_attention(torch.from_numpy(q), tk, tv, k_scale=tks)
 
 
 def test_ops_on_cpu_never_touch_the_kernel_library():
