@@ -4,15 +4,21 @@
 
 1. Requires CUDA and prints the card's name and power limit.
 2. Builds every kernel in ``src/repro_torch/kernels/csrc/`` with nvcc
-   (one process per source, in parallel) and prints the build time.
+   (one process per source, in parallel) and prints the build time and,
+   per kernel, ptxas's registers, shared memory and spills.
 3. Kernel phase: each kernel variant against its plain PyTorch version
-   at the main paths' shapes, with its time beside the plain version's,
+   at the main paths' shapes, with its device time (the calls queued
+   behind a spin kernel, so events time the device and not the host)
+   beside the plain version's,
    a PyTorch yardstick on the same work (``scaled_dot_product_attention``;
    for the paged kernel ``gather_paged_cache`` then SDPA, since no single
    call computes paged attention; for the fp8/int8 variants the
    dequantization too; never used by the port) and the least time the
-   card could take.  Seven rows: decode; prefill unscaled, int8 and fp8
-   K/V; paged unscaled, fp8 and int8 pools.  The paged variants are also
+   card could take.  Eight rows: decode (split across CTAs, partials
+   merged by a second kernel); prefill unscaled at a whole prompt and at
+   the hybrid chunk shape (32 queries at q_offset 192 against the
+   1024-position staging stripe, after the chunk edge cases), int8 and
+   fp8 K/V; paged unscaled, fp8 and int8 pools.  The paged variants are also
    checked with f32 queries and with a ``starts`` window + lse.  The
    scaled prefill variants are on no serving path (the reference's
    quantized pools prefill into the bf16 staging cache): kernel level
@@ -33,8 +39,10 @@
    decode step on the tiered paths: hot and cold windows), and the paged
    paths' pools must drain; the tiered paths must spill and not preempt.
 5. Profiles (torch.profiler) of steady async steps on paths a, b and c,
-   for where the time goes; on path c also the hot and the cold paged
-   launch of one layer, timed on the profiled state.
+   for where the time goes, with every port kernel's time and launches
+   per step (the decode split and combine kernels apart); on path c
+   also the hot and the cold paged launch of one layer, timed on the
+   profiled state.
 6. A small-input check: reduced llama3.2-1b in float32 through the
    kernels on the GPU against the plain path on the CPU, same weights:
    prefill and decode on the dense cache, chunked ``prefill_step`` and
@@ -59,6 +67,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -97,6 +106,11 @@ TIER = ["--host-blocks", "512", "--blocks", "129"]
 TIERED_FLAGS = ["--cache", "paged", "--schedule", "hybrid", "--kv-dtype", "fp8", *TIER]
 TIERED_INT8_FLAGS = ["--cache", "paged", "--schedule", "decode-only", "--kv-dtype", "int8",
                      *TIER]
+CHUNK_SQ, CHUNK_OFFSET = 32, 192       # a hybrid chunk (--prefill-chunk 32) mid-prompt
+HYBRID_PATHS = ("paged-hybrid", "paged-tiered")   # the paths that prefill in chunks
+PORT_KERNELS = ("decode_split_mma_kernel", "decode_split_fma_kernel", "decode_combine_kernel",
+                "flash_prefill_mma_kernel", "flash_prefill_fma_kernel",
+                "paged_decode_attention_kernel")
 LENGTHS = [1, 1024, 1033, 2, 37, 100, 255, 256, 257, 511, 512, 513, 700, 900, 1000, 1023]
 
 
@@ -115,9 +129,49 @@ def _time_ms(fns, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fns, iters: int = 30) -> float:
+    """Device time of one call, cycling through ``fns``: the calls are
+    queued behind a spin kernel (``torch.cuda._sleep``), so the events
+    around them time the device alone and not the host's dispatch.  The
+    spin doubles until the host had queued every call before the device
+    reached the first."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 24
+    while cycles < 1 << 34:
+        torch.cuda._sleep(cycles)
+        start.record()
+        for i in range(iters):
+            fns[i % len(fns)]()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    raise RuntimeError("_device_ms: the host could not queue the calls ahead of the device")
+
+
+def _times(kernel, plain, library) -> dict:
+    """A kernel row's times per call: ``ms``, ``plain_ms`` and
+    ``library_ms`` are device time (:func:`_device_ms`, gaps between a
+    call's kernels included); ``event_ms`` is
+    the kernel wrapper's CUDA-event time over back-to-back calls, which
+    measures the host's dispatch instead once the kernel is faster than
+    the wrapper's Python (earlier PRs' kernel times were event times)."""
+    return {"ms": _device_ms(kernel), "event_ms": _time_ms(kernel),
+            "plain_ms": _device_ms(plain, 10), "library_ms": _device_ms(library)}
+
+
 def _bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -164,12 +218,13 @@ def decode_phase(dev) -> dict:
         "name": "decode_attention", "kernel": "decode_attention", "variant": "unscaled",
         "route": "cuda", "source": kdec.SOURCE,
         "replaces": kdec.REPLACES, "max_abs_err": err, "tol": BF16_TOL,
-        "ms": _time_ms([lambda s=s: ops.decode_attention(*s, lengths) for s in sets]),
-        "plain_ms": _time_ms([lambda s=s: kdec.plain(*s, lengths) for s in sets], 10),
-        "library_ms": _time_ms([lambda s=s: library(*s) for s in sets]),
+        **_times([lambda s=s: ops.decode_attention(*s, lengths) for s in sets],
+                 [lambda s=s: kdec.plain(*s, lengths) for s in sets],
+                 [lambda s=s: library(*s) for s in sets]),
         "library_max_abs_err": lib_err,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-        "shape": f"B={B} S={S} Hkv={Hkv} G={G} D={D} bf16 lengths={lengths.tolist()}",
+        "shape": f"B={B} S={S} Hkv={Hkv} G={G} D={D} bf16 lengths={lengths.tolist()} "
+                 f"split={kdec.plan_split(S, B * Hkv, _sm_count(dev))}",
     }
 
 
@@ -228,9 +283,8 @@ def prefill_phase(dev, kv: str | None = None) -> dict:
         "variant": kv or "unscaled", "route": "cuda", "source": kpre.SOURCE,
         "replaces": kpre.REPLACES,
         "max_abs_err": max(c["max_abs_err"] for c in cases), "tol": BF16_TOL,
-        "ms": _time_ms([lambda: ops.flash_attention(q, k, v, k_scale=ks, v_scale=vs)]),
-        "plain_ms": _time_ms([lambda: kpre.plain(q, k, v, k_scale=ks, v_scale=vs)], 10),
-        "library_ms": _time_ms([library]),
+        **_times([lambda: ops.flash_attention(q, k, v, k_scale=ks, v_scale=vs)],
+                 [lambda: kpre.plain(q, k, v, k_scale=ks, v_scale=vs)], [library]),
         "library": "scaled_dot_product_attention" if kv is None
                    else "ref.kv_dequantize (k, v) + scaled_dot_product_attention",
         "library_max_abs_err": lib_err,
@@ -238,6 +292,69 @@ def prefill_phase(dev, kv: str | None = None) -> dict:
         "f32_fma_bound_ms": flops / PEAK_F32_FLOPS * 1e3,
         "shape": f"B=1 Sq=Sk={sq} Hq={Hq} Hkv={Hkv} D={D} q bf16, K/V {kv or 'bf16'} "
                  "causal q_offset=0",
+        "cases": cases,
+    }
+
+
+def prefill_chunk_phase(dev) -> dict:
+    """llama3.2-1b prefill attention at the hybrid schedule's chunk shape
+    (``--prefill-chunk 32``): 32 bf16 queries at q_offset 192 against the
+    1024-position staging stripe (B 1, Hq 32, Hkv 8, D 64, causal), after
+    the chunk's edge cases Sq in {1, 5, 32} x q_offset in {0, 17, 192,
+    991}.  Yardstick: one SDPA call over ``k[:, :q_offset + Sq]`` with a
+    lower-right causal mask.  The bound counts the keys the chunk sees."""
+    Hq, Hkv, D, S = 32, 8, 64, 1024
+    sq, off = CHUNK_SQ, CHUNK_OFFSET
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n_copies = max(1, math.ceil(2 * L2_BYTES / (2 * S * Hkv * D * 2)))
+    sets = [tuple(torch.randn(1, *shape, generator=gen, device=dev).bfloat16()
+                  for shape in ((sq, Hq, D), (S, Hkv, D), (S, Hkv, D)))
+            for _ in range(n_copies)]
+    _, k, v = sets[0]
+    cases = []
+    for n in (1, 5, 32):
+        for o in (0, 17, 192, 991):
+            q = torch.randn(1, n, Hq, D, generator=gen, device=dev).bfloat16()
+            out = ops.flash_attention(q, k, v, q_offset=o)
+            exp = kpre.plain(q, k, v, q_offset=o)
+            torch.cuda.synchronize()
+            err = _max_err(out, exp)
+            if not err <= BF16_TOL:
+                raise AssertionError(f"prefill_attention[chunk] kernel vs plain at Sq={n} "
+                                     f"q_offset={o}: max err {err}")
+            cases.append({"sq": n, "q_offset": o, "max_abs_err": err})
+    q, k, v = sets[0]
+    out = ops.flash_attention(q, k, v, q_offset=off)
+    exp = kpre.plain(q, k, v, q_offset=off)
+    err = _max_err(out, exp)
+    if not err <= BF16_TOL:
+        raise AssertionError(f"prefill_attention[chunk] kernel vs plain: max err {err}")
+    mask = torch.ones(sq, off + sq, dtype=torch.bool, device=dev).tril(diagonal=off)
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k[:, :off + sq].transpose(1, 2),
+            v[:, :off + sq].transpose(1, 2), attn_mask=mask, enable_gqa=True)
+
+    lib_err = _max_err(library(q, k, v).transpose(1, 2), exp)
+    pairs = sum(min(S, off + i + 1) for i in range(sq))
+    flops = 4 * pairs * Hq * D
+    nbytes = 2 * 2 * q.numel() + 2 * (off + sq) * Hkv * D * 2
+    bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_FLOPS)
+    return {
+        "name": "prefill_attention[chunk]", "kernel": "prefill_attention",
+        "variant": "unscaled", "route": "cuda", "source": kpre.SOURCE,
+        "replaces": kpre.REPLACES, "max_abs_err": max([err] + [c["max_abs_err"] for c in cases]),
+        "tol": BF16_TOL,
+        **_times([lambda s=s: ops.flash_attention(*s, q_offset=off) for s in sets],
+                 [lambda s=s: kpre.plain(*s, q_offset=off) for s in sets],
+                 [lambda s=s: library(*s) for s in sets]),
+        "library": "scaled_dot_product_attention over k[:, :q_offset + Sq], lower-right "
+                   "causal mask",
+        "library_max_abs_err": lib_err,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+        "shape": f"B=1 Sq={sq} q_offset={off} Sk={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal "
+                 "(the hybrid chunk against the staging stripe)",
         "cases": cases,
     }
 
@@ -325,9 +442,9 @@ def paged_phase(dev, kv: str | None = None) -> dict:
         "route": "cuda", "source": kpaged.SOURCE,
         "replaces": kpaged.REPLACES, "max_abs_err": max(err, err_w), "tol": BF16_TOL,
         "f32_query_max_abs_err": err32,
-        "ms": _time_ms([lambda s=s: call(ops.paged_decode_attention, *s) for s in sets]),
-        "plain_ms": _time_ms([lambda s=s: call(kpaged.plain, *s) for s in sets], 10),
-        "library_ms": _time_ms([lambda s=s: library(*s) for s in sets]),
+        **_times([lambda s=s: call(ops.paged_decode_attention, *s) for s in sets],
+                 [lambda s=s: call(kpaged.plain, *s) for s in sets],
+                 [lambda s=s: library(*s) for s in sets]),
         "library": "ref.gather_paged_cache (k, v) + scaled_dot_product_attention"
                    if kv is None else "ref.gather_paged_cache + gather_paged_scales + "
                    "kv_dequantize (k, v) + scaled_dot_product_attention",
@@ -352,13 +469,13 @@ def load_model():
 
 
 def serve_phase(model, params, label: str, flags: list[str], want,
-                tiered: bool = False) -> dict[str, dict[str, int]]:
+                tiered: bool = False):
     """One path through the serve entry point: a short warm-up, the async
     run with every launch counter zeroed before it and read after it,
     then the sync run; checks launches per kernel variant
     (``want(stats)``), completion, a drained pool, sync/async greedy
     identity and (``tiered``) spills without preemption.  Returns the
-    async run's launch counts per kernel and variant."""
+    async run's launch counts per kernel and variant, and its stats."""
     cfg = model.cfg
     args = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--async", "on"])
     warm = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--requests", "4"])
@@ -416,7 +533,7 @@ def serve_phase(model, params, label: str, flags: list[str], want,
         if not (tiered and agree >= 0.6
                 and all(a.out_tokens[0] == b.out_tokens[0] for a, b in pairs)):
             raise AssertionError(f"[{label}] sync and async runs diverge")
-    return launches
+    return launches, st
 
 
 def profile_phase(model, params, label: str, flags: list[str], warm_steps: int,
@@ -464,6 +581,12 @@ def profile_phase(model, params, label: str, flags: list[str], warm_steps: int,
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / n_steps:8.3f} ms/step "
               f"{e.count / n_steps:7.1f}x  {e.key[:90]}")
+    for e in rows:                   # every launch of the port's kernels, by kernel
+        name = next((n for n in PORT_KERNELS if n in e.key), None)
+        if name:
+            print(f"[{label}] port kernel {name}: {e.self_device_time_total / 1e3 / n_steps:.4f}"
+                  f" ms/step over {e.count / n_steps:.1f} launches/step "
+                  f"({e.self_device_time_total / max(e.count, 1):.2f} us each)")
 
 
 def _kernel_device_ms(fn, name: str, n: int = 20) -> float | None:
@@ -702,6 +825,22 @@ def host_tier_check(dev) -> None:
             raise AssertionError(f"host-tier check ({case}) failed: {clock}")
 
 
+def ptxas_lines(name: str) -> list[str]:
+    """One line per kernel of ``csrc/<name>.cu`` from its build log
+    (``-Xptxas -v``): registers, shared memory, spills."""
+    lines, kern, spill = [], "?", ""
+    for line in _build.build_log(name).splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"\d+([a-z_]+_kernel)I(\w+?)EEv", m.group(1))
+            kern = f"{t.group(1)}<{t.group(2)}>" if t else m.group(1)[:80]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            lines.append(f"ptxas {name} {kern}: {line.split(':', 1)[1].strip()}; {spill}")
+    return lines
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
@@ -717,16 +856,16 @@ def main() -> None:
     print(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f}s "
           f"(nvcc in parallel) -> {_build.build_dir()}")
     for name in _build.sources():
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line:
-                print(f"ptxas {name}: {line.split(':', 1)[1].strip()}")
+        for line in ptxas_lines(name):
+            print(line)
 
-    rows = [decode_phase(dev), prefill_phase(dev), prefill_phase(dev, "int8"),
+    rows = [decode_phase(dev), prefill_phase(dev), prefill_chunk_phase(dev),
+            prefill_phase(dev, "int8"),
             prefill_phase(dev, "fp8"), paged_phase(dev), paged_phase(dev, "fp8"),
             paged_phase(dev, "int8")]
     for r in rows:
         print(f"kernel {r['name']}: err {r['max_abs_err']:.2e} (tol {r['tol']}) "
-              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+              f"kernel {r['ms']:.4f} ms (events {r['event_ms']:.4f}) plain {r['plain_ms']:.4f} ms "
               f"library {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) at {r['shape']}")
     model, params = load_model()
@@ -759,7 +898,14 @@ def main() -> None:
     host_tier_check(dev)
     for r in rows:
         r["launches_by_path"] = {path: n[r["kernel"]].get(r["variant"], 0)
-                                 for path, n in by_path.items()}
+                                 for path, (n, _) in by_path.items()}
+        if r["kernel"] == "prefill_attention" and r["variant"] == "unscaled":
+            # by shape: whole prompts on the decode-only paths, chunks
+            # (prefill_chunks x L, checked exactly in serve_phase) on the
+            # hybrid ones
+            chunked = r["name"].endswith("[chunk]")
+            r["launches_by_path"] = {path: n if (path in HYBRID_PATHS) == chunked else 0
+                                     for path, n in r["launches_by_path"].items()}
         r["launches"] = sum(r["launches_by_path"].values())
         # the scaled prefill variants are on no serving path of the
         # reference (its quantized pools prefill into the bf16 staging cache)

@@ -4,7 +4,9 @@
 kernel ``repro/kernels/prefill_attention.py:flash_attention_pallas``) on
 CUDA tensors in the model layout; ``plain`` is the same function in
 PyTorch (``ref.naive_attention``).  Any Sq and Sk work: the kernel masks
-the ragged edges itself.  int8 or fp8-e4m3 K/V come with f32 scales
+the ragged edges itself.  bf16 queries run on the tensor cores (the
+query heads of each KV head packed as the rows of one tile); f32 queries
+(float32 mode) on f32 FMA.  int8 or fp8-e4m3 K/V come with f32 scales
 ``k_scale``/``v_scale`` in the model layout ``(B, Sk, Hkv)`` and are
 dequantized in the kernel (the TPU kernel's scaled variant; no serving
 path of the reference reaches it).

@@ -342,3 +342,108 @@ def test_scaled_flash_kernel_matches_plain(cuda, sq, off, causal, kv, q_dtype):
     exp = ref.naive_attention(q, kq, vq, causal=causal, q_offset=off, k_scale=ks,
                               v_scale=vs)
     np.testing.assert_allclose(_np(out), _np(exp), atol=tol, rtol=tol)
+
+
+# ---- the split decode kernel and the tensor-core prefill kernel ----------
+def _split_lengths(S: int, split: int) -> list[int]:
+    """0, 1, a span boundary and its neighbours, S and past S."""
+    return [0, 1, split - 1, split, split + 1, 2 * split + 1, S, S + 9]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Hkv,G,D", [(8, 1024, 8, 4, 64), (8, 512, 1, 2, 128),
+                                         (8, 300, 2, 8, 16)])
+def test_decode_kernel_split_boundaries(cuda, B, S, Hkv, G, D, dtype):
+    """Lengths at, one below and one above a span boundary of the split
+    the wrapper plans, with 0, 1, S and past S in the same batch."""
+    from repro_torch.kernels import decode_attention as kdec
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    split, n_split = kdec.plan_split(S, B * Hkv, sms)
+    assert n_split > 1
+    rng = np.random.default_rng(S + D)
+    dt = getattr(torch, dtype)
+    q = _randn(rng, (B, Hkv * G, D), cuda, dt)
+    k = _randn(rng, (B, S, Hkv, D), cuda, dt)
+    v = _randn(rng, (B, S, Hkv, D), cuda, dt)
+    lengths = torch.tensor(_split_lengths(S, split), dtype=torch.int32, device=cuda)
+    before = ops.launch_counts()["decode_attention"]
+    out = ops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == before + 1
+    exp = ref.naive_decode_attention(q, k, v, lengths)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=TOL[dtype], rtol=TOL[dtype])
+    assert float(out[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+def test_prefill_kernel_gqa_packing(cuda, G):
+    """(query, head) rows packed per KV head, for G heads per KV head;
+    Sq * G is no multiple of the 64-row tile."""
+    rng = np.random.default_rng(G)
+    q = _randn(rng, (2, 45, 2 * G, 64), cuda, torch.bfloat16)
+    k = _randn(rng, (2, 52, 2, 64), cuda, torch.bfloat16)
+    v = _randn(rng, (2, 52, 2, 64), cuda, torch.bfloat16)
+    out = ops.flash_attention(q, k, v, q_offset=7)
+    exp = ref.naive_attention(q, k, v, q_offset=7)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("off", [0, 17, 192, 991])
+@pytest.mark.parametrize("sq", [1, 5, 32])
+def test_prefill_kernel_chunk_shape(cuda, sq, off):
+    """The hybrid schedule's chunk: Sq <= 32 queries at a q_offset against
+    the 1024-position staging stripe (keys past q_offset + Sq hold data
+    the causal mask must hide), llama3.2-1b's heads."""
+    rng = np.random.default_rng(sq * 1000 + off)
+    q = _randn(rng, (1, sq, 32, 64), cuda, torch.bfloat16)
+    k = _randn(rng, (1, 1024, 8, 64), cuda, torch.bfloat16)
+    v = _randn(rng, (1, 1024, 8, 64), cuda, torch.bfloat16)
+    out = ops.flash_attention(q, k, v, q_offset=off)
+    exp = ref.naive_attention(q, k, v, q_offset=off)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [8, 16, 64, 128])
+def test_prefill_kernel_tensor_core_head_dims(cuda, D, causal):
+    """bf16 queries on the tensor-core path at head dims padded to the
+    mma's contraction (8 and 16 to 32) and at its full 128."""
+    rng = np.random.default_rng(D)
+    q = _randn(rng, (2, 70, 8, D), cuda, torch.bfloat16)
+    k = _randn(rng, (2, 81, 2, D), cuda, torch.bfloat16)
+    v = _randn(rng, (2, 81, 2, D), cuda, torch.bfloat16)
+    out = ops.flash_attention(q, k, v, causal=causal, q_offset=11)
+    exp = ref.naive_attention(q, k, v, causal=causal, q_offset=11)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("kv", ["fp8", "int8"])
+def test_scaled_flash_kernel_zero_vectors_dequantize_to_zero(cuda, kv):
+    """A zero V has payload 0 and scale 0: the output is exactly 0.  Zero
+    K vectors score exactly 0 (an all-zero K gives the mean of V)."""
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (1, 40, 8, 64), cuda, torch.bfloat16)
+    x = _randn(rng, (1, 40, 2, 64), cuda, torch.float32)
+    (kq, ks), (zq, zs) = _quantized(x, kv), _quantized(torch.zeros_like(x), kv)
+    assert float(zs.abs().max()) == 0.0
+    out = ops.flash_attention(q, kq, zq, k_scale=ks, v_scale=zs)
+    assert float(out.abs().max()) == 0.0
+    out = ops.flash_attention(q, zq, kq, k_scale=zs, v_scale=ks)
+    exp = ref.naive_attention(q, zq, kq, k_scale=zs, v_scale=ks)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("kv_dtype,tol", [("float32", 2e-6), ("bfloat16", 1e-5)])
+def test_prefill_kernel_f32_queries_keep_f32_accuracy(cuda, kv_dtype, tol):
+    """f32 queries run the f32-FMA kernel: at a whole-prompt length and at
+    the chunk shape they meet float32 mode's tolerances."""
+    rng = np.random.default_rng(9)
+    for sq, sk, off in ((200, 200, 0), (32, 1024, 192)):
+        q = _randn(rng, (1, sq, 8, 64), cuda, torch.float32)
+        k = _randn(rng, (1, sk, 2, 64), cuda, getattr(torch, kv_dtype))
+        v = _randn(rng, (1, sk, 2, 64), cuda, getattr(torch, kv_dtype))
+        out = ops.flash_attention(q, k, v, q_offset=off)
+        assert out.dtype == torch.float32
+        exp = ref.naive_attention(q, k, v, q_offset=off)
+        np.testing.assert_allclose(_np(out), _np(exp), atol=tol, rtol=tol)
