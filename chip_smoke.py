@@ -14,15 +14,20 @@
    for the paged kernel ``gather_paged_cache`` then SDPA, since no single
    call computes paged attention; for the fp8/int8 variants the
    dequantization too; never used by the port) and the least time the
-   card could take.  Eight rows: decode (split across CTAs, partials
+   card could take.  Nine rows: decode (split across CTAs, partials
    merged by a second kernel); prefill unscaled at a whole prompt and at
    the hybrid chunk shape (32 queries at q_offset 192 against the
    1024-position staging stripe, after the chunk edge cases), int8 and
-   fp8 K/V; paged unscaled, fp8 and int8 pools.  The paged variants are also
-   checked with f32 queries and with a ``starts`` window + lse.  The
-   scaled prefill variants are on no serving path (the reference's
-   quantized pools prefill into the bf16 staging cache): kernel level
-   only.
+   fp8 K/V, and f32 queries over f32 K/V (float32 mode's CUDA-core
+   kernel); paged unscaled, fp8 and int8 pools (split across CTAs like
+   the decode).  The paged variants are also checked with f32 queries,
+   with a ``starts`` window + lse, with NaN in null block 0 and past each
+   row's length (never read: equal to the plain version on zeros there)
+   and with every window empty (the cold launch of a step with nothing
+   spilled: out 0, lse <= -1e30).  The scaled and f32 prefill variants
+   are on no serving path (the reference's quantized pools prefill into
+   the bf16 staging cache; float32 mode runs in the reference checks):
+   kernel level only.
 4. Serve phase: full-width llama3.2-1b with seeded random weights through
    ``repro_torch.launch.serve``, four paths, each with every launch
    counter zeroed before its async run and read after it:
@@ -40,9 +45,10 @@
    paths' pools must drain; the tiered paths must spill and not preempt.
 5. Profiles (torch.profiler) of steady async steps on paths a, b and c,
    for where the time goes, with every port kernel's time and launches
-   per step (the decode split and combine kernels apart); on path c
-   also the hot and the cold paged launch of one layer, timed on the
-   profiled state.
+   per step (the split kernels and the combine kernel apart); on path c
+   also the hot and the cold paged call of one layer on the profiled
+   state: device time (queued behind a spin kernel) and host time per
+   call.
 6. A small-input check: reduced llama3.2-1b in float32 through the
    kernels on the GPU against the plain path on the CPU, same weights:
    prefill and decode on the dense cache, chunked ``prefill_step`` and
@@ -94,9 +100,10 @@ from repro_torch.serving.workload import build_workload  # noqa: E402
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_8BIT_OPS = 1979e12   # fp8 flop/s and int8 op/s
-PEAK_F32_FLOPS = 67e12
+PEAK_F32_FLOPS = 67e12    # CUDA cores, outside the tensor cores
 L2_BYTES = 50 * 2**20
 BF16_TOL = 2e-2           # bf16 output, as tests/test_kernels.py holds the Pallas kernels
+F32_TOL = 1e-4            # f32 queries: the kernels' f32 sums in another order
 SERVE_FLAGS = ["--arch", "llama3.2-1b", "--requests", "64", "--slots", "16",
                "--max-seq", "1024", "--max-new", "64", "--workload", "random",
                "--workload-seed", "0", "--seed", "0", "--device", "cuda"]
@@ -108,9 +115,9 @@ TIERED_INT8_FLAGS = ["--cache", "paged", "--schedule", "decode-only", "--kv-dtyp
                      *TIER]
 CHUNK_SQ, CHUNK_OFFSET = 32, 192       # a hybrid chunk (--prefill-chunk 32) mid-prompt
 HYBRID_PATHS = ("paged-hybrid", "paged-tiered")   # the paths that prefill in chunks
-PORT_KERNELS = ("decode_split_mma_kernel", "decode_split_fma_kernel", "decode_combine_kernel",
+PORT_KERNELS = ("decode_split_mma_kernel", "decode_split_fma_kernel", "span_combine_kernel",
                 "flash_prefill_mma_kernel", "flash_prefill_fma_kernel",
-                "paged_decode_attention_kernel")
+                "paged_split_mma_kernel", "paged_split_fma_kernel")
 LENGTHS = [1, 1024, 1033, 2, 37, 100, 255, 256, 257, 511, 512, 513, 700, 900, 1000, 1023]
 
 
@@ -170,10 +177,6 @@ def _bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _sm_count(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -224,7 +227,7 @@ def decode_phase(dev) -> dict:
         "library_max_abs_err": lib_err,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
         "shape": f"B={B} S={S} Hkv={Hkv} G={G} D={D} bf16 lengths={lengths.tolist()} "
-                 f"split={kdec.plan_split(S, B * Hkv, _sm_count(dev))}",
+                 f"split={kdec.plan_split(S, B * Hkv, kdec.sm_count(dev))}",
     }
 
 
@@ -359,6 +362,70 @@ def prefill_chunk_phase(dev) -> dict:
     }
 
 
+def prefill_f32_phase(dev) -> dict:
+    """float32 mode's flash prefill: f32 queries over f32 K/V (the
+    CUDA-core kernel) at the whole-prompt shape, llama3.2-1b's heads (Hq
+    32, Hkv 8, D 64), B 1, Sq = Sk = 509, causal.  Its bound takes the f32
+    flops at the CUDA cores' peak: float32 mode's tolerances rule out
+    bf16 and TF32 operands.  Yardstick: one SDPA call on the same f32
+    tensors (TF32 off, PyTorch's default for matrix products)."""
+    Hq, Hkv, D, sq = 32, 8, 64, 509
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn(1, sq, h, D, generator=gen, device=dev) for h in (Hq, Hkv, Hkv))
+    out = ops.flash_attention(q, k, v)
+    exp = kpre.plain(q, k, v)
+    torch.cuda.synchronize()
+    err = _max_err(out, exp)
+    if not (out.dtype == torch.float32 and err <= F32_TOL):
+        raise AssertionError(f"prefill_attention[f32] kernel vs plain: max err {err}")
+
+    def library():
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=True,
+                                              enable_gqa=True)
+
+    lib_err = _max_err(library().transpose(1, 2), exp)
+    flops = 4 * (sq * (sq + 1) // 2) * Hq * D
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    bound_ms, bound_by = _bound(nbytes, flops, PEAK_F32_FLOPS)
+    return {
+        "name": "prefill_attention[f32]", "kernel": "prefill_attention",
+        "variant": "f32-query", "route": "cuda", "source": kpre.SOURCE,
+        "replaces": kpre.REPLACES, "max_abs_err": err, "tol": F32_TOL,
+        **_times([lambda: ops.flash_attention(q, k, v)], [lambda: kpre.plain(q, k, v)],
+                 [library]),
+        "library": "scaled_dot_product_attention (f32)", "library_max_abs_err": lib_err,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+        "shape": f"B=1 Sq=Sk={sq} Hq={Hq} Hkv={Hkv} D={D} q, K/V f32 causal q_offset=0",
+    }
+
+
+def _poison(pool, spool, tables, lengths, bs: int, nan: bool):
+    """Copies of a pool and its scales with null block 0 and every
+    position past its row's length inside a live block set to NaN (``nan``;
+    an fp8 payload of 0x7F, an int8 payload of 127 with a NaN scale) or
+    to zeros."""
+    pool, spool = pool.clone(), None if spool is None else spool.clone()
+    if pool.dtype == torch.float8_e4m3fn:
+        fill = 0x7F if nan else 0
+    elif pool.dtype == torch.int8:
+        fill = 127 if nan else 0
+    else:
+        fill = float("nan") if nan else 0.0
+    sfill = float("nan") if nan else 0.0
+    rows = ref.byte_view(pool)
+    rows[0] = fill
+    if spool is not None:
+        spool[0] = sfill
+    for b, n in enumerate(lengths.tolist()):
+        if 0 < n < tables.shape[1] * bs and n % bs:
+            blk = int(tables[b, n // bs])
+            rows[blk, :, n % bs:] = fill
+            if spool is not None:
+                spool[blk, :, n % bs:] = sfill
+    return pool, spool
+
+
 def paged_phase(dev, kv: str | None = None) -> dict:
     """llama3.2-1b paged decode attention at the serve shapes: 16 slots,
     block 16, 64 blocks per row, a pool of 1025 blocks, bf16 queries; the
@@ -410,11 +477,30 @@ def paged_phase(dev, kv: str | None = None) -> dict:
     exp_w, exp_lse = call(kpaged.plain, *sets[0], starts=starts, return_lse=True)
     torch.cuda.synchronize()
     err_w = max(_max_err(out_w, exp_w), _max_err(lse[1:], exp_lse[1:]))
+    # NaN in null block 0 and past each row's length inside its last live
+    # block is never read: the kernel on that pool equals the plain version
+    # on the pool with zeros there
+    (kd, ksd), (vd, vsd) = (_poison(p, sc, tables, lengths, bs, nan=True)
+                            for p, sc in ((kp, ks), (vp, vs)))
+    (kc, ksc), (vc, vsc) = (_poison(p, sc, tables, lengths, bs, nan=False)
+                            for p, sc in ((kp, ks), (vp, vs)))
+    out_n = call(ops.paged_decode_attention, q, kd, vd, ksd, vsd)
+    err_n = (_max_err(out_n, call(kpaged.plain, q, kc, vc, ksc, vsc))
+             if bool(torch.isfinite(out_n).all()) else math.inf)
+    # every window empty: the cold launch of a step with nothing spilled
+    out_e, lse_e = ops.paged_decode_attention(q, kp, vp, tables, torch.zeros_like(lengths),
+                                              return_lse=True, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    empty_ok = float(out_e.abs().max()) == 0.0 and float(lse_e.max()) <= -1e30
     print(f"{name} kernel checks: bf16 err {err:.2e}, f32-query err {err32:.2e}, "
-          f"window+lse err {err_w:.2e}, empty window lse {float(lse[0].max()):.3e}")
-    if not (err <= BF16_TOL and err32 <= 1e-4 and err_w <= BF16_TOL
-            and float(out_w[0].abs().max()) == 0.0 and float(lse[0].max()) <= -1e30):
-        raise AssertionError(f"{name} kernel vs plain: {err}, {err32}, {err_w}")
+          f"window+lse err {err_w:.2e}, empty window lse {float(lse[0].max()):.3e}, "
+          f"NaN-garbage err {err_n:.2e}, all windows empty: out 0 and lse "
+          f"{float(lse_e.max()):.3e} {'ok' if empty_ok else 'FAILED'}")
+    if not (err <= BF16_TOL and err32 <= F32_TOL and err_w <= BF16_TOL and err_n <= BF16_TOL
+            and float(out_w[0].abs().max()) == 0.0 and float(lse[0].max()) <= -1e30
+            and empty_ok):
+        raise AssertionError(f"{name} kernel vs plain: {err}, {err32}, {err_w}, {err_n}, "
+                             f"all empty {empty_ok}")
 
     S = MB * bs
     mask = (torch.arange(S, device=dev)[None] < lengths[:, None])[:, None, None, :]
@@ -451,7 +537,8 @@ def paged_phase(dev, kv: str | None = None) -> dict:
         "library_max_abs_err": lib_err,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
         "shape": f"B={B} Hkv={Hkv} G={G} D={D} block={bs} MB={MB} N={N} q bf16, pool "
-                 f"{kv or 'bf16'} live={live}",
+                 f"{kv or 'bf16'} live={live} "
+                 f"split={kpaged.plan(MB, bs, B, Hkv, kdec.sm_count(dev))}",
     }
 
 
@@ -589,27 +676,13 @@ def profile_phase(model, params, label: str, flags: list[str], warm_steps: int,
                   f"({e.self_device_time_total / max(e.count, 1):.2f} us each)")
 
 
-def _kernel_device_ms(fn, name: str, n: int = 20) -> float | None:
-    """Device time of one ``fn()`` in the kernels whose name holds
-    ``name``, from torch.profiler over ``n`` calls (None if it saw none)."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if name in e.key
-            and getattr(e, "self_device_time_total", 0) > 0]
-    return sum(e.self_device_time_total for e in rows) / 1e3 / n if rows else None
-
-
 def tier_launches(eng, label: str) -> None:
-    """The two paged launches of one layer of a tiered decode step, on the
+    """The two paged calls of one layer of a tiered decode step, on the
     engine's current cache (layer 0, random bf16 queries): the hot window
     ``[cold_len, len)`` of the device pool and the cold prefix in the host
-    pool.  Device time per launch from the profiler, and the host's time
-    per call (wrapper included) over 30 back-to-back calls."""
+    pool.  Device time per call (:func:`_device_ms`: split and combine
+    kernels), and the host's time per call (wrapper included) over 30
+    back-to-back calls."""
     c, cfg = eng.cache, eng.model.cfg
     gen = torch.Generator(device=eng.device).manual_seed(7)
     q = torch.randn(len(eng.slots), cfg.n_heads, cfg.resolved_head_dim(), generator=gen,
@@ -641,11 +714,9 @@ def tier_launches(eng, label: str) -> None:
     live = c["lengths"].clamp(max=cap)
     cold_n = int(c["cold_lengths"].sum())
     hot_n = int((live - c["cold_lengths"]).clamp(min=0).sum())
-    dev = {k: _kernel_device_ms(fn, "paged_decode_attention_kernel")
-           for k, fn in (("hot", hot), ("cold", cold))}
-    fmt = {k: "not measured" if v is None else f"{v:.4f} ms" for k, v in dev.items()}
-    print(f"[{label}] tier launches (layer 0, this state): hot device {fmt['hot']} over "
-          f"{hot_n} positions, cold device {fmt['cold']} over {cold_n} positions in "
+    dev = {k: _device_ms([fn]) for k, fn in (("hot", hot), ("cold", cold))}
+    print(f"[{label}] tier launches (layer 0, this state): hot device {dev['hot']:.4f} ms "
+          f"over {hot_n} positions, cold device {dev['cold']:.4f} ms over {cold_n} positions in "
           f"{int((c['cold_lengths'] > 0).sum())} slots; host per call {host_ms(hot):.4f} / "
           f"{host_ms(cold):.4f} ms; spills so far {eng.stats.spills}")
 
@@ -860,9 +931,8 @@ def main() -> None:
             print(line)
 
     rows = [decode_phase(dev), prefill_phase(dev), prefill_chunk_phase(dev),
-            prefill_phase(dev, "int8"),
-            prefill_phase(dev, "fp8"), paged_phase(dev), paged_phase(dev, "fp8"),
-            paged_phase(dev, "int8")]
+            prefill_phase(dev, "int8"), prefill_phase(dev, "fp8"), prefill_f32_phase(dev),
+            paged_phase(dev), paged_phase(dev, "fp8"), paged_phase(dev, "int8")]
     for r in rows:
         print(f"kernel {r['name']}: err {r['max_abs_err']:.2e} (tol {r['tol']}) "
               f"kernel {r['ms']:.4f} ms (events {r['event_ms']:.4f}) plain {r['plain_ms']:.4f} ms "
@@ -907,8 +977,9 @@ def main() -> None:
             r["launches_by_path"] = {path: n if (path in HYBRID_PATHS) == chunked else 0
                                      for path, n in r["launches_by_path"].items()}
         r["launches"] = sum(r["launches_by_path"].values())
-        # the scaled prefill variants are on no serving path of the
-        # reference (its quantized pools prefill into the bf16 staging cache)
+        # the scaled and f32 prefill variants are on no serving path of the
+        # reference (its quantized pools prefill into the bf16 staging
+        # cache; float32 mode runs in the reference checks)
         r["on_main_path"] = not (r["kernel"] == "prefill_attention"
                                  and r["variant"] != "unscaled")
         if r["on_main_path"] and not r["launches"]:

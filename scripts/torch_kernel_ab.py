@@ -4,17 +4,24 @@
 
 Imports ``repro_torch`` from SRC_DIR (default: this checkout's ``src``),
 builds its kernels, checks each against its plain version and prints the
-card's name and power limit, then one JSON line with two times per call
-of each wrapper: ``event_ms``, CUDA events around 200 back-to-back calls
-(which measures the host's dispatch instead once a kernel is faster than
-the wrapper's Python), and ``device_ms``, the same calls queued behind a
-spin kernel so that the events time the device alone; inputs rotated
+card's name and power limit, then one JSON line with three times per
+call of each wrapper: ``event_ms``, CUDA events around 200 back-to-back
+calls (which measures the host's dispatch instead once a kernel is faster
+than the wrapper's Python), ``device_ms``, the same calls queued behind a
+spin kernel so that the events time the device alone, and ``host_ms``,
+the median over 21 bursts of 50 back-to-back calls of the host's clock
+per call, each burst ending in a synchronize (the wrapper's dispatch
+whenever that exceeds the device time, as it does once a kernel is
+faster than the wrapper's Python); inputs rotated
 through enough copies to exceed the 50 MB L2, at ``chip_smoke.py``'s
 shapes — dense
 decode at the serve shape, flash prefill over a whole prompt (Sq = Sk =
 509), at the hybrid chunk shape (32 queries at q_offset 192 against the
 1024-position staging stripe) and with int8 and fp8 K/V, and paged decode
-at the serve shape.  To compare two versions of the kernels, run it on
+at the serve shape over a bf16, an fp8 and an int8 pool, plus the tiered
+pair of one layer over the fp8 pool: the hot window (``starts`` at each
+row's cold prefix, lse out) and the cold call of a step with nothing
+spilled (every window empty).  To compare two versions of the kernels, run it on
 both trees in turns (A, B, B, A) on one card, back to back: the inputs
 are the same, made from fixed seeds.
 """
@@ -23,8 +30,10 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -70,6 +79,20 @@ def device_ms(fns, iters: int = 60) -> float:
     raise RuntimeError("device_ms: the host could not queue the calls ahead of the device")
 
 
+def host_ms(fns, bursts: int = 21, calls: int = 50) -> float:
+    """Median over ``bursts`` of the host's clock per call across
+    ``calls`` back-to-back calls, synchronized at the end of each burst."""
+    per_call = []
+    for _ in range(bursts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+        per_call.append((time.perf_counter() - t0) * 1e3 / calls)
+    return statistics.median(per_call)
+
+
 def copies(nbytes: int) -> int:
     return max(1, math.ceil(2 * L2_BYTES / nbytes))
 
@@ -95,10 +118,10 @@ def main() -> None:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    times, dtimes, errs = {}, {}, {}
+    times, dtimes, htimes, errs = {}, {}, {}, {}
 
     def timed(name, fns):
-        times[name], dtimes[name] = time_ms(fns), device_ms(fns)
+        times[name], dtimes[name], htimes[name] = time_ms(fns), device_ms(fns), host_ms(fns)
 
     # dense decode, serve shape
     B, S, Hkv, G, D = 16, 1024, 8, 4, 64
@@ -132,22 +155,51 @@ def main() -> None:
                             - call(ref.naive_attention, *sets[0]).float()).abs().max())
         timed(name, [lambda s=s: call(ops.flash_attention, *s) for s in sets])
 
-    # paged decode, serve shape
+    # paged decode, serve shape: bf16, fp8 and int8 pools; the tiered pair
     bs, MB = 16, 64
     N = B * MB + 1
     tables = (torch.randperm(N - 1, generator=torch.Generator().manual_seed(5))[:B * MB] + 1)
     tables = tables.view(B, MB).to(torch.int32).to(dev)
-    sets = [(randn(B, Hkv * G, D).bfloat16(), randn(N, Hkv, bs, D).bfloat16(),
-             randn(N, Hkv, bs, D).bfloat16()) for _ in range(copies(2 * N * Hkv * bs * D * 2))]
-    errs["paged"] = float((ops.paged_decode_attention(*sets[0], tables, lengths).float()
-                           - ref.paged_decode_attention(*sets[0], tables, lengths).float()
-                           ).abs().max())
-    timed("paged", [lambda s=s: ops.paged_decode_attention(*s, tables, lengths) for s in sets])
+    cold = (lengths.clamp(max=MB * bs) // 3 // bs * bs).to(torch.int32)   # whole blocks
+    empty = torch.zeros_like(lengths)
+    for kv in (None, "fp8", "int8"):
+        elem = 2 if kv is None else 1
+        sets = []
+        for _ in range(copies(2 * N * Hkv * bs * D * elem)):
+            q, k, v = randn(B, Hkv * G, D).bfloat16(), randn(N, Hkv, bs, D), randn(N, Hkv, bs, D)
+            if kv is None:
+                sets.append((q, k.bfloat16(), v.bfloat16(), None, None))
+            else:
+                (kq, ks), (vq, vs) = ref.kv_quantize(k, kv), ref.kv_quantize(v, kv)
+                sets.append((q, kq, vq, ks, vs))
+
+        def call(fn, q, k, v, ks, vs, n=lengths, **kw):
+            return fn(q, k, v, tables, n, k_scale=ks, v_scale=vs, **kw)
+
+        name = "paged" if kv is None else f"paged_{kv}"
+        errs[name] = float((call(ops.paged_decode_attention, *sets[0]).float()
+                            - call(ref.paged_decode_attention, *sets[0]).float()).abs().max())
+        timed(name, [lambda s=s: call(ops.paged_decode_attention, *s) for s in sets])
+        if kv != "fp8":
+            continue
+        hot = dict(starts=cold, return_lse=True)
+        got, exp = (call(fn, *sets[0], **hot) for fn in (ops.paged_decode_attention,
+                                                         ref.paged_decode_attention))
+        errs["tier_hot"] = max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(got, exp))
+        timed("tier_hot", [lambda s=s: call(ops.paged_decode_attention, *s, **hot)
+                           for s in sets])
+        out, lse = call(ops.paged_decode_attention, *sets[0], n=empty, return_lse=True)
+        errs["tier_cold_empty"] = (float(out.float().abs().max())
+                                   if float(lse.max()) <= -1e30 else float("inf"))
+        timed("tier_cold_empty", [lambda s=s: call(ops.paged_decode_attention, *s, n=empty,
+                                                   return_lse=True) for s in sets])
 
     bad = {k: e for k, e in errs.items() if not e <= 2e-2}
     if bad:
         raise SystemExit(f"torch_kernel_ab: kernels disagree with their plain versions: {bad}")
     print(json.dumps({"label": args.label or args.src, "card": card, "event_ms": times,
+                      "host_ms": htimes,
                       "device_ms": dtimes, "max_abs_err": errs}))
 
 

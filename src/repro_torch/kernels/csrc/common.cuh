@@ -15,6 +15,9 @@ enum DType : int { F32 = 0, BF16 = 1, FP8_E4M3 = 2, INT8 = 3 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+// 1-byte payloads: exact (every e4m3 and int8 value is an f32 value)
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
@@ -90,6 +93,31 @@ __device__ __forceinline__ float lse_combine(const float* m, const float* l, int
     O += o[i * o_stride] * w;
   }
   return O;
+}
+
+// Merge the n_split f32 partials of each (b, h) that a split decode kernel
+// wrote to ws: o (B, Hkv, n_split, G, D) unnormalized, then (m, l) as
+// (B, Hkv, n_split, 2, G); an empty span is m = NEG_INF, l = 0, o = 0.
+// Writes out = O / max(L, 1e-30) in TQ and, when lse is not null, lse (B,
+// Hkv, G) = M + log(max(L, 1e-30)): a row whose spans are all empty gives
+// out 0 and lse <= -1e30, never NaN.  One CTA of COMBINE_THREADS per (KV
+// head, batch row).
+constexpr int COMBINE_THREADS = 128;
+template <typename TQ>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+span_combine_kernel(const float* __restrict__ ws, TQ* __restrict__ out, float* __restrict__ lse,
+                    int Hkv, int G, int D, int n_split) {
+  const long long row = (long long)blockIdx.y * Hkv + blockIdx.x;
+  const int GD = G * D;
+  const float* o = ws + row * n_split * GD;
+  const float* ml = ws + (long long)gridDim.y * Hkv * n_split * GD + row * n_split * 2 * G;
+  for (int e = threadIdx.x; e < GD; e += COMBINE_THREADS) {
+    const int g = e / D;
+    float M, L;
+    const float O = lse_combine(ml + g, ml + G + g, 2 * G, o + e, GD, n_split, M, L);
+    out[row * GD + e] = from_float<TQ>(O / fmaxf(L, 1e-30f));
+    if (lse != nullptr && e - g * D == 0) lse[row * G + g] = M + logf(fmaxf(L, 1e-30f));
+  }
 }
 
 // ---- Ampere/Hopper warp-level building blocks (cp.async, ldmatrix, mma) ----

@@ -31,10 +31,11 @@
 //    its own slabs of positions with 16-byte cp.async and keeps its own
 //    online softmax; the four warps' states are merged once, through
 //    shared memory, and the CTA writes its f32 partial (o unnormalized,
-//    m, l) to the workspace the wrapper allocates.  decode_combine_kernel
-//    merges the n_split partials of each (b, h) and divides by max(l,
-//    1e-30), so a row of length 0 gives 0.  Both merges are common.cuh's
-//    lse_combine.  With n_split = 1 the CTA writes the output itself.
+//    m, l) to the workspace the wrapper allocates.  span_combine_kernel
+//    (common.cuh, shared with the paged kernel) merges the n_split
+//    partials of each (b, h) and divides by max(l, 1e-30), so a row of
+//    length 0 gives 0.  Both merges are common.cuh's lse_combine.  With
+//    n_split = 1 the CTA writes the output itself.
 //
 // decode_split_mma_kernel (bf16 queries over a bf16 cache: every serving
 // path): the G heads are the rows of an mma.sync m16n8k16 tile (zero rows
@@ -421,23 +422,6 @@ decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// Merge the n_split partials of each (b, h): one CTA per (KV head, batch).
-template <typename TQ>
-__global__ void __launch_bounds__(THREADS)
-decode_combine_kernel(const float* __restrict__ ws, TQ* __restrict__ out, int Hkv, int G,
-                      int D, int n_split) {
-  const long long row = (long long)blockIdx.y * Hkv + blockIdx.x;
-  const int GD = G * D;
-  const float* o = ws + row * n_split * GD;
-  const float* ml = ws + (long long)gridDim.y * Hkv * n_split * GD + row * n_split * 2 * G;
-  for (int e = threadIdx.x; e < GD; e += THREADS) {
-    const int g = e / D;
-    float M, L;
-    const float O = lse_combine(ml + g, ml + G + g, 2 * G, o + e, GD, n_split, M, L);
-    out[row * GD + e] = from_float<TQ>(O / fmaxf(L, 1e-30f));
-  }
-}
-
 template <typename TQ, typename TKV, int PW>
 int launch_split(const void* q, const void* k, const void* v, const void* lengths,
                  void* out, void* ws, int B, int S, int Hkv, int G, int D, long long k_sb,
@@ -498,8 +482,8 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
                                     v_sb, v_ss, scale, split, n_split, st);
   }
   if (err != (int)cudaSuccess || n_split == 1) return err;
-  decode_combine_kernel<TQ><<<dim3(Hkv, B), THREADS, 0, st>>>(
-      static_cast<const float*>(ws), static_cast<TQ*>(out), Hkv, G, D, n_split);
+  span_combine_kernel<TQ><<<dim3(Hkv, B), COMBINE_THREADS, 0, st>>>(
+      static_cast<const float*>(ws), static_cast<TQ*>(out), nullptr, Hkv, G, D, n_split);
   return (int)cudaGetLastError();
 }
 

@@ -61,7 +61,7 @@ def _lib():
 
 
 @functools.cache
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -112,7 +112,7 @@ def kernel(q, k_cache, v_cache, lengths, *, scale: float | None = None):
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    split, n_split = plan_split(S, B * Hkv, _sm_count(q.device))
+    split, n_split = plan_split(S, B * Hkv, sm_count(q.device))
     ws = (torch.empty(B * Hkv * n_split * G * (D + 2), dtype=torch.float32,
                       device=q.device) if n_split > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream

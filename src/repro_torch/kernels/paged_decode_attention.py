@@ -9,16 +9,20 @@ cache, dequantize, then the dense oracle).  The pool is read in its
 kernel-native layout ``(N, Hkv, block_size, D)`` through the block
 tables, with no gather and no copy; an fp8-e4m3 or int8 pool comes with
 its f32 scale pools ``(N, Hkv, block_size)`` and is dequantized in the
-kernel.
+kernel.  The kernel splits each row across CTAs (:func:`plan`, the dense
+decode's span plan over the positions a table reaches) and merges the
+partials by log-sum-exp.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from repro_torch.kernels import SCALED, LaunchCounter, ref, variant
+from repro_torch.kernels import decode_attention as _decode
 
 REPLACES = "src/repro/kernels/paged_decode_attention.py:119"
 SOURCE = "src/repro_torch/kernels/csrc/paged_decode_attention.cu"
@@ -37,6 +41,17 @@ def plain(q, k_pool, v_pool, block_tables, lengths, *, scale: float | None = Non
                                       k_scale=k_scale, v_scale=v_scale)
 
 
+@functools.cache
+def plan(MB: int, bs: int, B: int, Hkv: int, sms: int = _decode.H100_SMS) -> tuple[int, int]:
+    """``(split, n_split)`` of a call over ``B`` rows of ``MB`` blocks of
+    ``bs`` positions and ``Hkv`` KV heads: CTA ``z`` of each (row, KV
+    head) takes positions ``[z * split, (z + 1) * split)`` of the window.
+    :func:`decode_attention.plan_split` over the ``MB * bs`` positions the
+    table reaches, from the shapes alone (no host sync on ``lengths`` or
+    ``starts``); cached per shape.  The serve shape (16 slots x 8 KV heads,
+    64 blocks of 16) gets 256 positions in 4 spans: 512 CTAs."""
+    return _decode.plan_split(MB * bs, B * Hkv, sms)
+
 
 def _lib():
     from repro_torch.kernels import _build
@@ -45,8 +60,8 @@ def _lib():
     fn = lib.paged_decode_attention_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                       ctypes.c_float, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                       ctypes.c_float, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -86,7 +101,15 @@ def kernel(q, k_pool, v_pool, block_tables, lengths, *, scale: float | None = No
     ``starts[b] <= p < min(lengths[b], MB * bs)``.  An fp8-e4m3 or int8
     pool needs ``k_scale``/``v_scale`` (N, Hkv, bs) f32, and only such a
     pool takes them.  Table entries must lie in ``[0, N)`` (the engine's
-    tables always do; the kernel does not check them)."""
+    tables always do; the kernel does not check them); entries past a
+    row's last live block are never read.
+
+    bf16 queries over a bf16, fp8 or int8 pool run on the tensor cores,
+    the other pairs (float32 mode) on f32 FMA.  When :func:`plan` cuts
+    the rows into more than one span (the serve shape does), this is two
+    launches on the stream: the split kernel, which writes f32 partials to
+    a workspace allocated here, and a small kernel that merges them (and
+    writes the lse).  The launch counter counts the call once."""
     tensors = (q, k_pool, v_pool, block_tables, lengths) + (
         () if starts is None else (starts,))
     if not all(t.is_cuda for t in tensors):
@@ -116,6 +139,9 @@ def kernel(q, k_pool, v_pool, block_tables, lengths, *, scale: float | None = No
         raise ValueError(f"paged_decode_attention kernel takes G <= {MAX_G}, "
                          f"D <= {MAX_D}, D % {vec} == 0, block_size <= {MAX_BLOCK}; "
                          f"got G={G} D={D} block_size={bs}")
+    if k_pool.shape[0] * Hkv * bs >= 2**31:
+        raise ValueError(f"paged_decode_attention kernel takes pools of under 2^31 vectors; "
+                         f"got {k_pool.shape[0]} blocks x {Hkv} heads x {bs}")
     for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("block_tables", block_tables)):
         if not x.is_contiguous():
@@ -129,14 +155,18 @@ def kernel(q, k_pool, v_pool, block_tables, lengths, *, scale: float | None = No
     out = torch.empty_like(q)
     lse = (torch.empty(B, Hkv, G, dtype=torch.float32, device=q.device)
            if return_lse else None)
+    split, n_split = plan(MB, bs, B, Hkv, _decode.sm_count(q.device))
+    ws = (torch.empty(B * Hkv * n_split * G * (D + 2), dtype=torch.float32,
+                      device=q.device) if n_split > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  None if k_scale is None else k_scale.data_ptr(),
                  None if v_scale is None else v_scale.data_ptr(),
                  block_tables.data_ptr(), lengths.data_ptr(),
                  None if starts is None else starts.data_ptr(), out.data_ptr(),
-                 None if lse is None else lse.data_ptr(), B, MB, Hkv, bs, G, D, scale,
-                 _Q_DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype], stream)
+                 None if lse is None else lse.data_ptr(),
+                 None if ws is None else ws.data_ptr(), B, MB, Hkv, bs, G, D, scale,
+                 split, n_split, _Q_DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: CUDA error {err}")
     COUNTER.count(variant(k_pool.dtype))

@@ -447,3 +447,150 @@ def test_prefill_kernel_f32_queries_keep_f32_accuracy(cuda, kv_dtype, tol):
         assert out.dtype == torch.float32
         exp = ref.naive_attention(q, k, v, q_offset=off)
         np.testing.assert_allclose(_np(out), _np(exp), atol=tol, rtol=tol)
+
+
+# ---- the split paged decode kernels --------------------------------------
+PAGED_SPLIT_SHAPES = [
+    # (B, Hkv, G, D, block_size, max_blocks, (split, n_split) planned on an H100)
+    (16, 8, 4, 64, 16, 64, (256, 4)),      # llama3.2-1b serve: 4 spans, merge kernel
+    (4, 2, 8, 128, 8, 8, (64, 1)),         # one span: the CTA writes out and lse
+]
+POOL_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "fp8": None, "int8": None}
+
+
+def _split_edges(B: int, cap: int, split: int, bs: int):
+    """Lengths and starts at span edges (and one off), block edges, 0, the
+    table's end and past it."""
+    lens = [0, 1, split - 1, split, split + 1, 2 * split - 1, 2 * split + 1, bs, bs + 1,
+            cap - 1, cap, cap + 9, 3 * split, 3 * split + bs - 1, bs - 1, 2 * split]
+    starts = [0, 0, bs, split, split, split - 1, 2 * split, bs, bs, split + bs, split - bs,
+              2 * split, 2 * split + 1, 3 * split, 0, 2 * split]
+    return ([min(n, cap + 9) for n in lens[:B]], [min(s, cap) for s in starts[:B]])
+
+
+def _pool(rng, shape, dev, kind):
+    """A pool of ``kind`` (bf16/f32, or fp8/int8 payloads of 3x unit-normal
+    data with their (N, Hkv, bs) scales)."""
+    x = _randn(rng, shape, dev, torch.float32)
+    if POOL_DTYPES[kind] is not None:
+        return x.to(POOL_DTYPES[kind]), None
+    return _quantized(x, kind)
+
+
+def _paged_tol(q_dtype: str, kind: str) -> float:
+    if q_dtype == "bfloat16":
+        return 2e-2
+    return 2e-6 if kind == "float32" else 1e-5
+
+
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind", list(POOL_DTYPES))
+@pytest.mark.parametrize("shape", PAGED_SPLIT_SHAPES, ids=["serve", "one-span"])
+def test_paged_split_kernel_span_and_block_edges(cuda, shape, kind, q_dtype):
+    """Lengths and ``starts`` at span boundaries (and one either side),
+    block edges, 0 and past the table, for every pool type and both query
+    types; out and lse against the plain version."""
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import paged_decode_attention as kpaged
+
+    B, Hkv, G, D, bs, MB, want = shape
+    sms = kdec.sm_count(cuda)
+    assert kpaged.plan(MB, bs, B, Hkv, sms) == want
+    split = want[0]
+    lens, starts = _split_edges(B, MB * bs, split, bs)
+    case = (B, Hkv, G, D, bs, MB, lens)
+    rng = np.random.default_rng(B * D)
+    q, _, _, tables, lengths = _paged_inputs(case, cuda, torch.float32,
+                                             q_dtype=getattr(torch, q_dtype), seed=B)
+    N = tables.shape[0] * MB + 1
+    (kp, ks), (vp, vs) = (_pool(rng, (N, Hkv, bs, D), cuda, kind) for _ in range(2))
+    starts = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    tol = _paged_tol(q_dtype, kind)
+    for st in (None, starts):
+        before = ops.launch_counts()["paged_decode_attention"]
+        out, lse = ops.paged_decode_attention(q, kp, vp, tables, lengths, starts=st,
+                                              return_lse=True, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["paged_decode_attention"] == before + 1
+        exp, exp_lse = ref.paged_decode_attention(q, kp, vp, tables, lengths, starts=st,
+                                                  return_lse=True, k_scale=ks, v_scale=vs)
+        np.testing.assert_allclose(_np(out), _np(exp), atol=tol, rtol=tol)
+        live = _np(exp_lse)[:, 0, 0] > -1e29                   # rows whose window is not empty
+        np.testing.assert_allclose(_np(lse)[live], _np(exp_lse)[live], atol=1e-3, rtol=1e-4)
+        assert np.all(_np(lse)[~live] <= -1e30) and np.all(_np(out)[~live] == 0)
+
+
+def _poison(pool, spool, tables, lengths, bs, nan: bool):
+    """Copies of a pool and its scales with null block 0 and every
+    position past its row's length inside a live block set to NaN (``nan``;
+    an fp8 payload of 0x7F, an int8 payload of 127 with a NaN scale) or
+    to zeros."""
+    pool, spool = pool.clone(), None if spool is None else spool.clone()
+    if pool.dtype == torch.float8_e4m3fn:
+        fill = 0x7F if nan else 0                                # e4m3fn NaN: S.1111.111
+    elif pool.dtype == torch.int8:
+        fill = 127 if nan else 0                                 # no NaN: the scale carries it
+    else:
+        fill = float("nan") if nan else 0.0
+    sfill = float("nan") if nan else 0.0
+    rows = ref.byte_view(pool)
+    rows[0] = fill
+    if spool is not None:
+        spool[0] = sfill
+    for b, n in enumerate(lengths.tolist()):
+        if 0 < n < tables.shape[1] * bs and n % bs:
+            blk = int(tables[b, n // bs])
+            rows[blk, :, n % bs:] = fill
+            if spool is not None:
+                spool[blk, :, n % bs:] = sfill
+    return pool, spool
+
+
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind", ["bfloat16", "fp8", "int8"])
+def test_paged_split_kernel_never_reads_garbage(cuda, kind, q_dtype):
+    """NaN in null block 0 and past each row's length inside its last live
+    block (an fp8 payload of 0x7F; an int8 pool's NaN in its scales): the
+    output is finite and equals the plain version on the same pool with
+    zeros there."""
+    B, Hkv, G, D, bs, MB = 16, 8, 4, 64, 16, 64
+    case = (B, Hkv, G, D, bs, MB, (1, 1024, 1033, 2, 37, 100, 255, 256, 257, 511, 512, 513,
+                                   700, 900, 1000, 1023))
+    rng = np.random.default_rng(11)
+    q, _, _, tables, lengths = _paged_inputs(case, cuda, torch.float32,
+                                             q_dtype=getattr(torch, q_dtype), seed=11)
+    N = B * MB + 1
+    (kp, ks), (vp, vs) = (_pool(rng, (N, Hkv, bs, D), cuda, kind) for _ in range(2))
+    (kd, ksd), (vd, vsd) = (_poison(p, s, tables, lengths, bs, nan=True)
+                            for p, s in ((kp, ks), (vp, vs)))
+    (kc, ksc), (vc, vsc) = (_poison(p, s, tables, lengths, bs, nan=False)
+                            for p, s in ((kp, ks), (vp, vs)))
+    starts = (lengths // 3).to(torch.int32)
+    for st in (None, starts):
+        out = ops.paged_decode_attention(q, kd, vd, tables, lengths, starts=st, k_scale=ksd,
+                                         v_scale=vsd)
+        exp = ref.paged_decode_attention(q, kc, vc, tables, lengths, starts=st, k_scale=ksc,
+                                         v_scale=vsc)
+        assert torch.isfinite(out).all()
+        tol = _paged_tol(q_dtype, kind)
+        np.testing.assert_allclose(_np(out), _np(exp), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind", list(POOL_DTYPES))
+def test_paged_split_kernel_all_windows_empty(cuda, kind, q_dtype):
+    """The cold launch of a step with nothing spilled: every row's length
+    0 (and, second, every window starting at its length).  Out exactly 0,
+    lse <= -1e30, no NaN."""
+    B, Hkv, G, D, bs, MB = 16, 8, 4, 64, 16, 64
+    case = (B, Hkv, G, D, bs, MB, tuple(range(0, 16 * 61, 61)))
+    rng = np.random.default_rng(12)
+    q, _, _, tables, lengths = _paged_inputs(case, cuda, torch.float32,
+                                             q_dtype=getattr(torch, q_dtype), seed=12)
+    (kp, ks), (vp, vs) = (_pool(rng, (B * MB + 1, Hkv, bs, D), cuda, kind) for _ in range(2))
+    for n, st in ((torch.zeros_like(lengths), None), (lengths, lengths)):
+        out, lse = ops.paged_decode_attention(q, kp, vp, tables, n, starts=st,
+                                              return_lse=True, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert float(out.abs().max()) == 0.0
+        assert float(lse.max()) <= -1e30 and not torch.isnan(lse).any()
