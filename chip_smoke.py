@@ -14,13 +14,15 @@
    for the paged kernel ``gather_paged_cache`` then SDPA, since no single
    call computes paged attention; for the fp8/int8 variants the
    dequantization too; never used by the port) and the least time the
-   card could take.  Nine rows: decode (split across CTAs, partials
+   card could take.  Thirteen rows: decode (split across CTAs, partials
    merged by a second kernel); prefill unscaled at a whole prompt and at
    the hybrid chunk shape (32 queries at q_offset 192 against the
    1024-position staging stripe, after the chunk edge cases), int8 and
    fp8 K/V, and f32 queries over f32 K/V (float32 mode's CUDA-core
    kernel); paged unscaled, fp8 and int8 pools (split across CTAs like
-   the decode).  The paged variants are also checked with f32 queries,
+   the decode); the speculative draft's decode and prefill chunk at its
+   own heads (Hkv 2, G 2, D 16); paged bf16 and fp8 pools at block size
+   128.  The paged variants are also checked with f32 queries,
    with a ``starts`` window + lse, with NaN in null block 0 and past each
    row's length (never read: equal to the plain version on zeros there)
    and with every window empty (the cold launch of a step with nothing
@@ -29,7 +31,7 @@
    the bf16 staging cache; float32 mode runs in the reference checks):
    kernel level only.
 4. Serve phase: full-width llama3.2-1b with seeded random weights through
-   ``repro_torch.launch.serve``, four paths, each with every launch
+   ``repro_torch.launch.serve``, eight paths, each with every launch
    counter zeroed before its async run and read after it:
    a. dense cache, decode-only schedule (slice 1's main path);
    b. paged cache, hybrid chunked-prefill schedule, a pool of 385 blocks
@@ -37,14 +39,24 @@
    c. paged-tiered (slice 3's main path): hybrid schedule, fp8 pool of
       129 blocks (2048 positions: the pool must spill) and a host tier
       of 512 blocks;
-   d. the same tier with an int8 pool on the decode-only schedule.
+   d. the same tier with an int8 pool on the decode-only schedule;
+   e. dense-spec (slice 6's main path): a with ``--spec-depth 2`` and the
+      default reduced draft, on a's first 32 requests;
+   f. paged-hybrid-spec: b with ``--spec-depth 2``, on b's first 32;
+   g. target-draft: a's first 16 requests at depth 2 with the target as
+      its own draft (its cache prefilled whole, the draft's in chunks);
+   h. target-draft-hybrid: the same on the dense hybrid schedule, where
+      both caches are filled by the same chunk calls: acceptance >= 0.99.
    Each runs async (dispatch-ahead) and then sync; the greedy tokens must
-   be identical, each kernel variant must have launched once per layer of
+   be identical, each kernel row must have launched once per layer of
    every prefill, chunk and decode step of its path (twice per layer of a
-   decode step on the tiered paths: hot and cold windows), and the paged
-   paths' pools must drain; the tiered paths must spill and not preempt.
-5. Profiles (torch.profiler) of steady async steps on paths a, b and c,
-   for where the time goes, with every port kernel's time and launches
+   decode step on the tiered paths: hot and cold windows; k + 1 times per
+   layer of a speculative window, the target's and the draft's layers
+   counted apart by head shape), and the paged paths' pools must drain;
+   the tiered paths must spill and not preempt; the speculative paths'
+   tokens must equal their non-speculative path's.
+5. Profiles (torch.profiler) of steady async steps on paths a, b, c and
+   e, for where the time goes, with every port kernel's time and launches
    per step (the split kernels and the combine kernel apart); on path c
    also the hot and the cold paged call of one layer on the profiled
    state: device time (queued behind a spin kernel) and host time per
@@ -63,6 +75,14 @@
    tokens, a freed prefix re-hydrated with the same continuation, a
    spilled slot reused by another prompt, and the step clock of the CPU
    engine.
+9. A speculative check: reduced float32 engines at depth 2 on the GPU
+   (async, sync) against the CPU, {dense, paged} x {decode-only, hybrid},
+   a mismatched draft and the target as draft: tokens (also those of the
+   plain run) and step clock equal; ``verify_step`` / ``paged_verify_step``
+   logits GPU vs CPU, with windows past ``max_seq`` and past the table.
+10. Block size 128: a reduced serve at ``--cache paged --block-size 128``
+   (launches exact at that shape) and reduced float32 engines on the GPU
+   against the CPU.
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object with one entry per kernel; the last is
@@ -78,7 +98,9 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -86,6 +108,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.reduced import reduce_config  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import heads as kernel_heads  # noqa: E402
 from repro_torch.kernels import decode_attention as kdec  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as kpaged  # noqa: E402
 from repro_torch.kernels import prefill_attention as kpre  # noqa: E402
@@ -114,7 +137,9 @@ TIERED_FLAGS = ["--cache", "paged", "--schedule", "hybrid", "--kv-dtype", "fp8",
 TIERED_INT8_FLAGS = ["--cache", "paged", "--schedule", "decode-only", "--kv-dtype", "int8",
                      *TIER]
 CHUNK_SQ, CHUNK_OFFSET = 32, 192       # a hybrid chunk (--prefill-chunk 32) mid-prompt
-HYBRID_PATHS = ("paged-hybrid", "paged-tiered")   # the paths that prefill in chunks
+SPEC_DEPTH = 2
+# the speculative paths serve the first half of the base paths' requests
+SPEC_FLAGS = ["--spec-depth", str(SPEC_DEPTH), "--requests", "32"]
 PORT_KERNELS = ("decode_split_mma_kernel", "decode_split_fma_kernel", "span_combine_kernel",
                 "flash_prefill_mma_kernel", "flash_prefill_fma_kernel",
                 "paged_split_mma_kernel", "paged_split_fma_kernel")
@@ -182,9 +207,13 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 # ----------------------------------------------------------- kernel phase
-def decode_phase(dev) -> dict:
-    """llama3.2-1b decode attention at 16 slots, max_seq 1024, bf16."""
-    B, S, Hkv, G, D = 16, 1024, 8, 4, 64
+def decode_phase(dev, draft: bool = False) -> dict:
+    """llama3.2-1b decode attention at 16 slots, max_seq 1024, bf16;
+    ``draft``: at the shape of its ``--spec-depth`` draft (reduced
+    llama3.2-1b: Hkv 2, G 2, D 16, padded to 32 in the tensor-core
+    kernel), which decodes k + 1 times per speculative step."""
+    B, S, Hkv, G, D = (16, 1024, 2, 2, 16) if draft else (16, 1024, 8, 4, 64)
+    name = "decode_attention[draft]" if draft else "decode_attention"
     gen = torch.Generator(device=dev).manual_seed(1)
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
     cache_bytes = 2 * B * S * Hkv * D * 2
@@ -201,7 +230,7 @@ def decode_phase(dev) -> dict:
     torch.cuda.synchronize()
     err = _max_err(out, exp)
     if not err <= BF16_TOL:
-        raise AssertionError(f"decode_attention kernel vs plain: max err {err}")
+        raise AssertionError(f"{name} kernel vs plain: max err {err}")
 
     pos = torch.arange(S, device=dev)
     mask = (pos[None] < lengths[:, None])[:, None, None, :]            # (B,1,1,S)
@@ -218,8 +247,8 @@ def decode_phase(dev) -> dict:
     flops = 4 * live * Hkv * G * D
     bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_FLOPS)
     return {
-        "name": "decode_attention", "kernel": "decode_attention", "variant": "unscaled",
-        "route": "cuda", "source": kdec.SOURCE,
+        "name": name, "kernel": "decode_attention", "variant": "unscaled",
+        "heads": kernel_heads(Hkv, G, D), "route": "cuda", "source": kdec.SOURCE,
         "replaces": kdec.REPLACES, "max_abs_err": err, "tol": BF16_TOL,
         **_times([lambda s=s: ops.decode_attention(*s, lengths) for s in sets],
                  [lambda s=s: kdec.plain(*s, lengths) for s in sets],
@@ -283,7 +312,8 @@ def prefill_phase(dev, kv: str | None = None) -> dict:
                                 else PEAK_8BIT_OPS)
     return {
         "name": _row_name("prefill_attention", kv), "kernel": "prefill_attention",
-        "variant": kv or "unscaled", "route": "cuda", "source": kpre.SOURCE,
+        "variant": kv or "unscaled", "heads": kernel_heads(Hkv, Hq // Hkv, D),
+        "route": "cuda", "source": kpre.SOURCE,
         "replaces": kpre.REPLACES,
         "max_abs_err": max(c["max_abs_err"] for c in cases), "tol": BF16_TOL,
         **_times([lambda: ops.flash_attention(q, k, v, k_scale=ks, v_scale=vs)],
@@ -299,14 +329,18 @@ def prefill_phase(dev, kv: str | None = None) -> dict:
     }
 
 
-def prefill_chunk_phase(dev) -> dict:
+def prefill_chunk_phase(dev, draft: bool = False) -> dict:
     """llama3.2-1b prefill attention at the hybrid schedule's chunk shape
     (``--prefill-chunk 32``): 32 bf16 queries at q_offset 192 against the
     1024-position staging stripe (B 1, Hq 32, Hkv 8, D 64, causal), after
     the chunk's edge cases Sq in {1, 5, 32} x q_offset in {0, 17, 192,
-    991}.  Yardstick: one SDPA call over ``k[:, :q_offset + Sq]`` with a
-    lower-right causal mask.  The bound counts the keys the chunk sees."""
-    Hq, Hkv, D, S = 32, 8, 64, 1024
+    991}.  ``draft``: the same at the ``--spec-depth`` draft's heads (Hq
+    4, Hkv 2, D 16), whose cache is prefilled in such chunks against its
+    1024-position stripe.  Yardstick: one SDPA call over ``k[:, :q_offset
+    + Sq]`` with a lower-right causal mask.  The bound counts the keys the
+    chunk sees."""
+    Hq, Hkv, D, S = (4, 2, 16, 1024) if draft else (32, 8, 64, 1024)
+    name = "prefill_attention[draft-chunk]" if draft else "prefill_attention[chunk]"
     sq, off = CHUNK_SQ, CHUNK_OFFSET
     gen = torch.Generator(device=dev).manual_seed(3)
     n_copies = max(1, math.ceil(2 * L2_BYTES / (2 * S * Hkv * D * 2)))
@@ -323,7 +357,7 @@ def prefill_chunk_phase(dev) -> dict:
             torch.cuda.synchronize()
             err = _max_err(out, exp)
             if not err <= BF16_TOL:
-                raise AssertionError(f"prefill_attention[chunk] kernel vs plain at Sq={n} "
+                raise AssertionError(f"{name} kernel vs plain at Sq={n} "
                                      f"q_offset={o}: max err {err}")
             cases.append({"sq": n, "q_offset": o, "max_abs_err": err})
     q, k, v = sets[0]
@@ -331,7 +365,7 @@ def prefill_chunk_phase(dev) -> dict:
     exp = kpre.plain(q, k, v, q_offset=off)
     err = _max_err(out, exp)
     if not err <= BF16_TOL:
-        raise AssertionError(f"prefill_attention[chunk] kernel vs plain: max err {err}")
+        raise AssertionError(f"{name} kernel vs plain: max err {err}")
     mask = torch.ones(sq, off + sq, dtype=torch.bool, device=dev).tril(diagonal=off)
 
     def library(q, k, v):
@@ -345,8 +379,9 @@ def prefill_chunk_phase(dev) -> dict:
     nbytes = 2 * 2 * q.numel() + 2 * (off + sq) * Hkv * D * 2
     bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_FLOPS)
     return {
-        "name": "prefill_attention[chunk]", "kernel": "prefill_attention",
-        "variant": "unscaled", "route": "cuda", "source": kpre.SOURCE,
+        "name": name, "kernel": "prefill_attention",
+        "variant": "unscaled", "heads": kernel_heads(Hkv, Hq // Hkv, D), "route": "cuda",
+        "source": kpre.SOURCE,
         "replaces": kpre.REPLACES, "max_abs_err": max([err] + [c["max_abs_err"] for c in cases]),
         "tol": BF16_TOL,
         **_times([lambda s=s: ops.flash_attention(*s, q_offset=off) for s in sets],
@@ -357,7 +392,8 @@ def prefill_chunk_phase(dev) -> dict:
         "library_max_abs_err": lib_err,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
         "shape": f"B=1 Sq={sq} q_offset={off} Sk={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal "
-                 "(the hybrid chunk against the staging stripe)",
+                 + ("(the draft's prefill chunk against its cache stripe)" if draft
+                    else "(the hybrid chunk against the staging stripe)"),
         "cases": cases,
     }
 
@@ -390,7 +426,8 @@ def prefill_f32_phase(dev) -> dict:
     bound_ms, bound_by = _bound(nbytes, flops, PEAK_F32_FLOPS)
     return {
         "name": "prefill_attention[f32]", "kernel": "prefill_attention",
-        "variant": "f32-query", "route": "cuda", "source": kpre.SOURCE,
+        "variant": "f32-query", "heads": kernel_heads(Hkv, Hq // Hkv, D), "route": "cuda",
+        "source": kpre.SOURCE,
         "replaces": kpre.REPLACES, "max_abs_err": err, "tol": F32_TOL,
         **_times([lambda: ops.flash_attention(q, k, v)], [lambda: kpre.plain(q, k, v)],
                  [library]),
@@ -426,15 +463,18 @@ def _poison(pool, spool, tables, lengths, bs: int, nan: bool):
     return pool, spool
 
 
-def paged_phase(dev, kv: str | None = None) -> dict:
+def paged_phase(dev, kv: str | None = None, bs: int = 16) -> dict:
     """llama3.2-1b paged decode attention at the serve shapes: 16 slots,
     block 16, 64 blocks per row, a pool of 1025 blocks, bf16 queries; the
     decode row's ragged lengths (clamped to 1024 by the kernel), a
     scrambled table and garbage in null block 0 (of the scale pools too).
-    ``kv``: an fp8/int8 pool with its f32 scale pools."""
-    B, Hkv, G, D, bs, MB = 16, 8, 4, 64, 16, 64
+    ``kv``: an fp8/int8 pool with its f32 scale pools.  ``bs``: another
+    block size over the same 1024 positions (``--block-size 128``: 8
+    blocks per row)."""
+    B, Hkv, G, D, MB = 16, 8, 4, 64, 1024 // bs
     N = B * MB + 1
-    name = _row_name("paged_decode_attention", kv)
+    name = _row_name("paged_decode_attention", ",".join(
+        x for x in (kv, None if bs == 16 else f"bs{bs}") if x) or None)
     gen = torch.Generator(device=dev).manual_seed(5)
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
     perm = torch.randperm(N - 1, generator=torch.Generator().manual_seed(5)) + 1
@@ -525,7 +565,7 @@ def paged_phase(dev, kv: str | None = None) -> dict:
                                 else PEAK_8BIT_OPS)
     return {
         "name": name, "kernel": "paged_decode_attention", "variant": kv or "unscaled",
-        "route": "cuda", "source": kpaged.SOURCE,
+        "heads": kernel_heads(Hkv, G, D, bs), "route": "cuda", "source": kpaged.SOURCE,
         "replaces": kpaged.REPLACES, "max_abs_err": max(err, err_w), "tol": BF16_TOL,
         "f32_query_max_abs_err": err32,
         **_times([lambda s=s: call(ops.paged_decode_attention, *s) for s in sets],
@@ -555,32 +595,62 @@ def load_model():
     return model, params
 
 
-def serve_phase(model, params, label: str, flags: list[str], want,
-                tiered: bool = False):
+def _expected(per_row: dict[str, int], rows: dict[str, dict]):
+    """The launches ``per_row`` names per kernel row, summed per kernel
+    and variant, and per kernel, variant and head shape: what the launch
+    counters must read (rows of one shape, such as a whole prompt and a
+    chunk, share a key)."""
+    by_variant = {k: {} for k in ops.KERNELS}
+    by_shape = {k: {} for k in ops.KERNELS}
+    for name, n in per_row.items():
+        r = rows[name]
+        v, key = by_variant[r["kernel"]], (r["variant"], r["heads"])
+        v[r["variant"]] = v.get(r["variant"], 0) + n
+        by_shape[r["kernel"]][key] = by_shape[r["kernel"]].get(key, 0) + n
+    return by_variant, by_shape
+
+
+class PathRun(NamedTuple):
+    launches: dict[str, int]          # kernel row -> launches in the async run
+    stats: object
+    tokens: list[list[int]]           # each request's greedy tokens
+    wall_s: float
+
+
+def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[str, dict],
+                tiered: bool = False, base: PathRun | None = None,
+                draft=None, min_accept: float = 0.0) -> PathRun:
     """One path through the serve entry point: a short warm-up, the async
     run with every launch counter zeroed before it and read after it,
-    then the sync run; checks launches per kernel variant
-    (``want(stats)``), completion, a drained pool, sync/async greedy
-    identity and (``tiered``) spills without preemption.  Returns the
-    async run's launch counts per kernel and variant, and its stats."""
+    then the sync run; checks launches per kernel row (``want(stats)``:
+    row name -> launches, summed per kernel and variant and per head shape
+    against the counters), completion, a drained pool, sync/async greedy
+    identity, (``tiered``) spills without preemption and (``base``: the
+    non-speculative run of a superset of these requests) token identity
+    with it.  ``draft``: the speculative draft (model, params) instead of
+    the serve CLI's default; ``min_accept``: the least acceptance rate."""
     cfg = model.cfg
+    t_phase = time.perf_counter()
     args = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--async", "on"])
     warm = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--requests", "4"])
-    serve.serve(warm, model, params)           # warm-up: cuBLAS handles, allocator
+    serve.serve(warm, model, params, draft)    # warm-up: cuBLAS handles, allocator
 
     ops.reset_launch_counts()
-    res = serve.serve(args, model, params)     # the path's main run
-    launches = ops.variant_counts()
+    res = serve.serve(args, model, params, draft)      # the path's main run
+    launches, shapes = ops.variant_counts(), ops.shape_counts()
     print(f"[{label}] serve {' '.join(flags) or '(dense, decode-only)'}")
     for line in serve.report(args, res):
         print(f"[{label}] {line}")
     st = res.stats
-    expected = want(st)
+    per_row = {name: n for name, n in want(st).items() if n}
+    exp_variant, exp_shape = _expected(per_row, rows)
     print(f"[{label}] preemptions={st.preemptions} victim_drains={st.victim_drains} "
           f"spills={st.spills} rehydrations={st.rehydrations} "
-          f"launches: {launches} expected {expected}")
-    if launches != expected:
-        raise AssertionError(f"[{label}] kernel launches {launches} != expected {expected}")
+          f"dispatches={dict(res.engine.dispatch_counts)} launches: {launches} expected "
+          f"{exp_variant}; by head shape {shapes}")
+    if launches != exp_variant or shapes != exp_shape:
+        raise AssertionError(f"[{label}] kernel launches {launches} / {shapes} != expected "
+                             f"{exp_variant} / {exp_shape}")
     if args.cache == "paged" and res.engine.pool.in_use:
         raise AssertionError(f"[{label}] pool holds {res.engine.pool.in_use} blocks after "
                              "the run")
@@ -593,9 +663,26 @@ def serve_phase(model, params, label: str, flags: list[str], want,
                 and all(0 <= t < cfg.vocab for t in r.out_tokens)):
             raise AssertionError(f"[{label}] request {r.uid}: done={r.done} "
                                  f"tokens={len(r.out_tokens)}")
+    if args.spec_depth:
+        short = sum(x < 1.0 for x in st.spec_accept_samples)
+        print(f"[{label}] acceptance rate {st.acceptance_rate:.4f}: "
+              f"{len(st.spec_accept_samples)} windows, {short} below 1.0; "
+              f"spec_steps={st.spec_steps} decode_steps={st.decode_steps} "
+              f"draft_steps={st.draft_steps}")
+        if st.spec_steps != st.decode_steps or st.acceptance_rate < min_accept:
+            raise AssertionError(f"[{label}] a decode dispatch ran without speculation, "
+                                 f"or acceptance under {min_accept}")
+    if base is not None:
+        differ = [(r.uid, next(i for i, (x, y) in enumerate(zip(r.out_tokens, b)) if x != y))
+                  for r, b in zip(reqs, base.tokens) if r.out_tokens != b]
+        print(f"[{label}] vs the non-speculative run: {len(reqs) - len(differ)}/{len(reqs)} "
+              f"requests token-identical; differing (uid, first position): {differ}")
+        if differ:
+            raise AssertionError(f"[{label}] speculative greedy tokens differ from the "
+                                 "non-speculative run's")
 
     sync_args = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--async", "off"])
-    sync = serve.serve(sync_args, model, params)
+    sync = serve.serve(sync_args, model, params, draft)
     for line in serve.report(sync_args, sync):
         print(f"[{label}] {line}")
     pairs = list(zip(reqs, sync.driver.submitted))
@@ -604,9 +691,15 @@ def serve_phase(model, params, label: str, flags: list[str], want,
     print(f"[{label}] sync vs async greedy: {sum(same)}/{len(same)} requests "
           f"token-identical; engine steps async {st.engine_steps}, sync "
           f"{sync.stats.engine_steps}")
-    if same_clock and not all(same):
+    if (same_clock or args.spec_depth) and not all(same):
         raise AssertionError(f"[{label}] sync and async greedy tokens differ")
-    if not same_clock:
+    if not same_clock and args.spec_depth:
+        # the async engine plans from the one token a window surely
+        # commits, so it dispatches windows past a finish that accepted
+        # drafts brought forward (masked when observed): more steps, the
+        # same tokens, as in the reference
+        print(f"[{label}] step clocks differ (async dispatches past early finishes)")
+    elif not same_clock:
         # Only with a host tier under pool pressure: the reference's async
         # engine spills before it observes the slots that finish this step
         # (sync frees their blocks first), so its chunks and hot/cold
@@ -620,7 +713,9 @@ def serve_phase(model, params, label: str, flags: list[str], want,
         if not (tiered and agree >= 0.6
                 and all(a.out_tokens[0] == b.out_tokens[0] for a, b in pairs)):
             raise AssertionError(f"[{label}] sync and async runs diverge")
-    return launches, st
+    wall = time.perf_counter() - t_phase
+    print(f"[{label}] phase wall {wall:.1f}s (warm-up, async and sync runs)")
+    return PathRun(per_row, st, [r.out_tokens for r in reqs], wall)
 
 
 def profile_phase(model, params, label: str, flags: list[str], warm_steps: int,
@@ -721,6 +816,19 @@ def tier_launches(eng, label: str) -> None:
           f"{host_ms(cold):.4f} ms; spills so far {eng.stats.spills}")
 
 
+def _reduced_pair(dev, seeds=(3,)):
+    """Reduced llama3.2-1b in float32 on the GPU and on the CPU, with the
+    same weights for each seed: (gpu, cpu, [(gpu params, cpu params)])."""
+    cfg = reduce_config("llama3.2-1b").with_overrides(dtype="float32")
+    gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+    out = []
+    for seed in seeds:
+        p_gpu = gpu.init(seed=seed)
+        out.append((p_gpu, {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+                                else v.cpu()) for k, v in p_gpu.items()}))
+    return gpu, cpu, out
+
+
 def reference_check(dev) -> None:
     """Reduced llama3.2-1b in float32: kernels on the GPU vs the plain path
     on the CPU, same weights.  Dense cache: prefill + 4 decode steps.
@@ -728,13 +836,9 @@ def reference_check(dev) -> None:
     tier holding spilled blocks): :func:`_paged_reference`.  Tolerance
     5e-2 on logits: the plain decode path rounds p to the bf16 cache dtype
     before P·V (as the JAX reference does), the kernels keep it in f32."""
-    cfg = reduce_config("llama3.2-1b").with_overrides(dtype="float32")
-    gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
-    p_gpu = gpu.init(seed=3)
-    p_cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
-             for k, v in p_gpu.items()}
+    gpu, cpu, ((p_gpu, p_cpu),) = _reduced_pair(dev)
     gen = torch.Generator().manual_seed(4)
-    prompt = torch.randint(1, cfg.vocab, (2, 29), generator=gen)
+    prompt = torch.randint(1, gpu.cfg.vocab, (2, 29), generator=gen)
     caches = gpu.init_cache(2, 64), cpu.init_cache(2, 64)
     lg, _ = gpu.prefill(p_gpu, prompt.to(dev), caches[0])
     lc, _ = cpu.prefill(p_cpu, prompt, caches[1])
@@ -815,11 +919,7 @@ def preemption_check(dev) -> None:
     On the GPU, async (victim-only drain) and sync give the same greedy
     tokens, and the step clock equals the CPU engine's (it does not
     depend on token values)."""
-    cfg = reduce_config("llama3.2-1b").with_overrides(dtype="float32")
-    gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
-    p_gpu = gpu.init(seed=3)
-    p_cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
-             for k, v in p_gpu.items()}
+    gpu, cpu, ((p_gpu, p_cpu),) = _reduced_pair(dev)
     prompts = [torch.arange(1, 10, dtype=torch.int32).numpy(),
                torch.arange(3, 8, dtype=torch.int32).numpy()]
     for schedule in ("decode-only", "hybrid"):
@@ -856,11 +956,7 @@ def host_tier_check(dev) -> None:
     * a third prompt in the slot the first spilled from decodes as in an
       unspilled run (its cold window starts empty);
     and the step clock of each equals the CPU engine's."""
-    cfg = reduce_config("llama3.2-1b").with_overrides(dtype="float32")
-    gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
-    p_gpu = gpu.init(seed=3)
-    p_cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
-             for k, v in p_gpu.items()}
+    gpu, cpu, ((p_gpu, p_cpu),) = _reduced_pair(dev)
     a, b, c = (torch.arange(lo, hi, dtype=torch.int32).numpy()
                for lo, hi in ((1, 10), (3, 8), (40, 49)))
 
@@ -894,6 +990,141 @@ def host_tier_check(dev) -> None:
         if not (moved and st.preemptions == 0 and toks == toks_s == base
                 and use == use_s == 0 and clock[0] == clock[1] == clock[2]):
             raise AssertionError(f"host-tier check ({case}) failed: {clock}")
+
+
+SPEC_COMBOS = {
+    "dense/decode-only": {},
+    "dense/hybrid": dict(schedule="hybrid", prefill_chunk=8),
+    "paged/decode-only": dict(cache_kind="paged", block_size=8),
+    "paged/hybrid": dict(cache_kind="paged", block_size=8, schedule="hybrid", prefill_chunk=8),
+}
+
+
+def spec_reference_check(dev) -> None:
+    """Speculative decoding, reduced llama3.2-1b in float32 (depth 2): the
+    engine on the GPU (async and sync) against the CPU engine, same
+    weights, over {dense, paged} x {decode-only, hybrid} with a mismatched
+    draft and with the target as its own draft: greedy tokens and the
+    step clock (engine, spec and draft steps, drafted and accepted tokens,
+    prefills, chunks) equal mode for mode (async dispatches windows past a
+    finish that accepted drafts brought forward, so its clock may run
+    ahead of sync's, in the reference too), and the tokens those of the
+    GPU's plain run.  Then :func:`verify_reference_check`."""
+    gpu, cpu, ((pt_g, pt_c), (pd_g, pd_c)) = _reduced_pair(dev, seeds=(3, 5))
+    prompts = [np.arange(1, 6, dtype=np.int32), np.arange(7, 10, dtype=np.int32),
+               np.arange(2, 13, dtype=np.int32), np.arange(4, 25, dtype=np.int32)]
+
+    def run(model, params, **kw):
+        eng = Engine(model, params, n_slots=2, max_seq=32, **kw)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        st = eng.run()
+        clock = (st.engine_steps, st.spec_steps, st.draft_steps, st.drafted_tokens,
+                 st.accepted_tokens, st.prefills, st.prefill_chunks, st.decode_steps)
+        return [r.out_tokens for r in reqs], clock, st
+
+    for combo, kw in SPEC_COMBOS.items():
+        plain, _, _ = run(gpu, pt_g, **kw)
+        for draft, (dg, dc) in (("mismatched", (pd_g, pd_c)), ("target", (pt_g, pt_c))):
+            spec = dict(spec_depth=2, **kw)
+            (ta, ca, sa), (ts, cs, _), (tca, cca, _), (tcs, ccs, _) = (
+                run(m, p, async_mode=am, draft_model=m, draft_params=d, **spec)
+                for m, p, d, am in ((gpu, pt_g, dg, True), (gpu, pt_g, dg, False),
+                                    (cpu, pt_c, dc, True), (cpu, pt_c, dc, False)))
+            ok = (ta == ts == tca == tcs == plain and ca == cca and cs == ccs
+                  and sa.spec_steps >= 1)
+            print(f"spec reference check ({combo}, {draft} draft): acceptance "
+                  f"{sa.acceptance_rate:.3f}; tokens GPU async == sync == CPU == plain: "
+                  f"{ta == ts == tca == tcs == plain}; step clock GPU/CPU async {ca} {cca}, "
+                  f"sync {cs} {ccs}")
+            if not ok:
+                raise AssertionError(f"spec reference check ({combo}, {draft}) failed")
+    verify_reference_check(dev, gpu, cpu, pt_g, pt_c)
+
+
+def verify_reference_check(dev, gpu, cpu, p_gpu, p_cpu) -> None:
+    """``verify_step`` and ``paged_verify_step`` on the GPU against the CPU
+    (reduced float32, a window of 3): logits within the 5e-2 of
+    :func:`reference_check`, lengths returned unchanged.  The dense
+    window of slot 1 overshoots ``max_seq`` (16): those writes drop.  The
+    paged window of slot 1 runs past its table: positions 12 and 13 land
+    in null block 0, and no block but those the windows address changes."""
+    cfg = gpu.cfg
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 3)).astype(np.int32))
+    L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim()
+    dense_kv = torch.from_numpy(rng.standard_normal((2, L, 2, 16, Hkv, Dh), np.float32))
+    pool_kv = torch.from_numpy(rng.standard_normal((2, L, 10, Hkv, 4, Dh), np.float32))
+    tables = torch.tensor([[3, 7, 0], [5, 2, 9]], dtype=torch.int32)
+    out = []
+    for model, params, d in ((gpu, p_gpu, dev), (cpu, p_cpu, torch.device("cpu"))):
+        dc = model.init_cache(2, 16)
+        pc = model.init_paged_cache(2, 10, 4, 3)
+        for i, key in enumerate(("k", "v")):
+            dc[key].copy_(dense_kv[i])
+            pc[key].copy_(pool_kv[i])
+        dc["lengths"].copy_(torch.tensor([4, 14]))
+        pc["lengths"].copy_(torch.tensor([3, 11]))
+        pc["block_tables"].copy_(tables)
+        ld, dc = model.verify_step(params, dc, toks.to(d))
+        lp, pc = model.paged_verify_step(params, pc, toks.to(d))
+        out.append((ld.cpu(), lp.cpu(), {k: v.cpu() for k, v in dc.items()},
+                    {k: v.cpu() for k, v in pc.items()}))
+    (ldg, lpg, dcg, pcg), (ldc, lpc, _, _) = out
+    worst = max(_max_err(ldg, ldc), _max_err(lpg, lpc))
+    changed = {key: {int(b) for b in torch.nonzero(
+        (pcg[key].float() != pool_kv[i].bfloat16().float()).flatten(2).any(-1).any(0)
+    ).flatten()} for i, key in enumerate(("k", "v"))}
+    kept = bool(torch.equal(dcg["k"][:, 1, :14].float(),
+                            dense_kv[0][:, 1, :14].bfloat16().float()))
+    print(f"verify reference check (reduced f32, GPU vs CPU): max |logit diff| {worst:.3e}; "
+          f"lengths {dcg['lengths'].tolist()} {pcg['lengths'].tolist()}; paged blocks "
+          f"written {changed}; dense slot 1 below its length kept: {kept}")
+    if not (worst <= 5e-2 and dcg["lengths"].tolist() == [4, 14]
+            and pcg["lengths"].tolist() == [3, 11] and kept
+            and changed == {"k": {0, 3, 7, 9}, "v": {0, 3, 7, 9}}):
+        raise AssertionError("verify reference check failed")
+
+
+def block128_check(dev) -> None:
+    """``--block-size 128`` on the card: a reduced serve through
+    ``repro_torch.launch.serve`` (bf16, paged, decode-only, prompts over
+    one block) whose paged launches, at the block-128 shape key, number 2
+    per decode step; then reduced float32 engines on the GPU (async and
+    sync) against the CPU: greedy tokens and step clock equal."""
+    flags = ["--reduced", "--requests", "6", "--slots", "3", "--max-seq", "512",
+             "--max-new", "12", "--cache", "paged", "--block-size", "128",
+             "--device", "cuda"]
+    args = serve.build_parser().parse_args(flags)
+    model, params = serve.load_model(args)
+    ops.reset_launch_counts()
+    res = serve.serve(args, model, params)
+    cfg, st = model.cfg, res.stats
+    key = ("unscaled", kernel_heads(cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                                    cfg.resolved_head_dim(), 128))
+    got = ops.shape_counts()["paged_decode_attention"]
+    print(f"block-128 serve (reduced, bf16): {serve.stats_line(args.requests, st)}; paged "
+          f"launches {got}, expected {{{key}: {st.decode_steps * cfg.n_layers}}}")
+    if not (got == {key: st.decode_steps * cfg.n_layers} and res.engine.pool.in_use == 0
+            and all(r.done and len(r.out_tokens) == 12 for r in res.driver.submitted)):
+        raise AssertionError("block-128 serve failed")
+    gpu, cpu, ((p_gpu, p_cpu),) = _reduced_pair(dev)
+    rng = np.random.default_rng(128)
+    prompts = [rng.integers(1, gpu.cfg.vocab, n).astype(np.int32) for n in (150, 260, 90)]
+    runs = []
+    for m, p, am in ((gpu, p_gpu, True), (gpu, p_gpu, False), (cpu, p_cpu, False)):
+        eng = Engine(m, p, n_slots=2, max_seq=512, cache_kind="paged", block_size=128,
+                     async_mode=am)
+        reqs = [Request(uid=i, prompt=x, max_new_tokens=10) for i, x in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        s_ = eng.run()
+        runs.append(([r.out_tokens for r in reqs], (s_.engine_steps, s_.decode_steps)))
+    print(f"block-128 reference check (reduced f32): tokens GPU async == sync == CPU: "
+          f"{runs[0][0] == runs[1][0] == runs[2][0]}; step clocks {[c for _, c in runs]}")
+    if not (runs[0] == runs[1] == runs[2]):
+        raise AssertionError("block-128 reference check failed")
 
 
 def ptxas_lines(name: str) -> list[str]:
@@ -932,56 +1163,95 @@ def main() -> None:
 
     rows = [decode_phase(dev), prefill_phase(dev), prefill_chunk_phase(dev),
             prefill_phase(dev, "int8"), prefill_phase(dev, "fp8"), prefill_f32_phase(dev),
-            paged_phase(dev), paged_phase(dev, "fp8"), paged_phase(dev, "int8")]
+            paged_phase(dev), paged_phase(dev, "fp8"), paged_phase(dev, "int8"),
+            decode_phase(dev, draft=True), prefill_chunk_phase(dev, draft=True),
+            paged_phase(dev, bs=128), paged_phase(dev, "fp8", bs=128)]
     for r in rows:
         print(f"kernel {r['name']}: err {r['max_abs_err']:.2e} (tol {r['tol']}) "
               f"kernel {r['ms']:.4f} ms (events {r['event_ms']:.4f}) plain {r['plain_ms']:.4f} ms "
               f"library {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) at {r['shape']}")
+    by_name = {r["name"]: r for r in rows}
     model, params = load_model()
-    L = model.cfg.n_layers
-    by_path = {
-        "dense": serve_phase(model, params, "dense", [], lambda st: {
-            "decode_attention": {"unscaled": st.decode_steps * L},
-            "prefill_attention": {"unscaled": st.prefills * L},
-            "paged_decode_attention": {}}),
-        "paged-hybrid": serve_phase(model, params, "paged-hybrid", PAGED_FLAGS, lambda st: {
-            "decode_attention": {}, "prefill_attention": {"unscaled": st.prefill_chunks * L},
-            "paged_decode_attention": {"unscaled": st.decode_steps * L}}),
-        # tiered: every decode step attends twice per layer (hot and cold
-        # windows); prefill runs unscaled on the bf16 staging cache
-        "paged-tiered": serve_phase(model, params, "paged-tiered", TIERED_FLAGS, lambda st: {
-            "decode_attention": {}, "prefill_attention": {"unscaled": st.prefill_chunks * L},
-            "paged_decode_attention": {"fp8": 2 * st.decode_steps * L}}, tiered=True),
-        "paged-tiered-int8": serve_phase(
-            model, params, "paged-tiered-int8", TIERED_INT8_FLAGS, lambda st: {
-                "decode_attention": {}, "prefill_attention": {"unscaled": st.prefills * L},
-                "paged_decode_attention": {"int8": 2 * st.decode_steps * L}}, tiered=True),
-    }
+    L, k = model.cfg.n_layers, SPEC_DEPTH
+    Ld = serve.load_draft(serve.build_parser().parse_args(SERVE_FLAGS), model)[0].cfg.n_layers
+
+    def draft_chunks(st):
+        """The draft's prefill chunks: its steps less k + 1 decodes per window."""
+        return st.draft_steps - (k + 1) * st.spec_steps
+
+    by_path: dict[str, PathRun] = {}
+
+    def path(label, flags, want, **kw):
+        by_path[label] = serve_phase(model, params, label, flags, want, by_name, **kw)
+
+    path("dense", [], lambda st: {
+        "decode_attention": st.decode_steps * L, "prefill_attention": st.prefills * L})
+    path("paged-hybrid", PAGED_FLAGS, lambda st: {
+        "prefill_attention[chunk]": st.prefill_chunks * L,
+        "paged_decode_attention": st.decode_steps * L})
+    # tiered: every decode step attends twice per layer (hot and cold
+    # windows); prefill runs unscaled on the bf16 staging cache
+    path("paged-tiered", TIERED_FLAGS, lambda st: {
+        "prefill_attention[chunk]": st.prefill_chunks * L,
+        "paged_decode_attention[fp8]": 2 * st.decode_steps * L}, tiered=True)
+    path("paged-tiered-int8", TIERED_INT8_FLAGS, lambda st: {
+        "prefill_attention": st.prefills * L,
+        "paged_decode_attention[int8]": 2 * st.decode_steps * L}, tiered=True)
+    # speculative: each window is k + 1 verify passes of the target (L
+    # layers) and k + 1 draft decodes (Ld layers); the draft's cache is
+    # prefilled in 32-token chunks at its own heads
+    path("dense-spec", SPEC_FLAGS, lambda st: {
+        "decode_attention": st.spec_steps * (k + 1) * L,
+        "decode_attention[draft]": st.spec_steps * (k + 1) * Ld,
+        "prefill_attention": st.prefills * L,
+        "prefill_attention[draft-chunk]": draft_chunks(st) * Ld}, base=by_path["dense"])
+    path("paged-hybrid-spec", PAGED_FLAGS + SPEC_FLAGS, lambda st: {
+        "paged_decode_attention": st.spec_steps * (k + 1) * L,
+        "decode_attention[draft]": st.spec_steps * (k + 1) * Ld,
+        "prefill_attention[chunk]": st.prefill_chunks * L,
+        "prefill_attention[draft-chunk]": draft_chunks(st) * Ld},
+        base=by_path["paged-hybrid"])
+    # the target as its own draft: both decode at the target's heads, the
+    # draft's cache prefilled in chunks of the hybrid chunk's shape
+    path("target-draft", ["--spec-depth", str(k), "--requests", "16"], lambda st: {
+        "decode_attention": st.spec_steps * (k + 1) * 2 * L,
+        "prefill_attention": st.prefills * L,
+        "prefill_attention[chunk]": draft_chunks(st) * L},
+        base=by_path["dense"], draft=(model, params))
+    # the same on the dense hybrid schedule: the target's cache is then
+    # filled by the very chunk calls that fill the draft's, so every
+    # drafted token should be accepted (min_accept)
+    path("target-draft-hybrid", ["--spec-depth", str(k), "--requests", "16", "--schedule",
+                                 "hybrid"], lambda st: {
+        "decode_attention": st.spec_steps * (k + 1) * 2 * L,
+        "prefill_attention[chunk]": (st.prefill_chunks + draft_chunks(st)) * L},
+        draft=(model, params), min_accept=0.99)
+    print("phase walls: " + ", ".join(f"{p} {r.wall_s:.1f}s" for p, r in by_path.items()))
     profile_phase(model, params, "dense", [], warm_steps=4)
     profile_phase(model, params, "paged-hybrid", PAGED_FLAGS, warm_steps=48)
     # 60 steps in, the profile's 32 requests have filled the pool and begun to spill
     profile_phase(model, params, "paged-tiered", TIERED_FLAGS, warm_steps=60)
+    profile_phase(model, params, "dense-spec", SPEC_FLAGS, warm_steps=4)
     del model, params
+    t0 = time.perf_counter()
     reference_check(dev)
     preemption_check(dev)
     host_tier_check(dev)
+    spec_reference_check(dev)
+    block128_check(dev)
+    print(f"reduced checks: {time.perf_counter() - t0:.1f}s")
     for r in rows:
-        r["launches_by_path"] = {path: n[r["kernel"]].get(r["variant"], 0)
-                                 for path, (n, _) in by_path.items()}
-        if r["kernel"] == "prefill_attention" and r["variant"] == "unscaled":
-            # by shape: whole prompts on the decode-only paths, chunks
-            # (prefill_chunks x L, checked exactly in serve_phase) on the
-            # hybrid ones
-            chunked = r["name"].endswith("[chunk]")
-            r["launches_by_path"] = {path: n if (path in HYBRID_PATHS) == chunked else 0
-                                     for path, n in r["launches_by_path"].items()}
+        r["launches_by_path"] = {p: run.launches.get(r["name"], 0)
+                                 for p, run in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
-        # the scaled and f32 prefill variants are on no serving path of the
-        # reference (its quantized pools prefill into the bf16 staging
-        # cache; float32 mode runs in the reference checks)
-        r["on_main_path"] = not (r["kernel"] == "prefill_attention"
-                                 and r["variant"] != "unscaled")
+        # on no serving path: the scaled and f32 prefill variants (the
+        # reference's quantized pools prefill into the bf16 staging cache;
+        # float32 mode runs in the reference checks) and block size 128
+        # (a --block-size the serve paths do not pass; block128_check runs
+        # it at reduced size)
+        r["on_main_path"] = not ((r["kernel"] == "prefill_attention"
+                                  and r["variant"] != "unscaled") or "bs128" in r["name"])
         if r["on_main_path"] and not r["launches"]:
             raise AssertionError(f"{r['name']} never launched on the main paths")
     print(f"card: {smi}")

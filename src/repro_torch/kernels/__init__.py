@@ -21,18 +21,31 @@ def variant(kv_dtype: torch.dtype) -> str:
 @dataclasses.dataclass
 class LaunchCounter:
     """Kernel launches made by one wrapper; a run that should have gone
-    through the kernel reads ``launches`` to prove it did, and
-    ``variants`` to see which of the kernel's variants ("unscaled", or the
-    "fp8"/"int8" scaled ones) it launched."""
+    through the kernel reads ``launches`` to prove it did, ``variants`` to
+    see which of the kernel's variants ("unscaled", or the "fp8"/"int8"
+    scaled ones) it launched, and ``shapes`` at which head shapes
+    (:func:`heads`)."""
 
     name: str
     launches: int = 0
     variants: dict[str, int] = dataclasses.field(default_factory=dict)
+    # (variant, head shape) -> launches: a target and a smaller draft model
+    # calling one kernel are counted apart
+    shapes: dict[tuple[str, str], int] = dataclasses.field(default_factory=dict)
 
-    def count(self, variant: str = "unscaled") -> None:
+    def count(self, variant: str = "unscaled", shape: str = "") -> None:
         self.launches += 1
         self.variants[variant] = self.variants.get(variant, 0) + 1
+        self.shapes[variant, shape] = self.shapes.get((variant, shape), 0) + 1
 
     def reset(self) -> None:
         self.launches = 0
         self.variants.clear()
+        self.shapes.clear()
+
+
+def heads(Hkv: int, G: int, D: int, block_size: int | None = None) -> str:
+    """The launch counters' shape key of a call: KV heads, GQA group, head
+    dim (and the paged pool's block size)."""
+    key = f"Hkv{Hkv} G{G} D{D}"
+    return key if block_size is None else f"{key} bs{block_size}"

@@ -35,10 +35,12 @@
 //    -1e30, l = 0, o = 0 at once and reads nothing else;
 //  * the pool is kernel-native, (N, Hkv, bs, D): one head's bs x D tile of
 //    a physical block is contiguous.  The span's slice of tables[b] (at
-//    most split / bs + 1 entries, never past the row's last live block)
-//    goes to shared memory once, and each position's row is found through
-//    it: table[p / bs] * Hkv*bs*D + h*bs*D + (p % bs)*D, so any block size
-//    works and every 16 bytes of a row are one cp.async.  A warp works out
+//    most min(split, split / bs + 1) <= MAX_SPLIT entries, never past the
+//    row's last live block) goes to shared memory once, and each
+//    position's row is found through it: table[p / bs] * Hkv*bs*D +
+//    h*bs*D + (p % bs)*D, so any block size works (a block larger than a
+//    span or a warp's slab only means fewer table entries per span) and
+//    every 16 bytes of a row are one cp.async.  A warp works out
 //    its slab's row addresses once, into shared memory, for K, V and the
 //    scales alike;
 //  * the G query heads of the GQA group share every K/V row loaded;
@@ -101,7 +103,6 @@ constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_G = 8;
 constexpr int MAX_D = 128;
-constexpr int MAX_BS = 64;
 constexpr int MAX_SPLIT = 256;               // positions per span at most: the table slice
 constexpr int MAX_DPL = MAX_D / 32;          // output columns per lane (CUDA-core kernel)
 constexpr float LN2 = 0.6931471805599453f;
@@ -679,7 +680,7 @@ extern "C" int paged_decode_attention_launch(const void* q, const void* k, const
                                              void* ws, int B, int MB, int Hkv, int bs, int G,
                                              int D, float scale, int split, int n_split,
                                              int q_dtype, int kv_dtype, void* stream) {
-  if (G < 1 || G > MAX_G || D < 1 || D > MAX_D || bs < 1 || bs > MAX_BS || MB < 1 ||
+  if (G < 1 || G > MAX_G || D < 1 || D > MAX_D || bs < 1 || MB < 1 ||
       split < 1 || split > MAX_SPLIT || n_split < 1 || (n_split > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   if (B < 1 || Hkv < 1) return (int)cudaSuccess;

@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import LaunchCounter, ref
+from repro_torch.kernels import LaunchCounter, heads, ref
 
 REPLACES = "src/repro/kernels/decode_attention.py:92"
 SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
@@ -123,5 +123,5 @@ def kernel(q, k_cache, v_cache, lengths, *, scale: float | None = None):
                  _DTYPES[k_cache.dtype], stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
-    COUNTER.count()
+    COUNTER.count("unscaled", heads(Hkv, G, D))
     return out

@@ -4,7 +4,8 @@ Counterpart of ``repro.kernels.ops``.  A CUDA tensor goes to the Hopper
 kernel (or the wrapper raises); a CPU tensor goes to the kernel's plain
 PyTorch version and never touches the kernel library.  Each kernel
 counts its launches (:func:`launch_counts`), by variant too
-(:func:`variant_counts`: "unscaled", or the fp8/int8 scaled ones).
+(:func:`variant_counts`: "unscaled", or the fp8/int8 scaled ones) and by
+head shape (:func:`shape_counts`).
 """
 from __future__ import annotations
 
@@ -24,6 +25,11 @@ def launch_counts() -> dict[str, int]:
 
 def variant_counts() -> dict[str, dict[str, int]]:
     return {name: dict(mod.COUNTER.variants) for name, mod in KERNELS.items()}
+
+
+def shape_counts() -> dict[str, dict[tuple[str, str], int]]:
+    """Launches by (variant, head shape) per kernel: see ``kernels.heads``."""
+    return {name: dict(mod.COUNTER.shapes) for name, mod in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:

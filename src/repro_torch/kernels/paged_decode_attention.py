@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import SCALED, LaunchCounter, ref, variant
+from repro_torch.kernels import SCALED, LaunchCounter, heads, ref, variant
 from repro_torch.kernels import decode_attention as _decode
 
 REPLACES = "src/repro/kernels/paged_decode_attention.py:119"
@@ -29,7 +29,6 @@ SOURCE = "src/repro_torch/kernels/csrc/paged_decode_attention.cu"
 COUNTER = LaunchCounter("paged_decode_attention")
 MAX_G = 8
 MAX_D = 128
-MAX_BLOCK = 64
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {**_Q_DTYPES, torch.float8_e4m3fn: 2, torch.int8: 3}
 
@@ -87,33 +86,18 @@ def _check_scales(k_pool, k_scale, v_scale) -> None:
     for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
         if s.dtype != torch.float32:
             raise TypeError(f"paged_decode_attention: {name} must be float32, got {s.dtype}")
-        if s.shape != k_pool.shape[:3] or not s.is_contiguous() or not s.is_cuda:
-            raise ValueError(f"paged_decode_attention: {name} must be a contiguous CUDA "
+        if s.shape != k_pool.shape[:3] or not s.is_contiguous():
+            raise ValueError(f"paged_decode_attention: {name} must be a contiguous "
                              f"tensor of shape {tuple(k_pool.shape[:3])}, got "
                              f"{tuple(s.shape)}")
 
 
-def kernel(q, k_pool, v_pool, block_tables, lengths, *, scale: float | None = None,
-           starts=None, return_lse: bool = False, k_scale=None, v_scale=None):
-    """q (B, Hq, D), pools (N, Hkv, bs, D), block_tables (B, MB) int32,
-    lengths (B,) -> out (B, Hq, D) in q's dtype, and lse (B, Hkv, G) f32
-    when ``return_lse``.  Position ``p`` of row ``b`` is attended iff
-    ``starts[b] <= p < min(lengths[b], MB * bs)``.  An fp8-e4m3 or int8
-    pool needs ``k_scale``/``v_scale`` (N, Hkv, bs) f32, and only such a
-    pool takes them.  Table entries must lie in ``[0, N)`` (the engine's
-    tables always do; the kernel does not check them); entries past a
-    row's last live block are never read.
-
-    bf16 queries over a bf16, fp8 or int8 pool run on the tensor cores,
-    the other pairs (float32 mode) on f32 FMA.  When :func:`plan` cuts
-    the rows into more than one span (the serve shape does), this is two
-    launches on the stream: the split kernel, which writes f32 partials to
-    a workspace allocated here, and a small kernel that merges them (and
-    writes the lse).  The launch counter counts the call once."""
-    tensors = (q, k_pool, v_pool, block_tables, lengths) + (
-        () if starts is None else (starts,))
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError("paged_decode_attention kernel needs CUDA tensors")
+def check_args(q, k_pool, v_pool, block_tables, k_scale=None, v_scale=None):
+    """What :func:`kernel` takes, on any device: dtypes, shapes, layout and
+    the scale pools; raises on the rest.  Any block size: each position's
+    row is found through the table, so a block larger than a span or a
+    warp's slab only means fewer table entries per span.  Returns ``(B,
+    Hkv, bs, G, D, MB)``."""
     if (q.dtype not in _Q_DTYPES or k_pool.dtype not in _KV_DTYPES
             or v_pool.dtype != k_pool.dtype):
         raise TypeError(f"paged_decode_attention: dtypes {q.dtype}/{k_pool.dtype}/"
@@ -135,10 +119,9 @@ def kernel(q, k_pool, v_pool, block_tables, lengths, *, scale: float | None = No
                          f"{tuple(k_pool.shape)}, tables {tuple(block_tables.shape)}")
     G = Hq // Hkv
     vec = 16 // k_pool.element_size()
-    if G > MAX_G or D > MAX_D or D % vec or bs > MAX_BLOCK:
+    if G > MAX_G or D > MAX_D or D % vec:
         raise ValueError(f"paged_decode_attention kernel takes G <= {MAX_G}, "
-                         f"D <= {MAX_D}, D % {vec} == 0, block_size <= {MAX_BLOCK}; "
-                         f"got G={G} D={D} block_size={bs}")
+                         f"D <= {MAX_D}, D % {vec} == 0; got G={G} D={D}")
     if k_pool.shape[0] * Hkv * bs >= 2**31:
         raise ValueError(f"paged_decode_attention kernel takes pools of under 2^31 vectors; "
                          f"got {k_pool.shape[0]} blocks x {Hkv} heads x {bs}")
@@ -149,6 +132,31 @@ def kernel(q, k_pool, v_pool, block_tables, lengths, *, scale: float | None = No
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("paged_decode_attention: pools need 16-byte alignment")
     _check_scales(k_pool, k_scale, v_scale)
+    return B, Hkv, bs, G, D, MB
+
+
+def kernel(q, k_pool, v_pool, block_tables, lengths, *, scale: float | None = None,
+           starts=None, return_lse: bool = False, k_scale=None, v_scale=None):
+    """q (B, Hq, D), pools (N, Hkv, bs, D), block_tables (B, MB) int32,
+    lengths (B,) -> out (B, Hq, D) in q's dtype, and lse (B, Hkv, G) f32
+    when ``return_lse``.  Position ``p`` of row ``b`` is attended iff
+    ``starts[b] <= p < min(lengths[b], MB * bs)``.  An fp8-e4m3 or int8
+    pool needs ``k_scale``/``v_scale`` (N, Hkv, bs) f32, and only such a
+    pool takes them.  Table entries must lie in ``[0, N)`` (the engine's
+    tables always do; the kernel does not check them); entries past a
+    row's last live block are never read.
+
+    bf16 queries over a bf16, fp8 or int8 pool run on the tensor cores,
+    the other pairs (float32 mode) on f32 FMA.  When :func:`plan` cuts
+    the rows into more than one span (the serve shape does), this is two
+    launches on the stream: the split kernel, which writes f32 partials to
+    a workspace allocated here, and a small kernel that merges them (and
+    writes the lse).  The launch counter counts the call once."""
+    tensors = (q, k_pool, v_pool, block_tables, lengths) + tuple(
+        t for t in (starts, k_scale, v_scale) if t is not None)
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("paged_decode_attention kernel needs CUDA tensors")
+    B, Hkv, bs, G, D, MB = check_args(q, k_pool, v_pool, block_tables, k_scale, v_scale)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     lengths = _int32_vector("lengths", lengths, B)
     starts = None if starts is None else _int32_vector("starts", starts, B)
@@ -169,5 +177,5 @@ def kernel(q, k_pool, v_pool, block_tables, lengths, *, scale: float | None = No
                  split, n_split, _Q_DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: CUDA error {err}")
-    COUNTER.count(variant(k_pool.dtype))
+    COUNTER.count(variant(k_pool.dtype), heads(Hkv, G, D, bs))
     return (out, lse) if return_lse else out

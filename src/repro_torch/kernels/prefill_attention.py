@@ -18,7 +18,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import SCALED, LaunchCounter, ref, variant
+from repro_torch.kernels import SCALED, LaunchCounter, heads, ref, variant
 
 REPLACES = "src/repro/kernels/prefill_attention.py:112"
 SOURCE = "src/repro_torch/kernels/csrc/prefill_attention.cu"
@@ -109,5 +109,5 @@ def kernel(q, k, v, *, causal: bool = True, scale: float | None = None,
                  _Q_DTYPES[q.dtype], _KV_DTYPES[k.dtype], stream)
     if err != 0:
         raise RuntimeError(f"prefill_attention kernel launch failed: CUDA error {err}")
-    COUNTER.count(variant(k.dtype))
+    COUNTER.count(variant(k.dtype), heads(Hkv, Hq // Hkv, D))
     return out

@@ -11,19 +11,26 @@
       --requests 64 --slots 16 --max-seq 1024 --max-new 64 \
       --cache paged --schedule hybrid --kv-dtype fp8 --host-blocks 512 --blocks 129
 
+  python -m repro_torch.launch.serve --arch llama3.2-1b --spec-depth 2 \
+      --requests 64 --slots 16 --max-seq 1024 --max-new 64
+
 Counterpart of ``repro.launch.serve`` for the dense per-slot KV cache
 and the paged block pool (``--cache``, ``--block-size``, ``--blocks``),
 tiered KV on the pool (``--kv-dtype fp8|int8`` stores it quantized,
 ``--host-blocks`` adds the host tier that cold blocks spill to), the
 decode-only and hybrid chunked-prefill schedules (``--schedule``,
-``--prefill-chunk``, ``--token-budget``), the ``random`` workload,
-greedy sampling (or ``--sample temperature|top-k``) and the async
-dispatch-ahead engine (``--async off`` for the synchronous one).
-Weights are random, drawn from ``--seed`` on the device.  The run is on
-the GPU; ``--device cpu`` runs the plain PyTorch path (with
-``--reduced``, the test scale).  It prints the reference's stats,
-latency, ``pool:`` and ``kv tier:`` lines; the balancer line,
-telemetry, speculation and cluster flags arrive with later slices.
+``--prefill-chunk``, ``--token-budget``), speculative decoding
+(``--spec-depth K``: a draft, ``--draft ARCH`` at reduced size, default
+a reduced ``--arch``, proposes K tokens per slot and step and the target
+verifies K+1 positions; greedy output is token-identical to plain
+decoding), the ``random`` workload, greedy sampling (or ``--sample
+temperature|top-k``) and the async dispatch-ahead engine (``--async
+off`` for the synchronous one).  Weights are random, drawn from
+``--seed`` on the device; the draft's from seed 1.  The run is on the
+GPU; ``--device cpu`` runs the plain PyTorch path (with ``--reduced``,
+the test scale).  It prints the reference's stats, ``spec:``, latency,
+``pool:`` and ``kv tier:`` lines; the balancer line, telemetry and
+cluster flags arrive with later slices.
 """
 from __future__ import annotations
 
@@ -78,6 +85,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="hybrid: max prompt tokens prefilled per step")
     ap.add_argument("--token-budget", type=int, default=None,
                     help="hybrid: per-step token budget (default: slots + prefill_chunk)")
+    ap.add_argument("--spec-depth", type=int, default=0,
+                    help="speculative decoding: draft tokens proposed per decode step "
+                         "(0 = off); each step verifies k+1 positions")
+    ap.add_argument("--draft", default=None, metavar="ARCH",
+                    help="draft architecture for --spec-depth > 0, always at reduced "
+                         "size with the target's vocab (default: --arch)")
     ap.add_argument("--workload", choices=WORKLOADS, default="random")
     ap.add_argument("--workload-seed", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
@@ -116,20 +129,36 @@ class ServeResult:
         return self.engine.stats
 
 
-def make_engine(args, model: Model, params: dict) -> Engine:
-    """A fresh engine configured by ``args``."""
+def load_draft(args, model: Model) -> tuple[Model, dict]:
+    """The draft of ``--spec-depth``: ``--draft`` (default ``--arch``) at
+    reduced size with the target's vocab, on the target's device, weights
+    from seed 1."""
+    draft = build_model(reduce_config(args.draft or args.arch, vocab=model.cfg.vocab),
+                        model.device)
+    return draft, draft.init(1)
+
+
+def make_engine(args, model: Model, params: dict, draft=None) -> Engine:
+    """A fresh engine configured by ``args``; ``draft`` (model, params) is
+    built by :func:`load_draft` when ``--spec-depth`` asks for one and it
+    is not given."""
     _, sampler = make_sampler(args)
+    spec = {}
+    if args.spec_depth:
+        d_model, d_params = draft or load_draft(args, model)
+        spec = dict(spec_depth=args.spec_depth, draft_model=d_model, draft_params=d_params)
     return Engine(model, params, n_slots=args.slots, max_seq=args.max_seq,
                   sampler=sampler, async_mode=args.async_mode == "on",
                   seed=args.seed, cache_kind=args.cache, block_size=args.block_size,
                   n_blocks=args.blocks, kv_dtype=args.kv_dtype,
                   host_blocks=args.host_blocks, schedule=args.schedule,
-                  prefill_chunk=args.prefill_chunk, token_budget=args.token_budget)
+                  prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
+                  **spec)
 
 
-def serve(args, model: Model, params: dict) -> ServeResult:
+def serve(args, model: Model, params: dict, draft=None) -> ServeResult:
     """Run the workload of ``args`` through a fresh engine."""
-    eng = make_engine(args, model, params)
+    eng = make_engine(args, model, params, draft)
     arrivals = build_workload(args.workload, args.requests, vocab=model.cfg.vocab,
                               max_seq=args.max_seq, max_new=args.max_new,
                               seed=args.workload_seed)
@@ -161,6 +190,9 @@ def report(args, res: ServeResult) -> list[str]:
         f"workload: {args.workload} seed={args.workload_seed} "
         f"submitted={len(res.driver.submitted)} resubmits=0 rounds={res.rounds}",
         stats_line(len(res.driver.submitted), s),
+        *([f"spec: depth={args.spec_depth} accept_rate={s.acceptance_rate:.2f} "
+           f"drafted={s.drafted_tokens} accepted={s.accepted_tokens} "
+           f"spec_steps={s.spec_steps}"] if args.spec_depth else []),
         f"latency: TTFT mean {s.mean_ttft_steps:.1f} "
         f"p50 {s.ttft_percentile(50):.0f} p99 {s.ttft_percentile(99):.0f} "
         f"engine steps, {s.tokens_per_step:.2f} tokens/step",

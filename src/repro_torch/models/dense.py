@@ -5,8 +5,9 @@ Counterpart of ``repro.models.dense`` for ``param_defs``, ``cache_defs``
 the paged pool (``paged_cache_defs`` / ``init_paged_cache``,
 ``paged_decode_step``, ``paged_decode_sample_step``) with its tiered-KV
 leaves (fp8/int8 pools with f32 scale pools, the host tier) and chunked
-prefill (``prefill_step``, ``prefill_sample_step``); not the dense
-cache's ``kv_quant``.  Layers are stacked on a leading dim as in the
+prefill (``prefill_step``, ``prefill_sample_step``) and speculation's
+``verify_step`` / ``paged_verify_step``; not the dense cache's
+``kv_quant``.  Layers are stacked on a leading dim as in the
 reference and iterated with a Python loop.  Attention goes through
 ``core.offload``: the Hopper kernels on the GPU, the plain versions on
 the CPU.
@@ -192,6 +193,15 @@ def paged_decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
     CPU) — and merges the two by log-sum-exp, so a spilled sequence
     keeps decoding without a re-prefill.  A slot with nothing spilled has
     an empty cold window, whose merge weight is 0."""
+    return _paged_pass(cfg, params, cache, tokens, past_table_to_null=False)
+
+
+def _paged_pass(cfg, params, cache: Pytree, tokens: torch.Tensor, *,
+                past_table_to_null: bool):
+    """:func:`paged_decode_step`'s body.  A row whose append position lies
+    past its table writes to table column ``max_blocks - 1`` (JAX's
+    clamped gather), or with ``past_table_to_null`` to null block 0 (the
+    verify step's overshoot)."""
     lengths = cache["lengths"]
     tables = cache["block_tables"]
     bs = cache["k"].shape[3]
@@ -203,7 +213,10 @@ def paged_decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
     x = cm.embed_lookup(params["embed"], tokens)                # (B, D)
     pos = lengths.long()
     bidx = torch.arange(B, device=x.device)
-    phys = tables[bidx, (pos // bs).clamp(max=MB - 1)].long()   # (B,) append block
+    blk = pos // bs
+    phys = tables[bidx, blk.clamp(max=MB - 1)].long()           # (B,) append block
+    if past_table_to_null:
+        phys = torch.where(blk < MB, phys, 0)
     off = pos % bs
     attn_len = lengths + 1
     for l in range(cfg.n_layers):
@@ -331,7 +344,7 @@ def prefill_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot: int,
                  q_offset: int, n_valid: int):
     """One chunk of one slot's prompt against the live cache.
 
-    ``tokens`` (1, C) is the chunk padded to its bucket; ``slot``,
+    ``tokens`` (1, C) is the chunk, padded; ``slot``,
     ``q_offset`` and ``n_valid`` are host ints (the engine knows them at
     dispatch).  The chunk's K/V land at positions ``q_offset ..
     q_offset+C-1`` of ``slot``'s stripe — positions past the stripe are
@@ -364,6 +377,51 @@ def prefill_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot: int,
     logits = cm.unembed(x[:, n_valid - 1], _unembed_table(params), cfg.vocab)
     cache["lengths"][slot] = q_offset + n_valid
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# speculative verify (draft-verify decoding; serving/engine.py)
+# ---------------------------------------------------------------------------
+def verify_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
+    """Score T speculative tokens per slot: ``tokens (B, T)`` are each
+    slot's next inputs ``[t0, d_1 .. d_{T-1}]``, input ``t`` landing at
+    position ``lengths[b] + t``.  Returns logits ``(B, T, V)``, position
+    ``t`` scoring the successor of input ``t``, and the cache with the K/V
+    of all T positions written (positions past ``max_seq`` dropped) and
+    ``lengths`` as it was: the caller commits ``lengths + n_accept + 1``.
+
+    T :func:`decode_step` passes, the same arithmetic op for op as plain
+    decoding (so T calls per layer of the decode kernel, not one T-wide
+    attention): greedy speculative output must be token-identical to
+    plain decoding, and a differently shaped attention rounds bf16 logits
+    differently."""
+    saved = cache["lengths"].clone()
+    logits = []
+    for t in range(tokens.shape[1]):
+        lg, _ = decode_step(cfg, params, cache, tokens[:, t])
+        logits.append(lg)
+    cache["lengths"].copy_(saved)
+    return torch.stack(logits, dim=1), cache
+
+
+def paged_verify_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
+    """Paged-pool analogue of :func:`verify_step`: T
+    :func:`paged_decode_step` passes, except that a position past the
+    block table (a verify window overshooting the cache's edge) goes to
+    null block 0, the pool's garbage sink, and not through the clamped
+    column, which may be a live block.  Quantized pools and the host tier
+    are refused, as in the reference."""
+    if _kv_dtype_name(cache["k"].dtype):
+        raise NotImplementedError("paged_verify_step: quantized pools unsupported")
+    if "host_k" in cache:
+        raise NotImplementedError("paged_verify_step: host KV tier unsupported")
+    saved = cache["lengths"].clone()
+    logits = []
+    for t in range(tokens.shape[1]):
+        lg, _ = _paged_pass(cfg, params, cache, tokens[:, t], past_table_to_null=True)
+        logits.append(lg)
+    cache["lengths"].copy_(saved)
+    return torch.stack(logits, dim=1), cache
 
 
 def prefill_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot: int,

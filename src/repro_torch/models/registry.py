@@ -47,6 +47,11 @@ class Model:
     init_paged_cache: Callable[..., Pytree]
     paged_decode_step: Callable[..., tuple[torch.Tensor, Pytree]]
     paged_decode_sample_step: Callable[..., tuple[torch.Tensor, torch.Tensor, Pytree]]
+    # speculative verify: verify_step(params, cache, tokens (B, T)) ->
+    #   (logits (B, T, V), cache), lengths returned unchanged;
+    #   paged_verify_step the same against the pool
+    verify_step: Callable[..., tuple[torch.Tensor, Pytree]] | None = None
+    paged_verify_step: Callable[..., tuple[torch.Tensor, Pytree]] | None = None
 
     def init(self, seed: int = 0) -> Pytree:
         """Random weights from a seeded generator on the model's device."""
@@ -80,4 +85,6 @@ def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> M
         init_paged_cache=functools.partial(fam.init_paged_cache, cfg, device=dev),
         paged_decode_step=functools.partial(fam.paged_decode_step, cfg),
         paged_decode_sample_step=functools.partial(fam.paged_decode_sample_step, cfg),
+        verify_step=functools.partial(fam.verify_step, cfg),
+        paged_verify_step=functools.partial(fam.paged_verify_step, cfg),
     )

@@ -3,10 +3,10 @@ or hybrid schedule, synchronous or dispatch-ahead.
 
 Counterpart of ``repro.serving.engine`` for ``cache_kind`` in {"dense",
 "paged"} (bf16, fp8 or int8 pool, with or without the host tier) and
-``schedule`` in {"decode-only", "hybrid"}, in both execution modes.
-Speculation, sub-batch pipelining, telemetry and cross-replica migration
-raise ``NotImplementedError`` or are absent until their slices are
-ported.
+``schedule`` in {"decode-only", "hybrid"}, in both execution modes, with
+or without speculative decoding.  Sub-batch pipelining, telemetry and
+cross-replica migration raise ``NotImplementedError`` or are absent
+until their slices are ported.
 
 Slot-based continuous batching (Orca-style): a fixed decode batch of
 ``n_slots`` sequences; a finished sequence frees its slot and the next
@@ -29,10 +29,10 @@ queued request is prefilled into it while the others keep decoding.
   prefix blocks (spill-before-evict) — that sequence keeps decoding over
   its hot and cold windows, merged by log-sum-exp.
 * ``schedule="hybrid"`` — the token-budget :class:`Scheduler` packs each
-  step as one decode token per active slot plus one bucket-padded chunk
-  of the head-of-queue prompt (two at a prompt boundary: Sarathi-SC
-  boundary packing).  The reference's fused/solo/fused2/solo2 jit
-  programs are :meth:`Engine._exec_sync` / :meth:`Engine._exec_async`:
+  step as one decode token per active slot plus one chunk of the
+  head-of-queue prompt, padded to ``prefill_chunk`` (two at a prompt
+  boundary: Sarathi-SC boundary packing).  The reference's
+  fused/solo/fused2/solo2 jit programs are :meth:`Engine._exec_sync` / :meth:`Engine._exec_async`:
   the chunk(s) first, then the decode batch, the same calls in the same
   order.  The paged cache stages chunks in a two-lane dense staging
   cache and flushes completed blocks into the pool.
@@ -52,12 +52,24 @@ queued request is prefilled into it while the others keep decoding.
   victim's in-flight tokens first; greedy output is token-identical to
   sync mode.
 
+* ``spec_depth=k > 0`` — speculative decoding: each decode dispatch runs
+  k draft decode+sample passes and one more draft decode on the draft's
+  own dense cache, the target's (k+1)-position verify, rejection sampling
+  and both length commits (:meth:`Engine._spec_core`), all on the device;
+  the emitted ``(B, k+1)`` rows and acceptance counts reach the host with
+  the pipeline.  It always runs on the dispatch-ahead machinery;
+  ``async_mode=False`` observes each dispatch right after it.  Every slot
+  of a window carries ``k+1`` in-flight charges, refunded as the window is
+  observed; an EOS inside an accepted window truncates the rest.  Greedy
+  output is token-identical to plain decoding.
+
 Step accounting (``EngineStats.engine_steps``) matches the reference: a
 model dispatch is one step, a decode-only whole prefill of ``L`` tokens
 costs ``ceil(L / prefill_chunk)`` steps.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from collections import deque
@@ -70,7 +82,8 @@ from repro_torch.models.registry import Model
 from repro_torch.serving import kv_cache
 from repro_torch.serving.paged import BlockPool, PagedCacheManager
 from repro_torch.serving.paged import device as paged_dev
-from repro_torch.serving.sampler import SamplerConfig, sample, sample_on_device
+from repro_torch.serving.sampler import (SamplerConfig, sample, sample_on_device,
+                                         spec_draft_sample, spec_verify_tokens)
 from repro_torch.serving.scheduler import PrefillChunk, Scheduler
 
 Pytree = Any
@@ -102,7 +115,7 @@ class Request:
     first_token_step: int = -1
     finish_step: int = -1
     # async bookkeeping: token charges and steps dispatched but not yet
-    # observed (equal without speculation, which is not ported)
+    # observed (equal without speculation; k+1 charges per window with it)
     in_flight: int = 0
     in_flight_steps: int = 0
     admit_base: int = 0             # len(out_tokens) at last (re-)admission
@@ -195,11 +208,14 @@ class _PendingStep:
 
     step: int                            # engine_steps value at dispatch
     reqs: dict[int, Request]             # slot -> request in decode batch
-    fetch: _Fetch | None                 # (B,) sampled ids, (B,) EOS hits
+    fetch: _Fetch | None                 # (B,) sampled ids, (B,) EOS hits;
+                                         # spec: (B, k+1) emitted, (B,) n_accept
     work: PrefillChunk | None = None     # chunk fused into this step
     pre: _Fetch | None = None            # (1,) its first token when work.last
     work2: PrefillChunk | None = None    # boundary-packed second chunk
     pre2: _Fetch | None = None
+    spec: bool = False                   # a speculative window
+    charge: int = 1                      # in-flight charges per batch slot
 
 
 class Engine:
@@ -222,13 +238,25 @@ class Engine:
         token_budget: int | None = None,
         async_mode: bool = True,
         spec_depth: int = 0,
+        draft_model: Model | None = None,
+        draft_params: Pytree | None = None,
     ):
+        # speculation always runs on the dispatch-ahead machinery; sync mode
+        # is that pipeline at depth zero (observe right after dispatch)
+        if spec_depth < 0:
+            raise ValueError(f"spec_depth must be >= 0, got {spec_depth}")
+        self.spec_depth = spec_depth
+        self.draft_model = draft_model
+        self.draft_params = draft_params
+        self._sync_pipeline = False
         if spec_depth:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet: ROADMAP.md queue 1 item 9")
+            self._check_spec(model, draft_model, draft_params, sub_batches, cache_kind,
+                             kv_dtype, host_blocks)
+            self._sync_pipeline = not async_mode
+            async_mode = True
         if sub_batches != 1:
             raise NotImplementedError(
-                "sub-batch pipelining is not ported yet: ROADMAP.md queue 1 item 15")
+                "sub-batch pipelining is not ported yet: ROADMAP.md queue 1 item 9")
         if cache_kind not in ("dense", "paged"):
             raise ValueError(f"unknown cache_kind {cache_kind!r}")
         if cache_kind != "paged" and (kv_dtype != "bf16" or host_blocks):
@@ -280,7 +308,11 @@ class Engine:
             n_slots=n_slots, max_seq=max_seq, mode=schedule,
             prefill_chunk=prefill_chunk, token_budget=token_budget,
             block_size=block_size if cache_kind == "paged" else None,
+            spec_width=spec_depth + 1,
         )
+        # dispatches by kind, the reference's jit programs: "decode",
+        # "fused", "solo", "fused2", "solo2", "spec", "spec_fused"
+        self.dispatch_counts: collections.Counter[str] = collections.Counter()
         if schedule == "hybrid":
             # per-slot chunked-prefill state (set by _begin_prefill): the
             # pinned token stream, prefix-cache-hit block count and (paged)
@@ -293,6 +325,89 @@ class Engine:
                 # persistent two-lane staging cache: chunks accumulate here
                 # and completed blocks flush into the pool
                 self.staging = model.init_cache(2, self.max_blocks * block_size)
+        if spec_depth:
+            # the draft's cache is always dense (the draft is small), its
+            # lengths mirroring the target's committed lengths slot for slot
+            self.d_cache = draft_model.init_cache(n_slots, max_seq)
+            self._verify = (model.paged_verify_step if cache_kind == "paged"
+                            else model.verify_step)
+
+    @staticmethod
+    def _check_spec(model, draft_model, draft_params, sub_batches, cache_kind, kv_dtype,
+                    host_blocks) -> None:
+        """The reference's refusals of a speculative engine, in its order
+        and with its exception types."""
+        if draft_model is None or draft_params is None:
+            raise ValueError("spec_depth > 0 needs a draft_model and draft_params")
+        if sub_batches != 1:
+            raise NotImplementedError(
+                "speculative decoding does not compose with sub-batch pipelining yet")
+        if model.cfg.kv_quant:
+            raise NotImplementedError("speculative decoding does not support kv_quant yet")
+        if (model.paged_verify_step if cache_kind == "paged" else model.verify_step) is None:
+            raise ValueError(f"{model.cfg.family} has no verify_step: speculative decoding "
+                             "needs the multi-position scoring entry point")
+        if draft_model.prefill_step is None:
+            raise ValueError(f"draft family {draft_model.cfg.family} has no prefill_step: "
+                             "the draft cache is filled chunk-wise")
+        if draft_model.cfg.vocab != model.cfg.vocab:
+            raise ValueError(f"draft vocab {draft_model.cfg.vocab} != target vocab "
+                             f"{model.cfg.vocab}: rejection sampling needs one token space")
+        if cache_kind == "paged" and (kv_dtype != "bf16" or host_blocks):
+            raise NotImplementedError(
+                "speculative verification reads the bf16 device pool only (no quantized "
+                "kv_dtype / host tier yet)")
+
+    # ------------------------------------------------- speculative decoding
+    def _spec_core(self) -> _Fetch:
+        """One speculative window, all on the device: k draft decode+sample
+        passes, one more draft decode (so that a fully accepted window
+        leaves the draft cache holding the last draft's K/V too), the
+        target's (k+1)-position verify, rejection sampling, and both length
+        commits.  The token at ``n_accept`` of each row becomes the next
+        ``tok_state``.  The calls run in the reference program's order,
+        which stream order keeps.  Returns the fetch of ``(emitted (B,
+        k+1), n_accept (B,))``."""
+        k, draft, gen = self.spec_depth, self.draft_model, self._gen_dev
+        tok = self._tok_state
+        drafts, probs = [], []
+        for _ in range(k):
+            d_logits, _ = draft.decode_step(self.draft_params, self.d_cache, tok)
+            tok, p = spec_draft_sample(d_logits, gen, self.sampler)
+            drafts.append(tok)
+            if p is not None:
+                probs.append(p)
+        draft.decode_step(self.draft_params, self.d_cache, tok)
+        tokens = torch.stack([self._tok_state] + drafts, dim=1)       # (B, k+1)
+        v_logits, _ = self._verify(self.params, self.cache, tokens)
+        emitted, n_accept = spec_verify_tokens(
+            v_logits, torch.stack(drafts, dim=1), torch.stack(probs, dim=1) if probs else None,
+            gen, self.sampler)
+        # the commit is the rollback: lengths advance over the accepted
+        # prefix and the bonus token only; the draft's k+1 decodes net back
+        # to the same commit
+        self.cache["lengths"].add_(n_accept + 1)
+        self.d_cache["lengths"].add_(n_accept - k)
+        self._tok_state = emitted[torch.arange(emitted.shape[0], device=emitted.device),
+                                  n_accept.long()]
+        return _Fetch(emitted, n_accept)
+
+    def _draft_prefill_slot(self, slot: int, tokens: np.ndarray) -> None:
+        """Prefill ``tokens`` into the draft cache at ``slot``, in chunks of
+        ``prefill_chunk``, so that draft and target lengths agree at the
+        slot's next dispatch.  Issued at dispatch time: stream order puts it
+        after every in-flight step's draft writes."""
+        if not self.spec_depth:
+            return
+        chunk = self.prefill_chunk
+        for start in range(0, len(tokens), chunk):
+            nv = min(chunk, len(tokens) - start)
+            buf = np.zeros((1, chunk), np.int32)
+            buf[0, :nv] = tokens[start:start + nv]
+            self.draft_model.prefill_step(self.draft_params, self.d_cache,
+                                          paged_dev.to_device(buf, self.device), slot,
+                                          start, nv)
+            self.stats.draft_steps += 1
 
     # ------------------------------------------------------------- requests
     def submit(self, req: Request):
@@ -334,8 +449,12 @@ class Engine:
 
     def _dispatch(self, rec: _PendingStep) -> None:
         """Queue a dispatched step; observe the previous one only after
-        the new one is in flight."""
+        the new one is in flight (a sync-mode speculative engine observes
+        it at once)."""
         self._pending.append(rec)
+        if self._sync_pipeline:
+            self._drain()
+            return
         if len(self._pending) > 1:
             self._observe(self._pending.popleft())
 
@@ -351,11 +470,15 @@ class Engine:
         self._first_pending.clear()
 
     def _take_decode(self, slot: int, req: Request, rec: _PendingStep) -> None:
-        """Apply one observed decode token of ``req`` from ``rec``; a token
-        dispatched past an EOS (``req.done``) is masked."""
-        req.in_flight -= 1
+        """Apply one observed decode token (or speculative window) of
+        ``req`` from ``rec``; a token dispatched past an EOS (``req.done``)
+        is masked."""
+        req.in_flight -= rec.charge
         req.in_flight_steps -= 1
         if req.done:
+            return
+        if rec.spec:
+            self._take_spec(slot, req, rec)
             return
         toks, eos = rec.fetch.numpy()
         req.out_tokens.append(int(toks[slot]))
@@ -364,6 +487,26 @@ class Engine:
         if (bool(eos[slot]) or len(req.out_tokens) >= req.max_new_tokens
                 or length >= self.max_seq - 1):
             self._finish(slot, req, rec.step)
+
+    def _take_spec(self, slot: int, req: Request, rec: _PendingStep) -> None:
+        """Commit one slot's observed window: the accepted drafts and the
+        bonus or correction token, in stream order, with the sync engine's
+        finish checks after each (an EOS inside the window truncates the
+        rest), as if ``n_accept + 1`` plain steps had been observed."""
+        emitted, n_accept = rec.fetch.numpy()
+        n_emit = int(n_accept[slot]) + 1
+        self.stats.drafted_tokens += self.spec_depth
+        self.stats.accepted_tokens += n_emit - 1
+        self.stats.spec_accept_samples.append((n_emit - 1) / self.spec_depth)
+        for t in range(n_emit):
+            tok = int(emitted[slot, t])
+            req.out_tokens.append(tok)
+            self.stats.generated += 1
+            length = len(req.prompt) + len(req.out_tokens)
+            if (tok == req.eos_id or len(req.out_tokens) >= req.max_new_tokens
+                    or length >= self.max_seq - 1):
+                self._finish(slot, req, rec.step)
+                break
 
     def _observe(self, rec: _PendingStep) -> None:
         """Read one step's ids and EOS flags and apply completions."""
@@ -467,6 +610,7 @@ class Engine:
             logits, _ = self.model.prefill(self.params, prompt,
                                            kv_cache.slot_view(self.cache, slot))
             self.slots[slot] = req
+            self._draft_prefill_slot(slot, np.asarray(req.prompt, np.int32))
             self._sample_prefill(req, slot, logits)
 
     def _admit_paged(self):
@@ -500,6 +644,7 @@ class Engine:
                 paged_dev.write_prompt_block(self.cache, sub_cache, blocks[j], j * bs)
             paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot], len(full))
             self.slots[slot] = req
+            self._draft_prefill_slot(slot, full)
             self._sample_prefill(req, slot, logits)
 
     def _sample_prefill(self, req: Request, slot: int, logits: torch.Tensor):
@@ -597,6 +742,7 @@ class Engine:
             if self.cache_kind == "paged":
                 paged_dev.sync_slot(self.cache, work.slot, self.manager.tables[work.slot],
                                     work.start + work.n_valid)
+            self._draft_prefill_slot(work.slot, self._pf_tokens[work.slot])
             self._end_prefill(work.slot)
             req.admit_base = len(req.out_tokens)
             req.in_flight += 1
@@ -661,10 +807,14 @@ class Engine:
 
     def _append_span(self, slot: int) -> tuple[int, int]:
         """Inclusive position range [lo, hi] the slot's next dispatch may
-        write: the single append position after every dispatched token."""
+        write.  With speculative windows in flight the device length lies
+        in [committed + steps, committed + charges], and the next window
+        writes ``spec_depth`` positions past its start; without
+        speculation lo == hi, the single append position."""
         req = self.slots[slot]
         base = len(req.prompt) + len(req.out_tokens)
-        return base + req.in_flight_steps - 1, base + req.in_flight - 1
+        return (base + req.in_flight_steps - 1,
+                base + req.in_flight - 1 + self.spec_depth)
 
     def _preempt(self, slot: int):
         """Evict ``slot`` to the queue front; its blocks return to the
@@ -774,7 +924,9 @@ class Engine:
         if work is None:
             return [], False
         chunks = [(work, self._chunk_tokens(work))]
-        if not (work.last and len(self.sched)):
+        # no boundary packing under speculation: the reference's fused2
+        # programs have no speculative variant
+        if not (work.last and len(self.sched)) or self.spec_depth:
             return chunks, False
         self.sched.advance(work)        # A rides this dispatch regardless
         work2 = self._boundary_chunk(
@@ -785,7 +937,13 @@ class Engine:
         return chunks, True
 
     def _chunk_tokens(self, work: PrefillChunk) -> torch.Tensor:
-        chunk = np.zeros((1, work.bucket), np.int32)
+        """The chunk's tokens, zero-padded to ``prefill_chunk``: every chunk
+        runs at one shape, so a token's K/V and logits do not depend on
+        where a chunk boundary falls (the GEMMs' kernels, and so their
+        rounding, depend on the row count).  Speculation turns boundary
+        packing off and so moves boundaries; its greedy tokens stay the
+        plain engine's."""
+        chunk = np.zeros((1, self.prefill_chunk), np.int32)
         chunk[0, :work.n_valid] = self._pf_tokens[work.slot][
             work.start:work.start + work.n_valid]
         return paged_dev.to_device(chunk, self.device)
@@ -829,12 +987,8 @@ class Engine:
         logits = [self._run_chunk(w, t) for w, t in chunks]
         fetch = None
         if active:
-            toks, eos, _ = self._decode_sampled(
-                self.params, self.cache, self._tok_state, self._gen_dev, self._eos_dev,
-                sampler=self.sampler)
+            fetch = self._decode_async()
             self._hold_lengths(chunks)
-            self._tok_state = toks
-            fetch = _Fetch(toks, eos)
         pre = []
         for (work, _), lg in zip(chunks, logits):
             tok = sample_on_device(lg, self._gen_dev, self.sampler)
@@ -885,6 +1039,7 @@ class Engine:
         logits, _ = self._decode(self.params, self.cache, self._decode_tokens())
         self.stats.decode_steps += 1
         self.stats.engine_steps += 1
+        self.dispatch_counts["decode"] += 1
         self._finish_decode(active, logits)
         return self._busy()
 
@@ -897,26 +1052,51 @@ class Engine:
             self._drain()               # nothing to dispatch: settle state
             return self._busy()
         self.stats.peak_active = max(self.stats.peak_active, len(active))
-        toks, eos, _ = self._decode_sampled(
-            self.params, self.cache, self._tok_state, self._gen_dev, self._eos_dev,
-            sampler=self.sampler,
-        )
-        self._tok_state = toks
+        fetch = self._decode_async()
         self.stats.decode_steps += 1
         self.stats.engine_steps += 1
-        self._dispatch(_PendingStep(step=self.stats.engine_steps,
-                                    reqs=self._charge(active), fetch=_Fetch(toks, eos)))
+        self.dispatch_counts[self._dispatch_kind(active, [])] += 1
+        self._dispatch(self._decode_record(active, fetch))
         return True
 
-    def _charge(self, active: list[int]) -> dict[int, Request]:
-        """One in-flight token for every slot of a dispatched decode batch."""
+    def _decode_async(self) -> _Fetch:
+        """The decode batch, sampled on the device from ``tok_state``: a
+        speculative window, or one token per slot.  Returns its fetch."""
+        if self.spec_depth:
+            return self._spec_core()
+        toks, eos, _ = self._decode_sampled(
+            self.params, self.cache, self._tok_state, self._gen_dev, self._eos_dev,
+            sampler=self.sampler)
+        self._tok_state = toks
+        return _Fetch(toks, eos)
+
+    def _dispatch_kind(self, active: list[int], chunks: list) -> str:
+        """The reference's jit program for a dispatch of the decode batch
+        ``active`` and the prefill ``chunks``."""
+        spec = bool(self.spec_depth and active)
+        if len(chunks) == 2:
+            return "fused2" if active else "solo2"
+        if chunks:
+            return ("spec_fused" if spec else "fused") if active else "solo"
+        return "spec" if spec else "decode"
+
+    def _decode_record(self, active: list[int], fetch: _Fetch | None) -> _PendingStep:
+        """The pending record of a dispatched decode batch: every slot of it
+        charged one in-flight token, or ``k+1`` for a speculative window
+        (counted in the spec stats here)."""
+        spec = bool(self.spec_depth and active)
+        charge = self.spec_depth + 1 if spec else 1
+        if spec:
+            self.stats.spec_steps += 1
+            self.stats.draft_steps += charge
         reqs = {}
         for i in active:
             req = self.slots[i]
-            req.in_flight += 1
+            req.in_flight += charge
             req.in_flight_steps += 1
             reqs[i] = req
-        return reqs
+        return _PendingStep(step=self.stats.engine_steps, reqs=reqs, fetch=fetch,
+                            spec=spec, charge=charge)
 
     def _step_hybrid(self) -> bool:
         self._begin_next()
@@ -929,6 +1109,7 @@ class Engine:
         self.stats.engine_steps += 1
         self.stats.peak_active = max(self.stats.peak_active, len(active))
         chunks, pre_advanced = self._pack(active, work)
+        self.dispatch_counts[self._dispatch_kind(active, chunks)] += 1
         dec_logits, pre_logits = self._exec_sync(active, chunks)
         if active:
             self.stats.decode_steps += 1
@@ -953,8 +1134,8 @@ class Engine:
         fetch, pre = self._exec_async(active, chunks)
         if active:
             self.stats.decode_steps += 1
-        rec = _PendingStep(step=self.stats.engine_steps, reqs=self._charge(active),
-                           fetch=fetch)
+        self.dispatch_counts[self._dispatch_kind(active, chunks)] += 1
+        rec = self._decode_record(active, fetch)
         if chunks:
             rec.work, rec.pre = chunks[0][0], pre[0]
         if len(chunks) == 2:

@@ -1,7 +1,9 @@
 """Token sampling (greedy / temperature / top-k) in PyTorch.
 
 Counterpart of ``repro.serving.sampler`` (``SamplerConfig``,
-``sample_on_device``, ``sample``), two entry points with one semantics:
+``sample_on_device``, ``sample``, and speculation's
+``spec_draft_sample`` / ``spec_verify_tokens``), two entry points with
+one semantics:
 
 * :func:`sample_on_device` — stays on the tensor's device and never
   waits on it (Gumbel-max over the transformed logits), so the async
@@ -43,9 +45,81 @@ def sample_on_device(logits: torch.Tensor, generator: torch.Generator | None,
     if cfg.temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     scaled = _transformed(logits, cfg)
-    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+    return _categorical(scaled, generator)
+
+
+def _categorical(logits: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    """One draw per row of ``softmax(logits)`` by Gumbel-max, on the
+    logits' device with no host sync."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
-    return torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
+    return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+
+
+def spec_draft_sample(logits: torch.Tensor, generator: torch.Generator | None,
+                      cfg: SamplerConfig) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Draft proposal for one speculative position: logits (B, V) ->
+    (token (B,) int32, probs (B, V) f32 or None for greedy).  ``probs`` is
+    the distribution the token was drawn from, which rejection sampling
+    divides by."""
+    if cfg.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32), None
+    scaled = _transformed(logits, cfg)
+    return _categorical(scaled, generator), torch.softmax(scaled, dim=-1)
+
+
+def spec_verify_tokens(logits: torch.Tensor, drafts: torch.Tensor | None,
+                       draft_probs: torch.Tensor | None,
+                       generator: torch.Generator | None,
+                       cfg: SamplerConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Accept or reject k draft tokens against the target's verify logits.
+
+    ``logits`` (B, T, V), T = k + 1, position ``t`` scoring the successor
+    of verify input ``t``; ``drafts`` (B, k) int32 (None when k = 0);
+    ``draft_probs`` (B, k, V) (None for greedy).  Returns ``(emitted (B, T)
+    int32, n_accept (B,) int32)``: positions ``0 .. n_accept`` of
+    ``emitted`` are the step's tokens, later ones garbage.
+
+    Greedy accepts while the draft equals the target's argmax, so the
+    stream is token-identical to plain greedy decoding.  Otherwise draft
+    ``d`` is accepted when ``u * p_d(d) < p_t(d)``, and the first rejected
+    position is resampled from ``max(p_t - p_d, 0)`` (``p_t`` where that is
+    all zero); a fully accepted window's bonus token comes from ``p_t``
+    through a zero draft row.  Every emitted token is then an exact sample
+    of the target's (temperature, top-k) distribution.  All on the
+    device, with no host sync."""
+    B, T, V = logits.shape
+    k = T - 1
+    if cfg.temperature <= 0.0:
+        tgt = torch.argmax(logits, dim=-1).to(torch.int32)             # (B, T)
+        if k == 0:
+            return tgt, torch.zeros(B, dtype=torch.int32, device=logits.device)
+        match = (drafts == tgt[:, :k]).to(torch.int32)
+        return tgt, torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+    p_t = torch.softmax(_transformed(logits, cfg), dim=-1)              # (B, T, V)
+    bidx = torch.arange(B, device=logits.device)
+    if k > 0:
+        d = drafts.long()[..., None]
+        p_t_d = torch.gather(p_t[:, :k], -1, d)[..., 0]
+        p_d_d = torch.gather(draft_probs, -1, d)[..., 0]
+        u = torch.rand((B, k), generator=generator, device=logits.device)
+        # u < p_t / p_d, multiplied out so that p_d -> 0 stays finite
+        accept = (u * p_d_d < p_t_d).to(torch.int32)
+        n_accept = torch.cumprod(accept, dim=1).sum(dim=1)
+        q_pad = torch.cat([draft_probs, draft_probs.new_zeros(B, 1, V)], dim=1)
+        emitted = torch.cat([drafts.to(torch.int32), drafts.new_zeros(B, 1, dtype=torch.int32)],
+                            dim=1)
+    else:
+        n_accept = torch.zeros(B, dtype=torch.int64, device=logits.device)
+        q_pad = torch.zeros_like(p_t)
+        emitted = torch.zeros(B, 1, dtype=torch.int32, device=logits.device)
+    p_a = p_t[bidx, n_accept]                                           # (B, V)
+    resid = (p_a - q_pad[bidx, n_accept]).clamp_min(0.0)
+    denom = resid.sum(dim=-1, keepdim=True)
+    # an exhausted residual (p_t == p_d pointwise) falls back to p_t
+    resid = torch.where(denom > 0, resid / denom.clamp_min(1e-30), p_a)
+    emitted[bidx, n_accept] = _categorical(torch.log(resid + 1e-30), generator)
+    return emitted, n_accept.to(torch.int32)
 
 
 def sample(logits: torch.Tensor, generator: torch.Generator | None,

@@ -1,8 +1,11 @@
 """Token-budget iteration scheduler (Sarathi-style chunked prefill).
 
 A copy of ``repro.serving.scheduler`` (pure host-side Python); the port
-keeps its own so that it imports nothing of ``repro``.  The dense
-decode-only engine uses only its queue so far.
+keeps its own so that it imports nothing of ``repro``.  It makes the
+reference's decisions, without its chunk buckets: the engine runs every
+chunk at one shape (``prefill_chunk``), so that a token's numerics do not
+depend on where a chunk boundary falls.  The decode-only engine uses
+only its queue.
 
 The paper's headline gain comes from keeping the compute-bound and
 memory-bound halves of the workload busy *simultaneously*: dense GEMMs on
@@ -19,12 +22,7 @@ that hybrid batch under a hard **token budget**:
   step (the fixed-shape decode batch cannot be split), and the budget
   must cover at least ``n_slots`` tokens;
 * whatever budget remains funds at most one prefill chunk of the
-  in-flight prompt, clipped to ``prefill_chunk``;
-* chunk lengths are padded up to a small **bucket set** (halvings of
-  ``prefill_chunk`` down to :data:`MIN_BUCKET`), so every jit shape the
-  engine ever sees comes from ``{decode} x {buckets}`` — serving any mix
-  of prompt lengths compiles at most ``O(len(buckets))`` programs,
-  instead of one whole-prompt prefill program per distinct length.
+  in-flight prompt, clipped to ``prefill_chunk``.
 
 For the paged cache, non-final chunks are rounded down to end on a KV
 block boundary (``block_size``), so a sequence acquires only the blocks
@@ -42,19 +40,6 @@ import dataclasses
 from collections import deque
 from typing import Any
 
-MIN_BUCKET = 8
-
-
-def chunk_buckets(prefill_chunk: int, floor: int = MIN_BUCKET) -> list[int]:
-    """Descending bucket set: ``prefill_chunk`` halved down to ``floor``
-    (or just ``[prefill_chunk]`` when it is already <= floor)."""
-    if prefill_chunk < 1:
-        raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
-    out = [prefill_chunk]
-    while out[-1] > floor:
-        out.append(max(floor, (out[-1] + 1) // 2))
-    return out
-
 
 @dataclasses.dataclass
 class PrefillChunk:
@@ -64,7 +49,6 @@ class PrefillChunk:
     slot: int
     start: int          # absolute position of the chunk's first token
     n_valid: int        # real tokens in the chunk
-    bucket: int         # padded (compiled) chunk length, n_valid <= bucket
     last: bool          # completes the prompt -> sample the first token
 
 
@@ -104,6 +88,8 @@ class Scheduler:
             raise ValueError(f"unknown schedule mode {mode!r}")
         if spec_width < 1:
             raise ValueError(f"spec_width must be >= 1, got {spec_width}")
+        if prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         self.mode = mode
         self.n_slots = n_slots
         self.max_seq = max_seq
@@ -130,7 +116,6 @@ class Scheduler:
                     f"({prefill_chunk}) to be a positive multiple of "
                     f"block_size ({block_size})"
                 )
-        self.buckets = chunk_buckets(prefill_chunk)
         self.queue: deque = deque()
         self.inflight: _Inflight | None = None
 
@@ -161,9 +146,6 @@ class Scheduler:
         from the paged prefix cache)."""
         assert self.inflight is None, "one in-flight prefill at a time"
         self.inflight = _Inflight(req=req, slot=slot, pos=start, total=total)
-
-    def pick_bucket(self, n: int) -> int:
-        return min(b for b in self.buckets if b >= n)
 
     def schedule(self, active_slots: list[int]) -> Decision:
         """Pack one iteration: every active slot decodes; leftover budget
@@ -209,7 +191,7 @@ class Scheduler:
             return None
         return PrefillChunk(
             req=fl.req, slot=fl.slot, start=fl.pos, n_valid=n,
-            bucket=self.pick_bucket(n), last=fl.pos + n == fl.total,
+            last=fl.pos + n == fl.total,
         )
 
     def pack_boundary(self, budget: int) -> PrefillChunk | None:

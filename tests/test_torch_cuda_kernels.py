@@ -226,8 +226,8 @@ def test_paged_kernel_f32_queries_over_bf16_pool(cuda):
 
 
 def test_paged_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros(2, 4, 16, device=cuda)
-    pool = torch.zeros(5, 2, 128, 16, device=cuda)          # block_size 128 > 64
+    q = torch.zeros(2, 18, 16, device=cuda)                 # G = 9 > 8
+    pool = torch.zeros(5, 2, 128, 16, device=cuda)
     tables = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
     lengths = torch.ones(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
@@ -594,3 +594,121 @@ def test_paged_split_kernel_all_windows_empty(cuda, kind, q_dtype):
         torch.cuda.synchronize()
         assert float(out.abs().max()) == 0.0
         assert float(lse.max()) <= -1e30 and not torch.isnan(lse).any()
+
+
+# ------------------------------------------------------ speculative decoding
+# The draft of ``--spec-depth`` (reduced llama3.2-1b: Hq 4, Hkv 2, D 16)
+# runs the dense decode and the chunk prefill at its own shapes; the paged
+# kernel runs at any ``--block-size``; the verify writes a window past the
+# table to null block 0.
+
+
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+def test_decode_kernel_at_the_draft_shape(cuda, q_dtype):
+    """16 slots, S 1024, Hkv 2, G 2, D 16 (the tensor-core kernel pads D to
+    32), ragged lengths, one past the cache."""
+    B, S, Hkv, G, D = 16, 1024, 2, 2, 16
+    rng = np.random.default_rng(16)
+    q = _randn(rng, (B, Hkv * G, D), cuda, getattr(torch, q_dtype))
+    k = _randn(rng, (B, S, Hkv, D), cuda, torch.bfloat16)
+    v = _randn(rng, (B, S, Hkv, D), cuda, torch.bfloat16)
+    lengths = torch.tensor([1, 1024, 1033, 2, 37, 100, 255, 256, 257, 511, 512, 513, 700,
+                            900, 1000, 0], dtype=torch.int32, device=cuda)
+    out = ops.decode_attention(q, k, v, lengths)
+    exp = ref.naive_decode_attention(q, k, v, lengths)
+    tol = 2e-2 if q_dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(_np(out), _np(exp), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("off", [0, 32, 192, 992])
+def test_prefill_kernel_at_the_draft_chunk_shape(cuda, off):
+    """The draft's chunked prefill: 32 queries, Hq 4, Hkv 2, D 16, at
+    ``q_offset`` running over the prompt, against a 1024-position stripe."""
+    rng = np.random.default_rng(off)
+    q = _randn(rng, (1, 32, 4, 16), cuda, torch.bfloat16)
+    k = _randn(rng, (1, 1024, 2, 16), cuda, torch.bfloat16)
+    v = _randn(rng, (1, 1024, 2, 16), cuda, torch.bfloat16)
+    out = ops.flash_attention(q, k, v, q_offset=off)
+    exp = ref.naive_attention(q, k, v, q_offset=off)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "fp8"])
+@pytest.mark.parametrize("bs", [128, 256, 48])
+def test_paged_kernel_block_sizes_over_64(cuda, bs, kind):
+    """Block sizes over 64 (and one that is no power of two), llama3.2-1b's
+    heads, 16 rows over 8 blocks each: lengths at block edges and past the
+    table, a ``starts`` window with its lse, NaN in null block 0 and past
+    each row's length (never read), and every window empty."""
+    B, Hkv, G, D, MB = 16, 8, 4, 64, 8
+    cap = MB * bs
+    lens = [0, 1, bs - 1, bs, bs + 1, 2 * bs, 3 * bs - 5, cap - 1, cap, cap + 7, 5 * bs + 3,
+            bs // 2, 7 * bs + 1, 4 * bs, 6 * bs - 1, 2]
+    case = (B, Hkv, G, D, bs, MB, lens)
+    rng = np.random.default_rng(bs)
+    q, _, _, tables, lengths = _paged_inputs(case, cuda, torch.float32,
+                                             q_dtype=torch.bfloat16, seed=bs)
+    N = B * MB + 1
+    (kp, ks), (vp, vs) = (_pool(rng, (N, Hkv, bs, D), cuda, kind) for _ in range(2))
+    starts = (lengths // 3).to(torch.int32)
+    out, lse = ops.paged_decode_attention(q, kp, vp, tables, lengths, starts=starts,
+                                          return_lse=True, k_scale=ks, v_scale=vs)
+    exp, exp_lse = ref.paged_decode_attention(q, kp, vp, tables, lengths, starts=starts,
+                                              return_lse=True, k_scale=ks, v_scale=vs)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=2e-2, rtol=2e-2)
+    live = _np(exp_lse)[:, 0, 0] > -1e29
+    np.testing.assert_allclose(_np(lse)[live], _np(exp_lse)[live], atol=1e-3, rtol=1e-4)
+    (kd, ksd), (vd, vsd) = (_poison(p, s, tables, lengths, bs, nan=True)
+                            for p, s in ((kp, ks), (vp, vs)))
+    (kc, ksc), (vc, vsc) = (_poison(p, s, tables, lengths, bs, nan=False)
+                            for p, s in ((kp, ks), (vp, vs)))
+    out_n = ops.paged_decode_attention(q, kd, vd, tables, lengths, k_scale=ksd, v_scale=vsd)
+    exp_n = ref.paged_decode_attention(q, kc, vc, tables, lengths, k_scale=ksc, v_scale=vsc)
+    assert torch.isfinite(out_n).all()
+    np.testing.assert_allclose(_np(out_n), _np(exp_n), atol=2e-2, rtol=2e-2)
+    out_e, lse_e = ops.paged_decode_attention(q, kp, vp, tables, torch.zeros_like(lengths),
+                                              return_lse=True, k_scale=ks, v_scale=vs)
+    assert float(out_e.abs().max()) == 0.0 and float(lse_e.max()) <= -1e30
+
+
+def test_paged_verify_window_across_a_block_edge_and_past_the_table(cuda):
+    """Reduced llama3.2-1b in float32, ``paged_verify_step`` over a bf16
+    pool on the GPU against the CPU, same weights: slot 0's window of 3
+    crosses a block edge, slot 1's runs past its table.  Logits within
+    5e-2 (the plain decode rounds p to bf16, the kernels do not); lengths
+    unchanged; the writes land in the addressed blocks and in null block
+    0, and no other block changes."""
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.models.registry import build_model
+
+    cfg = reduce_config("llama3.2-1b").with_overrides(dtype="float32")
+    gpu, cpu = build_model(cfg, cuda), build_model(cfg, "cpu")
+    p_gpu = gpu.init(seed=3)
+    p_cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+             for k, v in p_gpu.items()}
+    bs, N = 4, 10
+    tables = torch.tensor([[3, 7, 0], [5, 2, 9]], dtype=torch.int32)
+    lengths = torch.tensor([3, 11], dtype=torch.int32)
+    rng = np.random.default_rng(9)
+    pool = {key: torch.from_numpy(rng.standard_normal(
+        (cfg.n_layers, N, cfg.n_kv_heads, bs, cfg.resolved_head_dim()), np.float32)
+    ).bfloat16() for key in ("k", "v")}
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 3)).astype(np.int32))
+    outs = []
+    for model, params, dev in ((gpu, p_gpu, cuda), (cpu, p_cpu, torch.device("cpu"))):
+        cache = model.init_paged_cache(2, N, bs, 3)
+        for key in ("k", "v"):
+            cache[key].copy_(pool[key])
+        cache["block_tables"].copy_(tables)
+        cache["lengths"].copy_(lengths)
+        logits, cache = model.paged_verify_step(params, cache, toks.to(dev))
+        outs.append((logits.cpu(), {k: v.cpu() for k, v in cache.items()}))
+    (lg, cg), (lc, cc) = outs
+    np.testing.assert_allclose(_np(lg), _np(lc), atol=5e-2, rtol=5e-2)
+    assert cg["lengths"].tolist() == [3, 11]
+    for key in ("k", "v"):
+        changed = {int(b) for b in torch.nonzero(
+            (cg[key] != pool[key]).flatten(2).any(-1).any(0)).flatten()}
+        assert changed == {0, 3, 7, 9}, (key, changed)
+        np.testing.assert_allclose(_np(cg[key][:, 1:]), _np(cc[key][:, 1:]), atol=2e-2,
+                                   rtol=2e-2)

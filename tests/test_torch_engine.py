@@ -129,11 +129,13 @@ def test_sync_and_async_are_token_identical(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(spec_depth=2),
+    dict(spec_depth=2, sub_batches=2),     # speculation is ported, over sub-batches not
     dict(sub_batches=2),
 ], ids=["spec_depth", "sub_batches"])
 def test_unported_engine_options_raise(models, kw):
     _, _, model, params = models
+    if "spec_depth" in kw:
+        kw = dict(kw, draft_model=model, draft_params=params)
     with pytest.raises(NotImplementedError):
         Engine(model, params, n_slots=1, max_seq=16, **kw)
 
