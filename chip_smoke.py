@@ -14,7 +14,9 @@
    for the paged kernel ``gather_paged_cache`` then SDPA, since no single
    call computes paged attention; for the fp8/int8 variants the
    dequantization too; never used by the port) and the least time the
-   card could take.  Thirteen rows: decode (split across CTAs, partials
+   card could take.  Every prefill case also runs with ``q_offset`` as a
+   ``(1,)`` int32 device tensor (what a captured graph passes), which must
+   give the int form's bits; the chunk rows are timed in that form too.  Thirteen rows: decode (split across CTAs, partials
    merged by a second kernel); prefill unscaled at a whole prompt and at
    the hybrid chunk shape (32 queries at q_offset 192 against the
    1024-position staging stripe, after the chunk edge cases), int8 and
@@ -31,8 +33,10 @@
    the bf16 staging cache; float32 mode runs in the reference checks):
    kernel level only.
 4. Serve phase: full-width llama3.2-1b with seeded random weights through
-   ``repro_torch.launch.serve``, eight paths, each with every launch
-   counter zeroed before its async run and read after it:
+   ``repro_torch.launch.serve``, eight paths, every dispatch kind of each
+   one captured CUDA graph (the engine's default on the card; the counts
+   of each kind's calls, replays and capture time are printed), each with
+   every launch counter zeroed before its async run and read after it:
    a. dense cache, decode-only schedule (slice 1's main path);
    b. paged cache, hybrid chunked-prefill schedule, a pool of 385 blocks
       (6144 positions for up to 16 x 576: admission waits on blocks);
@@ -54,10 +58,15 @@
    layer of a speculative window, the target's and the draft's layers
    counted apart by head shape), and the paged paths' pools must drain;
    the tiered paths must spill and not preempt; the speculative paths'
-   tokens must equal their non-speculative path's.
+   tokens must equal their non-speculative path's.  Paths a, b, c and e
+   (the profiled ones) also run eagerly (``--graphs off``) in the same
+   call: graph and eager greedy tokens must be identical; tok/s and wall
+   ms per engine step of both.
 5. Profiles (torch.profiler) of steady async steps on paths a, b, c and
-   e, for where the time goes, with every port kernel's time and launches
-   per step (the split kernels and the combine kernel apart); on path c
+   e, with graphs and eagerly, for where the time goes: wall and device
+   busy ms per step, device ops per step, host launches per step (graph
+   launches and kernel launches apart) and every port kernel's time and
+   launches per step (the split kernels and the combine kernel apart); on path c
    also the hot and the cold paged call of one layer on the profiled
    state: device time (queued behind a spin kernel) and host time per
    call.
@@ -83,6 +92,12 @@
 10. Block size 128: a reduced serve at ``--cache paged --block-size 128``
    (launches exact at that shape) and reduced float32 engines on the GPU
    against the CPU.
+11. A temperature check under graphs: the reduced model's logits for 16
+   prompts sampled (temperature 1, top-k 8) by a captured program, 512
+   replays against 512 eager draws: consecutive replays draw different
+   tokens, each set's counts fit the exact distribution and the two sets
+   fit each other (chi-square bounds stated there); then a temperature
+   serve through the graphs, plain and speculative.
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object with one entry per kernel; the last is
@@ -103,6 +118,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -117,6 +133,8 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.serving.paged import device as pdev  # noqa: E402
+from repro_torch.serving.programs import Program  # noqa: E402
+from repro_torch.serving.sampler import SamplerConfig, sample_on_device  # noqa: E402
 from repro_torch.serving.workload import build_workload  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 flop/s
@@ -272,6 +290,18 @@ def _row_name(kernel: str, kv: str | None) -> str:
     return kernel if kv is None else f"{kernel}[{kv}]"
 
 
+def _same_at_tensor_offset(out, q, k, v, off: int, ks=None, vs=None) -> None:
+    """The flash kernel with ``q_offset`` read from device memory (a
+    ``(1,)`` int32 tensor, as a captured graph passes it) must give the
+    bits of its int form ``out``."""
+    dev_off = torch.tensor([off], dtype=torch.int32, device=q.device)
+    got = ops.flash_attention(q, k, v, q_offset=dev_off, k_scale=ks, v_scale=vs)
+    if not torch.equal(got, out):
+        raise AssertionError(f"prefill_attention at a tensor q_offset {off} differs from the "
+                             f"int form (Sq={q.shape[1]}, K/V {k.dtype}): max err "
+                             f"{_max_err(got, out)}")
+
+
 def prefill_phase(dev, kv: str | None = None) -> dict:
     """llama3.2-1b prefill attention (Hq 32, Hkv 8, D 64, bf16 queries, B 1)
     at odd prompt lengths, q_offset 0 (the main path) and 17; ``kv``:
@@ -286,6 +316,7 @@ def prefill_phase(dev, kv: str | None = None) -> dict:
         v, vs = _quantize(torch.randn(1, sk, Hkv, D, generator=gen, device=dev), kv)
         out = ops.flash_attention(q, k, v, q_offset=off, k_scale=ks, v_scale=vs)
         exp = kpre.plain(q, k, v, q_offset=off, k_scale=ks, v_scale=vs)
+        _same_at_tensor_offset(out, q, k, v, off, ks, vs)
         torch.cuda.synchronize()
         err = _max_err(out, exp)
         if not err <= BF16_TOL:
@@ -354,6 +385,7 @@ def prefill_chunk_phase(dev, draft: bool = False) -> dict:
             q = torch.randn(1, n, Hq, D, generator=gen, device=dev).bfloat16()
             out = ops.flash_attention(q, k, v, q_offset=o)
             exp = kpre.plain(q, k, v, q_offset=o)
+            _same_at_tensor_offset(out, q, k, v, o)
             torch.cuda.synchronize()
             err = _max_err(out, exp)
             if not err <= BF16_TOL:
@@ -363,6 +395,7 @@ def prefill_chunk_phase(dev, draft: bool = False) -> dict:
     q, k, v = sets[0]
     out = ops.flash_attention(q, k, v, q_offset=off)
     exp = kpre.plain(q, k, v, q_offset=off)
+    _same_at_tensor_offset(out, q, k, v, off)
     err = _max_err(out, exp)
     if not err <= BF16_TOL:
         raise AssertionError(f"{name} kernel vs plain: max err {err}")
@@ -374,6 +407,7 @@ def prefill_chunk_phase(dev, draft: bool = False) -> dict:
             v[:, :off + sq].transpose(1, 2), attn_mask=mask, enable_gqa=True)
 
     lib_err = _max_err(library(q, k, v).transpose(1, 2), exp)
+    dev_off = torch.tensor([off], dtype=torch.int32, device=dev)
     pairs = sum(min(S, off + i + 1) for i in range(sq))
     flops = 4 * pairs * Hq * D
     nbytes = 2 * 2 * q.numel() + 2 * (off + sq) * Hkv * D * 2
@@ -387,6 +421,9 @@ def prefill_chunk_phase(dev, draft: bool = False) -> dict:
         **_times([lambda s=s: ops.flash_attention(*s, q_offset=off) for s in sets],
                  [lambda s=s: kpre.plain(*s, q_offset=off) for s in sets],
                  [lambda s=s: library(*s) for s in sets]),
+        # the form the captured graphs launch: q_offset read from device memory
+        "device_offset_ms": _device_ms([lambda s=s: ops.flash_attention(*s, q_offset=dev_off)
+                                        for s in sets]),
         "library": "scaled_dot_product_attention over k[:, :q_offset + Sq], lower-right "
                    "causal mask",
         "library_max_abs_err": lib_err,
@@ -410,6 +447,7 @@ def prefill_f32_phase(dev) -> dict:
     q, k, v = (torch.randn(1, sq, h, D, generator=gen, device=dev) for h in (Hq, Hkv, Hkv))
     out = ops.flash_attention(q, k, v)
     exp = kpre.plain(q, k, v)
+    _same_at_tensor_offset(out, q, k, v, 0)
     torch.cuda.synchronize()
     err = _max_err(out, exp)
     if not (out.dtype == torch.float32 and err <= F32_TOL):
@@ -617,12 +655,30 @@ class PathRun(NamedTuple):
     wall_s: float
 
 
+def _rate(res) -> str:
+    st = res.stats
+    return (f"{st.generated / res.wall_s:.1f} tok/s, "
+            f"{res.wall_s * 1e3 / st.engine_steps:.3f} ms per engine step")
+
+
+def graph_summary(eng) -> str:
+    """Each dispatch kind's program: calls, graph replays and capture
+    time; raises unless every program of a graphs engine was captured."""
+    if eng.graphs and any(p.graph is None for p in eng.programs.values()):
+        raise AssertionError(f"uncaptured programs: {eng.programs}")
+    return ", ".join(f"{k} {p.calls} calls/{p.replays} replays/capture "
+                     f"{p.capture_s * 1e3:.1f} ms" for k, p in eng.programs.items())
+
+
 def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[str, dict],
                 tiered: bool = False, base: PathRun | None = None,
-                draft=None, min_accept: float = 0.0) -> PathRun:
-    """One path through the serve entry point: a short warm-up, the async
+                draft=None, min_accept: float = 0.0, eager: bool = False) -> PathRun:
+    """One path through the serve entry point, every dispatch kind one
+    CUDA graph: a short warm-up, the async
     run with every launch counter zeroed before it and read after it,
-    then the sync run; checks launches per kernel row (``want(stats)``:
+    then the sync run (``eager``: then the async run with ``--graphs
+    off``, whose tokens and launches must be the graph run's); checks
+    launches per kernel row (``want(stats)``:
     row name -> launches, summed per kernel and variant and per head shape
     against the counters), completion, a drained pool, sync/async greedy
     identity, (``tiered``) spills without preemption and (``base``: the
@@ -648,6 +704,9 @@ def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[st
           f"spills={st.spills} rehydrations={st.rehydrations} "
           f"dispatches={dict(res.engine.dispatch_counts)} launches: {launches} expected "
           f"{exp_variant}; by head shape {shapes}")
+    if not res.engine.graphs:
+        raise AssertionError(f"[{label}] the serve path ran without graphs")
+    print(f"[{label}] graphs: {graph_summary(res.engine)}; {_rate(res)}")
     if launches != exp_variant or shapes != exp_shape:
         raise AssertionError(f"[{label}] kernel launches {launches} / {shapes} != expected "
                              f"{exp_variant} / {exp_shape}")
@@ -681,10 +740,24 @@ def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[st
             raise AssertionError(f"[{label}] speculative greedy tokens differ from the "
                                  "non-speculative run's")
 
+    if eager:
+        eager_args = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--graphs", "off"])
+        ops.reset_launch_counts()
+        ref_run = serve.serve(eager_args, model, params, draft)
+        same_eager = [r.out_tokens for r in ref_run.driver.submitted] == [
+            r.out_tokens for r in reqs]
+        print(f"[{label}] graphs vs eager (async, same call): graphs {_rate(res)}; eager "
+              f"{_rate(ref_run)}; greedy tokens identical: {same_eager}; launches equal: "
+              f"{ops.shape_counts() == shapes}")
+        if not (same_eager and ops.shape_counts() == shapes
+                and ref_run.stats.engine_steps == st.engine_steps):
+            raise AssertionError(f"[{label}] graph and eager runs differ")
+
     sync_args = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--async", "off"])
     sync = serve.serve(sync_args, model, params, draft)
     for line in serve.report(sync_args, sync):
         print(f"[{label}] {line}")
+    print(f"[{label}] sync graphs: {graph_summary(sync.engine)}")
     pairs = list(zip(reqs, sync.driver.submitted))
     same = [a.out_tokens == b.out_tokens for a, b in pairs]
     same_clock = sync.stats.engine_steps == st.engine_steps
@@ -718,15 +791,24 @@ def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[st
     return PathRun(per_row, st, [r.out_tokens for r in reqs], wall)
 
 
+# host-side launch calls the profiler records, by what they launch
+GRAPH_LAUNCH = ("cudaGraphLaunch",)
+KERNEL_LAUNCH = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
 def profile_phase(model, params, label: str, flags: list[str], warm_steps: int,
-                  n_steps: int = 8) -> None:
+                  n_steps: int = 8, graphs: bool = True) -> None:
     """Where a steady step's time goes: ``torch.profiler`` over ``n_steps``
-    async steps after ``warm_steps`` (32 requests over 16 slots).  Prints
-    wall time per step, device busy time per step and the top kernels;
-    reports "not measured" if the profiler sees no device time.  With a
-    host tier, also times one layer's hot and cold paged launches on the
-    state the window ended in."""
-    args = serve.build_parser().parse_args(SERVE_FLAGS + flags)
+    async steps after ``warm_steps`` (32 requests over 16 slots), with
+    every dispatch kind one CUDA graph or (``graphs=False``) eagerly.
+    Prints wall time per step, device busy time per step (the device-side
+    events' time: kernels, copies and fills), device ops and host launch
+    calls per step (graph launches and kernel launches apart) and the top
+    kernels; reports "not measured" if the profiler sees no device time.  With a host tier, also times one layer's hot and cold
+    paged launches on the state the window ended in."""
+    label = f"{label}{'' if graphs else ' eager'}"
+    args = serve.build_parser().parse_args(SERVE_FLAGS + flags
+                                           + ["--graphs", "on" if graphs else "off"])
     eng = serve.make_engine(args, model, params)
     for i, arr in enumerate(build_workload("random", 2 * args.slots, vocab=model.cfg.vocab,
                                            max_seq=args.max_seq, max_new=args.max_new,
@@ -736,6 +818,7 @@ def profile_phase(model, params, label: str, flags: list[str], warm_steps: int,
         eng.step()
     torch.cuda.synchronize()
     st0 = dataclasses.replace(eng.stats)
+    replays0 = sum(p.replays for p in eng.programs.values())
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -744,22 +827,31 @@ def profile_phase(model, params, label: str, flags: list[str], warm_steps: int,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     st = eng.stats
+    replays = sum(p.replays for p in eng.programs.values()) - replays0
     mix = (f"{st.decode_steps - st0.decode_steps} decode batches (mean "
            f"{(st.generated - st0.generated) / n_steps:.1f} tokens/step), "
-           f"{st.prefill_chunks - st0.prefill_chunks} prefill chunks in {n_steps} steps")
+           f"{st.prefill_chunks - st0.prefill_chunks} prefill chunks in {n_steps} steps, "
+           f"{replays / n_steps:.2f} graph replays/step")
+    events = prof.key_averages()
+    launch_calls = {kind: sum(e.count for e in events if e.key in names) / n_steps
+                    for kind, names in (("graph", GRAPH_LAUNCH), ("kernel", KERNEL_LAUNCH))}
     if "host_k" in eng.cache:
         tier_launches(eng, label)
     eng.run()
-    rows = [e for e in prof.key_averages()
-            if getattr(e, "self_device_time_total", 0) > 0]
+    # device-side events only: a CPU op's self device time repeats the time
+    # of the kernels it launched, which are events of their own
+    rows = [e for e in events
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / n_steps
     if not rows:
         print(f"[{label}] profile: wall {wall_ms:.2f} ms/step; device time not "
-              f"measured (the profiler saw no device activity); {mix}")
+              f"measured (the profiler saw no device activity); host launches/step: "
+              f"{launch_calls['graph']:.2f} graph, {launch_calls['kernel']:.1f} kernel; {mix}")
         return
     print(f"[{label}] profile: wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} "
           f"ms/step ({busy_ms / wall_ms:.0%}), {sum(e.count for e in rows) // n_steps} "
-          f"device ops/step; {mix}")
+          f"device ops/step, host launches/step: {launch_calls['graph']:.2f} graph, "
+          f"{launch_calls['kernel']:.1f} kernel; {mix}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / n_steps:8.3f} ms/step "
               f"{e.count / n_steps:7.1f}x  {e.key[:90]}")
@@ -1127,6 +1219,79 @@ def block128_check(dev) -> None:
         raise AssertionError("block-128 reference check failed")
 
 
+def _chi2(counts: torch.Tensor, expected: torch.Tensor) -> float:
+    return float(((counts - expected) ** 2 / expected).sum())
+
+
+def temperature_check(dev) -> None:
+    """Sampling under graphs, reduced llama3.2-1b (bf16): the logits of 16
+    random 12-token prompts (one whole-prompt prefill each) sampled at
+    temperature 1, top-k 8, by a captured program (``sample_on_device``
+    with its registered device generator, what every async graph runs):
+    512 replays, then 512 eager draws from the same generator.
+    Consecutive replays must draw different tokens (a generator the graph
+    did not register would raise; one whose state the graph froze would
+    repeat them); each set's per-row counts must fit the exact top-8
+    distribution and the two sets each other (chi-square over 16 x 7
+    degrees of freedom at least, bound: mean + 6 standard deviations).
+    The support is what the sampler keeps: every token at or above a
+    row's 8th largest logit (bf16 logits tie there).
+    Then temperature runs of the engine through the graphs, plain and
+    speculative, on the hybrid schedule: they complete, their replays
+    ran, and no request repeats one token throughout."""
+    cfg = reduce_config("llama3.2-1b")
+    m = build_model(cfg, dev)
+    params = m.init(3)
+    rng = np.random.default_rng(17)
+    logits = torch.cat([m.prefill(params, torch.from_numpy(
+        rng.integers(1, cfg.vocab, (1, 12))).to(dev), m.init_cache(1, 16))[0]
+        for _ in range(16)]).float()
+    sampler = SamplerConfig(temperature=1.0, top_k=8)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prog = Program("sample", lambda inp: (sample_on_device(logits, gen, sampler),), {}, dev,
+                   graphs=True, pool=torch.cuda.graph_pool_handle(), generators=(gen,))
+    n = 512
+    graph_draws = torch.stack([prog()[0].clone() for _ in range(n)])[1:]   # replays only
+    eager_draws = torch.stack([sample_on_device(logits, gen, sampler) for _ in range(n - 1)])
+    repeats = int((graph_draws[1:] == graph_draws[:-1]).all(dim=1).sum())
+    keep = logits >= torch.topk(logits, 8, dim=-1).values[:, -1:]          # (16, V)
+    probs = torch.softmax(logits.masked_fill(~keep, float("-inf")), dim=-1)[keep]
+    dof = int(keep.sum()) - 16
+    bound = dof + 6 * (2 * dof) ** 0.5
+
+    def counts(draws):
+        return F.one_hot(draws.long(), logits.shape[-1]).sum(dim=0).float()   # (16, V)
+
+    cg, ce = counts(graph_draws), counts(eager_draws)
+    outside = int(cg[~keep].sum() + ce[~keep].sum())
+    cg, ce = cg[keep], ce[keep]
+    pooled = (cg + ce) / 2
+    chi = {"graph": _chi2(cg, (n - 1) * probs), "eager": _chi2(ce, (n - 1) * probs),
+           "graph vs eager": _chi2(cg, pooled) + _chi2(ce, pooled)}
+    print(f"temperature check (reduced, T=1, top-k 8: {int(keep.sum())} kept tokens in 16 rows, "
+          f"{n - 1} replays vs {n - 1} eager draws): consecutive replays equal {repeats}; "
+          f"draws outside the kept tokens {outside}; chi-square (dof {dof}, bound {bound:.1f}) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in chi.items()))
+    if repeats or outside or max(chi.values()) >= bound:
+        raise AssertionError("temperature draws under graphs do not fit the distribution")
+    prompts = [rng.integers(1, cfg.vocab, 10).astype(np.int32) for _ in range(6)]
+    for label, extra in (("plain", {}), ("spec", dict(spec_depth=2, draft_model=m,
+                                                      draft_params=m.init(5)))):
+        eng = Engine(m, params, n_slots=3, max_seq=64, sampler=SamplerConfig(temperature=1.0),
+                     schedule="hybrid", prefill_chunk=8, **extra)
+        reqs = [Request(uid=i, prompt=x, max_new_tokens=12) for i, x in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        replays = {k: p.replays for k, p in eng.programs.items()}
+        ok = (all(r.done and len(r.out_tokens) == 12 and len(set(r.out_tokens[1:])) > 1
+                  for r in reqs) and sum(replays.values()) > 0)
+        print(f"temperature serve through graphs ({label}): replays {replays}; "
+              f"all complete, fresh tokens: {ok}")
+        if not ok:
+            raise AssertionError(f"temperature serve through graphs ({label}) failed")
+
+
 def ptxas_lines(name: str) -> list[str]:
     """One line per kernel of ``csrc/<name>.cu`` from its build log
     (``-Xptxas -v``): registers, shared memory, spills."""
@@ -1167,10 +1332,12 @@ def main() -> None:
             decode_phase(dev, draft=True), prefill_chunk_phase(dev, draft=True),
             paged_phase(dev, bs=128), paged_phase(dev, "fp8", bs=128)]
     for r in rows:
+        dev_off = (f" (at a device q_offset {r['device_offset_ms']:.4f})"
+                   if "device_offset_ms" in r else "")
         print(f"kernel {r['name']}: err {r['max_abs_err']:.2e} (tol {r['tol']}) "
-              f"kernel {r['ms']:.4f} ms (events {r['event_ms']:.4f}) plain {r['plain_ms']:.4f} ms "
-              f"library {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}) at {r['shape']}")
+              f"kernel {r['ms']:.4f} ms{dev_off} (events {r['event_ms']:.4f}) plain "
+              f"{r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) at {r['shape']}")
     by_name = {r["name"]: r for r in rows}
     model, params = load_model()
     L, k = model.cfg.n_layers, SPEC_DEPTH
@@ -1186,15 +1353,16 @@ def main() -> None:
         by_path[label] = serve_phase(model, params, label, flags, want, by_name, **kw)
 
     path("dense", [], lambda st: {
-        "decode_attention": st.decode_steps * L, "prefill_attention": st.prefills * L})
+        "decode_attention": st.decode_steps * L, "prefill_attention": st.prefills * L},
+        eager=True)
     path("paged-hybrid", PAGED_FLAGS, lambda st: {
         "prefill_attention[chunk]": st.prefill_chunks * L,
-        "paged_decode_attention": st.decode_steps * L})
+        "paged_decode_attention": st.decode_steps * L}, eager=True)
     # tiered: every decode step attends twice per layer (hot and cold
     # windows); prefill runs unscaled on the bf16 staging cache
     path("paged-tiered", TIERED_FLAGS, lambda st: {
         "prefill_attention[chunk]": st.prefill_chunks * L,
-        "paged_decode_attention[fp8]": 2 * st.decode_steps * L}, tiered=True)
+        "paged_decode_attention[fp8]": 2 * st.decode_steps * L}, tiered=True, eager=True)
     path("paged-tiered-int8", TIERED_INT8_FLAGS, lambda st: {
         "prefill_attention": st.prefills * L,
         "paged_decode_attention[int8]": 2 * st.decode_steps * L}, tiered=True)
@@ -1205,7 +1373,8 @@ def main() -> None:
         "decode_attention": st.spec_steps * (k + 1) * L,
         "decode_attention[draft]": st.spec_steps * (k + 1) * Ld,
         "prefill_attention": st.prefills * L,
-        "prefill_attention[draft-chunk]": draft_chunks(st) * Ld}, base=by_path["dense"])
+        "prefill_attention[draft-chunk]": draft_chunks(st) * Ld}, base=by_path["dense"],
+        eager=True)
     path("paged-hybrid-spec", PAGED_FLAGS + SPEC_FLAGS, lambda st: {
         "paged_decode_attention": st.spec_steps * (k + 1) * L,
         "decode_attention[draft]": st.spec_steps * (k + 1) * Ld,
@@ -1228,11 +1397,13 @@ def main() -> None:
         "prefill_attention[chunk]": (st.prefill_chunks + draft_chunks(st)) * L},
         draft=(model, params), min_accept=0.99)
     print("phase walls: " + ", ".join(f"{p} {r.wall_s:.1f}s" for p, r in by_path.items()))
-    profile_phase(model, params, "dense", [], warm_steps=4)
-    profile_phase(model, params, "paged-hybrid", PAGED_FLAGS, warm_steps=48)
-    # 60 steps in, the profile's 32 requests have filled the pool and begun to spill
-    profile_phase(model, params, "paged-tiered", TIERED_FLAGS, warm_steps=60)
-    profile_phase(model, params, "dense-spec", SPEC_FLAGS, warm_steps=4)
+    for graphs in (True, False):
+        profile_phase(model, params, "dense", [], warm_steps=4, graphs=graphs)
+        profile_phase(model, params, "paged-hybrid", PAGED_FLAGS, warm_steps=48, graphs=graphs)
+        # 60 steps in, the profile's 32 requests have filled the pool and begun to spill
+        profile_phase(model, params, "paged-tiered", TIERED_FLAGS, warm_steps=60,
+                      graphs=graphs)
+        profile_phase(model, params, "dense-spec", SPEC_FLAGS, warm_steps=4, graphs=graphs)
     del model, params
     t0 = time.perf_counter()
     reference_check(dev)
@@ -1240,6 +1411,7 @@ def main() -> None:
     host_tier_check(dev)
     spec_reference_check(dev)
     block128_check(dev)
+    temperature_check(dev)
     print(f"reduced checks: {time.perf_counter() - t0:.1f}s")
     for r in rows:
         r["launches_by_path"] = {p: run.launches.get(r["name"], 0)

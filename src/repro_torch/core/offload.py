@@ -54,9 +54,11 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      q_offset: int = 0, chunk: int = 1024) -> torch.Tensor:
+                      q_offset: int | torch.Tensor = 0, chunk: int = 1024) -> torch.Tensor:
     """Causal prefill attention; ``q_offset`` places q[:, 0] at an
-    absolute position."""
+    absolute position: a host int, or a ``(1,)`` int32 tensor on q's
+    device (read by the kernel, or by the plain path, with no host
+    sync)."""
     if q.is_cuda:
         return ops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
     return attn.chunked_attention(q, k, v, causal=True, q_offset=q_offset, chunk=chunk)

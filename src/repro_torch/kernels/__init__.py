@@ -43,6 +43,29 @@ class LaunchCounter:
         self.variants.clear()
         self.shapes.clear()
 
+    def copy(self) -> LaunchCounter:
+        return LaunchCounter(self.name, self.launches, dict(self.variants), dict(self.shapes))
+
+    def set_to(self, other: LaunchCounter) -> None:
+        self.launches = other.launches
+        self.variants = dict(other.variants)
+        self.shapes = dict(other.shapes)
+
+    def minus(self, base: LaunchCounter) -> LaunchCounter:
+        """The launches counted since ``base`` (a copy taken earlier)."""
+        variants = {k: n - base.variants.get(k, 0) for k, n in self.variants.items()}
+        shapes = {k: n - base.shapes.get(k, 0) for k, n in self.shapes.items()}
+        return LaunchCounter(self.name, self.launches - base.launches,
+                             {k: n for k, n in variants.items() if n},
+                             {k: n for k, n in shapes.items() if n})
+
+    def add(self, delta: LaunchCounter) -> None:
+        self.launches += delta.launches
+        for k, n in delta.variants.items():
+            self.variants[k] = self.variants.get(k, 0) + n
+        for k, n in delta.shapes.items():
+            self.shapes[k] = self.shapes.get(k, 0) + n
+
 
 def heads(Hkv: int, G: int, D: int, block_size: int | None = None) -> str:
     """The launch counters' shape key of a call: KV heads, GQA group, head

@@ -6,12 +6,29 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace repro {
 
 constexpr float NEG_INF = -1e30f;   // the reference kernels' mask value
 
 // dtype codes passed from the Python wrappers
 enum DType : int { F32 = 0, BF16 = 1, FP8_E4M3 = 2, INT8 = 3 };
+
+// Host side: let `kernel` take `bytes` of dynamic shared memory.  The
+// attribute belongs to the function, so it is set once per kernel
+// instantiation and raised only when a launch needs more than before;
+// `allowed` is the caller's static for that instantiation.  A launch
+// then costs no cudaFuncSetAttribute, and a launch under CUDA graph
+// capture (after a warm-up call) makes none.  One card per process: the
+// attribute is per device.
+inline cudaError_t allow_smem(const void* kernel, size_t bytes, std::atomic<size_t>& allowed) {
+  if (bytes <= allowed.load(std::memory_order_relaxed)) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) allowed.store(bytes, std::memory_order_relaxed);
+  return err;
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -428,9 +428,9 @@ int launch_split(const void* q, const void* k, const void* v, const void* length
                  long long k_ss, long long v_sb, long long v_ss, float scale, int split,
                  int n_split, cudaStream_t st) {
   const size_t smem = smem_bytes<TKV>(G, D, PW);
-  cudaError_t err = cudaFuncSetAttribute(decode_split_fma_kernel<TQ, TKV, PW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  static std::atomic<size_t> allowed{0};
+  const cudaError_t err = allow_smem(
+      (const void*)decode_split_fma_kernel<TQ, TKV, PW>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   decode_split_fma_kernel<TQ, TKV, PW><<<dim3(Hkv, B, n_split), THREADS, smem, st>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
@@ -445,9 +445,9 @@ int launch_mma(const void* q, const void* k, const void* v, const void* lengths,
                long long v_sb, long long v_ss, float scale, int split, int n_split,
                cudaStream_t st) {
   const size_t smem = mma_smem_bytes(DP);
-  cudaError_t err = cudaFuncSetAttribute(decode_split_mma_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  static std::atomic<size_t> allowed{0};
+  const cudaError_t err =
+      allow_smem((const void*)decode_split_mma_kernel<DP>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   decode_split_mma_kernel<DP><<<dim3(Hkv, B, n_split), THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

@@ -621,8 +621,9 @@ __global__ void __launch_bounds__(THREADS) paged_split_fma_kernel(const Args a) 
 template <typename TKV, int DP>
 int launch_mma(const Args& a, cudaStream_t st) {
   constexpr size_t smem = mma_smem_bytes<TKV, DP>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      paged_split_mma_kernel<TKV, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<size_t> allowed{0};
+  const cudaError_t err =
+      allow_smem((const void*)paged_split_mma_kernel<TKV, DP>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   paged_split_mma_kernel<TKV, DP><<<dim3(a.Hkv, a.B, a.n_split), THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
@@ -631,9 +632,9 @@ int launch_mma(const Args& a, cudaStream_t st) {
 template <typename TQ, typename TKV, int PW>
 int launch_fma(const Args& a, cudaStream_t st) {
   const size_t smem = fma_smem_bytes<TKV>(a.G, a.D, PW);
-  const cudaError_t err = cudaFuncSetAttribute(
-      paged_split_fma_kernel<TQ, TKV, PW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static std::atomic<size_t> allowed{0};
+  const cudaError_t err = allow_smem(
+      (const void*)paged_split_fma_kernel<TQ, TKV, PW>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   paged_split_fma_kernel<TQ, TKV, PW><<<dim3(a.Hkv, a.B, a.n_split), THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();

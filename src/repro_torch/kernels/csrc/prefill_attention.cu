@@ -58,9 +58,12 @@
 // (64-row query tile, query head, batch), GQA by indexing kv head h / G,
 // Q/K/V/P tiles in shared memory as f32, 4 x 8 scores per thread.
 //
-// Both: q_offset is a runtime argument placing q[0] at an absolute
-// position; ragged Sq and Sk are masked here (any length works); a row
-// with no visible key gives 0, not NaN (the max(l, 1e-30) guard).
+// Both: q_offset places q[0] at an absolute position, a kernel argument or,
+// when q_offset_dev is not null, an int32 read from device memory at the
+// kernel's start (the TPU kernel's scalar prefetch; a CUDA graph captures
+// one launch for every offset); ragged Sq and Sk are masked here (any
+// length works); a row with no visible key gives 0, not NaN (the
+// max(l, 1e-30) guard).
 #include <type_traits>
 
 #include "common.cuh"
@@ -92,7 +95,9 @@ flash_prefill_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                      const TKV* __restrict__ v, const float* __restrict__ k_scale,
                      const float* __restrict__ v_scale, long long ss_b, long long ss_s,
                      long long ss_h, TQ* __restrict__ out, int Sq, int Sk, int Hq, int Hkv,
-                     int D, int q_offset, int causal, float scale) {
+                     int D, int q_offset, const int* __restrict__ q_offset_dev, int causal,
+                     float scale) {
+  if (q_offset_dev != nullptr) q_offset = *q_offset_dev;
   extern __shared__ float smem[];
   const int QS = D + 1;
   const int PS = BK + 1;
@@ -277,7 +282,9 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restr
                          const TKV* __restrict__ v, const float* __restrict__ k_scale,
                          const float* __restrict__ v_scale, long long ss_b, long long ss_s,
                          long long ss_h, __nv_bfloat16* __restrict__ out, int Sq, int Sk,
-                         int Hq, int Hkv, int D, int q_offset, int causal, float scale) {
+                         int Hq, int Hkv, int D, int q_offset,
+                         const int* __restrict__ q_offset_dev, int causal, float scale) {
+  if (q_offset_dev != nullptr) q_offset = *q_offset_dev;
   using bf16 = __nv_bfloat16;
   constexpr int LD = DP + 8;                 // bf16 row stride: 16-byte pad
   constexpr int KSTEPS = DP / 16;            // k-steps of Q K^T
@@ -470,18 +477,19 @@ template <typename TKV, int DP>
 int launch_mma(const void* q, const void* k, const void* v, const void* k_scale,
                const void* v_scale, long long ss_b, long long ss_s, long long ss_h,
                void* out, int B, int Sq, int Sk, int Hq, int Hkv, int D, int q_offset,
-               int causal, float scale, cudaStream_t st) {
+               const int* q_offset_dev, int causal, float scale, cudaStream_t st) {
   const size_t smem = mma_smem_bytes<TKV>(DP, D);
-  cudaError_t err = cudaFuncSetAttribute(flash_prefill_mma_kernel<TKV, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  static std::atomic<size_t> allowed{0};
+  const cudaError_t err =
+      allow_smem((const void*)flash_prefill_mma_kernel<TKV, DP>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq * (Hq / Hkv) + MROWS - 1) / MROWS, Hkv, B);
   flash_prefill_mma_kernel<TKV, DP><<<grid, THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), ss_b, ss_s, ss_h,
-      static_cast<__nv_bfloat16*>(out), Sq, Sk, Hq, Hkv, D, q_offset, causal, scale);
+      static_cast<__nv_bfloat16*>(out), Sq, Sk, Hq, Hkv, D, q_offset, q_offset_dev, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -490,8 +498,8 @@ int launch_mma(const void* q, const void* k, const void* v, const void* k_scale,
 template <typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
            const void* v_scale, long long ss_b, long long ss_s, long long ss_h, void* out,
-           int B, int Sq, int Sk, int Hq, int Hkv, int D, int q_offset, int causal,
-           float scale, cudaStream_t st) {
+           int B, int Sq, int Sk, int Hq, int Hkv, int D, int q_offset,
+           const int* q_offset_dev, int causal, float scale, cudaStream_t st) {
   if (D % Vec<TQ>::N || D % Vec<TKV>::N) return (int)cudaErrorInvalidValue;
   // scales exactly when K/V are quantized
   if (Quantized<TKV>::value != (k_scale != nullptr) || (k_scale == nullptr) != (v_scale == nullptr))
@@ -499,22 +507,23 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
   if constexpr (std::is_same<TQ, __nv_bfloat16>::value) {
 #define REPRO_MMA(DP) \
   launch_mma<TKV, DP>(q, k, v, k_scale, v_scale, ss_b, ss_s, ss_h, out, B, Sq, Sk, Hq, Hkv, \
-                      D, q_offset, causal, scale, st)
+                      D, q_offset, q_offset_dev, causal, scale, st)
     if (D <= 32) return REPRO_MMA(32);
     if (D <= 64) return REPRO_MMA(64);
     return REPRO_MMA(128);
 #undef REPRO_MMA
   } else {
     const size_t smem = smem_bytes(D);
-    cudaError_t err = cudaFuncSetAttribute(flash_prefill_fma_kernel<TQ, TKV>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+    static std::atomic<size_t> allowed{0};
+    const cudaError_t err =
+        allow_smem((const void*)flash_prefill_fma_kernel<TQ, TKV>, smem, allowed);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
     flash_prefill_fma_kernel<TQ, TKV><<<grid, THREADS, smem, st>>>(
         static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
         static_cast<const float*>(k_scale), static_cast<const float*>(v_scale), ss_b, ss_s,
-        ss_h, static_cast<TQ*>(out), Sq, Sk, Hq, Hkv, D, q_offset, causal, scale);
+        ss_h, static_cast<TQ*>(out), Sq, Sk, Hq, Hkv, D, q_offset, q_offset_dev, causal,
+        scale);
     return (int)cudaGetLastError();
   }
 }
@@ -524,20 +533,23 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
 // q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), out (B, Sq, Hq, D) of q's type, all
 // contiguous (the model layout).  k_scale/v_scale: f32 (B, Sk, Hkv) with
 // element strides ss_b, ss_s, ss_h (the same for both) for int8/fp8 K/V,
-// else null.  Launches on `stream`, returns cudaGetLastError().
+// else null.  q_offset_dev: null, or one int32 in device memory that the
+// kernels read in place of q_offset (a captured CUDA graph's launch then
+// serves every offset; the grid depends on Sq, Sk and the heads only).
+// Launches on `stream`, returns cudaGetLastError().
 extern "C" int prefill_attention_launch(const void* q, const void* k, const void* v,
                                         const void* k_scale, const void* v_scale,
                                         long long ss_b, long long ss_s, long long ss_h,
                                         void* out, int B, int Sq, int Sk, int Hq,
-                                        int Hkv, int D, int q_offset, int causal,
-                                        float scale, int q_dtype, int kv_dtype,
-                                        void* stream) {
+                                        int Hkv, int D, int q_offset,
+                                        const void* q_offset_dev, int causal, float scale,
+                                        int q_dtype, int kv_dtype, void* stream) {
   if (D < 8 || D > MAX_D || D % 8 || Hkv < 1 || Hq % Hkv) return (int)cudaErrorInvalidValue;
   if (Sq < 1 || Sk < 1) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_LAUNCH(TQ, TKV) \
   launch<TQ, TKV>(q, k, v, k_scale, v_scale, ss_b, ss_s, ss_h, out, B, Sq, Sk, Hq, Hkv, D, \
-                  q_offset, causal, scale, st)
+                  q_offset, static_cast<const int*>(q_offset_dev), causal, scale, st)
   if (q_dtype == BF16 && kv_dtype == BF16) return REPRO_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (q_dtype == F32 && kv_dtype == BF16) return REPRO_LAUNCH(float, __nv_bfloat16);
   if (q_dtype == F32 && kv_dtype == F32) return REPRO_LAUNCH(float, float);

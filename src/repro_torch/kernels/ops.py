@@ -5,12 +5,15 @@ kernel (or the wrapper raises); a CPU tensor goes to the kernel's plain
 PyTorch version and never touches the kernel library.  Each kernel
 counts its launches (:func:`launch_counts`), by variant too
 (:func:`variant_counts`: "unscaled", or the fp8/int8 scaled ones) and by
-head shape (:func:`shape_counts`).
+head shape (:func:`shape_counts`).  A captured CUDA graph's replay makes no
+Python call: the program that replays it adds the launches its capture
+made (:func:`snapshot_counts`, :func:`counts_since`, :func:`add_counts`).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import LaunchCounter
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import prefill_attention as _prefill
@@ -35,6 +38,31 @@ def shape_counts() -> dict[str, dict[tuple[str, str], int]]:
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.COUNTER.reset()
+
+
+def snapshot_counts() -> dict[str, LaunchCounter]:
+    """Copies of every kernel's counter, for :func:`counts_since` and
+    :func:`restore_counts` around a CUDA graph capture."""
+    return {name: mod.COUNTER.copy() for name, mod in KERNELS.items()}
+
+
+def counts_since(snap: dict[str, LaunchCounter]) -> dict[str, LaunchCounter]:
+    """What every counter gained since ``snap``: the launches a captured
+    graph makes on each replay."""
+    return {name: mod.COUNTER.minus(snap[name]) for name, mod in KERNELS.items()}
+
+
+def restore_counts(snap: dict[str, LaunchCounter]) -> None:
+    """Set every counter back to ``snap`` (a capture launches nothing)."""
+    for name, mod in KERNELS.items():
+        mod.COUNTER.set_to(snap[name])
+
+
+def add_counts(delta: dict[str, LaunchCounter]) -> None:
+    """Count one replay of a graph whose launches are ``delta`` (a replay
+    makes no Python call, so no wrapper counts it)."""
+    for name, mod in KERNELS.items():
+        mod.COUNTER.add(delta[name])
 
 
 def _on_cpu(x: torch.Tensor, op: str) -> bool:
@@ -91,11 +119,12 @@ def flash_attention(
     v: torch.Tensor,  # (B, Sk, Hkv, D)
     scale: float | None = None,
     causal: bool = True,
-    q_offset: int = 0,
+    q_offset: int | torch.Tensor = 0,
     k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """``q_offset`` is the absolute position of q[:, 0] (a host int).
+    """``q_offset`` is the absolute position of q[:, 0]: a host int, or a
+    ``(1,)`` int32 tensor on q's device, passed through to the kernel.
     ``k_scale``/``v_scale`` (B, Sk, Hkv) f32 mark k/v as int8/fp8
     payloads, dequantized per stored vector."""
     _pair("flash_attention", k_scale, v_scale)

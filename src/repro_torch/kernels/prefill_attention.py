@@ -29,10 +29,9 @@ _KV_DTYPES = {**_Q_DTYPES, torch.float8_e4m3fn: 2, torch.int8: 3}
 
 
 def plain(q, k, v, *, causal: bool = True, scale: float | None = None,
-          q_offset: int = 0, k_scale=None, v_scale=None):
+          q_offset: int | torch.Tensor = 0, k_scale=None, v_scale=None):
     return ref.naive_attention(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
                                k_scale=k_scale, v_scale=v_scale)
-
 
 
 def _check_scales(k, k_scale, v_scale) -> None:
@@ -64,17 +63,33 @@ def _lib():
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         ll = ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, ll, ll, ll, p, i, i, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, ll, ll, ll, p, i, i, i, i, i, i, i, p, i,
                        ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def _offset(q_offset, device) -> tuple[int, int | None]:
+    """``(int, device pointer)`` of the launch: a host int goes in the
+    kernel's arguments; a ``(1,)`` int32 tensor on q's device is read by
+    the kernel from device memory (a captured graph's launch then serves
+    whatever offset the tensor holds at replay)."""
+    if not isinstance(q_offset, torch.Tensor):
+        return int(q_offset), None
+    if q_offset.dtype != torch.int32 or q_offset.numel() != 1 or q_offset.device != device:
+        raise ValueError(f"prefill_attention: a tensor q_offset must be one int32 on "
+                         f"{device}, got {q_offset.dtype} {tuple(q_offset.shape)} on "
+                         f"{q_offset.device}")
+    return 0, q_offset.data_ptr()
+
+
 def kernel(q, k, v, *, causal: bool = True, scale: float | None = None,
-           q_offset: int = 0, k_scale=None, v_scale=None):
+           q_offset: int | torch.Tensor = 0, k_scale=None, v_scale=None):
     """q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D) on the GPU,
-    in q's dtype.  ``q_offset`` (a host int) is the absolute position of
-    q[:, 0].  q and k/v may differ in dtype (the chunked prefill of
+    in q's dtype.  ``q_offset`` is the absolute position of q[:, 0]: a
+    host int, or a ``(1,)`` int32 CUDA tensor that the kernel reads from
+    device memory (the TPU kernel's scalar prefetch; the grid does not
+    depend on it).  q and k/v may differ in dtype (the chunked prefill of
     float32 mode attends f32 queries against the bf16 cache); int8/fp8
     K/V need ``k_scale``/``v_scale`` (B, Sk, Hkv) f32."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
@@ -98,6 +113,7 @@ def kernel(q, k, v, *, causal: bool = True, scale: float | None = None,
             raise ValueError(f"prefill_attention: {name} must be contiguous and "
                              "16-byte aligned")
     _check_scales(k, k_scale, v_scale)
+    off, off_ptr = _offset(q_offset, q.device)
     ss = (0, 0, 0) if k_scale is None else k_scale.stride()
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
@@ -105,7 +121,7 @@ def kernel(q, k, v, *, causal: bool = True, scale: float | None = None,
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if k_scale is None else k_scale.data_ptr(),
                  None if v_scale is None else v_scale.data_ptr(), *ss, out.data_ptr(),
-                 B, Sq, Sk, Hq, Hkv, D, int(q_offset), int(causal), scale,
+                 B, Sq, Sk, Hq, Hkv, D, off, off_ptr, int(causal), scale,
                  _Q_DTYPES[q.dtype], _KV_DTYPES[k.dtype], stream)
     if err != 0:
         raise RuntimeError(f"prefill_attention kernel launch failed: CUDA error {err}")

@@ -76,14 +76,15 @@ def naive_attention(
     *,
     causal: bool = True,
     scale: float | None = None,
-    q_offset: int | None = None,
+    q_offset: int | torch.Tensor | None = None,
     k_scale: torch.Tensor | None = None,    # (B, Sk, Hkv) f32
     v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) -> (B,Sq,Hq,D).  f32 softmax.
 
     ``q_offset`` places q[:, 0] at an absolute position (chunked-prefill
-    continuation); ``None`` keeps the right-aligned causal mask (offset
+    continuation): an int or a one-element tensor, read without a host
+    sync; ``None`` keeps the right-aligned causal mask (offset
     ``Sk - Sq``).  ``k_scale``/``v_scale`` dequantize int8/fp8 K/V
     payloads per stored vector.  A query row with no visible key gives 0,
     not NaN."""
@@ -98,7 +99,9 @@ def naive_attention(
         vf = vf * v_scale.float()[..., None]
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
     if causal:
-        off = Sk - Sq if q_offset is None else int(q_offset)
+        off = Sk - Sq if q_offset is None else q_offset
+        if isinstance(off, torch.Tensor):
+            off = off.reshape(()).to(q.device)
         q_pos = off + torch.arange(Sq, device=q.device)[:, None]
         mask = q_pos >= torch.arange(Sk, device=q.device)[None, :]
         s = s.masked_fill(~mask, float("-inf"))

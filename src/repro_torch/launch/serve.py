@@ -25,7 +25,8 @@ a reduced ``--arch``, proposes K tokens per slot and step and the target
 verifies K+1 positions; greedy output is token-identical to plain
 decoding), the ``random`` workload, greedy sampling (or ``--sample
 temperature|top-k``) and the async dispatch-ahead engine (``--async
-off`` for the synchronous one).  Weights are random, drawn from
+off`` for the synchronous one), each dispatch kind one CUDA graph
+(``--graphs off`` runs them eagerly).  Weights are random, drawn from
 ``--seed`` on the device; the draft's from seed 1.  The run is on the
 GPU; ``--device cpu`` runs the plain PyTorch path (with ``--reduced``,
 the test scale).  It prints the reference's stats, ``spec:``, latency,
@@ -96,6 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain path)")
+    ap.add_argument("--graphs", choices=("on", "off"), default=None,
+                    help="one CUDA graph per dispatch kind, replayed each step "
+                         "(default: on for a CUDA device; the CPU runs eagerly)")
     return ap
 
 
@@ -153,7 +157,7 @@ def make_engine(args, model: Model, params: dict, draft=None) -> Engine:
                   n_blocks=args.blocks, kv_dtype=args.kv_dtype,
                   host_blocks=args.host_blocks, schedule=args.schedule,
                   prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
-                  **spec)
+                  graphs=None if args.graphs is None else args.graphs == "on", **spec)
 
 
 def serve(args, model: Model, params: dict, draft=None) -> ServeResult:
@@ -198,7 +202,7 @@ def report(args, res: ServeResult) -> list[str]:
         f"engine steps, {s.tokens_per_step:.2f} tokens/step",
         f"wall {res.wall_s:.2f}s -> {s.generated / res.wall_s:.1f} tok/s "
         f"(batch efficiency {s.generated / max(s.decode_steps * args.slots, 1):.0%}) "
-        f"device={res.engine.device}",
+        f"device={res.engine.device} graphs={'on' if res.engine.graphs else 'off'}",
     ]
     if args.cache == "paged":
         lines.append(f"pool: {res.engine.pool.stats} kv_bytes={res.engine.kv_bytes()}")

@@ -340,42 +340,70 @@ def decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
 # ---------------------------------------------------------------------------
 # chunked prefill (Sarathi-style continuation; serving/scheduler.py)
 # ---------------------------------------------------------------------------
-def prefill_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot: int,
-                 q_offset: int, n_valid: int):
+def _device_scalar(x, device: torch.device) -> torch.Tensor:
+    """``x`` as a ``(1,)`` int32 tensor on ``device``: a tensor as it is
+    (a captured program's scalar), a host int copied there."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(1)
+    return torch.tensor([x], dtype=torch.int32).to(device)
+
+
+def prefill_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot, q_offset, n_valid):
     """One chunk of one slot's prompt against the live cache.
 
-    ``tokens`` (1, C) is the chunk, padded; ``slot``,
-    ``q_offset`` and ``n_valid`` are host ints (the engine knows them at
-    dispatch).  The chunk's K/V land at positions ``q_offset ..
-    q_offset+C-1`` of ``slot``'s stripe — positions past the stripe are
-    skipped, as JAX drops them; in-range pad garbage is causally masked and
-    overwritten by the next chunk or decode append.  Attention runs at
-    ``q_offset`` against the stripe, ``lengths[slot]`` becomes ``q_offset +
-    n_valid``, and the logits (1, V) are those of chunk position
-    ``n_valid - 1``.  ``cache`` may be the dense cache or the paged
-    engine's staging cache (``slot`` is then the staging lane)."""
+    ``tokens`` (1, C) is the chunk, padded; ``slot``, ``q_offset`` and
+    ``n_valid`` are ``(1,)`` int32 tensors on the cache's device (as the
+    reference traces them: a captured CUDA graph serves every slot,
+    offset and length) or host ints.  Nothing here reads them on the
+    host.  The chunk's K/V land at positions ``q_offset .. q_offset+C-1``
+    of ``slot``'s stripe — positions past the stripe are dropped, as JAX
+    drops them; in-range pad garbage is causally masked and overwritten by
+    the next chunk or decode append.  Attention runs at ``q_offset``
+    against the stripe, ``lengths[slot]`` becomes ``q_offset + n_valid``,
+    and the logits (1, V) are those of chunk position ``n_valid - 1``.
+    ``cache`` may be the dense cache or the paged engine's staging cache
+    (``slot`` is then the staging lane).
+
+    The write goes through a window of ``C`` distinct positions starting
+    at ``min(q_offset, S - C)`` (so ``C <= S``): a window position outside
+    ``[q_offset, q_offset + C)`` is rewritten with its own value.  A
+    clamped index instead would repeat positions, and CUDA leaves the
+    winner of repeated ``index_put_`` positions undefined, so a clamped
+    pad write could race with the valid write at ``S - 1``."""
     C = tokens.shape[1]
     S = cache["k"].shape[2]
+    if C > S:
+        raise ValueError(f"prefill_step: a chunk of {C} does not fit a stripe of {S}")
+    dev = tokens.device
+    slot, q_offset, n_valid = (_device_scalar(a, dev) for a in (slot, q_offset, n_valid))
     x = cm.embed_lookup(params["embed"], tokens)                # (1, C, D)
-    positions = (q_offset + torch.arange(C, device=x.device))[None]
-    n_write = max(0, min(C, S - q_offset))
+    ar = torch.arange(C, device=dev)
+    positions = (q_offset + ar)[None]
+    win = q_offset.clamp(max=S - C) + ar                        # (C,) distinct positions
+    src = win - q_offset                                        # their chunk rows
+    keep = ((src < 0) | (src >= C))[:, None, None]
+    src = src.clamp(0, C - 1)
+    rows, win = slot.long().expand(C), win.long()
     for l in range(cfg.n_layers):
         p = _layer(params, l)
         h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
         q = cm.rope(cm.linear(h, p["wq"]), positions, cfg.rope_theta)
         k = cm.rope(cm.linear(h, p["wk"]), positions, cfg.rope_theta)
         v = cm.linear(h, p["wv"])
-        k_row = cache["k"][l, slot:slot + 1]                    # (1, S, Hkv, Dh) view
-        v_row = cache["v"][l, slot:slot + 1]
-        k_row[:, q_offset:q_offset + n_write].copy_(k[:, :n_write])
-        v_row[:, q_offset:q_offset + n_write].copy_(v[:, :n_write])
-        o = offload.prefill_attention(q, k_row, v_row, q_offset=q_offset)
+        k_l, v_l = cache["k"][l], cache["v"][l]                 # (B, S, Hkv, Dh)
+        for pool, new in ((k_l, k), (v_l, v)):
+            pool.index_put_((rows, win),
+                            torch.where(keep, pool[rows, win], new[0, src].to(pool.dtype)))
+        # the slot's stripe (1, S, Hkv, Dh), gathered at the device slot
+        o = offload.prefill_attention(q, k_l.index_select(0, slot), v_l.index_select(0, slot),
+                                      q_offset=q_offset)
         x = x + cm.linear(o, p["wo"], n_in=2)
         h = cm.rmsnorm(x, p["ln2"], cfg.norm_eps)
         x = x + cm.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
     x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = cm.unembed(x[:, n_valid - 1], _unembed_table(params), cfg.vocab)
-    cache["lengths"][slot] = q_offset + n_valid
+    last = x.index_select(1, (n_valid - 1).long())[:, 0]        # (1, D)
+    logits = cm.unembed(last, _unembed_table(params), cfg.vocab)
+    cache["lengths"].index_put_((slot.long(),), q_offset + n_valid)
     return logits, cache
 
 
@@ -424,9 +452,8 @@ def paged_verify_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
     return torch.stack(logits, dim=1), cache
 
 
-def prefill_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot: int,
-                        q_offset: int, n_valid: int, generator: torch.Generator | None,
-                        *, sampler):
+def prefill_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot, q_offset,
+                        n_valid, generator: torch.Generator | None, *, sampler):
     """Chunked prefill with the first generated token sampled on the
     device: (token (1,), cache).  Only a prompt's final chunk's token is
     used."""

@@ -36,7 +36,8 @@ class Model:
     init_cache: Callable[..., Pytree]
     # chunked prefill: prefill_step(params, cache, tokens (1, C), slot,
     #   q_offset, n_valid) -> (logits (1, V), cache), slot/q_offset/n_valid
-    #   host ints; prefill_sample_step(..., n_valid, generator, *, sampler)
+    #   (1,) int32 device tensors or host ints; prefill_sample_step(...,
+    #   n_valid, generator, *, sampler)
     #   -> (token (1,), cache)
     prefill_step: Callable[..., tuple[torch.Tensor, Pytree]]
     prefill_sample_step: Callable[..., tuple[torch.Tensor, Pytree]]

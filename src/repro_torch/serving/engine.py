@@ -32,7 +32,7 @@ queued request is prefilled into it while the others keep decoding.
   step as one decode token per active slot plus one chunk of the
   head-of-queue prompt, padded to ``prefill_chunk`` (two at a prompt
   boundary: Sarathi-SC boundary packing).  The reference's
-  fused/solo/fused2/solo2 jit programs are :meth:`Engine._exec_sync` / :meth:`Engine._exec_async`:
+  fused/solo/fused2/solo2 jit programs are :meth:`Engine._dispatch_body`:
   the chunk(s) first, then the decode batch, the same calls in the same
   order.  The paged cache stages chunks in a two-lane dense staging
   cache and flushes completed blocks into the pool.
@@ -63,6 +63,17 @@ queued request is prefilled into it while the others keep decoding.
   observed; an EOS inside an accepted window truncates the rest.  Greedy
   output is token-identical to plain decoding.
 
+Every dispatch kind (``decode``, ``fused``, ``solo``, ``fused2``,
+``solo2``, ``spec``, ``spec_fused``) and the draft's chunk prefill is one
+:class:`~repro_torch.serving.programs.Program`, the counterpart of the
+reference's ``jax.jit`` programs: with ``graphs`` (the default on a CUDA
+device) it is captured as one CUDA graph at its first dispatch and
+replayed after one host-to-device copy of the step's scalars; on the CPU,
+or with ``graphs=False``, the same body runs eagerly through the same
+buffers.  The host's bookkeeping (block tables, block copies, spills,
+slot resets, the whole-prompt prefill of decode-only admission) stays
+outside the graphs, in stream order around the replays.
+
 Step accounting (``EngineStats.engine_steps``) matches the reference: a
 model dispatch is one step, a decode-only whole prefill of ``L`` tokens
 costs ``ceil(L / prefill_chunk)`` steps.
@@ -72,6 +83,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
+import weakref
 from collections import deque
 from typing import Any
 
@@ -82,6 +94,7 @@ from repro_torch.models.registry import Model
 from repro_torch.serving import kv_cache
 from repro_torch.serving.paged import BlockPool, PagedCacheManager
 from repro_torch.serving.paged import device as paged_dev
+from repro_torch.serving.programs import Program
 from repro_torch.serving.sampler import (SamplerConfig, sample, sample_on_device,
                                          spec_draft_sample, spec_verify_tokens)
 from repro_torch.serving.scheduler import PrefillChunk, Scheduler
@@ -240,6 +253,7 @@ class Engine:
         spec_depth: int = 0,
         draft_model: Model | None = None,
         draft_params: Pytree | None = None,
+        graphs: bool | None = None,
     ):
         # speculation always runs on the dispatch-ahead machinery; sync mode
         # is that pipeline at depth zero (observe right after dispatch)
@@ -278,6 +292,15 @@ class Engine:
         # one on the host for the synchronous oracle sampler
         self._gen_dev = torch.Generator(device=self.device).manual_seed(seed)
         self._gen_host = torch.Generator().manual_seed(seed)
+        # one program per dispatch kind (serving/programs.py), captured as
+        # a CUDA graph on a CUDA device unless graphs=False; eager on the CPU
+        self.graphs = self.device.type == "cuda" if graphs is None else graphs
+        if self.graphs and self.device.type != "cuda":
+            raise ValueError(f"graphs=True needs a CUDA device, not {self.device}")
+        self.programs: dict[str, Program] = {}
+        if self.graphs:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._side_stream = torch.cuda.Stream(self.device)
         if cache_kind == "paged":
             self.block_size = block_size
             self.max_blocks = -(-max_seq // block_size)
@@ -359,15 +382,15 @@ class Engine:
                 "kv_dtype / host tier yet)")
 
     # ------------------------------------------------- speculative decoding
-    def _spec_core(self) -> _Fetch:
+    def _spec_core(self) -> tuple[torch.Tensor, torch.Tensor]:
         """One speculative window, all on the device: k draft decode+sample
         passes, one more draft decode (so that a fully accepted window
         leaves the draft cache holding the last draft's K/V too), the
         target's (k+1)-position verify, rejection sampling, and both length
         commits.  The token at ``n_accept`` of each row becomes the next
         ``tok_state``.  The calls run in the reference program's order,
-        which stream order keeps.  Returns the fetch of ``(emitted (B,
-        k+1), n_accept (B,))``."""
+        which stream order keeps.  Returns ``(emitted (B, k+1), n_accept
+        (B,))``."""
         k, draft, gen = self.spec_depth, self.draft_model, self._gen_dev
         tok = self._tok_state
         drafts, probs = [], []
@@ -388,26 +411,111 @@ class Engine:
         # to the same commit
         self.cache["lengths"].add_(n_accept + 1)
         self.d_cache["lengths"].add_(n_accept - k)
-        self._tok_state = emitted[torch.arange(emitted.shape[0], device=emitted.device),
-                                  n_accept.long()]
-        return _Fetch(emitted, n_accept)
+        self._tok_state.copy_(emitted[torch.arange(emitted.shape[0], device=emitted.device),
+                                      n_accept.long()])
+        return emitted, n_accept
 
     def _draft_prefill_slot(self, slot: int, tokens: np.ndarray) -> None:
         """Prefill ``tokens`` into the draft cache at ``slot``, in chunks of
-        ``prefill_chunk``, so that draft and target lengths agree at the
-        slot's next dispatch.  Issued at dispatch time: stream order puts it
-        after every in-flight step's draft writes."""
+        ``prefill_chunk``, through the ``draft_prefill`` program, so that
+        draft and target lengths agree at the slot's next dispatch.  Issued
+        at dispatch time: stream order puts it after every in-flight step's
+        draft writes."""
         if not self.spec_depth:
             return
         chunk = self.prefill_chunk
+        prog = self._program("draft_prefill")
         for start in range(0, len(tokens), chunk):
             nv = min(chunk, len(tokens) - start)
             buf = np.zeros((1, chunk), np.int32)
             buf[0, :nv] = tokens[start:start + nv]
-            self.draft_model.prefill_step(self.draft_params, self.d_cache,
-                                          paged_dev.to_device(buf, self.device), slot,
-                                          start, nv)
+            prog(tok0=buf, chunk0=(slot, 0, start, nv, 1))
             self.stats.draft_steps += 1
+
+    # ------------------------------------------------- one program per kind
+    # kind -> (prefill chunks, runs the decode batch): the reference's jit
+    # programs, which Engine._dispatch_kind names
+    KINDS = {"decode": (0, True), "spec": (0, True), "fused": (1, True),
+             "spec_fused": (1, True), "solo": (1, False), "fused2": (2, True),
+             "solo2": (2, False), "draft_prefill": (1, False)}
+
+    def _program(self, kind: str) -> Program:
+        """The program of dispatch ``kind``, built at its first use.  Its
+        inputs: the decode batch's tokens (sync mode; async mode feeds the
+        device-resident ``tok_state``), and per chunk its padded tokens and
+        the scalars ``(slot, lane, start, n_valid, last)``."""
+        prog = self.programs.get(kind)
+        if prog is not None:
+            return prog
+        n_chunks, decode = self.KINDS[kind]
+        inputs = {}
+        if decode and not self.async_mode:
+            inputs["tokens"] = (len(self.slots),)
+        for i in range(n_chunks):
+            inputs[f"tok{i}"] = (1, self.prefill_chunk)
+            inputs[f"chunk{i}"] = (5,)
+        # the body holds its engine weakly: an engine <-> program cycle
+        # would leave a dead engine's graphs to the cyclic collector, which
+        # may run inside another engine's capture, where freeing a graph is
+        # not allowed
+        eng = weakref.ref(self)
+        if kind == "draft_prefill":
+            def body(inp):
+                return eng()._draft_prefill_body(inp)
+        else:
+            def body(inp, n_chunks=n_chunks, decode=decode):
+                return eng()._dispatch_body(inp, n_chunks, decode)
+        graph_kw = {}
+        if self.graphs:
+            graph_kw = dict(graphs=True, pool=self._graph_pool, stream=self._side_stream,
+                            generators=(self._gen_dev,))
+        prog = self.programs[kind] = Program(kind, body, inputs, self.device, **graph_kw)
+        return prog
+
+    def _dispatch_body(self, inp, n_chunks: int, decode: bool) -> tuple[torch.Tensor, ...]:
+        """The body of a dispatch kind (the reference's ``fused`` / ``solo``
+        / ``fused2`` / ``solo2`` / ``spec_fused`` programs and the decode
+        and ``spec`` steps): the chunk(s) first, then the decode batch,
+        the same calls in the same order.  Sync mode returns the decode
+        logits (if any), then each chunk's logits.  Async mode returns the
+        decode batch's ``(ids (B,), EOS hits (B,))`` or speculative
+        ``(emitted (B, k+1), n_accept (B,))`` (if any), then each chunk's
+        sampled first token; a chunk whose ``last`` scalar is set splices
+        its token into ``tok_state`` (the reference's ``jnp.where(last,
+        ...)``), after the decode batch wrote its ids there."""
+        scalars = [inp[f"chunk{i}"] for i in range(n_chunks)]
+        logits = [self._run_chunk(inp[f"tok{i}"], scalars[i]) for i in range(n_chunks)]
+        out: tuple[torch.Tensor, ...] = ()
+        if decode:
+            out = self._decode_body(inp)
+            self._hold_lengths(scalars)
+        if not self.async_mode:
+            return (*out, *logits)
+        pre = tuple(sample_on_device(lg, self._gen_dev, self.sampler) for lg in logits)
+        for sc, tok in zip(scalars, pre):
+            paged_dev.feed_token(self._tok_state, sc[0:1], tok, when=sc[4:5])
+        return (*out, *pre)
+
+    def _decode_body(self, inp) -> tuple[torch.Tensor, ...]:
+        """The decode batch: logits from the host's tokens (sync), or
+        sampled on the device from ``tok_state``, written back in place (a
+        speculative window, or one token per slot)."""
+        if not self.async_mode:
+            logits, _ = self._decode(self.params, self.cache, inp["tokens"])
+            return (logits,)
+        if self.spec_depth:
+            return self._spec_core()
+        toks, eos, _ = self._decode_sampled(
+            self.params, self.cache, self._tok_state, self._gen_dev, self._eos_dev,
+            sampler=self.sampler)
+        self._tok_state.copy_(toks)
+        return toks, eos
+
+    def _draft_prefill_body(self, inp) -> tuple[torch.Tensor, ...]:
+        sc = inp["chunk0"]
+        self.draft_model.prefill_step(self.draft_params, self.d_cache, inp["tok0"], sc[0:1],
+                                      sc[2:3], sc[3:4])
+        return ()
 
     # ------------------------------------------------------------- requests
     def submit(self, req: Request):
@@ -936,7 +1044,7 @@ class Engine:
             self.stats.boundary_packs += 1
         return chunks, True
 
-    def _chunk_tokens(self, work: PrefillChunk) -> torch.Tensor:
+    def _chunk_tokens(self, work: PrefillChunk) -> np.ndarray:
         """The chunk's tokens, zero-padded to ``prefill_chunk``: every chunk
         runs at one shape, so a token's K/V and logits do not depend on
         where a chunk boundary falls (the GEMMs' kernels, and so their
@@ -946,64 +1054,58 @@ class Engine:
         chunk = np.zeros((1, self.prefill_chunk), np.int32)
         chunk[0, :work.n_valid] = self._pf_tokens[work.slot][
             work.start:work.start + work.n_valid]
-        return paged_dev.to_device(chunk, self.device)
+        return chunk
 
-    def _run_chunk(self, work: PrefillChunk, tokens: torch.Tensor) -> torch.Tensor:
-        """One chunk through ``prefill_step``: into the slot's stripe of the
-        dense cache, or into the paged engine's staging lane."""
+    def _chunk_scalars(self, work: PrefillChunk) -> tuple[int, int, int, int, int]:
+        """A chunk's program scalars ``(slot, lane, start, n_valid, last)``;
+        the lane is the paged engine's staging lane (0 on the dense cache)."""
+        lane = self._pf_lane.get(work.slot, 0) if self.cache_kind == "paged" else 0
+        return work.slot, lane, work.start, work.n_valid, int(work.last)
+
+    def _run_chunk(self, tokens: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+        """One chunk through ``prefill_step`` at the device scalars ``sc``:
+        into the slot's stripe of the dense cache, or into the paged
+        engine's staging lane."""
         if self.cache_kind == "paged":
-            cache, row = self.staging, self._pf_lane.get(work.slot, 0)
+            cache, row = self.staging, sc[1:2]
         else:
-            cache, row = self.cache, work.slot
-        logits, _ = self.model.prefill_step(self.params, cache, tokens, row,
-                                            work.start, work.n_valid)
+            cache, row = self.cache, sc[0:1]
+        logits, _ = self.model.prefill_step(self.params, cache, tokens, row, sc[2:3], sc[3:4])
         return logits
 
-    def _hold_lengths(self, chunks) -> None:
+    def _hold_lengths(self, scalars) -> None:
         """Dense cache: the decode advanced every slot's length, the
         mid-prefill slots' too; set those back to their chunk ends (their
-        garbage append is overwritten by the next chunk or decode token)."""
+        garbage append is overwritten by the next chunk or decode token).
+        ``scalars``: each chunk's device ``(slot, lane, start, n_valid,
+        last)``."""
         if self.cache_kind == "dense":
-            for work, _ in chunks:
-                self.cache["lengths"][work.slot] = work.start + work.n_valid
+            lengths = self.cache["lengths"]
+            for sc in scalars:
+                lengths.index_put_((sc[0:1].long(),), sc[2:3] + sc[3:4])
 
-    def _exec_sync(self, active: list[int], chunks):
-        """The reference's fused/solo/fused2/solo2 programs, sync mode: the
-        chunk(s), then the decode batch.  Returns (decode logits or None,
-        chunk logits)."""
-        pre = [self._run_chunk(w, t) for w, t in chunks]
-        dec = None
-        if active:
-            dec, _ = self._decode(self.params, self.cache, self._decode_tokens())
-            self._hold_lengths(chunks)
-        return dec, pre
-
-    def _exec_async(self, active: list[int], chunks):
-        """Async twin of :meth:`_exec_sync`: sampling on the device; a
-        chunk that completes its prompt splices its first token into
-        ``tok_state`` for the next decode step.  Returns (decode fetch or
-        None, chunk fetches).  Every fetch is enqueued before the splice,
-        so it holds the unspliced ids."""
-        logits = [self._run_chunk(w, t) for w, t in chunks]
-        fetch = None
-        if active:
-            fetch = self._decode_async()
-            self._hold_lengths(chunks)
-        pre = []
-        for (work, _), lg in zip(chunks, logits):
-            tok = sample_on_device(lg, self._gen_dev, self.sampler)
-            pre.append(_Fetch(tok))
-            if work.last:
-                paged_dev.feed_token(self._tok_state, work.slot, tok)
-        return fetch, pre
+    def _exec(self, active: list[int], chunks) -> tuple[torch.Tensor, ...]:
+        """One dispatch of the decode batch ``active`` and the prefill
+        ``chunks`` through its kind's program (:meth:`_dispatch_body`
+        says what it returns).  The outputs are valid until the next
+        dispatch of the kind."""
+        kind = self._dispatch_kind(active, chunks)
+        values = {}
+        if active and not self.async_mode:
+            values["tokens"] = self._decode_tokens()
+        for i, (work, tokens) in enumerate(chunks):
+            values[f"tok{i}"] = tokens
+            values[f"chunk{i}"] = self._chunk_scalars(work)
+        self.dispatch_counts[kind] += 1
+        return self._program(kind)(**values)
 
     # ----------------------------------------------------------------- step
-    def _decode_tokens(self) -> torch.Tensor:
+    def _decode_tokens(self) -> np.ndarray:
         tokens = np.zeros((len(self.slots),), np.int32)
         for i, req in enumerate(self.slots):
             if req is not None and req.out_tokens:
                 tokens[i] = req.out_tokens[-1]
-        return paged_dev.to_device(tokens, self.device)
+        return tokens
 
     def _finish_decode(self, active: list[int], logits: torch.Tensor):
         next_host = sample(logits, self._gen_host, self.sampler).numpy()
@@ -1036,10 +1138,9 @@ class Engine:
         if not active:
             return self.sched.has_work()
         self.stats.peak_active = max(self.stats.peak_active, len(active))
-        logits, _ = self._decode(self.params, self.cache, self._decode_tokens())
+        logits, = self._exec(active, [])
         self.stats.decode_steps += 1
         self.stats.engine_steps += 1
-        self.dispatch_counts["decode"] += 1
         self._finish_decode(active, logits)
         return self._busy()
 
@@ -1052,23 +1153,11 @@ class Engine:
             self._drain()               # nothing to dispatch: settle state
             return self._busy()
         self.stats.peak_active = max(self.stats.peak_active, len(active))
-        fetch = self._decode_async()
+        fetch = _Fetch(*self._exec(active, []))
         self.stats.decode_steps += 1
         self.stats.engine_steps += 1
-        self.dispatch_counts[self._dispatch_kind(active, [])] += 1
         self._dispatch(self._decode_record(active, fetch))
         return True
-
-    def _decode_async(self) -> _Fetch:
-        """The decode batch, sampled on the device from ``tok_state``: a
-        speculative window, or one token per slot.  Returns its fetch."""
-        if self.spec_depth:
-            return self._spec_core()
-        toks, eos, _ = self._decode_sampled(
-            self.params, self.cache, self._tok_state, self._gen_dev, self._eos_dev,
-            sampler=self.sampler)
-        self._tok_state = toks
-        return _Fetch(toks, eos)
 
     def _dispatch_kind(self, active: list[int], chunks: list) -> str:
         """The reference's jit program for a dispatch of the decode batch
@@ -1109,12 +1198,11 @@ class Engine:
         self.stats.engine_steps += 1
         self.stats.peak_active = max(self.stats.peak_active, len(active))
         chunks, pre_advanced = self._pack(active, work)
-        self.dispatch_counts[self._dispatch_kind(active, chunks)] += 1
-        dec_logits, pre_logits = self._exec_sync(active, chunks)
+        out = self._exec(active, chunks)
         if active:
             self.stats.decode_steps += 1
-            self._finish_decode(active, dec_logits)
-        for i, ((w, _), lg) in enumerate(zip(chunks, pre_logits)):
+            self._finish_decode(active, out[0])
+        for i, ((w, _), lg) in enumerate(zip(chunks, out[1 if active else 0:])):
             self.stats.prefill_chunks += 1
             self._complete_chunk(w, lg, advance=not (i == 0 and pre_advanced))
         return self._busy()
@@ -1131,10 +1219,11 @@ class Engine:
         self.stats.engine_steps += 1
         self.stats.peak_active = max(self.stats.peak_active, len(active))
         chunks, pre_advanced = self._pack(active, work)
-        fetch, pre = self._exec_async(active, chunks)
+        out = self._exec(active, chunks)
+        fetch = _Fetch(*out[:2]) if active else None
+        pre = [_Fetch(t) for t in out[2 if active else 0:]]
         if active:
             self.stats.decode_steps += 1
-        self.dispatch_counts[self._dispatch_kind(active, chunks)] += 1
         rec = self._decode_record(active, fetch)
         if chunks:
             rec.work, rec.pre = chunks[0][0], pre[0]

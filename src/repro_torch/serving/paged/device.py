@@ -162,10 +162,22 @@ def sync_host_slot(cache: Pytree, slot: int, row: np.ndarray, cold_len: int) -> 
     return cache
 
 
-def feed_token(tok_state: torch.Tensor, slot: int, token: torch.Tensor) -> torch.Tensor:
+def feed_token(tok_state: torch.Tensor, slot: int | torch.Tensor, token: torch.Tensor,
+               when: torch.Tensor | None = None) -> torch.Tensor:
     """Async engine: one slot's next decode input, a (1,) device tensor (a
-    prefill's first token never round-trips the host)."""
-    tok_state[slot:slot + 1].copy_(token.reshape(1))
+    prefill's first token never round-trips the host).  ``slot`` is a host
+    int or a ``(1,)`` int32 device tensor (a captured program's scalar);
+    ``when``, a ``(1,)`` device flag, splices only where it is nonzero
+    (the reference's ``jnp.where(last, ...)``).  No host sync."""
+    tok = token.reshape(1).to(tok_state.dtype)
+    idx = slot.reshape(1).long() if isinstance(slot, torch.Tensor) else None
+    if when is not None:
+        cur = tok_state[slot:slot + 1] if idx is None else tok_state.index_select(0, idx)
+        tok = torch.where(when.reshape(1) != 0, tok, cur)
+    if idx is None:
+        tok_state[slot:slot + 1].copy_(tok)
+    else:
+        tok_state.index_copy_(0, idx, tok)
     return tok_state
 
 
