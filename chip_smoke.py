@@ -33,7 +33,7 @@
    the bf16 staging cache; float32 mode runs in the reference checks):
    kernel level only.
 4. Serve phase: full-width llama3.2-1b with seeded random weights through
-   ``repro_torch.launch.serve``, eight paths, every dispatch kind of each
+   ``repro_torch.launch.serve``, eleven paths, every dispatch kind of each
    one captured CUDA graph (the engine's default on the card; the counts
    of each kind's calls, replays and capture time are printed), each with
    every launch counter zeroed before its async run and read after it:
@@ -50,7 +50,14 @@
    g. target-draft: a's first 16 requests at depth 2 with the target as
       its own draft (its cache prefilled whole, the draft's in chunks);
    h. target-draft-hybrid: the same on the dense hybrid schedule, where
-      both caches are filled by the same chunk calls: acceptance >= 0.99.
+      both caches are filled by the same chunk calls: acceptance >= 0.99;
+   i. rag: b's pool with the ``rag`` open-loop workload (64 requests at
+      0.5 per round, ten shared documents): prefix hits must occur;
+   j. chat-fan: c's tiered pool with ``chat-fan`` (64 requests, groups of
+      4 sharing a prefix): prefix hits, COW copies, spills, rehydrations;
+   k. agentic: a's dense cache with ``agentic`` (16 sessions x 3 turns,
+      each turn resubmitted with the prior output as a grown prefix): 32
+      resubmissions.
    Each runs async (dispatch-ahead) and then sync; the greedy tokens must
    be identical, each kernel row must have launched once per layer of
    every prefill, chunk and decode step of its path (twice per layer of a
@@ -62,6 +69,15 @@
    (the profiled ones) also run eagerly (``--graphs off``) in the same
    call: graph and eager greedy tokens must be identical; tok/s and wall
    ms per engine step of both.
+   Then the observatory: path b traced (``--trace`` to a file in the
+   temporary directory, wall stamps on) and profiled (``--profile 8``:
+   every eighth dispatch fenced on the card) against the same run
+   untraced: the trace validates and holds a finished, well-formed span
+   tree per request; tokens, stats and launch counts are the untraced
+   run's; no dispatch that captured a graph is sampled; no sample's
+   measured MFU or MBU (against the H100 SXM's peaks) exceeds 1.05.  It
+   prints per dispatch kind the samples, median measured ms, MFU, MBU and
+   GB/s, and tok/s traced vs untraced.
 5. Profiles (torch.profiler) of steady async steps on paths a, b, c and
    e, with graphs and eagerly, for where the time goes: wall and device
    busy ms per step, device ops per step, host launches per step (graph
@@ -108,9 +124,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -135,6 +154,7 @@ from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.serving.paged import device as pdev  # noqa: E402
 from repro_torch.serving.programs import Program  # noqa: E402
 from repro_torch.serving.sampler import SamplerConfig, sample_on_device  # noqa: E402
+from repro_torch.serving.telemetry import build_request_trees, validate_trace  # noqa: E402
 from repro_torch.serving.workload import build_workload  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 flop/s
@@ -155,6 +175,13 @@ TIERED_FLAGS = ["--cache", "paged", "--schedule", "hybrid", "--kv-dtype", "fp8",
 TIERED_INT8_FLAGS = ["--cache", "paged", "--schedule", "decode-only", "--kv-dtype", "int8",
                      *TIER]
 CHUNK_SQ, CHUNK_OFFSET = 32, 192       # a hybrid chunk (--prefill-chunk 32) mid-prompt
+# the open-loop workloads at full width: shared documents on the paged
+# pool, shared chat prefixes on the tiered pool, grown agentic sessions
+RAG_FLAGS = PAGED_FLAGS + ["--workload", "rag", "--arrival-rate", "0.5"]
+CHAT_FAN_FLAGS = TIERED_FLAGS + ["--workload", "chat-fan", "--fan", "4"]
+AGENTIC_FLAGS = ["--workload", "agentic", "--requests", "16", "--turns", "3"]
+PROFILE_EVERY = 8
+MAX_SHARE = 1.05          # a measured MFU or MBU above this is a fault, not a reading
 SPEC_DEPTH = 2
 # the speculative paths serve the first half of the base paths' requests
 SPEC_FLAGS = ["--spec-depth", str(SPEC_DEPTH), "--requests", "32"]
@@ -653,6 +680,7 @@ class PathRun(NamedTuple):
     stats: object
     tokens: list[list[int]]           # each request's greedy tokens
     wall_s: float
+    res: object                       # the async run's serve.ServeResult
 
 
 def _rate(res) -> str:
@@ -672,7 +700,8 @@ def graph_summary(eng) -> str:
 
 def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[str, dict],
                 tiered: bool = False, base: PathRun | None = None,
-                draft=None, min_accept: float = 0.0, eager: bool = False) -> PathRun:
+                draft=None, min_accept: float = 0.0, eager: bool = False,
+                open_loop: bool = False, preempt_ok: bool = False) -> PathRun:
     """One path through the serve entry point, every dispatch kind one
     CUDA graph: a short warm-up, the async
     run with every launch counter zeroed before it and read after it,
@@ -684,9 +713,24 @@ def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[st
     identity, (``tiered``) spills without preemption and (``base``: the
     non-speculative run of a superset of these requests) token identity
     with it.  ``draft``: the speculative draft (model, params) instead of
-    the serve CLI's default; ``min_accept``: the least acceptance rate."""
+    the serve CLI's default; ``min_accept``: the least acceptance rate.
+    ``open_loop``: arrivals over rounds, so sync and async step clocks may
+    differ (the async engine frees a finished slot when it observes it, a
+    step later, so an arrival or a resubmission is admitted later; the
+    reference's engines differ alike) and requests are paired by prompt
+    (an agentic turn's prompt grows from its session's earlier output and
+    resubmission round); tokens must still be identical, on the tiered
+    pool by its criterion, whose first tokens are compared where both
+    modes began a request's prefills at the same positions (a prefix read
+    from the quantized pool is not bit-equal to one recomputed, and the
+    modes' hits differ with their timing): such a path runs traced.
+    ``preempt_ok``: a tiered path whose host tier fills may preempt."""
     cfg = model.cfg
     t_phase = time.perf_counter()
+    # traced for the prefill chunks' positions; the trace is not written
+    if open_loop and tiered:
+        flags = flags + ["--trace", str(Path(tempfile.gettempdir()) / "unwritten.json"),
+                         "--profile", "0"]
     args = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--async", "on"])
     warm = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--requests", "4"])
     serve.serve(warm, model, params, draft)    # warm-up: cuBLAS handles, allocator
@@ -713,7 +757,7 @@ def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[st
     if args.cache == "paged" and res.engine.pool.in_use:
         raise AssertionError(f"[{label}] pool holds {res.engine.pool.in_use} blocks after "
                              "the run")
-    if tiered and not (st.spills >= 1 and st.preemptions == 0):
+    if tiered and not (st.spills >= 1 and (st.preemptions == 0 or preempt_ok)):
         raise AssertionError(f"[{label}] spills={st.spills} preemptions={st.preemptions}: "
                              "the tiered pool should spill, not preempt")
     reqs = res.driver.submitted
@@ -759,14 +803,25 @@ def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[st
         print(f"[{label}] {line}")
     print(f"[{label}] sync graphs: {graph_summary(sync.engine)}")
     pairs = list(zip(reqs, sync.driver.submitted))
+    if open_loop:
+        by_prompt = {r.prompt.tobytes(): r for r in reqs}
+        pairs = [(by_prompt[b.prompt.tobytes()], b) for b in sync.driver.submitted
+                 if b.prompt.tobytes() in by_prompt]
+        if len(pairs) < args.requests:
+            raise AssertionError(f"[{label}] only {len(pairs)} sync requests have an async "
+                                 "request of the same prompt")
     same = [a.out_tokens == b.out_tokens for a, b in pairs]
     same_clock = sync.stats.engine_steps == st.engine_steps
     print(f"[{label}] sync vs async greedy: {sum(same)}/{len(same)} requests "
-          f"token-identical; engine steps async {st.engine_steps}, sync "
-          f"{sync.stats.engine_steps}")
-    if (same_clock or args.spec_depth) and not all(same):
+          f"token-identical (of {len(reqs)} async, {len(sync.driver.submitted)} sync); "
+          f"engine steps async {st.engine_steps}, sync {sync.stats.engine_steps}; rounds "
+          f"async {res.rounds}, sync {sync.rounds}")
+    if (same_clock or args.spec_depth or (open_loop and not tiered)) and not all(same):
         raise AssertionError(f"[{label}] sync and async greedy tokens differ")
-    if not same_clock and args.spec_depth:
+    if not same_clock and open_loop and not tiered:
+        print(f"[{label}] step clocks differ (open-loop arrivals admitted a step later "
+              "in async mode)")
+    elif not same_clock and args.spec_depth:
         # the async engine plans from the one token a window surely
         # commits, so it dispatches windows past a finish that accepted
         # drafts brought forward (masked when observed): more steps, the
@@ -783,12 +838,90 @@ def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[st
         agree = sum(x == y for x, y in tokens) / len(tokens)
         print(f"[{label}] step clocks differ (async spills before observing); "
               f"{agree:.1%} of tokens equal")
+        first = pairs
+        if res.tracer is not None:
+            starts = ({}, {})
+            for by_uid, run in zip(starts, (res, sync)):
+                for sp in run.tracer.spans:
+                    if sp.name == "prefill_chunk":
+                        by_uid.setdefault(sp.uid, []).append(sp.attrs["pos"])
+            first = [(a, b) for a, b in pairs if starts[0][a.uid] == starts[1][b.uid]]
+            other = [a.out_tokens[0] == b.out_tokens[0] for a, b in pairs
+                     if starts[0][a.uid] != starts[1][b.uid]]
+            print(f"[{label}] {len(first)}/{len(pairs)} requests began their prefills at the "
+                  f"same positions in both modes; the others' first tokens equal: "
+                  f"{sum(other)}/{len(other)}")
         if not (tiered and agree >= 0.6
-                and all(a.out_tokens[0] == b.out_tokens[0] for a, b in pairs)):
+                and all(a.out_tokens[0] == b.out_tokens[0] for a, b in first)):
             raise AssertionError(f"[{label}] sync and async runs diverge")
     wall = time.perf_counter() - t_phase
     print(f"[{label}] phase wall {wall:.1f}s (warm-up, async and sync runs)")
-    return PathRun(per_row, st, [r.out_tokens for r in reqs], wall)
+    return PathRun(per_row, st, [r.out_tokens for r in reqs], wall, res)
+
+
+def observatory_phase(model, params) -> None:
+    """The paged-hybrid path traced (``--trace`` to a file in the temporary
+    directory) and profiled (``--profile 8``: every eighth dispatch fenced
+    on the card with ``torch.cuda.synchronize``) against the same run
+    untraced, in this call.  The trace must validate and hold one finished,
+    well-formed request tree per submitted request; tokens, ``EngineStats``
+    and launch counts must equal the untraced run's; no sampled dispatch may
+    be one that captured its kind's graph; no sample's measured MFU or MBU
+    (against the H100 SXM's peaks) may exceed ``MAX_SHARE``.  Prints, per
+    dispatch kind, the samples, median measured ms, MFU, MBU and GB/s, and
+    tok/s traced vs untraced."""
+    t_phase = time.perf_counter()
+    trace = Path(tempfile.gettempdir()) / f"chip_smoke_trace_{os.getpid()}.json"
+    runs = {}
+    for label, extra in (("untraced", []),
+                         ("traced", ["--trace", str(trace), "--profile", str(PROFILE_EVERY)])):
+        args = serve.build_parser().parse_args(SERVE_FLAGS + PAGED_FLAGS + extra)
+        ops.reset_launch_counts()
+        res = serve.serve(args, model, params)
+        runs[label] = (res, ops.shape_counts())
+        for line in serve.report(args, res) + serve.write_outputs(args, res):
+            print(f"[observatory {label}] {line}")
+    (plain, plain_counts), (res, counts) = runs["untraced"], runs["traced"]
+    obj = json.loads(trace.read_text())
+    trace.unlink()
+    problems = validate_trace(obj)
+    if problems:
+        raise AssertionError(f"[observatory] invalid trace: {problems[:5]}")
+    trees = build_request_trees(res.tracer)
+    uids = {r.uid for r in res.driver.submitted}
+    bad = [t.well_formed() for t in trees.values() if not t.finished or t.well_formed()]
+    print(f"[observatory] trace: {len(obj['traceEvents'])} events, {len(trees)} request trees "
+          f"for {len(uids)} requests, {len(res.tracer.steps)} step records; malformed {bad}")
+    if {uid for _, uid in trees} != uids or bad:
+        raise AssertionError("[observatory] the trace does not cover every request")
+    same = ([r.out_tokens for r in res.driver.submitted]
+            == [r.out_tokens for r in plain.driver.submitted])
+    print(f"[observatory] traced vs untraced: tokens identical {same}, stats equal "
+          f"{res.stats == plain.stats}, launches equal {counts == plain_counts}; "
+          f"untraced {_rate(plain)}; traced {_rate(res)}")
+    if not (same and res.stats == plain.stats and counts == plain_counts):
+        raise AssertionError("[observatory] tracing changed the run")
+    eng, samples = res.engine, res.profiler.samples
+    captured = set(eng.capture_steps.items())
+    ticks = sum(eng.dispatch_counts.values()) - len(captured)
+    print(f"[observatory] {len(samples)} sampled dispatches of {ticks} counted; captures "
+          f"(kind, step) {sorted(captured)}")
+    if {(s.kind, s.step) for s in samples} & captured or len(samples) != ticks // PROFILE_EVERY:
+        raise AssertionError("[observatory] a capturing dispatch was sampled, or the "
+                             "sampling missed dispatches")
+    for kind in sorted({s.kind for s in samples}):
+        ss = [s for s in samples if s.kind == kind]
+        med = {k: statistics.median(getattr(s, k) for s in ss)
+               for k in ("seconds", "measured_mfu", "measured_mbu", "achieved_gbps")}
+        top = max(max(s.measured_mfu, s.measured_mbu) for s in ss)
+        print(f"[observatory] measured {kind}: {len(ss)} samples, median "
+              f"{med['seconds'] * 1e3:.3f} ms, mfu {med['measured_mfu']:.4f}, mbu "
+              f"{med['measured_mbu']:.4f}, {med['achieved_gbps']:.1f} GB/s; largest share "
+              f"{top:.4f} (device {res.profiler.device.name})")
+        if top > MAX_SHARE:
+            raise AssertionError(f"[observatory] {kind}: a measured share {top:.4f} > "
+                                 f"{MAX_SHARE}")
+    print(f"[observatory] phase wall {time.perf_counter() - t_phase:.1f}s")
 
 
 # host-side launch calls the profiler records, by what they launch
@@ -1352,17 +1485,22 @@ def main() -> None:
     def path(label, flags, want, **kw):
         by_path[label] = serve_phase(model, params, label, flags, want, by_name, **kw)
 
-    path("dense", [], lambda st: {
-        "decode_attention": st.decode_steps * L, "prefill_attention": st.prefills * L},
-        eager=True)
-    path("paged-hybrid", PAGED_FLAGS, lambda st: {
-        "prefill_attention[chunk]": st.prefill_chunks * L,
-        "paged_decode_attention": st.decode_steps * L}, eager=True)
-    # tiered: every decode step attends twice per layer (hot and cold
-    # windows); prefill runs unscaled on the bf16 staging cache
-    path("paged-tiered", TIERED_FLAGS, lambda st: {
-        "prefill_attention[chunk]": st.prefill_chunks * L,
-        "paged_decode_attention[fp8]": 2 * st.decode_steps * L}, tiered=True, eager=True)
+    def dense_want(st):
+        return {"decode_attention": st.decode_steps * L, "prefill_attention": st.prefills * L}
+
+    def paged_want(st):
+        return {"prefill_attention[chunk]": st.prefill_chunks * L,
+                "paged_decode_attention": st.decode_steps * L}
+
+    def tiered_want(st):
+        # every decode step attends twice per layer (hot and cold windows);
+        # prefill runs unscaled on the bf16 staging cache
+        return {"prefill_attention[chunk]": st.prefill_chunks * L,
+                "paged_decode_attention[fp8]": 2 * st.decode_steps * L}
+
+    path("dense", [], dense_want, eager=True)
+    path("paged-hybrid", PAGED_FLAGS, paged_want, eager=True)
+    path("paged-tiered", TIERED_FLAGS, tiered_want, tiered=True, eager=True)
     path("paged-tiered-int8", TIERED_INT8_FLAGS, lambda st: {
         "prefill_attention": st.prefills * L,
         "paged_decode_attention[int8]": 2 * st.decode_steps * L}, tiered=True)
@@ -1396,6 +1534,24 @@ def main() -> None:
         "decode_attention": st.spec_steps * (k + 1) * 2 * L,
         "prefill_attention[chunk]": (st.prefill_chunks + draft_chunks(st)) * L},
         draft=(model, params), min_accept=0.99)
+    # the open-loop workloads: shared documents hit the paged pool's prefix
+    # cache; shared chat prefixes on the tiered pool; grown agentic turns
+    path("rag", RAG_FLAGS, paged_want, open_loop=True)
+    # the host tier fills (512 blocks) and then the pool preempts
+    path("chat-fan", CHAT_FAN_FLAGS, tiered_want, tiered=True, open_loop=True, preempt_ok=True)
+    path("agentic", AGENTIC_FLAGS, dense_want, open_loop=True)
+    for label in ("rag", "chat-fan", "agentic"):
+        run = by_path[label]
+        pool = run.res.engine.pool.stats if label != "agentic" else None
+        print(f"[{label}] workload: rounds {run.res.rounds}, resubmits "
+              f"{run.res.driver.resubmits}, {_rate(run.res)}"
+              + (f"; prefix hits {pool.hash_hits}, COW copies {pool.cow_copies}, spills "
+                 f"{run.stats.spills}, rehydrations {run.stats.rehydrations}" if pool else ""))
+    if by_path["rag"].res.engine.pool.stats.hash_hits <= 0:
+        raise AssertionError("[rag] no prefix hit on the shared documents")
+    if by_path["agentic"].res.driver.resubmits != 32:
+        raise AssertionError("[agentic] 16 sessions x 3 turns should resubmit 32 times")
+    observatory_phase(model, params)
     print("phase walls: " + ", ".join(f"{p} {r.wall_s:.1f}s" for p, r in by_path.items()))
     for graphs in (True, False):
         profile_phase(model, params, "dense", [], warm_steps=4, graphs=graphs)

@@ -23,15 +23,32 @@ decode-only and hybrid chunked-prefill schedules (``--schedule``,
 (``--spec-depth K``: a draft, ``--draft ARCH`` at reduced size, default
 a reduced ``--arch``, proposes K tokens per slot and step and the target
 verifies K+1 positions; greedy output is token-identical to plain
-decoding), the ``random`` workload, greedy sampling (or ``--sample
-temperature|top-k``) and the async dispatch-ahead engine (``--async
-off`` for the synchronous one), each dispatch kind one CUDA graph
-(``--graphs off`` runs them eagerly).  Weights are random, drawn from
-``--seed`` on the device; the draft's from seed 1.  The run is on the
-GPU; ``--device cpu`` runs the plain PyTorch path (with ``--reduced``,
-the test scale).  It prints the reference's stats, ``spec:``, latency,
-``pool:`` and ``kv tier:`` lines; the balancer line, telemetry and
-cluster flags arrive with later slices.
+decoding), greedy sampling (or ``--sample temperature|top-k``) and the
+async dispatch-ahead engine (``--async off`` for the synchronous one),
+each dispatch kind one CUDA graph (``--graphs off`` runs them eagerly).
+Weights are random, drawn from ``--seed`` on the device; the draft's
+from seed 1.  The run is on the GPU; ``--device cpu`` runs the plain
+PyTorch path (with ``--reduced``, the test scale).
+
+Observability, with the reference's flags and defaults:
+
+* ``--workload {random,poisson,bursty,chat-fan,rag,agentic}`` picks the
+  seeded arrival process (``--arrival-rate``, ``--fan``, ``--turns``,
+  ``--workload-seed`` shape it);
+* ``--trace OUT.json`` writes a Perfetto/Chrome trace of request spans
+  and the per-dispatch step timeline; ``--metrics-out OUT.json`` the
+  metrics-registry snapshot;
+* ``--slo-ttft N`` / ``--slo-tpot M`` declare engine-step SLO targets
+  (attainment and goodput lines);
+* ``--profile N`` fences every Nth dispatch on the device and joins its
+  wall time with the analytic cost model into measured MFU/MBU against
+  ``--profile-device``'s peaks (default ``H100-SXM``; default N: 8 with
+  ``--trace``, else off);
+* ``--dashboard N`` prints a terminal snapshot every N rounds.
+
+It prints the reference's ``workload:``, stats, ``spec:``, latency,
+``pool:``, ``kv tier:``, SLO and ``measured`` lines; the balancer line
+and the cluster flags arrive with later slices.
 """
 from __future__ import annotations
 
@@ -43,9 +60,13 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.reduced import reduce_config
+from repro_torch.core.oi import DEVICES
 from repro_torch.models.registry import Model, build_model
 from repro_torch.serving.engine import Engine, EngineStats
 from repro_torch.serving.sampler import SamplerConfig
+from repro_torch.serving.telemetry import (SLOMonitor, Tracer, engine_registry, make_profiler,
+                                           render_dashboard, write_metrics, write_trace)
+from repro_torch.serving.telemetry.profiler import DEFAULT_DEVICE
 from repro_torch.serving.workload import WORKLOADS, WorkloadDriver, build_workload
 
 
@@ -92,8 +113,38 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--draft", default=None, metavar="ARCH",
                     help="draft architecture for --spec-depth > 0, always at reduced "
                          "size with the target's vocab (default: --arch)")
-    ap.add_argument("--workload", choices=WORKLOADS, default="random")
-    ap.add_argument("--workload-seed", type=int, default=0)
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="record request spans + step timeline and write a "
+                         "Perfetto/Chrome-trace JSON here")
+    ap.add_argument("--metrics-out", default=None, metavar="OUT.json",
+                    help="write the metrics-registry snapshot as flat JSON")
+    ap.add_argument("--workload", choices=WORKLOADS, default="random",
+                    help="arrival-process shape (random: every request at round 0)")
+    ap.add_argument("--workload-seed", type=int, default=0,
+                    help="seed for the workload generator (same seed = "
+                         "byte-identical schedule)")
+    ap.add_argument("--arrival-rate", type=float, default=0.5,
+                    help="open-loop arrival rate in requests/round for "
+                         "poisson/bursty/chat-fan/rag/agentic workloads")
+    ap.add_argument("--fan", type=int, default=4,
+                    help="chat-fan: requests sharing each prompt prefix")
+    ap.add_argument("--turns", type=int, default=3,
+                    help="agentic: total turns per session (each turn "
+                         "resubmits with the prior output as grown prefix)")
+    ap.add_argument("--slo-ttft", type=int, default=None, metavar="STEPS",
+                    help="TTFT SLO target in engine steps: attainment/goodput "
+                         "report and slo_breach trace marks")
+    ap.add_argument("--slo-tpot", type=float, default=None, metavar="STEPS",
+                    help="per-output-token SLO target in engine steps")
+    ap.add_argument("--profile", type=int, default=None, metavar="N",
+                    help="fence + wall-clock every Nth dispatch and join with "
+                         "the analytic cost model into measured MFU/MBU/bandwidth "
+                         "(1: every dispatch; 0: off; default: 8 with --trace, "
+                         "else off)")
+    ap.add_argument("--profile-device", choices=sorted(DEVICES), default=DEFAULT_DEVICE,
+                    help="device peaks used for measured MFU/MBU")
+    ap.add_argument("--dashboard", type=int, default=0, metavar="N",
+                    help="print a terminal snapshot every N driver rounds")
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain path)")
@@ -127,6 +178,9 @@ class ServeResult:
     driver: WorkloadDriver
     rounds: int
     wall_s: float
+    tracer: Tracer | None = None
+    slo: SLOMonitor | None = None
+    profiler: object = None
 
     @property
     def stats(self) -> EngineStats:
@@ -142,7 +196,21 @@ def load_draft(args, model: Model) -> tuple[Model, dict]:
     return draft, draft.init(1)
 
 
-def make_engine(args, model: Model, params: dict, draft=None) -> Engine:
+def make_telemetry(args):
+    """``(tracer, slo, profiler)`` of ``args``: an SLO target implies a
+    tracer (its hooks drive the monitor) even without ``--trace``."""
+    slo = None
+    if args.slo_ttft is not None or args.slo_tpot is not None:
+        slo = SLOMonitor(ttft_target=args.slo_ttft, tpot_target=args.slo_tpot)
+    tracer = Tracer(wall=True, slo=slo) if (args.trace or slo) else None
+    sample_every = args.profile
+    if sample_every is None:
+        sample_every = 8 if args.trace else 0
+    return tracer, slo, make_profiler(sample_every, device=args.profile_device)
+
+
+def make_engine(args, model: Model, params: dict, draft=None, tracer=None,
+                profiler=None) -> Engine:
     """A fresh engine configured by ``args``; ``draft`` (model, params) is
     built by :func:`load_draft` when ``--spec-depth`` asks for one and it
     is not given."""
@@ -157,23 +225,43 @@ def make_engine(args, model: Model, params: dict, draft=None) -> Engine:
                   n_blocks=args.blocks, kv_dtype=args.kv_dtype,
                   host_blocks=args.host_blocks, schedule=args.schedule,
                   prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
-                  graphs=None if args.graphs is None else args.graphs == "on", **spec)
+                  graphs=None if args.graphs is None else args.graphs == "on",
+                  tracer=tracer, profiler=profiler, **spec)
 
 
 def serve(args, model: Model, params: dict, draft=None) -> ServeResult:
     """Run the workload of ``args`` through a fresh engine."""
-    eng = make_engine(args, model, params, draft)
+    tracer, slo, profiler = make_telemetry(args)
+    eng = make_engine(args, model, params, draft, tracer,
+                      profiler if profiler.enabled else None)
     arrivals = build_workload(args.workload, args.requests, vocab=model.cfg.vocab,
                               max_seq=args.max_seq, max_new=args.max_new,
-                              seed=args.workload_seed)
-    driver = WorkloadDriver(eng, arrivals)
+                              seed=args.workload_seed, rate=args.arrival_rate,
+                              fan=args.fan, turns=args.turns)
+    on_round = None
+    if args.dashboard:
+        def on_round(r, _every=args.dashboard):
+            if r % _every == 0:
+                print(render_dashboard(eng, r, slo=slo, profiler=profiler))
+    driver = WorkloadDriver(eng, arrivals, vocab=model.cfg.vocab, max_seq=args.max_seq,
+                            seed=args.workload_seed, on_round=on_round)
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
     t0 = time.perf_counter()
     rounds = driver.run()
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
-    return ServeResult(eng, driver, rounds, time.perf_counter() - t0)
+    return ServeResult(eng, driver, rounds, time.perf_counter() - t0, tracer, slo, profiler)
+
+
+def registry(args, res: ServeResult):
+    """The one metrics registry every reported number is read from."""
+    reg = engine_registry(res.stats, res.engine.pool.stats if args.cache == "paged" else None)
+    if res.slo is not None:
+        res.slo.register(reg, elapsed=res.rounds)
+    if res.profiler.enabled:
+        res.profiler.register(reg)
+    return reg
 
 
 def stats_line(n_requests: int, stats: EngineStats) -> str:
@@ -188,18 +276,20 @@ def stats_line(n_requests: int, stats: EngineStats) -> str:
 def report(args, res: ServeResult) -> list[str]:
     mode, sampler = make_sampler(args)
     s = res.stats
+    snap = registry(args, res).snapshot()
     lines = [
         f"mode: async={args.async_mode} sample={mode} "
         f"(T={sampler.temperature} top_k={sampler.top_k})",
         f"workload: {args.workload} seed={args.workload_seed} "
-        f"submitted={len(res.driver.submitted)} resubmits=0 rounds={res.rounds}",
+        f"submitted={len(res.driver.submitted)} resubmits={res.driver.resubmits} "
+        f"rounds={res.rounds}",
         stats_line(len(res.driver.submitted), s),
         *([f"spec: depth={args.spec_depth} accept_rate={s.acceptance_rate:.2f} "
            f"drafted={s.drafted_tokens} accepted={s.accepted_tokens} "
            f"spec_steps={s.spec_steps}"] if args.spec_depth else []),
-        f"latency: TTFT mean {s.mean_ttft_steps:.1f} "
-        f"p50 {s.ttft_percentile(50):.0f} p99 {s.ttft_percentile(99):.0f} "
-        f"engine steps, {s.tokens_per_step:.2f} tokens/step",
+        f"latency: TTFT mean {snap['mean_ttft_steps']:.1f} "
+        f"p50 {snap['ttft_steps_p50']:.0f} p99 {snap['ttft_steps_p99']:.0f} "
+        f"engine steps, {snap['tokens_per_step']:.2f} tokens/step",
         f"wall {res.wall_s:.2f}s -> {s.generated / res.wall_s:.1f} tok/s "
         f"(batch efficiency {s.generated / max(s.decode_steps * args.slots, 1):.0%}) "
         f"device={res.engine.device} graphs={'on' if res.engine.graphs else 'off'}",
@@ -210,13 +300,41 @@ def report(args, res: ServeResult) -> list[str]:
             lines.append(f"kv tier: spills={s.spills} rehydrations={s.rehydrations} "
                          f"host_peak={res.engine.pool.stats.host_peak_in_use}"
                          f"/{args.host_blocks} blocks")
+    if res.slo is not None:
+        lines.append(res.slo.describe())
+        lines.append(f"goodput: {res.slo.goodput(res.rounds):.2f} SLO-attaining "
+                     f"tokens/round over {res.rounds} rounds")
+    if res.profiler.enabled:
+        lines.append(res.profiler.describe())
+        for (kind, bucket, batch), row in sorted(res.profiler.summary().items()):
+            lines.append(f"  measured {kind:10s} bucket={bucket} batch={batch}: "
+                         f"n={int(row['n'])} {row['seconds']*1e3:.2f}ms "
+                         f"mfu={row['measured_mfu']:.4f} "
+                         f"mbu={row['measured_mbu']:.4f} "
+                         f"bw={row['achieved_gbps']:.1f}GB/s")
+    return lines
+
+
+def write_outputs(args, res: ServeResult) -> list[str]:
+    """Write ``--trace`` (validated; an invalid trace raises) and
+    ``--metrics-out``; returns the lines saying where."""
+    lines = []
+    if args.trace:
+        path = write_trace(res.tracer, args.trace)
+        lines.append(f"trace: {path} (open at ui.perfetto.dev)")
+    if args.metrics_out:
+        path = write_metrics(registry(args, res), args.metrics_out,
+                             extra={"wall_s": res.wall_s, "rounds": float(res.rounds),
+                                    "requests": float(len(res.driver.submitted))})
+        lines.append(f"metrics: {path}")
     return lines
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     model, params = load_model(args)
-    for line in report(args, serve(args, model, params)):
+    res = serve(args, model, params)
+    for line in report(args, res) + write_outputs(args, res):
         print(line)
 
 

@@ -4,9 +4,9 @@ or hybrid schedule, synchronous or dispatch-ahead.
 Counterpart of ``repro.serving.engine`` for ``cache_kind`` in {"dense",
 "paged"} (bf16, fp8 or int8 pool, with or without the host tier) and
 ``schedule`` in {"decode-only", "hybrid"}, in both execution modes, with
-or without speculative decoding.  Sub-batch pipelining, telemetry and
-cross-replica migration raise ``NotImplementedError`` or are absent
-until their slices are ported.
+or without speculative decoding, traced and profiled or not.  Sub-batch
+pipelining and cross-replica migration raise ``NotImplementedError`` or
+are absent until their slices are ported.
 
 Slot-based continuous batching (Orca-style): a fixed decode batch of
 ``n_slots`` sequences; a finished sequence frees its slot and the next
@@ -77,15 +77,22 @@ outside the graphs, in stream order around the replays.
 Step accounting (``EngineStats.engine_steps``) matches the reference: a
 model dispatch is one step, a decode-only whole prefill of ``L`` tokens
 costs ``ceil(L / prefill_chunk)`` steps.
+
+Telemetry (``serving/telemetry``): the engine calls the reference
+engine's tracer hooks at the same points of the same step functions, so
+on the CPU a traced run gives the reference's spans, events and
+:class:`StepRecord` timeline.  A :class:`DispatchProfiler` fences a
+sample of dispatches on the device; under CUDA graphs the dispatch that
+captures its kind's graph is not counted (see the profiler).  With the
+defaults (``NULL_TRACER``, ``NULL_PROFILER``) no record is built.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-import math
 import weakref
 from collections import deque
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -98,20 +105,11 @@ from repro_torch.serving.programs import Program
 from repro_torch.serving.sampler import (SamplerConfig, sample, sample_on_device,
                                          spec_draft_sample, spec_verify_tokens)
 from repro_torch.serving.scheduler import PrefillChunk, Scheduler
+from repro_torch.serving.telemetry import (NULL_PROFILER, NULL_TRACER, DispatchCostModel,
+                                           StepRecord, percentile)
+from repro_torch.serving.telemetry.timeline import chunk_bucket
 
 Pytree = Any
-
-
-def percentile(samples, p: float) -> float:
-    """Exact nearest-rank percentile over raw samples (a copy of
-    ``repro.serving.telemetry.metrics.percentile``): no samples -> 0.0,
-    ``p`` outside [0, 100] clamps to the min/max sample."""
-    s = sorted(samples)
-    if not s:
-        return 0.0
-    p = min(max(p, 0.0), 100.0)
-    rank = max(1, math.ceil(p / 100.0 * len(s)))
-    return float(s[min(rank, len(s)) - 1])
 
 
 @dataclasses.dataclass
@@ -213,6 +211,15 @@ class _Fetch:
         return [h.numpy() for h in self._host]
 
 
+class _Dispatch(NamedTuple):
+    """What :meth:`Engine._exec` ran: the kind, whether the profiler
+    fenced it, and whether it captured its kind's CUDA graph."""
+
+    kind: str
+    sampled: bool
+    captured: bool
+
+
 @dataclasses.dataclass
 class _PendingStep:
     """One dispatched-but-unobserved step.  ``reqs`` pins the requests in
@@ -254,6 +261,9 @@ class Engine:
         draft_model: Model | None = None,
         draft_params: Pytree | None = None,
         graphs: bool | None = None,
+        tracer=None,
+        profiler=None,
+        replica: int = 0,
     ):
         # speculation always runs on the dispatch-ahead machinery; sync mode
         # is that pipeline at depth zero (observe right after dispatch)
@@ -288,6 +298,16 @@ class Engine:
         self.async_mode = async_mode
         self.slots: list[Request | None] = [None] * n_slots
         self.stats = EngineStats()
+        # telemetry: NULL_TRACER / NULL_PROFILER hooks are no-ops, and
+        # `_telemetry` gates building the per-dispatch StepRecord, so a
+        # disabled run does no extra host work
+        self.tracer = NULL_TRACER if tracer is None else tracer
+        self.profiler = NULL_PROFILER if profiler is None else profiler
+        self._telemetry = self.tracer.enabled or self.profiler.enabled
+        self.replica = replica
+        self._cost_model = DispatchCostModel(model.cfg) if self._telemetry else None
+        # kind -> engine step of the dispatch that captured its CUDA graph
+        self.capture_steps: dict[str, int] = {}
         # explicit generators: one on the device for the fused sampler,
         # one on the host for the synchronous oracle sampler
         self._gen_dev = torch.Generator(device=self.device).manual_seed(seed)
@@ -528,6 +548,7 @@ class Engine:
             )
         req.submit_step = self.stats.engine_steps
         self.sched.submit(req)
+        self.tracer.on_submit(self.replica, req, req.submit_step)
 
     def _free_slots(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
@@ -577,17 +598,16 @@ class Engine:
             self._take_first(req, fetch)
         self._first_pending.clear()
 
-    def _take_decode(self, slot: int, req: Request, rec: _PendingStep) -> None:
+    def _take_decode(self, slot: int, req: Request, rec: _PendingStep) -> int:
         """Apply one observed decode token (or speculative window) of
         ``req`` from ``rec``; a token dispatched past an EOS (``req.done``)
-        is masked."""
+        is masked.  Returns the drafts accepted (0 without speculation)."""
         req.in_flight -= rec.charge
         req.in_flight_steps -= 1
         if req.done:
-            return
+            return 0
         if rec.spec:
-            self._take_spec(slot, req, rec)
-            return
+            return self._take_spec(slot, req, rec)
         toks, eos = rec.fetch.numpy()
         req.out_tokens.append(int(toks[slot]))
         self.stats.generated += 1
@@ -595,12 +615,14 @@ class Engine:
         if (bool(eos[slot]) or len(req.out_tokens) >= req.max_new_tokens
                 or length >= self.max_seq - 1):
             self._finish(slot, req, rec.step)
+        return 0
 
-    def _take_spec(self, slot: int, req: Request, rec: _PendingStep) -> None:
+    def _take_spec(self, slot: int, req: Request, rec: _PendingStep) -> int:
         """Commit one slot's observed window: the accepted drafts and the
         bonus or correction token, in stream order, with the sync engine's
         finish checks after each (an EOS inside the window truncates the
-        rest), as if ``n_accept + 1`` plain steps had been observed."""
+        rest), as if ``n_accept + 1`` plain steps had been observed.
+        Returns the drafts accepted."""
         emitted, n_accept = rec.fetch.numpy()
         n_emit = int(n_accept[slot]) + 1
         self.stats.drafted_tokens += self.spec_depth
@@ -615,6 +637,7 @@ class Engine:
                     or length >= self.max_seq - 1):
                 self._finish(slot, req, rec.step)
                 break
+        return n_emit - 1
 
     def _observe(self, rec: _PendingStep) -> None:
         """Read one step's ids and EOS flags and apply completions."""
@@ -624,8 +647,12 @@ class Engine:
                 self._take_first(work.req, pre)
         if rec.fetch is None:
             return
+        accepted = 0
         for i, req in rec.reqs.items():
-            self._take_decode(i, req, rec)
+            accepted += self._take_decode(i, req, rec)
+        if rec.spec and self.tracer.enabled:
+            # stamped at the window's dispatch step, as spec_propose is
+            self.tracer.on_spec_verify(self.replica, rec.step, accepted, len(rec.reqs))
 
     def _drain(self) -> None:
         """Observe every in-flight step (``out_tokens`` become exact)."""
@@ -671,6 +698,7 @@ class Engine:
             self.stats.per_token_samples.append(
                 (req.finish_step - req.first_token_step) / n_decode_tokens
             )
+        self.tracer.on_finish(self.replica, req, step, slot)
         self._release_slot(slot, req)
 
     def _release_slot(self, slot: int, req: Request) -> None:
@@ -709,9 +737,11 @@ class Engine:
             if not len(self.sched):
                 break
             req = self.sched.pop()
+            step0 = self.stats.engine_steps
             self.stats.engine_steps += self._prefill_cost(len(req.prompt))
             if req.admit_step < 0:
                 req.admit_step = self.stats.engine_steps
+            self._trace_admission(req, slot, step0, len(req.prompt), refold=False)
             prompt = paged_dev.to_device(np.asarray(req.prompt, np.int64)[None],
                                          self.device)
             kv_cache.reset_slot(self.cache, slot)
@@ -735,9 +765,11 @@ class Engine:
             if res is None:
                 break                       # out of blocks: wait
             self.sched.pop()
+            step0 = self.stats.engine_steps
             self.stats.engine_steps += self._prefill_cost(len(full))
             if req.admit_step < 0:
                 req.admit_step = self.stats.engine_steps
+            self._trace_admission(req, slot, step0, len(full), refold=bool(req.out_tokens))
             blocks, n_cached = res
             # host-tier prefix hits re-hydrate: apply the copies before the
             # prefill's own block writes go out
@@ -768,10 +800,11 @@ class Engine:
             self._first_pending.append((req, _Fetch(tok)))
         else:
             req.out_tokens.append(int(sample(logits, self._gen_host, self.sampler)[0]))
-        self._record_first_token(req)
+        self._record_first_token(req, slot)
 
-    def _record_first_token(self, req: Request) -> None:
-        if req.first_token_step < 0:
+    def _record_first_token(self, req: Request, slot: int) -> None:
+        first = req.first_token_step < 0
+        if first:
             req.first_token_step = self.stats.engine_steps
             ttft = req.first_token_step - req.submit_step
             self.stats.ttft_steps_sum += ttft
@@ -779,11 +812,17 @@ class Engine:
             self.stats.ttft_samples.append(ttft)
         self.stats.prefills += 1
         self.stats.generated += 1
+        self.tracer.on_first_token(self.replica, req, self.stats.engine_steps, slot,
+                                   first=first)
 
     # --------------------------------------------- admission (chunked/hybrid)
-    def _begin_prefill(self, req: Request, slot: int) -> tuple[int, int]:
+    def _begin_prefill(self, req: Request, slot: int,
+                       unwritten: frozenset[int] = frozenset()) -> tuple[int, int]:
         """Pin ``req``'s (possibly re-folded) prompt for chunked prefill;
-        returns (first chunk position, total tokens)."""
+        returns (first chunk position, total tokens).  ``unwritten``: pool
+        blocks registered for a chunk of this very dispatch, whose K/V are
+        not written yet; the prompt is recomputed from the first of them
+        it matches (see :meth:`_boundary_chunk`)."""
         full = self._refold(req)
         self._pf_tokens[slot] = full
         if self.cache_kind != "paged":
@@ -804,6 +843,9 @@ class Engine:
         # a fully prefix-cached prompt still recomputes its last chunk for
         # the first-token logits (pool writes for matched blocks skip)
         start = min(len(matched) * bs, (len(full) - 1) // bs * bs)
+        first_unwritten = next((j for j, b in enumerate(matched) if b in unwritten), None)
+        if first_unwritten is not None:
+            start = min(start, first_unwritten * bs)
         return start, len(full)
 
     def _begin_next(self) -> None:
@@ -819,11 +861,14 @@ class Engine:
                 sched.begin(req, slot, start, total)
                 if req.admit_step < 0:
                     req.admit_step = self.stats.engine_steps + 1
+                self.tracer.on_admit(self.replica, req, self.stats.engine_steps, slot,
+                                     n_tokens=total, refold=bool(req.out_tokens))
 
     def _complete_chunk(self, work: PrefillChunk, pre_logits, advance: bool = True):
         """Commit an executed chunk (sync mode: the first token is sampled
         on the host when the chunk completes the prompt).  ``advance=False``
         when the scheduler was already advanced at boundary-packing time."""
+        self._trace_chunk(work)
         self._flush_chunk_blocks(work)
         if advance:
             self.sched.advance(work)
@@ -841,6 +886,7 @@ class Engine:
         the first token on the device and spliced it into ``tok_state``;
         the host does block/table bookkeeping (stream order puts it after
         the step) and records one more token in flight."""
+        self._trace_chunk(work)
         self._flush_chunk_blocks(work)
         if advance:
             self.sched.advance(work)
@@ -856,24 +902,33 @@ class Engine:
             req.in_flight += 1
             req.in_flight_steps += 1
             paged_dev.set_stop_id(self._eos_dev, work.slot, req.eos_id)
-            self._record_first_token(req)
+            self._record_first_token(req, work.slot)
 
     def _end_prefill(self, slot: int) -> None:
         self._pf_tokens.pop(slot, None)
         self._pf_prefix.pop(slot, None)
         self._pf_lane.pop(slot, None)
 
+    def _chunk_block_range(self, work: PrefillChunk) -> range:
+        """Indices of the pool blocks a paged chunk writes when it
+        completes (those under its prompt's prefix-cache hits are valid)."""
+        bs = self.block_size
+        return range(max(work.start // bs, self._pf_prefix.get(work.slot, 0)),
+                     (work.start + work.n_valid - 1) // bs + 1)
+
+    def _unwritten_blocks(self, work: PrefillChunk) -> frozenset[int]:
+        if self.cache_kind != "paged":
+            return frozenset()
+        return frozenset(self.manager.blocks[work.slot][j] for j in self._chunk_block_range(work))
+
     def _flush_chunk_blocks(self, work: PrefillChunk) -> None:
         if self.cache_kind != "paged":
             return
-        bs = self.block_size
         lane = self._pf_lane.get(work.slot, 0)
-        end = work.start + work.n_valid
-        for j in range(work.start // bs, (end - 1) // bs + 1):
-            if j < self._pf_prefix.get(work.slot, 0):
-                continue            # prefix-cache hit: already valid
+        for j in self._chunk_block_range(work):
             paged_dev.write_prompt_block(self.cache, self.staging,
-                                         self.manager.blocks[work.slot][j], j * bs, lane)
+                                         self.manager.blocks[work.slot][j],
+                                         j * self.block_size, lane)
 
     # ----------------------------------------------------- block management
     def _apply_pool_directives(self) -> None:
@@ -885,9 +940,11 @@ class Engine:
             if kind == "spill":
                 paged_dev.spill_block(self.cache, a, b)
                 self.stats.spills += 1
+                self.tracer.on_spill(self.replica, self.stats.engine_steps, a, b)
             else:
                 paged_dev.rehydrate_block(self.cache, a, b)
                 self.stats.rehydrations += 1
+                self.tracer.on_rehydrate(self.replica, self.stats.engine_steps, a, b)
 
     def _try_spill(self, alive) -> bool:
         """Spill-before-evict: free one device block by moving the oldest
@@ -935,6 +992,7 @@ class Engine:
         self.sched.push_front(req)
         self.stats.preemptions += 1
         self.pool.stats.preemptions += 1
+        self.tracer.on_preempt(self.replica, req, self.stats.engine_steps, slot)
 
     def _prepare_append(self, active: list[int]) -> list[int]:
         """Guarantee every active slot can write its next token: allocate
@@ -996,26 +1054,38 @@ class Engine:
                 work = None
         return decision.decode_slots, work
 
-    def _boundary_chunk(self, budget: int, taken: int) -> PrefillChunk | None:
-        """The final chunk of the prompt on slot ``taken`` left ``budget``
-        tokens of this step unused: begin the next queued prompt and pack
-        its head chunk into the same dispatch (Sarathi-SC).  ``taken`` is
-        excluded from the slot choice: the finishing prompt claims it only
-        after this dispatch."""
+    def _boundary_chunk(self, budget: int, work: PrefillChunk) -> PrefillChunk | None:
+        """The final chunk ``work`` left ``budget`` tokens of this step
+        unused: begin the next queued prompt and pack its head chunk into
+        the same dispatch (Sarathi-SC).  ``work``'s slot is excluded from
+        the slot choice: the finishing prompt claims it only after this
+        dispatch.
+
+        The newcomer may share a prefix with the finishing prompt, whose
+        blocks for ``work`` are registered in the pool's prefix hash but
+        written only after this dispatch.  The reference engine reads
+        them into the newcomer's staging lane all the same, so the
+        newcomer attends over whatever those blocks held before (its
+        tokens then depend on the pool's history, and differ between sync
+        and async runs).  The port recomputes the newcomer's prompt from
+        the first such block instead; the blocks stay shared (the pool's
+        bookkeeping is the reference's), the step clock may differ."""
         sched = self.sched
         if budget <= 0 or sched.inflight is not None or not len(sched):
             return None
         if self.cache_kind == "paged" and len(self._pf_lane) >= 2:
             return None             # both staging lanes held
-        free = [s for s in self._free_slots() if s != taken]
+        free = [s for s in self._free_slots() if s != work.slot]
         if not free:
             return None
         req = sched.pop()
         slot = free[0]
-        start, total = self._begin_prefill(req, slot)
+        start, total = self._begin_prefill(req, slot, self._unwritten_blocks(work))
         sched.begin(req, slot, start, total)
         if req.admit_step < 0:
             req.admit_step = self.stats.engine_steps
+        self.tracer.on_admit(self.replica, req, self.stats.engine_steps, slot,
+                             n_tokens=total, refold=bool(req.out_tokens))
         work2 = sched.pack_boundary(budget)
         if work2 is not None and self.cache_kind == "paged":
             if not self.manager.extend_chunked(
@@ -1038,7 +1108,7 @@ class Engine:
             return chunks, False
         self.sched.advance(work)        # A rides this dispatch regardless
         work2 = self._boundary_chunk(
-            self.sched.token_budget - len(active) - work.n_valid, work.slot)
+            self.sched.token_budget - len(active) - work.n_valid, work)
         if work2 is not None:
             chunks.append((work2, self._chunk_tokens(work2)))
             self.stats.boundary_packs += 1
@@ -1084,11 +1154,13 @@ class Engine:
             for sc in scalars:
                 lengths.index_put_((sc[0:1].long(),), sc[2:3] + sc[3:4])
 
-    def _exec(self, active: list[int], chunks) -> tuple[torch.Tensor, ...]:
+    def _exec(self, active: list[int], chunks) -> tuple[tuple[torch.Tensor, ...], _Dispatch]:
         """One dispatch of the decode batch ``active`` and the prefill
         ``chunks`` through its kind's program (:meth:`_dispatch_body`
-        says what it returns).  The outputs are valid until the next
-        dispatch of the kind."""
+        says what it returns; the outputs are valid until the next
+        dispatch of the kind), fenced by the profiler when it samples
+        this dispatch.  A dispatch that captures its kind's graph is not
+        counted by the profiler."""
         kind = self._dispatch_kind(active, chunks)
         values = {}
         if active and not self.async_mode:
@@ -1097,7 +1169,115 @@ class Engine:
             values[f"tok{i}"] = tokens
             values[f"chunk{i}"] = self._chunk_scalars(work)
         self.dispatch_counts[kind] += 1
-        return self._program(kind)(**values)
+        prog = self._program(kind)
+        captures = prog.graphs and prog.graph is None
+        prof = self.profiler
+        sampled = prof.enabled and not captures and prof.tick()
+        if sampled:
+            prof.begin(self.device)         # settle in-flight steps
+        if len(chunks) == 2:
+            work2 = chunks[1][0]
+            self.tracer.on_boundary_pack(self.replica, work2.req, self.stats.engine_steps,
+                                         work2.slot)
+        out = prog(**values)
+        if sampled:
+            prof.end(self.device)
+        return out, _Dispatch(kind, sampled, captures)
+
+    # ------------------------------------------------------------ telemetry
+    def _trace_admission(self, req: Request, slot: int, step0: int, n_tokens: int,
+                         refold: bool) -> None:
+        """A whole-prompt admission (decode-only schedule): the admission
+        mark, one chunk span over its ``ceil(L / prefill_chunk)``-step cost
+        and, traced, its prefill StepRecord."""
+        self.tracer.on_admit(self.replica, req, step0, slot, n_tokens=n_tokens, refold=refold)
+        self.tracer.on_chunk(self.replica, req, slot, step0, self.stats.engine_steps, 0,
+                             n_tokens, None, True)
+        if self.tracer.enabled:
+            self._trace_prefill_dispatch(n_tokens, self.stats.engine_steps - step0)
+
+    def _trace_chunk(self, work: PrefillChunk) -> None:
+        """An executed chunk of the dispatch just counted, with the
+        reference's bucket."""
+        if self.tracer.enabled:
+            self.tracer.on_chunk(self.replica, work.req, work.slot, self.stats.engine_steps - 1,
+                                 self.stats.engine_steps, work.start, work.n_valid,
+                                 chunk_bucket(self.prefill_chunk, work.n_valid), work.last)
+
+    def _trace_dispatch(self, d: _Dispatch, active: list[int],
+                        works: list[PrefillChunk]) -> None:
+        """After a dispatch is counted on the step clock: note a capture,
+        and with telemetry on, the speculative proposal mark and the
+        dispatch's StepRecord, joined with the profiler's fenced time when
+        it sampled the dispatch."""
+        if d.captured:
+            self.capture_steps[d.kind] = self.stats.engine_steps
+        if not self._telemetry:
+            return
+        if d.kind in ("spec", "spec_fused") and self.tracer.enabled:
+            self.tracer.on_spec_propose(self.replica, self.stats.engine_steps,
+                                        self.spec_depth, len(active))
+        rec = self._trace_step(d.kind, active, works)
+        if d.sampled:
+            self.profiler.commit(rec)
+
+    def _pool_use(self) -> dict[str, float | None]:
+        """A StepRecord's block-pool and host-tier utilization (None
+        without a pool or a tier)."""
+        paged = self.cache_kind == "paged"
+        return dict(pool_util=self.pool.utilization if paged else None,
+                    host_util=self.pool.host_utilization if paged and self.host_blocks else None)
+
+    def _trace_prefill_dispatch(self, n_tokens: int, n_steps: int) -> StepRecord:
+        """StepRecord for a whole-prompt admission prefill (decode-only
+        schedule), charged at its ``ceil(L / prefill_chunk)``-step cost."""
+        cm = self._cost_model
+        ctx = cm.chunk_ctx_tokens(0, n_tokens)
+        flops, bytes_ = cm.cost(0, 0, n_tokens, ctx)
+        rec = StepRecord(
+            replica=self.replica, step=self.stats.engine_steps,
+            kind="prefill", decode_batch=0, prefill_tokens=n_tokens,
+            bucket=None, bucket2=None,
+            budget=n_steps * self.prefill_chunk,
+            fill=n_tokens / max(n_steps * self.prefill_chunk, 1),
+            kv_tokens=0, **self._pool_use(),
+            pipeline_depth=len(self._pending),
+            flops=flops, bytes=bytes_, oi=flops / max(bytes_, 1.0),
+            wall=self.tracer.wall(),
+        )
+        self.tracer.on_step(rec)
+        return rec
+
+    def _trace_step(self, kind: str, active: list[int],
+                    works: list[PrefillChunk]) -> StepRecord:
+        """StepRecord for one decode/fused dispatch: composition (batch,
+        chunks, budget fill, pool pressure, pipeline depth) plus analytic
+        FLOPs/bytes, from host bookkeeping only (no device reads).  Returns
+        the record, already handed to the tracer, for the profiler's join."""
+        cm = self._cost_model
+        kv = 0
+        for i in active:
+            r = self.slots[i]
+            kv += len(r.prompt) + len(r.out_tokens) + r.in_flight
+        pre = ctx = 0
+        for w in works:
+            pre += w.n_valid
+            ctx += cm.chunk_ctx_tokens(w.start, w.n_valid)
+        buckets = [chunk_bucket(self.prefill_chunk, w.n_valid) for w in works] + [None, None]
+        budget = self.sched.token_budget if self.schedule == "hybrid" else len(self.slots)
+        flops, bytes_ = cm.cost(len(active), kv, pre, ctx)
+        rec = StepRecord(
+            replica=self.replica, step=self.stats.engine_steps, kind=kind,
+            decode_batch=len(active), prefill_tokens=pre,
+            bucket=buckets[0], bucket2=buckets[1],
+            budget=budget, fill=(len(active) + pre) / max(budget, 1),
+            kv_tokens=kv, **self._pool_use(),
+            pipeline_depth=len(self._pending),
+            flops=flops, bytes=bytes_, oi=flops / max(bytes_, 1.0),
+            wall=self.tracer.wall(),
+        )
+        self.tracer.on_step(rec)
+        return rec
 
     # ----------------------------------------------------------------- step
     def _decode_tokens(self) -> np.ndarray:
@@ -1138,9 +1318,10 @@ class Engine:
         if not active:
             return self.sched.has_work()
         self.stats.peak_active = max(self.stats.peak_active, len(active))
-        logits, = self._exec(active, [])
+        (logits,), d = self._exec(active, [])
         self.stats.decode_steps += 1
         self.stats.engine_steps += 1
+        self._trace_dispatch(d, active, [])
         self._finish_decode(active, logits)
         return self._busy()
 
@@ -1153,9 +1334,11 @@ class Engine:
             self._drain()               # nothing to dispatch: settle state
             return self._busy()
         self.stats.peak_active = max(self.stats.peak_active, len(active))
-        fetch = _Fetch(*self._exec(active, []))
+        out, d = self._exec(active, [])
+        fetch = _Fetch(*out)
         self.stats.decode_steps += 1
         self.stats.engine_steps += 1
+        self._trace_dispatch(d, active, [])
         self._dispatch(self._decode_record(active, fetch))
         return True
 
@@ -1198,7 +1381,8 @@ class Engine:
         self.stats.engine_steps += 1
         self.stats.peak_active = max(self.stats.peak_active, len(active))
         chunks, pre_advanced = self._pack(active, work)
-        out = self._exec(active, chunks)
+        out, d = self._exec(active, chunks)
+        self._trace_dispatch(d, active, [w for w, _ in chunks])
         if active:
             self.stats.decode_steps += 1
             self._finish_decode(active, out[0])
@@ -1219,11 +1403,12 @@ class Engine:
         self.stats.engine_steps += 1
         self.stats.peak_active = max(self.stats.peak_active, len(active))
         chunks, pre_advanced = self._pack(active, work)
-        out = self._exec(active, chunks)
+        out, d = self._exec(active, chunks)
         fetch = _Fetch(*out[:2]) if active else None
         pre = [_Fetch(t) for t in out[2 if active else 0:]]
         if active:
             self.stats.decode_steps += 1
+        self._trace_dispatch(d, active, [w for w, _ in chunks])
         rec = self._decode_record(active, fetch)
         if chunks:
             rec.work, rec.pre = chunks[0][0], pre[0]

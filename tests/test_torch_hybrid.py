@@ -6,7 +6,11 @@ and ``tests/test_paged.py`` (prefix sharing, an exact block multiple,
 block-gated admission, preemption with exact refold, boundary packing).
 Greedy tokens, per-request step stamps, ``EngineStats`` and ``PoolStats``
 must be equal: the step clock does not depend on the machine, so any
-difference is a fault, not noise.
+difference is a fault, not noise.  One case differs on purpose: a
+boundary-packed newcomer whose shared prefix block the same dispatch
+writes is recomputed by the port and read unwritten by the reference
+(ROADMAP.md §3); there the tokens are held to the reference's dense
+engine and the pool's bookkeeping to its paged engine.
 
 The reference engine runs with one race removed (``_copied_table_rows``):
 its ``device.sync_slot`` pushes ``manager.tables[slot]`` through
@@ -37,6 +41,7 @@ from repro_torch.models.bridge import params_from_numpy
 from repro_torch.models.registry import build_model
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.sampler import SamplerConfig
+from repro_torch.serving.telemetry import Tracer
 
 SHARED = np.arange(2, 13, dtype=np.int32)
 MIXED = [np.arange(1, 6, dtype=np.int32), SHARED, SHARED,
@@ -145,14 +150,68 @@ def test_block_gated_admission_matches_reference(models, schedule, mode):
           n_blocks=9, **SCHEDULES[schedule])
 
 
+# request 1 (1..16) shares its first block of 4 with request 0 (1..5), and
+# begins, boundary-packed, in the dispatch of request 0's only chunk
+BOUNDARY = MIXED[:1] + MIXED[3:] + MIXED[1:2]
+BOUNDARY_KW = dict(cache_kind="paged", block_size=4, schedule="hybrid", prefill_chunk=16,
+                   token_budget=18)
+# EngineStats fields that request 1's recomputed block moves
+RECOMPUTE_MOVES = ("prefill_chunks", "decode_steps", "engine_steps", "ttft_steps_sum",
+                   "ttft_samples", "per_token_samples")
+
+
+def _boundary_runs(models, mode):
+    """The reference's paged and dense engines and the port's paged engine
+    on ``BOUNDARY``."""
+    jmodel, jparams, model, params = models
+    kw = dict(BOUNDARY_KW, async_mode=MODES[mode])
+    dense_kw = {k: v for k, v in kw.items() if k not in ("cache_kind", "block_size")}
+    jdense, _, _ = _run(JEngine, JRequest, jmodel, jparams, BOUNDARY, 4, **dense_kw)
+    jpaged = _run(JEngine, JRequest, jmodel, jparams, BOUNDARY, 4, **kw)
+    return jdense, jpaged, _run(Engine, Request, model, params, BOUNDARY, 4, **kw)
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_paged_boundary_packing_matches_reference(models, mode):
     """A budget that leaves room after a final chunk: the next prompt's
-    head chunk rides the same dispatch in the second staging lane."""
-    stats, _ = _same(models, MIXED[:1] + MIXED[3:] + MIXED[1:2], 4,
-                     async_mode=MODES[mode], cache_kind="paged", block_size=4,
-                     schedule="hybrid", prefill_chunk=16, token_budget=18)
+    head chunk rides the same dispatch in the second staging lane.  The
+    newcomer's shared block is written only by that dispatch, so the port
+    recomputes it (ROADMAP.md §3) where the reference reads it unwritten:
+    the tokens are the reference's on the dense cache (the same schedule
+    without shared blocks), the pool's bookkeeping the reference paged
+    engine's, and its step clock the reference's but for one more chunk."""
+    jdense, (_, jstats, jeng), (reqs, stats, eng) = _boundary_runs(models, mode)
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in jdense]
+    assert dataclasses.asdict(eng.pool.stats) == dataclasses.asdict(jeng.pool.stats)
+    assert eng.pool.in_use == 0 and eng.kv_bytes() == jeng.kv_bytes()
+    a, b = dataclasses.asdict(stats), dataclasses.asdict(jstats)
+    for k in RECOMPUTE_MOVES:
+        del a[k], b[k]
+    assert a == b
+    assert stats.prefill_chunks == jstats.prefill_chunks + 1
     assert stats.boundary_packs >= 1
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_boundary_newcomer_does_not_read_unwritten_blocks(models, mode):
+    """The fault the port repairs: the reference's paged engine matches the
+    newcomer's first block, which request 0's chunk in the same dispatch
+    has registered but not yet written, and reads it into the staging
+    lane, so request 1 attends over the block's old contents (zeros here)
+    and its tokens differ from the dense engine's.  The port begins
+    request 1 at position 0 instead (its chunks, traced, show it)."""
+    jmodel, jparams, model, params = models
+    jdense, (jreqs, _, _), (reqs, _, eng) = _boundary_runs(models, mode)
+    assert jreqs[1].out_tokens != jdense[1].out_tokens          # the reference's fault
+    assert reqs[1].out_tokens == jdense[1].out_tokens
+    tracer = Tracer(wall=False)
+    traced = Engine(model, params, n_slots=2, max_seq=32, async_mode=MODES[mode],
+                    tracer=tracer, **BOUNDARY_KW)
+    for i, prompt in enumerate(BOUNDARY):
+        traced.submit(Request(uid=i, prompt=prompt, max_new_tokens=4))
+    traced.run()
+    starts = [sp.attrs["pos"] for sp in tracer.spans if sp.name == "prefill_chunk" and sp.uid == 1]
+    assert starts[0] == 0 and eng.pool.stats.hash_hits >= 1
 
 
 @pytest.mark.parametrize("mode", MODES)
