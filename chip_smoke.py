@@ -33,7 +33,7 @@
    the bf16 staging cache; float32 mode runs in the reference checks):
    kernel level only.
 4. Serve phase: full-width llama3.2-1b with seeded random weights through
-   ``repro_torch.launch.serve``, eleven paths, every dispatch kind of each
+   ``repro_torch.launch.serve``, seventeen paths, every dispatch kind of each
    one captured CUDA graph (the engine's default on the card; the counts
    of each kind's calls, replays and capture time are printed), each with
    every launch counter zeroed before its async run and read after it:
@@ -57,8 +57,26 @@
       4 sharing a prefix): prefix hits, COW copies, spills, rehydrations;
    k. agentic: a's dense cache with ``agentic`` (16 sessions x 3 turns,
       each turn resubmitted with the prior output as a grown prefix): 32
-      resubmissions.
-   Each runs async (dispatch-ahead) and then sync; the greedy tokens must
+      resubmissions;
+   l. the cluster tier, two replicas on the one card sharing the weights,
+      each path async with its launches counted over both replicas and its
+      tokens held to its single-engine path's by the tiered criterion
+      (every first token equal, >= 60% of all): cluster-affinity and
+      cluster-round-robin, i's rag traffic routed by ``--route
+      prefix_affinity`` and ``round_robin`` (the router's hit rate of
+      each); disagg, b's pool as ``--role-map 1p+1d`` (KV blocks migrate
+      from the prefill replica to the decode one: none lost);
+      disagg-tiered, the same on c's fp8 pools with host tiers;
+   m. sub-batches: a with ``--sub-batches 2`` (two sub-batches of 8 rows,
+      each on its own CUDA stream inside the decode graph), async, eager
+      and sync; n. dense-8: a at ``--slots 8``, whose decode batch is one
+      sub-batch's 8 rows: m's tokens must be n's exactly (a's 16-row
+      GEMMs sum one product in another order, so m's agreement with a is
+      printed only); then wall ms per engine step of m against
+      ``--sub-batches 1`` in turns, and a profile of its decode steps
+      (graphs and eager): kernels per stream id and how long kernels ran
+      at once.
+   Paths a-k, m and n run async (dispatch-ahead) and then sync; the greedy tokens must
    be identical, each kernel row must have launched once per layer of
    every prefill, chunk and decode step of its path (twice per layer of a
    decode step on the tiered paths: hot and cold windows; k + 1 times per
@@ -114,6 +132,18 @@
    tokens, each set's counts fit the exact distribution and the two sets
    fit each other (chi-square bounds stated there); then a temperature
    serve through the graphs, plain and speculative.
+12. A migration check: a request exported from one reduced engine and
+   imported into another (bf16 pool; fp8 pool with its scale pools): the
+   gathered blocks equal the source's and the landed blocks the payload,
+   by ``torch.equal`` on their bytes; the unmigrated run's tokens.
+13. A cluster check: reduced float32 two-replica clusters (1P+1D paged
+   hybrid, 1P+1D dense, prefix-affinity paged hybrid), async and sync,
+   on the card under graphs against the CPU: tokens, ``ClusterStats`` and
+   ``RouterStats`` equal.
+14. A sub-batch check: ``sub_batches=2`` under graphs against eager
+   and against a plain engine whose batch is one sub-batch (bf16; tokens,
+   stats, the decode kernel twice per layer and step), and float32 on the
+   card against the CPU.
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object with one entry per kernel; the last is
@@ -150,6 +180,7 @@ from repro_torch.kernels import prefill_attention as kpre  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.serving.cluster import Cluster  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.serving.paged import device as pdev  # noqa: E402
 from repro_torch.serving.programs import Program  # noqa: E402
@@ -180,6 +211,16 @@ CHUNK_SQ, CHUNK_OFFSET = 32, 192       # a hybrid chunk (--prefill-chunk 32) mid
 RAG_FLAGS = PAGED_FLAGS + ["--workload", "rag", "--arrival-rate", "0.5"]
 CHAT_FAN_FLAGS = TIERED_FLAGS + ["--workload", "chat-fan", "--fan", "4"]
 AGENTIC_FLAGS = ["--workload", "agentic", "--requests", "16", "--turns", "3"]
+# the cluster tier (two replicas on the one card, sharing the weights):
+# rag's traffic routed by prefix affinity and by round robin; a 1P+1D
+# disaggregated layout on paged-hybrid's and on paged-tiered's pools
+CLUSTER_FLAGS = ["--replicas", "2"]
+AFFINITY_FLAGS = CLUSTER_FLAGS + ["--route", "prefix_affinity"] + RAG_FLAGS
+ROUND_ROBIN_FLAGS = CLUSTER_FLAGS + ["--route", "round_robin"] + RAG_FLAGS
+DISAGG_FLAGS = CLUSTER_FLAGS + ["--role-map", "1p+1d"] + PAGED_FLAGS
+DISAGG_TIERED_FLAGS = CLUSTER_FLAGS + ["--role-map", "1p+1d"] + TIERED_FLAGS
+SUB_BATCH_FLAGS = ["--sub-batches", "2"]
+TOKEN_FLOOR = 0.6         # the tiered criterion: every first token equal, >= 60% of all
 PROFILE_EVERY = 8
 MAX_SHARE = 1.05          # a measured MFU or MBU above this is a fault, not a reading
 SPEC_DEPTH = 2
@@ -924,6 +965,187 @@ def observatory_phase(model, params) -> None:
     print(f"[observatory] phase wall {time.perf_counter() - t_phase:.1f}s")
 
 
+def agreement(label: str, reqs, base: PathRun, exact: bool = False,
+              floor: bool = True) -> None:
+    """Token agreement of a full-width path with the single-engine path
+    ``base`` of the same workload (requests paired by uid): prints the
+    requests and the share of tokens identical; raises under the tiered
+    criterion (every first token equal, at least ``TOKEN_FLOOR`` of all
+    tokens), or (``exact``) unless every token is identical; ``floor=False``
+    only prints.  At bf16 a replica batches other rows than the single engine
+    does (and a sub-batch half of them), so its GEMMs may round otherwise
+    and a near-tie may flip; a flip changes that request's later tokens."""
+    pairs = list(zip([r.out_tokens for r in reqs], base.tokens, strict=True))
+    same = sum(a == b for a, b in pairs)
+    tokens = [(x, y) for a, b in pairs for x, y in zip(a, b, strict=True)]
+    share = sum(x == y for x, y in tokens) / len(tokens)
+    first = sum(a[0] == b[0] for a, b in pairs)
+    print(f"[{label}] vs the {len(base.res.engine.slots)}-slot "
+          f"single-engine path: {same}/{len(pairs)} requests token-identical, {share:.1%} "
+          f"of tokens, first tokens equal {first}/{len(pairs)}")
+    if exact and same != len(pairs):
+        raise AssertionError(f"[{label}] tokens differ from the single-engine path's")
+    if floor and (first != len(pairs) or share < TOKEN_FLOOR):
+        raise AssertionError(f"[{label}] under the token floor against the single-engine path")
+
+
+class _Summed:
+    """The step-clock fields of a cluster's replicas, summed (what the
+    launch counters read over the whole cluster)."""
+
+    def __init__(self, engines):
+        for f in ("prefills", "prefill_chunks", "decode_steps", "engine_steps",
+                  "migrations_out", "migrations_in"):
+            setattr(self, f, sum(getattr(e.stats, f) for e in engines))
+
+
+def cluster_phase(model, params, label: str, flags: list[str], want, rows: dict[str, dict],
+                  base: PathRun, tiered: bool = False) -> PathRun:
+    """A two-replica cluster through the serve entry point, every replica's
+    dispatch kinds CUDA graphs: a short warm-up, then the async run with
+    every launch counter zeroed before it and read after it.  Checks the
+    launches per kernel row over both replicas (``want`` of the summed
+    step clocks), completion, drained pools, (``tiered``) spills on every
+    replica; with a
+    role map, that no migration is lost (every export was imported, every
+    request finished: one that found no decode replica decoded at home);
+    and the token floor against ``base``.  Prints the cluster's lines,
+    tokens per round, round-clock TTFT, hit rate, tok/s, per-replica
+    graphs and step clocks."""
+    t_phase = time.perf_counter()
+    args = serve.build_parser().parse_args(SERVE_FLAGS + flags)
+    warm = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--requests", "4"])
+    serve.serve(warm, model, params)
+    ops.reset_launch_counts()
+    res = serve.serve(args, model, params)
+    launches, shapes = ops.variant_counts(), ops.shape_counts()
+    cl, cs = res.cluster, res.stats
+    tot = _Summed(cl.engines)
+    print(f"[{label}] serve {' '.join(flags)}")
+    for line in serve.report(args, res):
+        print(f"[{label}] {line}")
+    per_row = {name: n for name, n in want(tot).items() if n}
+    exp_variant, exp_shape = _expected(per_row, rows)
+    print(f"[{label}] launches: {launches} expected {exp_variant}")
+    if launches != exp_variant or shapes != exp_shape:
+        raise AssertionError(f"[{label}] kernel launches {launches} / {shapes} != expected "
+                             f"{exp_variant} / {exp_shape}")
+    for i, eng in enumerate(cl.engines):
+        st = eng.stats
+        print(f"[{label}] r{i}[{eng.role}] {serve.stats_line(cs.replicas[i].routed, st)}; "
+              f"spills={st.spills} rehydrations={st.rehydrations} "
+              f"preemptions={st.preemptions} migrations out/in={st.migrations_out}/"
+              f"{st.migrations_in}; graphs: {graph_summary(eng)}")
+        if not eng.graphs:
+            raise AssertionError(f"[{label}] replica {i} ran without graphs")
+        if args.cache == "paged" and eng.pool.in_use:
+            raise AssertionError(f"[{label}] replica {i}'s pool holds {eng.pool.in_use} blocks")
+    reqs = res.driver.submitted
+    bad = [r.uid for r in reqs if not (r.done and len(r.out_tokens) == args.max_new)]
+    if bad:
+        raise AssertionError(f"[{label}] requests {bad} did not finish")
+    if tiered and not all(e.stats.spills for e in cl.engines):
+        raise AssertionError(f"[{label}] a replica's tiered pool never spilled")
+    if cl.disaggregated:
+        home = sum(1 for r in reqs if cl.placement[r.uid] == 0)
+        print(f"[{label}] migrations {cs.migrations} (exported {tot.migrations_out}, imported "
+              f"{tot.migrations_in}); {home} requests finished on the prefill replica "
+              f"(no decode replica could take them when they were tried)")
+        if not (cs.migrations > 0 and tot.migrations_out == tot.migrations_in == cs.migrations
+                and cs.migrations + home == len(reqs)):
+            raise AssertionError(f"[{label}] a migration was lost")
+    print(f"[{label}] rounds {cs.rounds}, {cs.tokens_per_round:.3f} tokens per round, "
+          f"ttft_rounds mean {cs.mean_ttft_rounds:.2f} p99 {cs.ttft_rounds_percentile(99):.0f}, "
+          f"prefix hit rate {cs.prefix_hit_rate:.4f}, imbalance {cs.load_imbalance:.3f}; "
+          f"{cs.generated / res.wall_s:.1f} tok/s, {res.wall_s * 1e3 / cs.rounds:.3f} ms per "
+          f"round, {res.wall_s * 1e3 / tot.engine_steps:.3f} ms per engine step")
+    agreement(label, reqs, base)
+    wall = time.perf_counter() - t_phase
+    print(f"[{label}] phase wall {wall:.1f}s (warm-up and async run)")
+    return PathRun(per_row, cs, [r.out_tokens for r in reqs], wall, res)
+
+
+def _concurrency(kernels: list[dict]) -> tuple[float, float, float]:
+    """Over kernel events (``ts``, ``dur`` in us, ``args.stream``): the time
+    some kernel runs, the time two or more run at once, and the time kernels
+    of two or more stream ids run at once."""
+    marks = sorted([(e["ts"], 1, e["args"].get("stream", -1)) for e in kernels]
+                   + [(e["ts"] + e["dur"], -1, e["args"].get("stream", -1)) for e in kernels])
+    live: dict[int, int] = {}
+    busy = many = streams = 0.0
+    last = None
+    for t, d, sid in marks:
+        if last is not None:
+            n = sum(live.values())
+            busy += (t - last) if n else 0.0
+            many += (t - last) if n > 1 else 0.0
+            streams += (t - last) if sum(v > 0 for v in live.values()) > 1 else 0.0
+        live[sid] = live.get(sid, 0) + d
+        last = t
+    return busy, many, streams
+
+
+def sub_batch_phase(model, params) -> None:
+    """``--sub-batches 2`` against ``--sub-batches 1`` on the dense path: the
+    serve run of each in turns (1, 2, 2, 1; async, graphs), wall ms per
+    engine step; then ``torch.profiler`` over 8 steady decode steps of a
+    ``sub_batches=2`` engine with graphs and eagerly: kernels per stream id,
+    and how long kernels of two streams ran at once (all kernels, and the
+    dense decode kernel's), from the trace's timestamps."""
+    t_phase = time.perf_counter()
+    ms = {1: [], 2: []}
+    for n in (1, 2, 2, 1):
+        args = serve.build_parser().parse_args(SERVE_FLAGS + ["--sub-batches", str(n)])
+        res = serve.serve(args, model, params)
+        ms[n].append(res.wall_s * 1e3 / res.stats.engine_steps)
+    print("[sub-batches] wall ms per engine step, in turns 1, 2, 2, 1 (dense, async, graphs): "
+          f"--sub-batches 1 {ms[1][0]:.3f}, {ms[1][1]:.3f}; --sub-batches 2 {ms[2][0]:.3f}, "
+          f"{ms[2][1]:.3f}; ratio of means {statistics.mean(ms[2]) / statistics.mean(ms[1]):.3f}")
+    for graphs in (True, False):
+        args = serve.build_parser().parse_args(SERVE_FLAGS + SUB_BATCH_FLAGS
+                                               + ["--graphs", "on" if graphs else "off"])
+        eng = serve.make_engine(args, model, params)
+        for i, arr in enumerate(build_workload("random", args.slots, vocab=model.cfg.vocab,
+                                               max_seq=args.max_seq, max_new=args.max_new,
+                                               seed=1)):
+            eng.submit(Request(uid=i, prompt=arr.prompt, max_new_tokens=arr.max_new_tokens))
+        for _ in range(4):
+            eng.step()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(8):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / 8
+        eng.run()
+        path = Path(tempfile.gettempdir()) / f"chip_smoke_sub_{os.getpid()}.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+        path.unlink()
+        kernels = [e for e in trace["traceEvents"]
+                   if e.get("cat") == "kernel" and e.get("ph") == "X"]
+        mode = "graphs" if graphs else "eager"
+        if not kernels:
+            print(f"[sub-batches {mode}] profile: wall {wall_ms:.3f} ms/step; kernel overlap "
+                  "not measured (the profiler saw no kernels)")
+            continue
+        per_stream: dict[int, int] = {}
+        for e in kernels:
+            sid = e["args"].get("stream", -1)
+            per_stream[sid] = per_stream.get(sid, 0) + 1
+        busy, many, streams = _concurrency(kernels)
+        _, attn_many, _ = _concurrency([e for e in kernels if "decode_split" in e["name"]])
+        print(f"[sub-batches {mode}] profile over 8 decode steps: wall {wall_ms:.3f} ms/step, "
+              f"kernels busy {busy / 8e3:.3f} ms/step; kernels per stream id {per_stream}; "
+              f"two or more kernels at once {many / 8e3:.3f} ms/step "
+              f"({many / max(busy, 1e-9):.1%} of the busy time; of two stream ids "
+              f"{streams / 8e3:.3f}); two decode-kernel launches at once "
+              f"{attn_many / 8e3:.4f} ms/step")
+    print(f"[sub-batches] overlap phase wall {time.perf_counter() - t_phase:.1f}s")
+
+
 # host-side launch calls the profiler records, by what they launch
 GRAPH_LAUNCH = ("cudaGraphLaunch",)
 KERNEL_LAUNCH = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
@@ -1425,6 +1647,138 @@ def temperature_check(dev) -> None:
             raise AssertionError(f"temperature serve through graphs ({label}) failed")
 
 
+def migration_check(dev) -> None:
+    """KV block migration on the card, reduced llama3.2-1b (bf16): a
+    request exported after two decode steps and imported into a second
+    engine, for a bf16 pool and an fp8 pool with its scale pools.  The
+    blocks the export gathers equal (``torch.equal`` on their bytes) the
+    source's blocks, and the blocks the import lands equal the payload;
+    decode on the destination gives the unmigrated run's tokens."""
+    cfg = reduce_config("llama3.2-1b")
+    m = build_model(cfg, dev)
+    params = m.init(3)
+    prompt = np.random.default_rng(5).integers(1, cfg.vocab, 21).astype(np.int32)
+    for kv in ("bf16", "fp8"):
+        kw = dict(n_slots=2, max_seq=64, cache_kind="paged", block_size=4, kv_dtype=kv)
+        solo = Engine(m, params, **kw)
+        solo_req = Request(uid=0, prompt=prompt, max_new_tokens=8)
+        solo.submit(solo_req)
+        solo.run()
+        src = Engine(m, params, **kw)
+        req = Request(uid=0, prompt=prompt, max_new_tokens=8)
+        src.submit(req)
+        src.step()
+        src.step()
+        ids = list(src.manager.blocks[0])
+        keys = ("k", "v", "k_scale", "v_scale") if kv == "fp8" else ("k", "v")
+        before = {k: ref.byte_view(src.cache[k][:, ids]).clone() for k in keys}
+        req, ticket, payload = src.export_request(0)
+        dst = Engine(m, params, **kw)
+        slot = dst.import_request(req, ticket, payload)
+        landed = pdev.copy_blocks_out(dst.cache, dst.manager.blocks[slot][:ticket.n_blocks])
+        gathered = all(torch.equal(ref.byte_view(payload[k]), before[k]) for k in keys)
+        exact = all(torch.equal(ref.byte_view(landed[k]), ref.byte_view(payload[k]))
+                    for k in keys)
+        dst.run()
+        torch.cuda.synchronize()
+        print(f"migration check ({kv}, {ticket.n_blocks} blocks, leaves {sorted(payload)}): "
+              f"gathered == source blocks {gathered}, landed == payload {exact}, tokens == "
+              f"unmigrated run's {req.out_tokens == solo_req.out_tokens}")
+        if not (gathered and exact and set(payload) == set(keys)
+                and req.out_tokens == solo_req.out_tokens):
+            raise AssertionError(f"migration check ({kv}) failed")
+
+
+CLUSTER_COMBOS = {
+    "1p+1d paged hybrid": dict(roles="1p+1d", cache_kind="paged", block_size=4,
+                               schedule="hybrid", prefill_chunk=8),
+    "1p+1d dense decode-only": dict(roles="1p+1d"),
+    "2 mixed prefix_affinity paged hybrid": dict(route="prefix_affinity", cache_kind="paged",
+                                                 block_size=4, schedule="hybrid",
+                                                 prefill_chunk=8),
+}
+
+
+def cluster_reference_check(dev) -> None:
+    """Reduced llama3.2-1b in float32, the same weights on the card and on
+    the CPU: two-replica clusters (1P+1D paged hybrid, 1P+1D dense, two
+    mixed replicas routed by prefix affinity), async and sync, the card's
+    under CUDA graphs.  Tokens, ``ClusterStats`` and ``RouterStats`` equal
+    the CPU cluster's exactly."""
+    gpu, cpu, ((p_gpu, p_cpu),) = _reduced_pair(dev)
+    rng = np.random.default_rng(23)
+    doc = rng.integers(1, gpu.cfg.vocab, 12).astype(np.int32)
+    prompts = [np.concatenate([doc, rng.integers(1, gpu.cfg.vocab, n).astype(np.int32)])
+               if i % 2 else rng.integers(1, gpu.cfg.vocab, n + 4).astype(np.int32)
+               for i, n in enumerate((3, 9, 5, 2, 7, 4, 1, 6))]
+    for combo, kw in CLUSTER_COMBOS.items():
+        for async_mode in (True, False):
+            runs = []
+            for m, p in ((gpu, p_gpu), (cpu, p_cpu)):
+                cl = Cluster(m, p, 2, n_slots=3, max_seq=64, async_mode=async_mode, **kw)
+                reqs = [Request(uid=i, prompt=x, max_new_tokens=6) for i, x in enumerate(prompts)]
+                for r in reqs:
+                    cl.submit(r)
+                st = cl.run()
+                runs.append(([r.out_tokens for r in reqs], dataclasses.asdict(st),
+                             dataclasses.asdict(cl.router.stats)))
+            (tg, sg, rg), (tc, sc, rc) = runs
+            print(f"cluster reference check ({combo}, {'async' if async_mode else 'sync'}): "
+                  f"rounds {sg['rounds']}, migrations {sg['migrations']}, prefix hit tokens "
+                  f"{rg['prefix_hit_tokens']}; tokens, ClusterStats, RouterStats GPU == CPU: "
+                  f"{tg == tc}, {sg == sc}, {rg == rc}")
+            if not (tg == tc and sg == sc and rg == rc
+                    and (sg["migrations"] > 0) == ("roles" in kw)):
+                raise AssertionError(f"cluster reference check ({combo}) failed")
+
+
+def sub_batch_check(dev) -> None:
+    """``sub_batches=2`` at reduced size: bf16 under CUDA graphs (two
+    stream branches in the decode graph) against the same engine eager,
+    async and sync, tokens and step clock equal and the dense decode kernel
+    twice per layer and step; float32 on the card against the CPU, tokens
+    equal."""
+    cfg = reduce_config("llama3.2-1b")
+    m = build_model(cfg, dev)
+    params = m.init(3)
+    rng = np.random.default_rng(29)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in (5, 3, 11, 21, 4, 9)]
+
+    def run(model, p, **kw):
+        eng = Engine(model, p, n_slots=4, max_seq=64, sub_batches=2, **kw)
+        reqs = [Request(uid=i, prompt=x, max_new_tokens=8) for i, x in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        ops.reset_launch_counts()
+        st = eng.run()
+        return [r.out_tokens for r in reqs], st, ops.variant_counts()["decode_attention"], eng
+
+    for async_mode in (True, False):
+        (tg, sg, lg, eng), (te, se, le, _) = (run(m, params, graphs=g, async_mode=async_mode)
+                                              for g in (True, False))
+        want = {"unscaled": 2 * sg.decode_steps * cfg.n_layers}
+        prog = eng.programs["decode"]
+        # the plain engine whose decode batch is one sub-batch's 2 rows
+        narrow = Engine(m, params, n_slots=2, max_seq=64, async_mode=async_mode)
+        reqs = [Request(uid=i, prompt=x, max_new_tokens=8) for i, x in enumerate(prompts)]
+        for r in reqs:
+            narrow.submit(r)
+        narrow.run()
+        tn = [r.out_tokens for r in reqs]
+        print(f"sub-batch check ({'async' if async_mode else 'sync'}, bf16): graphs vs eager "
+              f"tokens equal {tg == te}, stats equal {sg == se}; tokens == a 2-slot engine's "
+              f"{tg == tn}; decode launches {lg} (eager {le}, expected {want}); decode graph "
+              f"{prog.calls} calls/{prog.replays} replays")
+        if not (tg == te == tn and sg == se and lg == le == want and prog.graph is not None):
+            raise AssertionError("sub-batch check: graphs, eager and the narrow engine differ")
+    gpu, cpu, ((p_gpu, p_cpu),) = _reduced_pair(dev)
+    (tg, sg, _, _), (tc, sc, _, _) = run(gpu, p_gpu), run(cpu, p_cpu)
+    print(f"sub-batch check (float32, GPU vs CPU): tokens equal {tg == tc}, stats equal "
+          f"{sg == sc}")
+    if not (tg == tc and sg == sc):
+        raise AssertionError("sub-batch check: GPU and CPU differ")
+
+
 def ptxas_lines(name: str) -> list[str]:
     """One line per kernel of ``csrc/<name>.cu`` from its build log
     (``-Xptxas -v``): registers, shared memory, spills."""
@@ -1551,6 +1905,35 @@ def main() -> None:
         raise AssertionError("[rag] no prefix hit on the shared documents")
     if by_path["agentic"].res.driver.resubmits != 32:
         raise AssertionError("[agentic] 16 sessions x 3 turns should resubmit 32 times")
+    # the cluster tier: two replicas on the one card, sharing the weights;
+    # each path's tokens held to its single-engine path's by the token floor
+    for label, flags, want, base, kw in (
+            ("cluster-affinity", AFFINITY_FLAGS, paged_want, "rag", {}),
+            ("cluster-round-robin", ROUND_ROBIN_FLAGS, paged_want, "rag", {}),
+            ("disagg", DISAGG_FLAGS, paged_want, "paged-hybrid", {}),
+            ("disagg-tiered", DISAGG_TIERED_FLAGS, tiered_want, "paged-tiered",
+             dict(tiered=True))):
+        by_path[label] = cluster_phase(model, params, label, flags, want, by_name,
+                                       by_path[base], **kw)
+    hit = {p: by_path[p].stats.prefix_hit_rate for p in ("cluster-affinity",
+                                                          "cluster-round-robin")}
+    print(f"[cluster] router prefix hit rate: prefix_affinity {hit['cluster-affinity']:.4f}, "
+          f"round_robin {hit['cluster-round-robin']:.4f}")
+    # sub-batch pipelining: two sub-batches of 8 rows, each on its own
+    # stream inside the decode graph: the dense decode kernel twice a layer
+    path("sub-batches", SUB_BATCH_FLAGS, lambda st: {
+        "decode_attention": 2 * st.decode_steps * L, "prefill_attention": st.prefills * L},
+        eager=True)
+    # a sub-batch's decode GEMMs have 8 rows, the dense path's 16, and
+    # cuBLAS sums the 8192-deep FFN-down product of 8 rows in another order
+    # (1-ulp differences in ~0.2% of its outputs, which the random-weight
+    # model amplifies until a near-tie flips): the plain engine whose decode
+    # batch has 8 rows must give the sub-batches' tokens exactly
+    path("dense-8", ["--slots", "8"], dense_want)
+    sub = by_path["sub-batches"].res.driver.submitted
+    agreement("sub-batches", sub, by_path["dense-8"], exact=True)
+    agreement("sub-batches", sub, by_path["dense"], floor=False)
+    sub_batch_phase(model, params)
     observatory_phase(model, params)
     print("phase walls: " + ", ".join(f"{p} {r.wall_s:.1f}s" for p, r in by_path.items()))
     for graphs in (True, False):
@@ -1568,6 +1951,9 @@ def main() -> None:
     spec_reference_check(dev)
     block128_check(dev)
     temperature_check(dev)
+    migration_check(dev)
+    cluster_reference_check(dev)
+    sub_batch_check(dev)
     print(f"reduced checks: {time.perf_counter() - t0:.1f}s")
     for r in rows:
         r["launches_by_path"] = {p: run.launches.get(r["name"], 0)

@@ -6,8 +6,12 @@
   PYTHONPATH=src python scripts/torch_step_clock.py --cache paged \\
       --schedule hybrid --blocks 385 --workload rag
 
+  PYTHONPATH=src python scripts/torch_step_clock.py --replicas 2 \\
+      --role-map 1p+1d --cache paged --schedule hybrid --blocks 385
+
 The engine's step clock (rounds, engine steps, decode steps, chunks,
-spills, preemptions, resubmissions, pool stats) depends on prompt
+spills, preemptions, resubmissions, pool stats; for a cluster also its
+routing, migrations and round-clock TTFT) depends on prompt
 lengths, arrival rounds, shared prefixes, the schedule and the pool, not
 on token values or the device (no request stops at an EOS).  This script
 runs ``python -m repro_torch.launch.serve``'s driver and engine with the
@@ -38,14 +42,24 @@ def main(argv: list[str]) -> None:
     params = model.init(args.seed)
     t0 = time.perf_counter()
     res = serve.serve(args, model, params)
-    stats = res.stats
     print(f"workload: {args.workload} submitted={len(res.driver.submitted)} "
           f"resubmits={res.driver.resubmits} rounds={res.rounds}")
-    print(serve.stats_line(len(res.driver.submitted), stats))
-    print(f"spills={stats.spills} rehydrations={stats.rehydrations} "
-          f"preemptions={stats.preemptions} victim_drains={stats.victim_drains}")
-    if args.cache == "paged":
-        print(f"pool: {res.engine.pool.stats}")
+    cl = res.cluster
+    if cl is not None:
+        cs = res.stats
+        print(f"cluster: {cs.summary()}")
+        print(f"migrations={cs.migrations} refold_moves={cs.refold_moves} "
+              f"ttft_rounds mean {cs.mean_ttft_rounds:.2f} "
+              f"p99 {cs.ttft_rounds_percentile(99):.0f} "
+              f"prefix_hit_rate={cs.prefix_hit_rate:.4f}")
+    for i, eng in enumerate(cl.engines if cl is not None else [res.engine]):
+        stats, tag = eng.stats, f"r{i} " if cl is not None else ""
+        print(tag + serve.stats_line(len(res.driver.submitted), stats))
+        print(f"{tag}spills={stats.spills} rehydrations={stats.rehydrations} "
+              f"preemptions={stats.preemptions} victim_drains={stats.victim_drains} "
+              f"migrations out/in={stats.migrations_out}/{stats.migrations_in}")
+        if args.cache == "paged":
+            print(f"{tag}pool: {eng.pool.stats}")
     print(f"(CPU, reduced model, {time.perf_counter() - t0:.0f} s)")
 
 

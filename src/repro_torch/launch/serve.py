@@ -14,6 +14,10 @@
   python -m repro_torch.launch.serve --arch llama3.2-1b --spec-depth 2 \
       --requests 64 --slots 16 --max-seq 1024 --max-new 64
 
+  python -m repro_torch.launch.serve --arch llama3.2-1b --replicas 2 \
+      --role-map 1p+1d --requests 64 --slots 16 --max-seq 1024 --max-new 64 \
+      --cache paged --schedule hybrid --blocks 385
+
 Counterpart of ``repro.launch.serve`` for the dense per-slot KV cache
 and the paged block pool (``--cache``, ``--block-size``, ``--blocks``),
 tiered KV on the pool (``--kv-dtype fp8|int8`` stores it quantized,
@@ -25,7 +29,15 @@ a reduced ``--arch``, proposes K tokens per slot and step and the target
 verifies K+1 positions; greedy output is token-identical to plain
 decoding), greedy sampling (or ``--sample temperature|top-k``) and the
 async dispatch-ahead engine (``--async off`` for the synchronous one),
-each dispatch kind one CUDA graph (``--graphs off`` runs them eagerly).
+each dispatch kind one CUDA graph (``--graphs off`` runs them eagerly),
+sub-batch pipelining (``--sub-batches n``: the dense decode step as n
+sub-batches, each on its own CUDA stream inside the one graph), and the
+cluster tier: ``--replicas N`` engine replicas behind one global queue
+(``--route round_robin|least_loaded|prefix_affinity``), disaggregated by
+``--role-map`` (``1p+1d``, ``2p+2d+1m``, ``prefill,decode``: prompts
+prefill on prefill-role replicas and their KV blocks migrate to a
+decode-role one, with ``--decode-slots`` slots there).  Every replica
+runs on the one ``--device`` and shares the weights.
 Weights are random, drawn from ``--seed`` on the device; the draft's
 from seed 1.  The run is on the GPU; ``--device cpu`` runs the plain
 PyTorch path (with ``--reduced``, the test scale).
@@ -47,8 +59,9 @@ Observability, with the reference's flags and defaults:
 * ``--dashboard N`` prints a terminal snapshot every N rounds.
 
 It prints the reference's ``workload:``, stats, ``spec:``, latency,
-``pool:``, ``kv tier:``, SLO and ``measured`` lines; the balancer line
-and the cluster flags arrive with later slices.
+``pool:``, ``kv tier:``, SLO and ``measured`` lines, and for a cluster its
+``cluster:``, ``disagg:`` and ``pool[r{i}]:`` lines; the balancer line
+comes with multi-device placement.
 """
 from __future__ import annotations
 
@@ -62,10 +75,12 @@ from repro_torch.configs import get_config
 from repro_torch.configs.reduced import reduce_config
 from repro_torch.core.oi import DEVICES
 from repro_torch.models.registry import Model, build_model
+from repro_torch.serving.cluster import ROUTE_POLICIES, Cluster, parse_roles
 from repro_torch.serving.engine import Engine, EngineStats
 from repro_torch.serving.sampler import SamplerConfig
-from repro_torch.serving.telemetry import (SLOMonitor, Tracer, engine_registry, make_profiler,
-                                           render_dashboard, write_metrics, write_trace)
+from repro_torch.serving.telemetry import (SLOMonitor, Tracer, cluster_registry, engine_registry,
+                                           make_profiler, render_dashboard, write_metrics,
+                                           write_trace)
 from repro_torch.serving.telemetry.profiler import DEFAULT_DEVICE
 from repro_torch.serving.workload import WORKLOADS, WorkloadDriver, build_workload
 
@@ -78,6 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=64)
     ap.add_argument("--max-new", type=int, default=12)
+    ap.add_argument("--sub-batches", type=int, default=1,
+                    help="dense decode-only: run each decode step as n sub-batches, "
+                         "each on its own CUDA stream")
     ap.add_argument("--async", dest="async_mode", choices=("on", "off"), default="on",
                     help="on: dispatch-ahead pipeline with on-device sampling; "
                          "off: synchronous (greedy token-identical)")
@@ -113,6 +131,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--draft", default=None, metavar="ARCH",
                     help="draft architecture for --spec-depth > 0, always at reduced "
                          "size with the target's vocab (default: --arch)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the shared global queue")
+    ap.add_argument("--route", choices=ROUTE_POLICIES, default="round_robin",
+                    help="replica routing policy (with --replicas > 1)")
+    ap.add_argument("--role-map", default=None, metavar="SPEC",
+                    help="disaggregated replica roles: shorthand like '1p+1d' / "
+                         "'2p+2d+1m' or a comma list like 'prefill,decode' "
+                         "(default: all mixed)")
+    ap.add_argument("--decode-slots", type=int, default=None,
+                    help="slot count override for decode-role replicas (default: "
+                         "--slots; their paged block budget scales along)")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="record request spans + step timeline and write a "
                          "Perfetto/Chrome-trace JSON here")
@@ -174,7 +203,7 @@ def load_model(args) -> tuple[Model, dict]:
 
 @dataclasses.dataclass
 class ServeResult:
-    engine: Engine
+    serv: Engine | Cluster              # what the workload driver played against
     driver: WorkloadDriver
     rounds: int
     wall_s: float
@@ -183,8 +212,19 @@ class ServeResult:
     profiler: object = None
 
     @property
-    def stats(self) -> EngineStats:
-        return self.engine.stats
+    def cluster(self) -> Cluster | None:
+        return self.serv if isinstance(self.serv, Cluster) else None
+
+    @property
+    def engine(self) -> Engine:
+        """The engine, or a cluster's first replica."""
+        return self.serv.engines[0] if self.cluster else self.serv
+
+    @property
+    def stats(self):
+        """The engine's :class:`EngineStats`, or the cluster's
+        :class:`ClusterStats`."""
+        return self.serv.stats() if self.cluster else self.serv.stats
 
 
 def load_draft(args, model: Model) -> tuple[Model, dict]:
@@ -209,9 +249,8 @@ def make_telemetry(args):
     return tracer, slo, make_profiler(sample_every, device=args.profile_device)
 
 
-def make_engine(args, model: Model, params: dict, draft=None, tracer=None,
-                profiler=None) -> Engine:
-    """A fresh engine configured by ``args``; ``draft`` (model, params) is
+def engine_kwargs(args, model: Model, draft=None) -> dict:
+    """The engine configuration of ``args``; ``draft`` (model, params) is
     built by :func:`load_draft` when ``--spec-depth`` asks for one and it
     is not given."""
     _, sampler = make_sampler(args)
@@ -219,20 +258,39 @@ def make_engine(args, model: Model, params: dict, draft=None, tracer=None,
     if args.spec_depth:
         d_model, d_params = draft or load_draft(args, model)
         spec = dict(spec_depth=args.spec_depth, draft_model=d_model, draft_params=d_params)
-    return Engine(model, params, n_slots=args.slots, max_seq=args.max_seq,
-                  sampler=sampler, async_mode=args.async_mode == "on",
-                  seed=args.seed, cache_kind=args.cache, block_size=args.block_size,
-                  n_blocks=args.blocks, kv_dtype=args.kv_dtype,
-                  host_blocks=args.host_blocks, schedule=args.schedule,
-                  prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
-                  graphs=None if args.graphs is None else args.graphs == "on",
-                  tracer=tracer, profiler=profiler, **spec)
+    return dict(n_slots=args.slots, max_seq=args.max_seq, sampler=sampler,
+                sub_batches=args.sub_batches, async_mode=args.async_mode == "on",
+                seed=args.seed, cache_kind=args.cache, block_size=args.block_size,
+                n_blocks=args.blocks, kv_dtype=args.kv_dtype,
+                host_blocks=args.host_blocks, schedule=args.schedule,
+                prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
+                graphs=None if args.graphs is None else args.graphs == "on", **spec)
+
+
+def make_engine(args, model: Model, params: dict, draft=None, tracer=None,
+                profiler=None) -> Engine:
+    """A fresh engine configured by ``args``."""
+    return Engine(model, params, tracer=tracer, profiler=profiler,
+                  **engine_kwargs(args, model, draft))
+
+
+def make_server(args, model: Model, params: dict, draft=None, tracer=None,
+                profiler=None) -> Engine | Cluster:
+    """A fresh engine, or with ``--replicas`` > 1 a cluster of them, every
+    replica on the model's device, sharing ``params``."""
+    if args.replicas <= 1:
+        return make_engine(args, model, params, draft, tracer, profiler)
+    roles = parse_roles(args.role_map, args.replicas) if args.role_map else None
+    role_kw = {"decode": {"n_slots": args.decode_slots}} if args.decode_slots else None
+    return Cluster(model, params, args.replicas, route=args.route, tracer=tracer,
+                   profiler=profiler, roles=roles, role_kw=role_kw,
+                   **engine_kwargs(args, model, draft))
 
 
 def serve(args, model: Model, params: dict, draft=None) -> ServeResult:
-    """Run the workload of ``args`` through a fresh engine."""
+    """Run the workload of ``args`` through a fresh engine or cluster."""
     tracer, slo, profiler = make_telemetry(args)
-    eng = make_engine(args, model, params, draft, tracer,
+    serv = make_server(args, model, params, draft, tracer,
                       profiler if profiler.enabled else None)
     arrivals = build_workload(args.workload, args.requests, vocab=model.cfg.vocab,
                               max_seq=args.max_seq, max_new=args.max_new,
@@ -242,8 +300,8 @@ def serve(args, model: Model, params: dict, draft=None) -> ServeResult:
     if args.dashboard:
         def on_round(r, _every=args.dashboard):
             if r % _every == 0:
-                print(render_dashboard(eng, r, slo=slo, profiler=profiler))
-    driver = WorkloadDriver(eng, arrivals, vocab=model.cfg.vocab, max_seq=args.max_seq,
+                print(render_dashboard(serv, r, slo=slo, profiler=profiler))
+    driver = WorkloadDriver(serv, arrivals, vocab=model.cfg.vocab, max_seq=args.max_seq,
                             seed=args.workload_seed, on_round=on_round)
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
@@ -251,12 +309,16 @@ def serve(args, model: Model, params: dict, draft=None) -> ServeResult:
     rounds = driver.run()
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
-    return ServeResult(eng, driver, rounds, time.perf_counter() - t0, tracer, slo, profiler)
+    return ServeResult(serv, driver, rounds, time.perf_counter() - t0, tracer, slo, profiler)
 
 
 def registry(args, res: ServeResult):
     """The one metrics registry every reported number is read from."""
-    reg = engine_registry(res.stats, res.engine.pool.stats if args.cache == "paged" else None)
+    if res.cluster:
+        reg = cluster_registry(res.stats)
+    else:
+        reg = engine_registry(res.stats,
+                              res.engine.pool.stats if args.cache == "paged" else None)
     if res.slo is not None:
         res.slo.register(reg, elapsed=res.rounds)
     if res.profiler.enabled:
@@ -273,6 +335,30 @@ def stats_line(n_requests: int, stats: EngineStats) -> str:
             f"generated={stats.generated} peak_active={stats.peak_active}")
 
 
+def cluster_lines(args, res: ServeResult, snap: dict) -> list[str]:
+    """The reference's lines for a cluster: ``cluster:``, the summary,
+    ``disagg:`` (when anything migrated), latency, wall and one
+    ``pool[r{i}]:`` per replica."""
+    cl, s = res.cluster, res.stats
+    roles = " roles=" + ",".join(cl.roles) if args.role_map else ""
+    lines = [f"cluster: replicas={args.replicas} route={args.route}{roles}",
+             f"requests={len(res.driver.submitted)} {s.summary()}"]
+    if s.migrations:
+        lines.append(f"disagg: migrations={s.migrations} refold_moves={s.refold_moves} "
+                     f"ttft_rounds mean {s.mean_ttft_rounds:.1f} "
+                     f"p99 {s.ttft_rounds_percentile(99):.0f}")
+    lines += [
+        f"latency: TTFT mean {snap['mean_ttft_steps']:.1f} "
+        f"p50 {snap['ttft_steps_p50']:.0f} p99 {snap['ttft_steps_p99']:.0f} engine steps, "
+        f"per-token p99 {snap['per_token_steps_p99']:.2f} steps",
+        f"wall {res.wall_s:.2f}s -> {s.generated / res.wall_s:.1f} tok/s "
+        f"device={res.engine.device} graphs={'on' if res.engine.graphs else 'off'}",
+    ]
+    if args.cache == "paged":
+        lines += [f"pool[r{i}]: {e.pool.stats}" for i, e in enumerate(cl.engines)]
+    return lines
+
+
 def report(args, res: ServeResult) -> list[str]:
     mode, sampler = make_sampler(args)
     s = res.stats
@@ -283,6 +369,10 @@ def report(args, res: ServeResult) -> list[str]:
         f"workload: {args.workload} seed={args.workload_seed} "
         f"submitted={len(res.driver.submitted)} resubmits={res.driver.resubmits} "
         f"rounds={res.rounds}",
+    ]
+    if res.cluster:
+        return lines + cluster_lines(args, res, snap) + telemetry_lines(res)
+    lines += [
         stats_line(len(res.driver.submitted), s),
         *([f"spec: depth={args.spec_depth} accept_rate={s.acceptance_rate:.2f} "
            f"drafted={s.drafted_tokens} accepted={s.accepted_tokens} "
@@ -300,6 +390,12 @@ def report(args, res: ServeResult) -> list[str]:
             lines.append(f"kv tier: spills={s.spills} rehydrations={s.rehydrations} "
                          f"host_peak={res.engine.pool.stats.host_peak_in_use}"
                          f"/{args.host_blocks} blocks")
+    return lines + telemetry_lines(res)
+
+
+def telemetry_lines(res: ServeResult) -> list[str]:
+    """The SLO, goodput and ``measured`` lines, when those are on."""
+    lines = []
     if res.slo is not None:
         lines.append(res.slo.describe())
         lines.append(f"goodput: {res.slo.goodput(res.rounds):.2f} SLO-attaining "

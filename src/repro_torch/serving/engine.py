@@ -4,9 +4,10 @@ or hybrid schedule, synchronous or dispatch-ahead.
 Counterpart of ``repro.serving.engine`` for ``cache_kind`` in {"dense",
 "paged"} (bf16, fp8 or int8 pool, with or without the host tier) and
 ``schedule`` in {"decode-only", "hybrid"}, in both execution modes, with
-or without speculative decoding, traced and profiled or not.  Sub-batch
-pipelining and cross-replica migration raise ``NotImplementedError`` or
-are absent until their slices are ported.
+or without speculative decoding, traced and profiled or not, as a
+replica of a :class:`~repro_torch.serving.cluster.Cluster` (router hooks,
+KV block migration, refold moves) or alone, and on the dense
+decode-only schedule with sub-batch pipelining (``sub_batches``).
 
 Slot-based continuous batching (Orca-style): a fixed decode batch of
 ``n_slots`` sequences; a finished sequence frees its slot and the next
@@ -74,6 +75,23 @@ buffers.  The host's bookkeeping (block tables, block copies, spills,
 slot resets, the whole-prompt prefill of decode-only admission) stays
 outside the graphs, in stream order around the replays.
 
+* ``sub_batches=n > 1`` (dense cache, decode-only schedule, no
+  speculation, as in the reference) — the decode step runs as ``n``
+  sub-batches against views of the cache (:func:`core.pipeline.pipelined_step`),
+  each on its own CUDA stream forked from the engine's and joined back,
+  inside the captured program: the ``decode`` graph holds ``n`` parallel
+  branches.  On the CPU they run one after another.  Async mode samples
+  the concatenated logits, as the reference's ``_wrap_sampled`` does.
+
+Cross-replica migration (disaggregated serving): :meth:`Engine.preview_export`
+sizes a move without side effects, :meth:`Engine.export_request` detaches
+a resident request with its KV (the paged pool's blocks gathered in
+storage dtype, scale pools included; the dense cache's stripe), and
+:meth:`Engine.can_import` / :meth:`Engine.import_request` land it on
+another replica, writing into that engine's tensors in place (the
+captured programs read them), deduped against the destination's prefix
+cache.  The cluster drives this; a declined export decodes in place.
+
 Step accounting (``EngineStats.engine_steps``) matches the reference: a
 model dispatch is one step, a decode-only whole prefill of ``L`` tokens
 costs ``ceil(L / prefill_chunk)`` steps.
@@ -97,6 +115,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.pipeline import pipelined_step
 from repro_torch.models.registry import Model
 from repro_torch.serving import kv_cache
 from repro_torch.serving.paged import BlockPool, PagedCacheManager
@@ -134,8 +153,7 @@ class Request:
 
 @dataclasses.dataclass
 class EngineStats:
-    """Field for field the reference's ``EngineStats``; the fields of
-    features not ported yet stay 0."""
+    """Field for field the reference's ``EngineStats``."""
 
     prefills: int = 0
     prefill_chunks: int = 0
@@ -185,6 +203,41 @@ class EngineStats:
 
     def per_token_percentile(self, p: float) -> float:
         return percentile(self.per_token_samples, p)
+
+
+@dataclasses.dataclass
+class EngineLoad:
+    """One replica's load snapshot, read by the cluster router.
+
+    ``inflight_tokens`` counts KV positions committed to this replica —
+    prompt plus generated (observed and dispatched) tokens of every
+    resident request, plus the prompt tokens of anything waiting in the
+    local queue (a preempted request is still this replica's work).
+    """
+
+    free_slots: int
+    queued: int
+    inflight_tokens: int
+    free_blocks: int | None         # paged only; None for the dense cache
+
+
+@dataclasses.dataclass
+class MigrationTicket:
+    """Host-side description of an exported resident request's KV.
+
+    ``keys`` is the paged hash-key chain aligned with the payload's block
+    columns (None entries are diverged tails / decode headroom); the dense
+    cache has no keys (``None``) and its payload is a batch-1 sub-cache.
+    ``length`` is the KV positions held (prompt + observed output - 1: the
+    last sampled token is the next step's *input*).
+    """
+
+    length: int
+    kv_dtype: str
+    keys: list | None = None         # paged: per-block hash chain
+    n_blocks: int = 0                # paged: payload block count
+    block_size: int = 0              # paged: source pool block granularity
+    src_step: int = 0                # source engine-step clock at export
 
 
 class _Fetch:
@@ -264,6 +317,7 @@ class Engine:
         tracer=None,
         profiler=None,
         replica: int = 0,
+        role: str = "mixed",
     ):
         # speculation always runs on the dispatch-ahead machinery; sync mode
         # is that pipeline at depth zero (observe right after dispatch)
@@ -278,20 +332,32 @@ class Engine:
                              kv_dtype, host_blocks)
             self._sync_pipeline = not async_mode
             async_mode = True
-        if sub_batches != 1:
-            raise NotImplementedError(
-                "sub-batch pipelining is not ported yet: ROADMAP.md queue 1 item 9")
-        if cache_kind not in ("dense", "paged"):
-            raise ValueError(f"unknown cache_kind {cache_kind!r}")
+        # the role is advisory routing metadata (the cluster admits prompts
+        # to prefill/mixed replicas and migrates finished prefills off
+        # "prefill" ones); the engine handles both phases, so a migration
+        # that finds no destination decodes in place
+        if role not in ("prefill", "decode", "mixed"):
+            raise ValueError(f"unknown role {role!r}")
+        self.role = role
         if cache_kind != "paged" and (kv_dtype != "bf16" or host_blocks):
             raise ValueError("kv_dtype / host_blocks are paged-cache features "
                              f"(cache_kind={cache_kind!r})")
+        if cache_kind == "paged" and sub_batches != 1:
+            raise NotImplementedError(
+                "paged cache does not compose with sub-batch pipelining yet")
+        if cache_kind not in ("dense", "paged"):
+            raise ValueError(f"unknown cache_kind {cache_kind!r}")
+        if schedule == "hybrid" and sub_batches != 1:
+            raise NotImplementedError(
+                "hybrid schedule does not compose with sub-batch pipelining yet")
+        self.sub_batches = sub_batches
         self.model = model
         self.params = params
         self.device = model.device
         self.max_seq = max_seq
         self.sampler = sampler
         self.cache_kind = cache_kind
+        self.kv_dtype = kv_dtype
         self.host_blocks = host_blocks
         self.schedule = schedule
         self.prefill_chunk = prefill_chunk
@@ -341,6 +407,13 @@ class Engine:
             self.cache = model.init_cache(n_slots, max_seq)
             self._decode = model.decode_step
             self._decode_sampled = model.decode_sample_step
+            if sub_batches != 1:
+                # one stream per sub-batch on the card, created before any
+                # capture; the CPU runs the sub-batches in order
+                streams = ([torch.cuda.Stream(self.device) for _ in range(sub_batches)]
+                           if self.device.type == "cuda" else None)
+                self._decode = pipelined_step(model.decode_step, sub_batches, streams)
+                self._decode_sampled = self._wrap_sampled(self._decode)
         self._pending: deque[_PendingStep] = deque()
         self._first_pending: list[tuple[Request, _Fetch]] = []
         if async_mode:
@@ -374,6 +447,18 @@ class Engine:
             self.d_cache = draft_model.init_cache(n_slots, max_seq)
             self._verify = (model.paged_verify_step if cache_kind == "paged"
                             else model.verify_step)
+
+    @staticmethod
+    def _wrap_sampled(base_step):
+        """Fuse on-device sampling onto a logits step (the sub-batch
+        pipelined step has no sampled form of its own)."""
+
+        def sampled(params, cache, tokens, generator, eos_ids, *, sampler):
+            logits, cache = base_step(params, cache, tokens)
+            tok = sample_on_device(logits, generator, sampler)
+            return tok, tok == eos_ids, cache
+
+        return sampled
 
     @staticmethod
     def _check_spec(model, draft_model, draft_params, sub_batches, cache_kind, kv_dtype,
@@ -549,6 +634,228 @@ class Engine:
         req.submit_step = self.stats.engine_steps
         self.sched.submit(req)
         self.tracer.on_submit(self.replica, req, req.submit_step)
+
+    # ------------------------------------------------- cluster router hooks
+    def load(self) -> EngineLoad:
+        """Load snapshot for ``least_loaded`` routing (read-only).  A
+        chunked prefill in flight (``sched.inflight``) is committed work on
+        a reserved slot even though the request is in neither ``slots`` nor
+        the queue yet: both count."""
+        inflight = sum(len(r.prompt) + len(r.out_tokens) + r.in_flight
+                       for r in self.slots if r is not None)
+        inflight += sum(len(r.prompt) + len(r.out_tokens) for r in self.sched.queue)
+        fl = self.sched.inflight
+        if fl is not None:
+            inflight += fl.total
+        return EngineLoad(
+            free_slots=self.slots.count(None) - (0 if fl is None else 1),
+            queued=len(self.sched),
+            inflight_tokens=inflight,
+            free_blocks=self.pool.free_count if self.cache_kind == "paged" else None,
+        )
+
+    def _admit_tokens(self, req: Request) -> np.ndarray:
+        """What admitting ``req`` prefills: a preempted request's generated
+        tokens are folded in, so the block bill covers prompt + output."""
+        return self._refold(req) if req.out_tokens else np.asarray(req.prompt, np.int32)
+
+    def can_admit(self, req: Request) -> bool:
+        """Would ``req`` be this replica's *next* prefill?  The router's
+        spill-over probe: read-only and conservative (counts resident prefix
+        hits, never blocks a preemption could free).  A chunked prefill in
+        flight counts as running (its slot is subtracted); any locally
+        *queued* request means an unbounded wait, so the answer is no."""
+        fl = self.sched.inflight
+        free = self.slots.count(None) - (0 if fl is None else 1)
+        if len(self.sched) or free < 1:
+            return False
+        if self.cache_kind != "paged":
+            return True
+        return self.manager.admit_shortfall(self._admit_tokens(req)) <= self.pool.free_count
+
+    def probe_prefix(self, prompt: np.ndarray) -> int:
+        """Longest resident prompt prefix, in tokens (0 for the dense cache,
+        which has no prefix reuse).  Side-effect free: the router's
+        ``prefix_affinity`` score."""
+        if self.cache_kind != "paged":
+            return 0
+        return self.manager.probe_prefix(np.asarray(prompt, np.int32))
+
+    # ---------------------------------------------------- KV block migration
+    def export_request(self, slot: int):
+        """Detach the resident request on ``slot``, with its KV, for
+        migration to a peer replica.
+
+        Async mode observes the victim's in-flight tokens first
+        (:meth:`_observe_victim`) so that the exported history is exact;
+        that may reveal the request already finished.  Then, or when the
+        slot holds a cold host-tier prefix (only fully device-resident
+        sequences migrate), the export is declined and ``None`` returned.
+
+        Otherwise returns ``(req, ticket, payload)``: the request (its slot
+        here is freed), a :class:`MigrationTicket` and the storage-dtype KV
+        payload (:func:`paged.device.copy_blocks_out` /
+        :func:`kv_cache.export_slot`), gathered in stream order after every
+        step already issued.  Shared-prefix blocks are copied out: this
+        replica's remaining owners keep the block and its hash entry, and a
+        dying private registered prefix still spills to the host tier."""
+        req = self.slots[slot]
+        if req is None or req.done:
+            return None
+        if self.async_mode:
+            self._observe_victim(slot)
+            req = self.slots[slot]
+            if req is None or req.done:
+                return None             # finished while observing
+        if self.cache_kind == "paged" and self.manager.cold_blocks[slot]:
+            return None
+        length = len(req.prompt) + len(req.out_tokens) - 1
+        if self.cache_kind == "paged":
+            ids = list(self.manager.blocks[slot])
+            payload = paged_dev.copy_blocks_out(self.cache, ids)
+            _, keys = self.manager.export_slot(slot)
+            # dying private prefixes may spill host-ward: copy them before
+            # the freed device blocks can be reallocated and rewritten
+            self._apply_pool_directives()
+            paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot], 0)
+            ticket = MigrationTicket(length=length, kv_dtype=self.kv_dtype, keys=keys,
+                                     n_blocks=len(ids), block_size=self.block_size,
+                                     src_step=self.stats.engine_steps)
+        else:
+            payload = kv_cache.export_slot(self.cache, slot)
+            kv_cache.reset_slot(self.cache, slot)
+            ticket = MigrationTicket(length=length, kv_dtype=self.kv_dtype,
+                                     src_step=self.stats.engine_steps)
+        self.slots[slot] = None
+        self.stats.migrations_out += 1
+        return req, ticket, payload
+
+    def preview_export(self, slot: int) -> MigrationTicket | None:
+        """Read-only ticket for what :meth:`export_request` would produce,
+        so that the cluster probes destinations (:meth:`can_import`) before
+        paying the export.  Exact: the manager's block and key lists already
+        reflect every dispatched append, and observing the victim's
+        in-flight tokens only turns them into observed output (same KV
+        length) or finishes the request (the export declines).  None when
+        the slot is empty, done, or holds a cold host-tier prefix."""
+        req = self.slots[slot]
+        if req is None or req.done:
+            return None
+        length = len(req.prompt) + len(req.out_tokens) + req.in_flight - 1
+        if self.cache_kind != "paged":
+            return MigrationTicket(length=length, kv_dtype=self.kv_dtype,
+                                   src_step=self.stats.engine_steps)
+        if self.manager.cold_blocks[slot]:
+            return None
+        return MigrationTicket(length=length, kv_dtype=self.kv_dtype,
+                               keys=list(self.manager.keys[slot]),
+                               n_blocks=len(self.manager.blocks[slot]),
+                               block_size=self.block_size, src_step=self.stats.engine_steps)
+
+    def can_import(self, ticket: MigrationTicket) -> bool:
+        """Read-only: could :meth:`import_request` land ``ticket`` now
+        without touching anyone?  Conservative: the import may also free
+        blocks by spilling when a host tier exists, but it never preempts."""
+        if ticket.kv_dtype != self.kv_dtype or ticket.length >= self.max_seq - 1:
+            return False
+        if (ticket.keys is None) != (self.cache_kind != "paged"):
+            return False
+        if not self._free_slots():
+            return False
+        if self.cache_kind != "paged":
+            return True
+        if ticket.block_size != self.block_size:
+            return False
+        return self.manager.import_shortfall(ticket.keys, ticket.length) <= self.pool.free_count
+
+    def import_request(self, req: Request, ticket: MigrationTicket, payload) -> int | None:
+        """Land a migrating request: allocate or dedup its blocks, scatter
+        the payload columns the local prefix cache does not hold, and resume
+        decode with the same next-input token over the same KV (greedy
+        output is token-identical to never having migrated).  Every write
+        goes into this engine's tensors in place: the captured programs
+        read them.  Under block pressure with a host tier, resident cold
+        prefixes spill (spill-before-evict); nobody is preempted.  Returns
+        the landing slot, or ``None``, with nothing changed, when capacity
+        cannot be found."""
+        if ticket.kv_dtype != self.kv_dtype:
+            return None
+        free = self._free_slots()
+        if not free:
+            return None
+        slot = free[0]
+        if self.cache_kind == "paged":
+            fresh = self.manager.import_shortfall(ticket.keys, ticket.length)
+            if fresh > self.pool.free_count:
+                if not self.pool.host_blocks:
+                    return None
+                alive = [i for i, s in enumerate(self.slots) if s is not None]
+                while fresh > self.pool.free_count and self._try_spill(alive):
+                    pass
+                if fresh > self.pool.free_count:
+                    return None
+            res = self.manager.import_slot(slot, ticket.keys, ticket.length)
+            if res is None:
+                return None
+            ids, needs = res
+            # only the columns the local prefix cache lacks (a trailing
+            # headroom block has no payload column)
+            sel = [j for j in range(ticket.n_blocks) if needs[j]]
+            if sel:
+                paged_dev.copy_blocks_in(self.cache, self._localize(payload), sel,
+                                         [ids[j] for j in sel])
+            paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot], ticket.length)
+        else:
+            kv_cache.insert(self.cache, self._localize(payload), slot)
+        self.slots[slot] = req
+        # carry decode-latency accounting onto this engine's step clock
+        if req.first_token_step >= 0:
+            req.first_token_step = (
+                self.stats.engine_steps - (ticket.src_step - req.first_token_step))
+        if self.async_mode:
+            # the last sampled token is the next decode input, as on the source
+            paged_dev.feed_token(self._tok_state, slot, int(req.out_tokens[-1]))
+            paged_dev.set_stop_id(self._eos_dev, slot, req.eos_id)
+            # the draft cache did not travel: rebuild it from the history
+            # (all but the next input, the target's imported KV length)
+            self._draft_prefill_slot(slot, self._refold(req)[:-1])
+        self.stats.migrations_in += 1
+        return slot
+
+    def _localize(self, payload: Pytree) -> Pytree:
+        """A migration payload on this engine's device: the same tensors
+        when source and destination share the card, else a copy."""
+        return {k: v.to(self.device) for k, v in payload.items()}
+
+    # ---------------------------------------------- cluster refold leveling
+    def can_admit_next(self) -> bool:
+        """Will this engine's *own* queue head be admittable at the next
+        step?  (:meth:`can_admit` answers for a foreign request and says no
+        whenever anything is queued here; this is the home replica's
+        mirror, consulted before a preempted request's refold moves.)"""
+        if not len(self.sched):
+            return False
+        fl = self.sched.inflight
+        if self.slots.count(None) - (0 if fl is None else 1) < 1:
+            return False
+        if self.cache_kind != "paged":
+            return True
+        head = self.sched.queue[0]
+        return self.manager.admit_shortfall(self._admit_tokens(head)) <= self.pool.free_count
+
+    def take_refold(self) -> Request | None:
+        """Pop this engine's queue head if it is a preempted (refolding)
+        request the cluster wants to place elsewhere; None otherwise."""
+        q = self.sched.queue
+        if q and q[0].out_tokens and not q[0].done:
+            return self.sched.pop()
+        return None
+
+    def adopt_refold(self, req: Request) -> None:
+        """Accept a refolding request moved from another replica: it keeps
+        queue-front priority and re-enters on this engine's step clock."""
+        req.submit_step = self.stats.engine_steps
+        self.sched.push_front(req)
 
     def _free_slots(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if s is None]

@@ -1,7 +1,7 @@
 """Slot-level KV cache management for continuous batching.
 
-Counterpart of ``repro.serving.kv_cache`` (``insert``, ``reset_slot``,
-``kv_bytes``).  Cache leaves carry the batch dim at axis 1 (stacked
+Counterpart of ``repro.serving.kv_cache`` (``insert``, ``export_slot``,
+``reset_slot``, ``kv_bytes``).  Cache leaves carry the batch dim at axis 1 (stacked
 layers at axis 0), ``lengths`` at axis 0.  Updates are in place.
 """
 from __future__ import annotations
@@ -26,6 +26,14 @@ def insert(cache: Pytree, sub: Pytree, slot: int) -> Pytree:
     for k, v in cache.items():
         v.narrow(batch_axis(k), slot, 1).copy_(sub[k])
     return cache
+
+
+def export_slot(cache: Pytree, slot: int) -> Pytree:
+    """One slot's stripe as a batch-1 sub-cache, copied out (the inverse of
+    :func:`insert`): the dense cache's migration payload.  It holds the
+    slot's ``lengths`` entry, so ``insert`` on the destination restores
+    both the K/V and the length."""
+    return {k: v.narrow(batch_axis(k), slot, 1).clone() for k, v in cache.items()}
 
 
 def reset_slot(cache: Pytree, slot: int) -> Pytree:

@@ -6,9 +6,10 @@ Counterpart of ``repro.serving.paged.device`` for every pool tier:
 fp8/int8 pool and dequantizing on the way out), :func:`spill_block` /
 :func:`rehydrate_block` (device pool <-> host tier, in storage dtype),
 :func:`sync_slot` / :func:`sync_host_slot` (one block-table row, one
-host-table row and cold length), and the async engine's
-:func:`feed_token` / :func:`set_stop_id`.  Not ported: migration's
-``copy_blocks_out`` / ``copy_blocks_in`` (the cluster's slice).
+host-table row and cold length), migration's :func:`copy_blocks_out` /
+:func:`copy_blocks_in` (a sequence's blocks gathered out of one pool and
+scattered into another, in storage dtype), and the async engine's
+:func:`feed_token` / :func:`set_stop_id`.
 
 The reference's donated ``jax.jit`` updates become in-place tensor ops on
 one CUDA stream: stream order stands in for JAX's data-flow ordering, so
@@ -138,6 +139,48 @@ def rehydrate_block(cache: Pytree, host: int, dev: int) -> Pytree:
     return cache
 
 
+def _block_index(ids, device: torch.device) -> torch.Tensor:
+    return to_device(np.asarray(ids, np.int64), device)
+
+
+def _gather_blocks(pool: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``pool[:, ids]`` as a new tensor, moved as bytes (:func:`ref.byte_view`)."""
+    return ref.byte_view(pool).index_select(1, ids).view(pool.dtype)
+
+
+def _scatter_blocks(pool: torch.Tensor, payload: torch.Tensor, src_sel: torch.Tensor,
+                    dst_ids: torch.Tensor) -> None:
+    """``pool[:, dst_ids] = payload[:, src_sel]`` in place, as bytes."""
+    ref.byte_view(pool).index_copy_(1, dst_ids, ref.byte_view(payload).index_select(1, src_sel))
+
+
+def copy_blocks_out(cache: Pytree, ids: list[int]) -> Pytree:
+    """Gather a migrating sequence's physical blocks out of the pool in
+    **storage dtype**: a quantized pool exports its int8/fp8 bytes and the
+    matching scale-pool tiles, so a migration between pools of one
+    ``kv_dtype`` is bit exact.  Returns ``{"k": (L, n, Hkv, bs, Dh), ...}``,
+    new tensors: the source keeps stepping after the export, and stream
+    order puts the gather after every step already issued."""
+    idx = _block_index(ids, cache["k"].device)
+    return {key: _gather_blocks(cache[key], idx) for key in _pool_keys(cache)}
+
+
+def copy_blocks_in(cache: Pytree, payload: Pytree, src_sel: list[int],
+                   dst_ids: list[int]) -> Pytree:
+    """Scatter payload columns ``src_sel`` (positions in the exported block
+    list) into pool blocks ``dst_ids``, in place.  The selection skips the
+    positions the importer's own prefix cache already holds.  Storage dtype
+    on both sides: a migration moves bytes, never values."""
+    dev = cache["k"].device
+    sel, idx = _block_index(src_sel, dev), _block_index(dst_ids, dev)
+    for key in _pool_keys(cache):
+        if payload[key].dtype != cache[key].dtype:
+            raise ValueError(f"migration payload {key} is {payload[key].dtype}, the pool "
+                             f"stores {cache[key].dtype}")
+        _scatter_blocks(cache[key], payload[key], sel, idx)
+    return cache
+
+
 def sync_slot(cache: Pytree, slot: int, row: np.ndarray,
               length: int | None = None) -> Pytree:
     """Push one host block-table row (and optionally the slot length) to
@@ -162,13 +205,18 @@ def sync_host_slot(cache: Pytree, slot: int, row: np.ndarray, cold_len: int) -> 
     return cache
 
 
-def feed_token(tok_state: torch.Tensor, slot: int | torch.Tensor, token: torch.Tensor,
+def feed_token(tok_state: torch.Tensor, slot: int | torch.Tensor, token: torch.Tensor | int,
                when: torch.Tensor | None = None) -> torch.Tensor:
     """Async engine: one slot's next decode input, a (1,) device tensor (a
-    prefill's first token never round-trips the host).  ``slot`` is a host
-    int or a ``(1,)`` int32 device tensor (a captured program's scalar);
-    ``when``, a ``(1,)`` device flag, splices only where it is nonzero
-    (the reference's ``jnp.where(last, ...)``).  No host sync."""
+    prefill's first token never round-trips the host) or a host int (a
+    migrated request's last sampled token, written unconditionally).
+    ``slot`` is a host int or a ``(1,)`` int32 device tensor (a captured
+    program's scalar); ``when``, a ``(1,)`` device flag, splices a tensor
+    token only where it is nonzero (the reference's ``jnp.where(last,
+    ...)``).  No host sync."""
+    if not isinstance(token, torch.Tensor):
+        tok_state[slot] = token
+        return tok_state
     tok = token.reshape(1).to(tok_state.dtype)
     idx = slot.reshape(1).long() if isinstance(slot, torch.Tensor) else None
     if when is not None:

@@ -1,8 +1,6 @@
 """Serving telemetry: request-span tracing, step timelines, metrics.
 
-Counterpart of ``repro.serving.telemetry``, with the same exports but
-``cluster_registry`` (it comes with the cluster, ROADMAP.md queue 1
-item 5):
+Counterpart of ``repro.serving.telemetry``, with the same exports:
 
 * :class:`Tracer` / :data:`NULL_TRACER` — one span tree per request on
   the engine-step clock (``tracer.py``);
@@ -13,8 +11,9 @@ item 5):
   MFU/MBU/bandwidth (``profiler.py``);
 * :class:`SLOMonitor` — TTFT/TPOT targets, sliding-window attainment,
   goodput (``slo.py``);
-* :class:`MetricsRegistry` + :func:`engine_registry` — the single
-  reporting view over engine stats with exact percentiles
+* :class:`MetricsRegistry` + :func:`engine_registry` /
+  :func:`cluster_registry` — the single reporting view over engine and
+  cluster stats with exact percentiles
   (``metrics.py``);
 * Perfetto/Chrome-trace and metrics JSON exporters (``export.py``);
 * :func:`render_dashboard` — periodic terminal snapshot
@@ -40,6 +39,7 @@ from repro_torch.serving.telemetry.metrics import (
     Gauge,
     Histogram,
     MetricsRegistry,
+    cluster_registry,
     engine_registry,
     percentile,
 )
@@ -84,6 +84,7 @@ __all__ = [
     "StepRecord",
     "Tracer",
     "build_request_trees",
+    "cluster_registry",
     "engine_registry",
     "make_profiler",
     "percentile",

@@ -1,12 +1,10 @@
 """Metrics registry: counters, gauges, and exact-percentile histograms.
 
-A copy of ``repro.serving.telemetry.metrics`` without
-``cluster_registry``, which comes with the cluster (ROADMAP.md queue 1
-item 5).
+A copy of ``repro.serving.telemetry.metrics``.
 
 ``EngineStats`` stays the engine's hot-path store (cheap int bumps on a
 dataclass), but everything *reported* — the serve CLI printout, the
-``--metrics-out`` JSON dump —
+``--metrics-out`` JSON dump, cluster aggregates —
 goes through a :class:`MetricsRegistry` built from it, so there is one
 naming scheme and one percentile definition everywhere.
 ``tests/test_torch_telemetry.py`` holds its snapshot equal to the
@@ -167,3 +165,40 @@ def engine_registry(stats, pool_stats=None) -> MetricsRegistry:
         reg.gauge("pool_host_peak_in_use").set(pool_stats.host_peak_in_use)
     return reg
 
+
+def cluster_registry(cstats) -> MetricsRegistry:
+    """Cluster-wide reporting view: replica engines aggregated (TTFT and
+    per-token samples pooled across replicas for cluster percentiles)
+    plus the router/queue counters."""
+    reg = MetricsRegistry()
+    reg.counter("rounds").inc(cstats.rounds)
+    reg.counter("generated").inc(cstats.generated)
+    reg.counter("preemptions").inc(cstats.preemptions)
+    reg.counter("spills").inc(cstats.spills)
+    reg.counter("kv_spills").inc(cstats.kv_spills)
+    reg.counter("kv_rehydrations").inc(cstats.kv_rehydrations)
+    reg.counter("prefix_hit_tokens").inc(cstats.prefix_hit_tokens)
+    reg.counter("probed_tokens").inc(cstats.probed_tokens)
+    reg.counter("migrations").inc(cstats.migrations)
+    reg.counter("refold_moves").inc(cstats.refold_moves)
+    reg.gauge("tokens_per_round").set(cstats.tokens_per_round)
+    reg.gauge("mean_queue_wait_rounds").set(cstats.mean_queue_wait_rounds)
+    reg.gauge("mean_ttft_steps").set(cstats.mean_ttft_steps)
+    reg.gauge("mean_ttft_rounds").set(cstats.mean_ttft_rounds)
+    reg.histogram("ttft_rounds").extend(cstats.ttft_rounds_samples)
+    reg.gauge("prefix_hit_rate").set(cstats.prefix_hit_rate)
+    reg.gauge("load_imbalance").set(cstats.load_imbalance)
+    ttft = reg.histogram("ttft_steps")
+    tpt = reg.histogram("per_token_steps")
+    for r in cstats.replicas:
+        ttft.extend(r.engine.ttft_samples)
+        tpt.extend(r.engine.per_token_samples)
+        reg.gauge(f"replica{r.replica}_utilization").set(
+            r.utilization(cstats.rounds)
+        )
+        reg.counter(f"replica{r.replica}_routed").inc(r.routed)
+        reg.counter(f"replica{r.replica}_generated").inc(r.engine.generated)
+        reg.gauge(f"replica{r.replica}_role").set(
+            ("mixed", "prefill", "decode").index(r.role)
+        )
+    return reg

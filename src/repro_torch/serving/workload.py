@@ -20,7 +20,8 @@ schedule in six shapes:
   simultaneous requests: the head-of-line / queue-depth stress shape;
 * ``chat-fan`` — groups of ``fan`` requests share one prompt prefix and
   arrive within a few rounds of each other (fan-out of one conversation
-  to many users): the shape hash-based block sharing is built for;
+  to many users): the shape prefix-affinity routing and hash-based
+  block sharing are built for;
 * ``rag``      — a few long shared documents, each queried by many
   requests with short unique suffixes: long-prefix reuse with
   decode-light tails;
@@ -29,8 +30,8 @@ schedule in six shapes:
   folded into a **grown prefix** plus a fresh query (``turns`` rounds of
   this per session).
 
-:class:`WorkloadDriver` plays a schedule against an :class:`Engine` on
-its own round clock: arrivals are submitted
+:class:`WorkloadDriver` plays a schedule against an :class:`Engine` or
+:class:`Cluster` on its own round clock: arrivals are submitted
 when their round comes up, agentic completions are resubmitted after a
 ``think`` delay, and the run ends only when every submitted request —
 including grown resubmissions — has finished.  Grown prefixes are
@@ -159,8 +160,9 @@ def grow_prompt(prompt: np.ndarray, out_tokens: list[int],
 
 
 class WorkloadDriver:
-    """Play an arrival schedule against one
-    :class:`~repro_torch.serving.engine.Engine` on its own clock.
+    """Play an arrival schedule against one serving front-end (an
+    :class:`~repro_torch.serving.engine.Engine` or a
+    :class:`~repro_torch.serving.cluster.Cluster`) on its own clock.
 
     Each driver round submits the arrivals that are due, steps the
     server once, and harvests finished agentic sessions into grown-
@@ -232,11 +234,14 @@ class WorkloadDriver:
             if (not busy and i >= len(self.arrivals) and not followups
                     and not self._sessions):
                 break
-        # settle the async pipeline (as Engine.run does), then take any
-        # first token still pending, in the reference driver's order
-        if self.serv.async_mode:
-            self.serv._drain()
-        self.serv._flush_first()
+        # settle async pipelines (as Engine.run / Cluster.run do)
+        engines = getattr(self.serv, "engines", None) or [self.serv]
+        for eng in engines:
+            if eng.async_mode:
+                eng._drain()
+        harvest = getattr(self.serv, "_harvest_first_tokens", None)
+        if harvest is not None:
+            harvest()
         return self.rounds
 
 

@@ -130,7 +130,7 @@ def test_sync_and_async_are_token_identical(models):
 
 @pytest.mark.parametrize("kw", [
     dict(spec_depth=2, sub_batches=2),     # speculation is ported, over sub-batches not
-    dict(sub_batches=2),
+    dict(sub_batches=2, cache_kind="paged"),   # sub-batches are dense-only, as in the reference
 ], ids=["spec_depth", "sub_batches"])
 def test_unported_engine_options_raise(models, kw):
     _, _, model, params = models
