@@ -16,7 +16,7 @@
    dequantization too; never used by the port) and the least time the
    card could take.  Every prefill case also runs with ``q_offset`` as a
    ``(1,)`` int32 device tensor (what a captured graph passes), which must
-   give the int form's bits; the chunk rows are timed in that form too.  Thirteen rows: decode (split across CTAs, partials
+   give the int form's bits; the chunk rows are timed in that form too.  Fifteen rows: decode (split across CTAs, partials
    merged by a second kernel); prefill unscaled at a whole prompt and at
    the hybrid chunk shape (32 queries at q_offset 192 against the
    1024-position staging stripe, after the chunk edge cases), int8 and
@@ -24,7 +24,8 @@
    kernel); paged unscaled, fp8 and int8 pools (split across CTAs like
    the decode); the speculative draft's decode and prefill chunk at its
    own heads (Hkv 2, G 2, D 16); paged bf16 and fp8 pools at block size
-   128.  The paged variants are also checked with f32 queries,
+   128; decode and whole-prompt prefill at moonshot-v1-16b-a3b's heads
+   (Hq = Hkv = 16, G 1, D 128).  The paged variants are also checked with f32 queries,
    with a ``starts`` window + lse, with NaN in null block 0 and past each
    row's length (never read: equal to the plain version on zeros there)
    and with every window empty (the cold launch of a step with nothing
@@ -96,6 +97,19 @@
    measured MFU or MBU (against the H100 SXM's peaks) exceeds 1.05.  It
    prints per dispatch kind the samples, median measured ms, MFU, MBU and
    GB/s, and tok/s traced vs untraced.
+   Then the moe path, once llama's weights and every engine are freed:
+   moonshot-v1-16b-a3b at full width (28,386,592,768 parameters, seeded
+   random bf16 weights through the serve CLI's loader: memory allocated
+   before and after, the peak), its first MoE layer in float32 on the card
+   against the CPU (expert ids equal), the serve shape with ``--arch
+   moonshot-v1-16b-a3b`` as a-k are run (async through the graphs with
+   the counters zeroed, eager, sync: tokens identical; the decode kernel
+   48 times per decode step and the prefill kernel 48 times per prefill
+   at moonshot's heads), its step clock against the CPU's prediction,
+   tok/s and wall ms per decode step beside the weight stream's bound, a
+   ``--profile 8`` run's measured decode MBU beside the bytes the
+   dropping dispatch really streams, and profiles with graphs and eagerly
+   (see 5).
 5. Profiles (torch.profiler) of steady async steps on paths a, b, c and
    e, with graphs and eagerly, for where the time goes: wall and device
    busy ms per step, device ops per step, host launches per step (graph
@@ -144,6 +158,9 @@
    and against a plain engine whose batch is one sub-batch (bf16; tokens,
    stats, the decode kernel twice per layer and step), and float32 on the
    card against the CPU.
+15. A MoE check: reduced moonshot-v1-16b-a3b in float32, engines on the
+   card (graphs) and on the CPU, async and sync, one decode batch and two
+   sub-batches: tokens and ``EngineStats`` equal.
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object with one entry per kernel; the last is
@@ -152,6 +169,7 @@ object with one entry per kernel; the last is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -172,6 +190,7 @@ from torch.autograd import DeviceType
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.reduced import reduce_config  # noqa: E402
+from repro_torch.core import balance  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import heads as kernel_heads  # noqa: E402
 from repro_torch.kernels import decode_attention as kdec  # noqa: E402
@@ -179,6 +198,7 @@ from repro_torch.kernels import paged_decode_attention as kpaged  # noqa: E402
 from repro_torch.kernels import prefill_attention as kpre  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving.cluster import Cluster  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
@@ -230,6 +250,17 @@ PORT_KERNELS = ("decode_split_mma_kernel", "decode_split_fma_kernel", "span_comb
                 "flash_prefill_mma_kernel", "flash_prefill_fma_kernel",
                 "paged_split_mma_kernel", "paged_split_fma_kernel")
 LENGTHS = [1, 1024, 1033, 2, 37, 100, 255, 256, 257, 511, 512, 513, 700, 900, 1000, 1023]
+# dense decode kernel rows -> (B, S, Hkv, G, D)
+DECODE_SHAPES = {"decode_attention": (16, 1024, 8, 4, 64),          # llama3.2-1b
+                 "decode_attention[draft]": (16, 1024, 2, 2, 16),   # its reduced draft
+                 "decode_attention[moe]": (16, 1024, 16, 1, 128)}   # moonshot-v1-16b-a3b
+# the MoE path: moonshot-v1-16b-a3b at full width on the dense cache
+MOE_FLAGS = ["--arch", "moonshot-v1-16b-a3b"]
+MOE_PARAMS = 28386592768
+# its step clock as `scripts/torch_step_clock.py --arch moonshot-v1-16b-a3b`
+# predicts it on the CPU (the reduced model at the full vocabulary)
+MOE_CLOCK = {"prefills": 64, "decode_steps": 252, "engine_steps": 841, "generated": 4096}
+MOE_LAYER_TOL = 1e-4      # one MoE layer in float32, card vs CPU: f32 sums in other orders
 
 
 def _time_ms(fns, iters: int = 30) -> float:
@@ -293,13 +324,14 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 # ----------------------------------------------------------- kernel phase
-def decode_phase(dev, draft: bool = False) -> dict:
-    """llama3.2-1b decode attention at 16 slots, max_seq 1024, bf16;
-    ``draft``: at the shape of its ``--spec-depth`` draft (reduced
-    llama3.2-1b: Hkv 2, G 2, D 16, padded to 32 in the tensor-core
-    kernel), which decodes k + 1 times per speculative step."""
-    B, S, Hkv, G, D = (16, 1024, 2, 2, 16) if draft else (16, 1024, 8, 4, 64)
-    name = "decode_attention[draft]" if draft else "decode_attention"
+def decode_phase(dev, name: str = "decode_attention") -> dict:
+    """Decode attention at 16 slots, max_seq 1024, bf16, at the heads of
+    the row ``name`` (:data:`DECODE_SHAPES`): llama3.2-1b's; its
+    ``--spec-depth`` draft's (reduced llama3.2-1b: Hkv 2, G 2, D 16, padded
+    to 32 in the tensor-core kernel), which decodes k + 1 times per
+    speculative step; moonshot-v1-16b-a3b's (Hkv 16, G 1, D 128: one real
+    row in each m16 tile)."""
+    B, S, Hkv, G, D = DECODE_SHAPES[name]
     gen = torch.Generator(device=dev).manual_seed(1)
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
     cache_bytes = 2 * B * S * Hkv * D * 2
@@ -370,11 +402,13 @@ def _same_at_tensor_offset(out, q, k, v, off: int, ks=None, vs=None) -> None:
                              f"{_max_err(got, out)}")
 
 
-def prefill_phase(dev, kv: str | None = None) -> dict:
+def prefill_phase(dev, kv: str | None = None, moe: bool = False) -> dict:
     """llama3.2-1b prefill attention (Hq 32, Hkv 8, D 64, bf16 queries, B 1)
     at odd prompt lengths, q_offset 0 (the main path) and 17; ``kv``:
-    int8/fp8 K/V with (B, Sk, Hkv) f32 scales (the scaled variant)."""
-    Hq, Hkv, D = 32, 8, 64
+    int8/fp8 K/V with (B, Sk, Hkv) f32 scales (the scaled variant);
+    ``moe``: at moonshot-v1-16b-a3b's heads (Hq = Hkv = 16, D 128)."""
+    Hq, Hkv, D = (16, 16, 128) if moe else (32, 8, 64)
+    name = "prefill_attention[moe]" if moe else _row_name("prefill_attention", kv)
     gen = torch.Generator(device=dev).manual_seed(2)
     cases, timed = [], None
     for sq, off in ((37, 0), (37, 17), (509, 17), (509, 0)):
@@ -388,8 +422,8 @@ def prefill_phase(dev, kv: str | None = None) -> dict:
         torch.cuda.synchronize()
         err = _max_err(out, exp)
         if not err <= BF16_TOL:
-            raise AssertionError(f"{_row_name('prefill_attention', kv)} kernel vs plain at "
-                                 f"Sq={sq} q_offset={off}: max err {err}")
+            raise AssertionError(f"{name} kernel vs plain at Sq={sq} q_offset={off}: "
+                                 f"max err {err}")
         cases.append({"sq": sq, "sk": sk, "q_offset": off, "max_abs_err": err})
         timed = (q, k, v, ks, vs, sq, sk, off)
     q, k, v, ks, vs, sq, sk, off = timed      # the main path's case: q_offset 0, Sq 509
@@ -410,7 +444,7 @@ def prefill_phase(dev, kv: str | None = None) -> dict:
     bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_FLOPS if kv is None
                                 else PEAK_8BIT_OPS)
     return {
-        "name": _row_name("prefill_attention", kv), "kernel": "prefill_attention",
+        "name": name, "kernel": "prefill_attention",
         "variant": kv or "unscaled", "heads": kernel_heads(Hkv, Hq // Hkv, D),
         "route": "cuda", "source": kpre.SOURCE,
         "replaces": kpre.REPLACES,
@@ -1152,7 +1186,7 @@ KERNEL_LAUNCH = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "c
 
 
 def profile_phase(model, params, label: str, flags: list[str], warm_steps: int,
-                  n_steps: int = 8, graphs: bool = True) -> None:
+                  n_steps: int = 8, graphs: bool = True, drain: bool = True) -> None:
     """Where a steady step's time goes: ``torch.profiler`` over ``n_steps``
     async steps after ``warm_steps`` (32 requests over 16 slots), with
     every dispatch kind one CUDA graph or (``graphs=False``) eagerly.
@@ -1160,7 +1194,9 @@ def profile_phase(model, params, label: str, flags: list[str], warm_steps: int,
     events' time: kernels, copies and fills), device ops and host launch
     calls per step (graph launches and kernel launches apart) and the top
     kernels; reports "not measured" if the profiler sees no device time.  With a host tier, also times one layer's hot and cold
-    paged launches on the state the window ended in."""
+    paged launches on the state the window ended in.  ``drain``: run the
+    engine's requests to their end afterwards (the MoE path skips it: its
+    eager steps take a quarter second)."""
     label = f"{label}{'' if graphs else ' eager'}"
     args = serve.build_parser().parse_args(SERVE_FLAGS + flags
                                            + ["--graphs", "on" if graphs else "off"])
@@ -1192,7 +1228,8 @@ def profile_phase(model, params, label: str, flags: list[str], warm_steps: int,
                     for kind, names in (("graph", GRAPH_LAUNCH), ("kernel", KERNEL_LAUNCH))}
     if "host_k" in eng.cache:
         tier_launches(eng, label)
-    eng.run()
+    if drain:
+        eng.run()
     # device-side events only: a CPU op's self device time repeats the time
     # of the kernels it launched, which are events of their own
     rows = [e for e in events
@@ -1263,10 +1300,10 @@ def tier_launches(eng, label: str) -> None:
           f"{host_ms(cold):.4f} ms; spills so far {eng.stats.spills}")
 
 
-def _reduced_pair(dev, seeds=(3,)):
-    """Reduced llama3.2-1b in float32 on the GPU and on the CPU, with the
+def _reduced_pair(dev, seeds=(3,), arch: str = "llama3.2-1b"):
+    """Reduced ``arch`` in float32 on the GPU and on the CPU, with the
     same weights for each seed: (gpu, cpu, [(gpu params, cpu params)])."""
-    cfg = reduce_config("llama3.2-1b").with_overrides(dtype="float32")
+    cfg = reduce_config(arch).with_overrides(dtype="float32")
     gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
     out = []
     for seed in seeds:
@@ -1779,6 +1816,147 @@ def sub_batch_check(dev) -> None:
         raise AssertionError("sub-batch check: GPU and CPU differ")
 
 
+# ---------------------------------------------------------------- MoE path
+def moe_phase(dev, rows: dict[str, dict]) -> PathRun:
+    """moonshot-v1-16b-a3b at full width, on a card that holds nothing of
+    the llama phases: its weights from seed 0 through the serve CLI's
+    ``load_model`` (memory allocated before and after, the peak, the load
+    seconds); one full-width MoE layer on the card against the CPU
+    (:func:`moe_layer_check`); ``SERVE_FLAGS`` with ``--arch
+    moonshot-v1-16b-a3b`` through :func:`serve_phase` (async through the
+    CUDA graphs with the launch counters zeroed before it, ``--graphs
+    off``, ``--async off``: tokens identical; the decode kernel 48 times
+    per decode step and the prefill kernel 48 times per prefill, at
+    moonshot's heads), its step clock held to the CPU's prediction
+    (``MOE_CLOCK``), tok/s and wall ms per decode step beside the weight
+    stream's bound; a ``--profile 8`` run's measured decode MBU (the
+    reference's cost model counts the active experts only, the dropping
+    dispatch streams all 64); and steady decode steps under
+    ``torch.profiler`` with graphs and eagerly.  Returns the path's run
+    without its engine."""
+    t_phase = time.perf_counter()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    args = serve.build_parser().parse_args(SERVE_FLAGS + MOE_FLAGS)
+    t0 = time.perf_counter()
+    model, params = serve.load_model(args)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg, m = model.cfg, model.cfg.moe
+    print(f"[moe] serve: {cfg.name} n_params={model.n_params()} layers={cfg.n_layers} "
+          f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+          f"head_dim={cfg.resolved_head_dim()} experts={m.n_experts} top_k={m.top_k} "
+          f"shared={m.n_shared} weights {load_s:.1f}s; memory allocated "
+          f"{before / 1e9:.3f} GB before the load, {torch.cuda.memory_allocated(dev) / 1e9:.3f} "
+          f"GB after, peak {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    if model.n_params() != MOE_PARAMS:
+        raise AssertionError(f"[moe] {model.n_params()} parameters, not {MOE_PARAMS}")
+    moe_layer_check(model, params)
+    L = cfg.n_layers
+    run = serve_phase(model, params, "moe", MOE_FLAGS, lambda st: {
+        "decode_attention[moe]": st.decode_steps * L,
+        "prefill_attention[moe]": st.prefills * L}, rows, eager=True)
+    st, res = run.stats, run.res
+    clock = {k: getattr(st, k) for k in MOE_CLOCK}
+    print(f"[moe] step clock {clock}, rounds {res.rounds}; the CPU's prediction {MOE_CLOCK}")
+    if clock != MOE_CLOCK:
+        raise AssertionError("[moe] the step clock is not the CPU's prediction")
+    weight_bytes = 2 * model.n_params()
+    kv_bytes = balance.kv_bytes_per_seq(cfg, 8115)
+    bound_ms = (weight_bytes + kv_bytes) / PEAK_BYTES_S * 1e3
+    print(f"[moe] {st.generated / res.wall_s:.1f} tok/s, {res.wall_s * 1e3 / st.decode_steps:.3f} "
+          f"wall ms per decode step (the run's wall over its {st.decode_steps} decode steps, "
+          f"its 64 whole-prompt prefills included); bound per decode step: the weight stream "
+          f"{weight_bytes / 1e9:.2f} GB in {weight_bytes / PEAK_BYTES_S * 1e3:.2f} ms + "
+          f"{kv_bytes / 1e9:.2f} GB of KV at 8115 live positions = {bound_ms:.2f} ms, "
+          f"{16e3 / bound_ms:.0f} tok/s at 16 rows")
+    tokens = run.tokens
+    run = run._replace(res=None)
+    del res
+
+    pargs = serve.build_parser().parse_args(SERVE_FLAGS + MOE_FLAGS
+                                            + ["--profile", str(PROFILE_EVERY)])
+    pres = serve.serve(pargs, model, params)
+    for line in serve.telemetry_lines(pres):
+        print(f"[moe profile] {line}")
+    same = [r.out_tokens for r in pres.driver.submitted] == tokens
+    decode = [s for s in pres.profiler.samples if s.kind == "decode"]
+    top = max(max(s.measured_mfu, s.measured_mbu) for s in pres.profiler.samples)
+    med = statistics.median(s.seconds for s in decode)
+    active = balance._active_params(cfg)
+    print(f"[moe] measured decode (--profile {PROFILE_EVERY}, graphs): {len(decode)} samples, "
+          f"median {med * 1e3:.3f} ms, MBU "
+          f"{statistics.median(s.measured_mbu for s in decode):.4f} against the cost model's "
+          f"{2 * active / 1e9:.2f} GB of active weights ({active:.4e} active params); "
+          f"the {weight_bytes / 1e9:.2f} GB the dropping dispatch streams at that median: "
+          f"{weight_bytes / med / PEAK_BYTES_S:.4f} of {PEAK_BYTES_S / 1e12:.2f} TB/s; largest "
+          f"share {top:.4f}; tokens as the unprofiled run's: {same}")
+    if not same or top > MAX_SHARE:
+        raise AssertionError("[moe] the profiled run differs, or a measured share > "
+                             f"{MAX_SHARE}")
+    del pres
+    for graphs in (True, False):
+        profile_phase(model, params, "moe", MOE_FLAGS, warm_steps=4, graphs=graphs,
+                      n_steps=8 if graphs else 4, drain=False)
+    print(f"[moe] phase wall {time.perf_counter() - t_phase:.1f}s (load, layer check, serve "
+          "runs, profiles)")
+    return run
+
+
+def moe_layer_check(model, params) -> None:
+    """The first MoE layer of the loaded weights at full width, in float32,
+    at T = 16 (a decode batch: capacity 6 rows per expert) on random
+    inputs: its ``router_scores`` and ``moe_ffn`` on the card against the
+    CPU.  The expert ids must be equal, the output within
+    ``MOE_LAYER_TOL`` (TF32 off: full f32 products on both)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("[moe] TF32 matmuls are on: the float32 check needs them off")
+    cfg = model.cfg.with_overrides(dtype="float32")
+    keys = ("router", "we_gate", "we_up", "we_down", "ws_gate", "ws_up", "ws_down")
+    p_gpu = {k: params["moe_blocks"][k][0].float() for k in keys}
+    p_cpu = {k: v.cpu() for k, v in p_gpu.items()}
+    x = torch.randn(16, cfg.d_model, generator=torch.Generator().manual_seed(11))
+    (wg, ig), (wc, ic) = (moe_mod.router_scores(cfg, p["router"], t)
+                          for p, t in ((p_gpu, x.to(model.device)), (p_cpu, x)))
+    yg, yc = (moe_mod.moe_ffn(cfg, p, t) for p, t in ((p_gpu, x.to(model.device)), (p_cpu, x)))
+    _, (_, _, dropped) = moe_mod.dispatch(cfg, x, ic)
+    err = _max_err(yg.cpu(), yc)
+    print(f"[moe] layer check (moe_blocks[0], float32, T=16, capacity "
+          f"{moe_mod.capacity(cfg, 16)}): expert ids card == CPU {torch.equal(ig.cpu(), ic)}, "
+          f"router weights max diff {_max_err(wg.cpu(), wc):.2e}, output max |diff| {err:.2e} "
+          f"(tol {MOE_LAYER_TOL}, output max |y| {float(yc.abs().max()):.3f}), "
+          f"{int(dropped.sum())} of {dropped.numel()} assignments dropped")
+    if not (torch.equal(ig.cpu(), ic) and err <= MOE_LAYER_TOL):
+        raise AssertionError("[moe] the MoE layer differs between the card and the CPU")
+
+
+def moe_reference_check(dev) -> None:
+    """Reduced moonshot-v1-16b-a3b in float32, the same weights on the card
+    and on the CPU: engines async (the card's under CUDA graphs) and sync
+    at ``sub_batches`` 1 and 2, tokens and ``EngineStats`` equal."""
+    gpu, cpu, ((p_gpu, p_cpu),) = _reduced_pair(dev, arch="moonshot-v1-16b-a3b")
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(1, gpu.cfg.vocab, n).astype(np.int32)
+               for n in (5, 3, 11, 21, 4, 9, 30, 2)]
+    for async_mode in (True, False):
+        for n_sub in (1, 2):
+            runs = []
+            for m, p in ((gpu, p_gpu), (cpu, p_cpu)):
+                eng = Engine(m, p, n_slots=4, max_seq=64, async_mode=async_mode,
+                             sub_batches=n_sub)
+                reqs = [Request(uid=i, prompt=x, max_new_tokens=8)
+                        for i, x in enumerate(prompts)]
+                for r in reqs:
+                    eng.submit(r)
+                runs.append(([r.out_tokens for r in reqs], eng.run()))
+            (tg, sg), (tc, sc) = runs
+            print(f"moe reference check ({'async' if async_mode else 'sync'}, sub_batches "
+                  f"{n_sub}, float32, GPU kernels vs CPU plain): tokens equal {tg == tc}, "
+                  f"stats equal {sg == sc}; decode steps {sg.decode_steps}")
+            if not (tg == tc and sg == sc):
+                raise AssertionError("moe reference check: the card and the CPU differ")
+
+
 def ptxas_lines(name: str) -> list[str]:
     """One line per kernel of ``csrc/<name>.cu`` from its build log
     (``-Xptxas -v``): registers, shared memory, spills."""
@@ -1816,8 +1994,9 @@ def main() -> None:
     rows = [decode_phase(dev), prefill_phase(dev), prefill_chunk_phase(dev),
             prefill_phase(dev, "int8"), prefill_phase(dev, "fp8"), prefill_f32_phase(dev),
             paged_phase(dev), paged_phase(dev, "fp8"), paged_phase(dev, "int8"),
-            decode_phase(dev, draft=True), prefill_chunk_phase(dev, draft=True),
-            paged_phase(dev, bs=128), paged_phase(dev, "fp8", bs=128)]
+            decode_phase(dev, "decode_attention[draft]"), prefill_chunk_phase(dev, draft=True),
+            paged_phase(dev, bs=128), paged_phase(dev, "fp8", bs=128),
+            decode_phase(dev, "decode_attention[moe]"), prefill_phase(dev, moe=True)]
     for r in rows:
         dev_off = (f" (at a device q_offset {r['device_offset_ms']:.4f})"
                    if "device_offset_ms" in r else "")
@@ -1943,7 +2122,14 @@ def main() -> None:
         profile_phase(model, params, "paged-tiered", TIERED_FLAGS, warm_steps=60,
                       graphs=graphs)
         profile_phase(model, params, "dense-spec", SPEC_FLAGS, warm_steps=4, graphs=graphs)
-    del model, params
+    # free llama's weights and every engine (caches, graph pools) for moonshot
+    del model, params, run, sub
+    by_path = {p: r._replace(res=None) for p, r in by_path.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["moe"] = moe_phase(dev, by_name)
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     reference_check(dev)
     preemption_check(dev)
@@ -1954,6 +2140,7 @@ def main() -> None:
     migration_check(dev)
     cluster_reference_check(dev)
     sub_batch_check(dev)
+    moe_reference_check(dev)
     print(f"reduced checks: {time.perf_counter() - t0:.1f}s")
     for r in rows:
         r["launches_by_path"] = {p: run.launches.get(r["name"], 0)

@@ -1,17 +1,19 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
 Arch ids accept dashes, underscores or dots interchangeably.  Only the
-dense architectures the port serves so far are registered.
+architectures the port serves so far are registered: the dense llama and
+the MoE moonshot.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import DENSE, ModelConfig  # noqa: F401
+from repro_torch.configs.base import DENSE, MOE, ModelConfig  # noqa: F401
 
 # arch id -> module name under repro_torch.configs
 ARCHS: dict[str, str] = {
     "llama3.2-1b": "llama3_2_1b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
 }
 
 

@@ -1,8 +1,9 @@
-"""Model configuration (dense family).
+"""Model configuration (dense and MoE families).
 
-A copy of the fields of ``repro.configs.base.ModelConfig`` that the dense
-llama-family serving path reads; the other families' sub-configs arrive
-with their slices of the port.
+A copy of the fields of ``repro.configs.base.ModelConfig`` (and of its
+``MoEConfig``) that the dense llama-family and the MoE serving paths
+read; the other families' sub-configs arrive with their slices of the
+port.
 """
 from __future__ import annotations
 
@@ -11,6 +12,20 @@ from dataclasses import dataclass
 from typing import Any
 
 DENSE = "dense"        # llama-style decoder
+MOE = "moe"            # moonshot (GQA + MoE FFN)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0              # routed experts
+    top_k: int = 0
+    n_shared: int = 0               # shared (always-on) experts
+    d_expert: int = 0               # per-expert FFN hidden dim
+    router_aux_coef: float = 0.001  # load-balance aux loss
+    router_dtype: str = "float32"
+    capacity_factor: float = 1.25   # dropping MoE capacity (tests may raise)
+    score_func: str = "softmax"     # softmax | sigmoid (dsv3 uses sigmoid)
+    moe_layer_start: int = 0        # dense layers before MoE starts (dsv3: 3)
 
 
 @dataclass(frozen=True)
@@ -28,6 +43,7 @@ class ModelConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    moe: MoEConfig | None = None
     dtype: str = "bfloat16"
     kv_quant: bool = False             # int8 KV cache: not ported yet
 

@@ -1,15 +1,15 @@
 """Reduced (smoke-test scale) variants of the registered architectures:
-same family and topology, tiny dims (the dense branch of
+same family and topology, tiny dims (the dense and MoE branches of
 ``repro.configs.reduced.reduce_config``)."""
 from __future__ import annotations
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, MoEConfig
 
 
 def reduce_config(arch: str, vocab: int = 512) -> ModelConfig:
     cfg = get_config(arch)
-    return cfg.with_overrides(
+    kw = dict(
         n_layers=2,
         d_model=64,
         n_heads=4,
@@ -18,3 +18,15 @@ def reduce_config(arch: str, vocab: int = 512) -> ModelConfig:
         vocab=vocab,
         head_dim=16,
     )
+    if cfg.moe is not None:
+        kw["moe"] = MoEConfig(
+            n_experts=8,
+            top_k=2,
+            n_shared=cfg.moe.n_shared and 1,
+            d_expert=32,
+            score_func=cfg.moe.score_func,
+            moe_layer_start=1,
+            capacity_factor=2.0,
+        )
+        kw["n_layers"] = 3
+    return cfg.with_overrides(**kw)

@@ -2,38 +2,45 @@
 
 The part of ``repro.core.balance`` that the serving telemetry's cost
 model reads: :func:`_active_params` and :func:`kv_bytes_per_seq`, for the
-dense family (the only family the port has).  The MLA, MoE, RWKV and
-Zamba branches come with those families (ROADMAP queue 1 item 7) and
-raise until then.  ``plan``, which picks a KV placement policy and a
+dense and MoE families (those the port has).  The MLA, RWKV and Zamba
+branches come with those families (ROADMAP queue 1 item 7) and raise
+until then.  ``plan``, which picks a KV placement policy and a
 sub-batch count from a mesh, needs ``placement.kv_rules`` / ``lanes``
 and ``resolve_spec`` and waits for multi-device placement (queue 1 item
 9).
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, MOE, ModelConfig
 from repro_torch.core.oi import BYTES_PER_EL
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != DENSE:
+def _ported(cfg: ModelConfig) -> None:
+    if cfg.family not in (DENSE, MOE):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP.md queue 1 item 7")
 
 
 def _active_params(cfg: ModelConfig) -> float:
     """Per-token active linear params: attention projections and the
-    gated FFN per layer, plus embedding and unembedding."""
-    _dense_only(cfg)
+    gated FFN per layer (an MoE layer counts its top-k and shared experts
+    only), plus embedding and unembedding."""
+    _ported(cfg)
     D, F, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab
     Dh = cfg.resolved_head_dim()
     attn = D * (cfg.n_heads + 2 * cfg.n_kv_heads) * Dh + cfg.n_heads * Dh * D
-    ffn = 3 * D * F
+    if cfg.moe is not None:
+        m = cfg.moe
+        ffn_moe = 3 * D * m.d_expert * (m.top_k + m.n_shared)
+        Lm = L - m.moe_layer_start
+        ffn = (m.moe_layer_start * 3 * D * F + Lm * ffn_moe) / L
+    else:
+        ffn = 3 * D * F
     return L * (attn + ffn) + 2 * V * D
 
 
 def kv_bytes_per_seq(cfg: ModelConfig, seq: int) -> float:
     """K and V bytes of ``seq`` positions over all layers, at
     ``BYTES_PER_EL`` (2) bytes an element whatever the cache stores."""
-    _dense_only(cfg)
+    _ported(cfg)
     return 2 * cfg.n_layers * seq * cfg.n_kv_heads * cfg.resolved_head_dim() * BYTES_PER_EL

@@ -18,7 +18,12 @@
       --role-map 1p+1d --requests 64 --slots 16 --max-seq 1024 --max-new 64 \
       --cache paged --schedule hybrid --blocks 385
 
-Counterpart of ``repro.launch.serve`` for the dense per-slot KV cache
+  python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \\
+      --requests 64 --slots 16 --max-seq 1024 --max-new 64
+
+Counterpart of ``repro.launch.serve`` for the dense llama family and the
+MoE family (``--arch moonshot-v1-16b-a3b``: dense cache, decode-only, as
+the reference serves it), for the dense per-slot KV cache
 and the paged block pool (``--cache``, ``--block-size``, ``--blocks``),
 tiered KV on the pool (``--kv-dtype fp8|int8`` stores it quantized,
 ``--host-blocks`` adds the host tier that cold blocks spill to), the

@@ -26,7 +26,7 @@ def param_dtype(cfg) -> torch.dtype:
 class ParamDef:
     shape: tuple[int, ...]
     logical: tuple[str | None, ...]
-    init: str = "normal"        # normal | zeros | embed
+    init: str = "normal"        # normal | zeros | ones | small | embed
     scale: float | None = None  # override fan-in scale
 
     def __post_init__(self):
@@ -35,9 +35,11 @@ class ParamDef:
 
 def _std(defn: ParamDef) -> float:
     """The reference's distribution (``repro.models.common._sample``):
-    fan-in scaled normal, 0.02 for ``embed``."""
+    fan-in scaled normal, 0.02 for ``embed``, 1e-4 for ``small``."""
     if defn.init == "embed":
         return 0.02
+    if defn.init == "small":
+        return 1e-4
     fan_in = defn.shape[-2] if len(defn.shape) >= 2 else defn.shape[-1]
     return defn.scale if defn.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
 
@@ -51,6 +53,25 @@ def _leaves(tree: Pytree, prefix: tuple = ()):
         yield from _leaves(tree[key], prefix + (key,))
 
 
+# a leaf of more elements is drawn one leading-axis slab at a time
+SLAB_ELEMENTS = 1 << 30
+
+
+def _normal(shape: tuple[int, ...], std: float, generator: torch.Generator,
+            dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """An f32 normal draw times ``std``, cast to ``dtype``.  A leaf above
+    ``SLAB_ELEMENTS`` (an MoE expert stack: 8.7e9 elements at
+    moonshot-v1-16b-a3b's width) is drawn slab by slab into the ``dtype``
+    destination, so the f32 transient is one slab and not the leaf."""
+    if math.prod(shape) <= SLAB_ELEMENTS or len(shape) < 2:
+        return torch.randn(shape, generator=generator, device=device,
+                           dtype=torch.float32).mul_(std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for slab in out:
+        slab.copy_(_normal(tuple(slab.shape), std, generator, dtype, device))
+    return out
+
+
 def init_params(tree: Pytree, generator: torch.Generator, dtype: torch.dtype,
                 device: torch.device) -> Pytree:
     """Sample every ParamDef leaf from ``generator`` (a seeded
@@ -62,11 +83,11 @@ def init_params(tree: Pytree, generator: torch.Generator, dtype: torch.dtype,
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        if defn.init == "zeros":
-            val = torch.zeros(defn.shape, dtype=dtype, device=device)
+        if defn.init in ("zeros", "ones"):
+            fill = torch.zeros if defn.init == "zeros" else torch.ones
+            val = fill(defn.shape, dtype=dtype, device=device)
         else:
-            val = torch.randn(defn.shape, generator=generator, device=device,
-                              dtype=torch.float32).mul_(_std(defn)).to(dtype)
+            val = _normal(defn.shape, _std(defn), generator, dtype, device)
         node[path[-1]] = val
     return out
 

@@ -1,7 +1,8 @@
 """Model API: ``build_model(cfg, device)`` -> :class:`Model`.
 
-Counterpart of ``repro.models.registry`` for the dense family.  A Model
-binds a config and a device to the family's step functions.  The device
+Counterpart of ``repro.models.registry`` for the dense and MoE families.
+A Model binds a config and a device to the family's step functions; the
+steps a family does not define are None.  The device
 is CUDA unless the caller asks for another (``device="cpu"``); with no
 GPU and no explicit device, :func:`build_model` raises.
 """
@@ -13,7 +14,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, MOE, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
 
@@ -29,25 +30,27 @@ class Model:
     prefill: Callable[..., tuple[torch.Tensor, Pytree]]
     # decode_step(params, cache, tokens (B,)) -> (logits (B, V), cache)
     decode_step: Callable[..., tuple[torch.Tensor, Pytree]]
-    # decode_sample_step(params, cache, tokens, generator, eos_ids, *, sampler)
-    #   -> (tokens' (B,), eos_hit (B,), cache)
-    decode_sample_step: Callable[..., tuple[torch.Tensor, torch.Tensor, Pytree]]
     cache_defs: Callable[[int, int], Pytree]
     init_cache: Callable[..., Pytree]
+    # The steps below are None for a family without them (the MoE family
+    # has none), as in the reference.
+    # decode_sample_step(params, cache, tokens, generator, eos_ids, *, sampler)
+    #   -> (tokens' (B,), eos_hit (B,), cache)
+    decode_sample_step: Callable[..., tuple[torch.Tensor, ...]] | None = None
     # chunked prefill: prefill_step(params, cache, tokens (1, C), slot,
     #   q_offset, n_valid) -> (logits (1, V), cache), slot/q_offset/n_valid
     #   (1,) int32 device tensors or host ints; prefill_sample_step(...,
     #   n_valid, generator, *, sampler)
     #   -> (token (1,), cache)
-    prefill_step: Callable[..., tuple[torch.Tensor, Pytree]]
-    prefill_sample_step: Callable[..., tuple[torch.Tensor, Pytree]]
+    prefill_step: Callable[..., tuple[torch.Tensor, Pytree]] | None = None
+    prefill_sample_step: Callable[..., tuple[torch.Tensor, Pytree]] | None = None
     # paged pool: (n_slots, n_blocks, block_size, max_blocks, *, kv_dtype,
     # host_blocks) -> cache; paged_decode_step / paged_decode_sample_step
     # as decode_step / decode_sample_step, against the pool
-    paged_cache_defs: Callable[..., Pytree]
-    init_paged_cache: Callable[..., Pytree]
-    paged_decode_step: Callable[..., tuple[torch.Tensor, Pytree]]
-    paged_decode_sample_step: Callable[..., tuple[torch.Tensor, torch.Tensor, Pytree]]
+    paged_cache_defs: Callable[..., Pytree] | None = None
+    init_paged_cache: Callable[..., Pytree] | None = None
+    paged_decode_step: Callable[..., tuple[torch.Tensor, Pytree]] | None = None
+    paged_decode_sample_step: Callable[..., tuple[torch.Tensor, ...]] | None = None
     # speculative verify: verify_step(params, cache, tokens (B, T)) ->
     #   (logits (B, T, V), cache), lengths returned unchanged;
     #   paged_verify_step the same against the pool
@@ -63,29 +66,33 @@ class Model:
         return cm.count_params(self.param_defs)
 
 
+# the steps a family may lack; a family opts in by defining them
+OPTIONAL_STEPS = ("decode_sample_step", "prefill_step", "prefill_sample_step",
+                  "paged_cache_defs", "paged_decode_step", "paged_decode_sample_step",
+                  "verify_step", "paged_verify_step")
+
+
 def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> Model:
     dev = resolve_device(device)
-    if cfg.family != DENSE:
+    if cfg.family == DENSE:
+        from repro_torch.models import dense as fam
+    elif cfg.family == MOE:
+        from repro_torch.models import moe as fam
+    else:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.kv_quant:
         raise NotImplementedError("kv_quant (int8 dense KV cache) is not ported yet")
-    from repro_torch.models import dense as fam
-
+    optional = {name: functools.partial(getattr(fam, name), cfg)
+                for name in OPTIONAL_STEPS if hasattr(fam, name)}
+    if hasattr(fam, "init_paged_cache"):
+        optional["init_paged_cache"] = functools.partial(fam.init_paged_cache, cfg, device=dev)
     return Model(
         cfg=cfg,
         device=dev,
         param_defs=fam.param_defs(cfg),
         prefill=functools.partial(fam.prefill, cfg),
         decode_step=functools.partial(fam.decode_step, cfg),
-        decode_sample_step=functools.partial(fam.decode_sample_step, cfg),
         cache_defs=functools.partial(fam.cache_defs, cfg),
         init_cache=functools.partial(fam.init_cache, cfg, device=dev),
-        prefill_step=functools.partial(fam.prefill_step, cfg),
-        prefill_sample_step=functools.partial(fam.prefill_sample_step, cfg),
-        paged_cache_defs=functools.partial(fam.paged_cache_defs, cfg),
-        init_paged_cache=functools.partial(fam.init_paged_cache, cfg, device=dev),
-        paged_decode_step=functools.partial(fam.paged_decode_step, cfg),
-        paged_decode_sample_step=functools.partial(fam.paged_decode_sample_step, cfg),
-        verify_step=functools.partial(fam.verify_step, cfg),
-        paged_verify_step=functools.partial(fam.paged_verify_step, cfg),
+        **optional,
     )

@@ -7,7 +7,11 @@ Counterpart of ``repro.serving.engine`` for ``cache_kind`` in {"dense",
 or without speculative decoding, traced and profiled or not, as a
 replica of a :class:`~repro_torch.serving.cluster.Cluster` (router hooks,
 KV block migration, refold moves) or alone, and on the dense
-decode-only schedule with sub-batch pipelining (``sub_batches``).
+decode-only schedule with sub-batch pipelining (``sub_batches``).  A
+family whose :class:`Model` lacks a step (the MoE family has no paged
+decode, chunked prefill, verify or fused sampled step) is refused the
+paths that need it with the reference's exceptions, and its decode is
+sampled through :meth:`Engine._wrap_sampled`.
 
 Slot-based continuous batching (Orca-style): a fixed decode batch of
 ``n_slots`` sequences; a finished sequence frees its slot and the next
@@ -342,11 +346,16 @@ class Engine:
         if cache_kind != "paged" and (kv_dtype != "bf16" or host_blocks):
             raise ValueError("kv_dtype / host_blocks are paged-cache features "
                              f"(cache_kind={cache_kind!r})")
+        if cache_kind == "paged" and model.paged_decode_step is None:
+            raise ValueError(f"{model.cfg.family} has no paged decode path")
         if cache_kind == "paged" and sub_batches != 1:
             raise NotImplementedError(
                 "paged cache does not compose with sub-batch pipelining yet")
         if cache_kind not in ("dense", "paged"):
             raise ValueError(f"unknown cache_kind {cache_kind!r}")
+        if schedule == "hybrid" and model.prefill_step is None:
+            raise ValueError(f"{model.cfg.family} has no prefill_step: hybrid scheduling "
+                             "needs the chunked-prefill model entry point")
         if schedule == "hybrid" and sub_batches != 1:
             raise NotImplementedError(
                 "hybrid schedule does not compose with sub-batch pipelining yet")
@@ -414,6 +423,8 @@ class Engine:
                            if self.device.type == "cuda" else None)
                 self._decode = pipelined_step(model.decode_step, sub_batches, streams)
                 self._decode_sampled = self._wrap_sampled(self._decode)
+        if self._decode_sampled is None:        # a family without a fused sampled step
+            self._decode_sampled = self._wrap_sampled(self._decode)
         self._pending: deque[_PendingStep] = deque()
         self._first_pending: list[tuple[Request, _Fetch]] = []
         if async_mode:
@@ -451,7 +462,7 @@ class Engine:
     @staticmethod
     def _wrap_sampled(base_step):
         """Fuse on-device sampling onto a logits step (the sub-batch
-        pipelined step has no sampled form of its own)."""
+        pipelined step, and a family's step without a sampled form)."""
 
         def sampled(params, cache, tokens, generator, eos_ids, *, sampler):
             logits, cache = base_step(params, cache, tokens)

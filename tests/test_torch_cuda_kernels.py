@@ -28,6 +28,7 @@ DECODE_CASES = [
     (2, 96, 2, 7, 16),
     (1, 33, 1, 2, 128),
     (16, 1024, 8, 4, 64),        # llama3.2-1b decode at 16 slots
+    (16, 1024, 16, 1, 128),      # moonshot-v1-16b-a3b decode at 16 slots: G 1, D 128
 ]
 PAGED_CASES = [
     # (B, Hkv, G, D, block_size, max_blocks, lengths) — tests/test_paged.py's
@@ -48,6 +49,8 @@ PREFILL_CASES = [
     (1, 32, 32, 4, 1, 64, False),
     (2, 48, 48, 2, 3, 16, True),
     (1, 100, 100, 1, 2, 128, True),
+    (1, 509, 509, 16, 1, 128, True),     # moonshot-v1-16b-a3b's whole prompt
+    (1, 600, 600, 16, 1, 128, False),
 ]
 
 
@@ -352,7 +355,7 @@ def _split_lengths(S: int, split: int) -> list[int]:
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,Hkv,G,D", [(8, 1024, 8, 4, 64), (8, 512, 1, 2, 128),
-                                         (8, 300, 2, 8, 16)])
+                                         (8, 300, 2, 8, 16), (8, 1024, 16, 1, 128)])
 def test_decode_kernel_split_boundaries(cuda, B, S, Hkv, G, D, dtype):
     """Lengths at, one below and one above a span boundary of the split
     the wrapper plans, with 0, 1, S and past S in the same batch."""

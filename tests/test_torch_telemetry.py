@@ -228,8 +228,15 @@ def test_cost_model_matches_reference(which):
     cm, jcm = tel.DispatchCostModel(cfg), jtel.DispatchCostModel(jcfg)
     assert cm.cost(4, 900, 32, 6656) == jcm.cost(4, 900, 32, 6656)
     assert cm.chunk_ctx_tokens(192, 32) == jcm.chunk_ctx_tokens(192, 32)
+    # the MoE family counts its top-k and shared experts, as the reference
+    moe, jmoe = ((reduce_config("moonshot-v1-16b-a3b"), jreduce_config("moonshot-v1-16b-a3b"))
+                 if which == "reduced" else
+                 (get_config("moonshot-v1-16b-a3b"), jget_config("moonshot-v1-16b-a3b")))
+    assert balance._active_params(moe) == jbalance._active_params(jmoe)
+    assert roofline.dispatch_flops_bytes(moe, 16, 8115) == \
+        jroofline.dispatch_flops_bytes(jmoe, 16, 8115)
     with pytest.raises(NotImplementedError, match="item 7"):
-        balance._active_params(cfg.with_overrides(family="moe"))
+        balance._active_params(cfg.with_overrides(family="rwkv6"))
 
 
 def test_roofline_helpers_match_reference():
