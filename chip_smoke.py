@@ -16,7 +16,8 @@
    dequantization too; never used by the port) and the least time the
    card could take.  Every prefill case also runs with ``q_offset`` as a
    ``(1,)`` int32 device tensor (what a captured graph passes), which must
-   give the int form's bits; the chunk rows are timed in that form too.  Fifteen rows: decode (split across CTAs, partials
+   give the int form's bits; the chunk rows are timed in that form too.
+   Twenty-nine rows: decode (split across CTAs, partials
    merged by a second kernel); prefill unscaled at a whole prompt and at
    the hybrid chunk shape (32 queries at q_offset 192 against the
    1024-position staging stripe, after the chunk edge cases), int8 and
@@ -25,7 +26,11 @@
    the decode); the speculative draft's decode and prefill chunk at its
    own heads (Hkv 2, G 2, D 16); paged bf16 and fp8 pools at block size
    128; decode and whole-prompt prefill at moonshot-v1-16b-a3b's heads
-   (Hq = Hkv = 16, G 1, D 128).  The paged variants are also checked with f32 queries,
+   (Hq = Hkv = 16, G 1, D 128); and at the heads of minicpm-2b (G 1, D 64,
+   Hkv 36), llama3.2-3b (G 3), yi-34b (G 7) and internvl2-76b (G 8, the
+   kernels' limit; all three D 128, Hkv 8): decode and whole-prompt
+   prefill, and for the first three the chunk and paged rows of their
+   paged-hybrid paths.  The paged variants are also checked with f32 queries,
    with a ``starts`` window + lse, with NaN in null block 0 and past each
    row's length (never read: equal to the plain version on zeros there)
    and with every window empty (the cold launch of a step with nothing
@@ -110,8 +115,27 @@
    ``--profile 8`` run's measured decode MBU beside the bytes the
    dropping dispatch really streams, and profiles with graphs and eagerly
    (see 5).
+   Before moonshot, dense-kvq: path a on llama3.2-1b's weights with the
+   dense cache's int8 ``kv_quant`` form (async; launches as a's; every
+   first token equal to a's; the cache under 0.65x of bf16's; the share of
+   tokens equal to a's beside a yardstick: one decode step from one
+   prefilled state on the bf16 cache moved one ulp, and on the int8 cache;
+   the dequantize's device time per layer; a graph profile).  Then the
+   rest of the dense registry, one family per phase on a card freed of the
+   one before (at most 0.1 GB allocated before each full-width load,
+   moonshot's too, with the blocks still held by size): minicpm-2b,
+   llama3.2-3b and yi-34b at full width and depth (dense and paged-hybrid;
+   yi-34b's also sync, and its dense eagerly) and internvl2-76b
+   at full width and 16 of its 80 layers (dense; prefilling 256
+   ``embeds`` rows ``embed[u]`` before a prompt equals prefilling ``u``
+   with it, bit for bit); each path's step clock against the CPU's
+   prediction, its launches per kernel row at its heads, tok/s against
+   the bound; float32 at full width cut to 2 layers on the card against
+   the CPU for minicpm-2b and yi-34b; and a graph profile of each dense
+   path.
 5. Profiles (torch.profiler) of steady async steps on paths a, b, c and
-   e, with graphs and eagerly, for where the time goes: wall and device
+   e, with graphs (eagerly only moonshot's, to keep the script inside its
+   time), for where the time goes: wall and device
    busy ms per step, device ops per step, host launches per step (graph
    launches and kernel launches apart) and every port kernel's time and
    launches per step (the split kernels and the combine kernel apart); on path c
@@ -161,6 +185,9 @@
 15. A MoE check: reduced moonshot-v1-16b-a3b in float32, engines on the
    card (graphs) and on the CPU, async and sync, one decode batch and two
    sub-batches: tokens and ``EngineStats`` equal.
+16. The same for reduced minicpm-2b (G 1) on the dense cache and on the
+   paged pool with the hybrid schedule, and for reduced llama3.2-1b with
+   ``kv_quant`` at one and two sub-batches.
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object with one entry per kernel; the last is
@@ -168,6 +195,7 @@ object with one entry per kernel; the last is
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -189,6 +217,7 @@ from torch.autograd import DeviceType
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.reduced import reduce_config  # noqa: E402
 from repro_torch.core import balance  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -198,11 +227,13 @@ from repro_torch.kernels import paged_decode_attention as kpaged  # noqa: E402
 from repro_torch.kernels import prefill_attention as kpre  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import dense as dense_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving.cluster import Cluster  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.serving.paged import device as pdev  # noqa: E402
+from repro_torch.serving import kv_cache, programs  # noqa: E402
 from repro_torch.serving.programs import Program  # noqa: E402
 from repro_torch.serving.sampler import SamplerConfig, sample_on_device  # noqa: E402
 from repro_torch.serving.telemetry import build_request_trees, validate_trace  # noqa: E402
@@ -241,6 +272,7 @@ DISAGG_FLAGS = CLUSTER_FLAGS + ["--role-map", "1p+1d"] + PAGED_FLAGS
 DISAGG_TIERED_FLAGS = CLUSTER_FLAGS + ["--role-map", "1p+1d"] + TIERED_FLAGS
 SUB_BATCH_FLAGS = ["--sub-batches", "2"]
 TOKEN_FLOOR = 0.6         # the tiered criterion: every first token equal, >= 60% of all
+KVQ_BYTES = 0.65          # the int8 dense cache against bf16's (tests/test_models.py)
 PROFILE_EVERY = 8
 MAX_SHARE = 1.05          # a measured MFU or MBU above this is a fault, not a reading
 SPEC_DEPTH = 2
@@ -253,7 +285,18 @@ LENGTHS = [1, 1024, 1033, 2, 37, 100, 255, 256, 257, 511, 512, 513, 700, 900, 10
 # dense decode kernel rows -> (B, S, Hkv, G, D)
 DECODE_SHAPES = {"decode_attention": (16, 1024, 8, 4, 64),          # llama3.2-1b
                  "decode_attention[draft]": (16, 1024, 2, 2, 16),   # its reduced draft
-                 "decode_attention[moe]": (16, 1024, 16, 1, 128)}   # moonshot-v1-16b-a3b
+                 "decode_attention[moe]": (16, 1024, 16, 1, 128),   # moonshot-v1-16b-a3b
+                 "decode_attention[minicpm]": (16, 1024, 36, 1, 64),
+                 "decode_attention[llama3b]": (16, 1024, 8, 3, 128),
+                 "decode_attention[yi]": (16, 1024, 8, 7, 128),
+                 "decode_attention[internvl]": (16, 1024, 8, 8, 128)}
+# attention heads (Hq, Hkv, D) of the full-width families beside llama3.2-1b,
+# by the tag their kernel rows carry
+HEADS = {"moe": (16, 16, 128),            # moonshot-v1-16b-a3b
+         "minicpm": (36, 36, 64),         # minicpm-2b: G 1, the paper's regime
+         "llama3b": (24, 8, 128),         # llama3.2-3b: G 3
+         "yi": (56, 8, 128),              # yi-34b: G 7
+         "internvl": (64, 8, 128)}        # internvl2-76b's backbone: G 8, the kernels' MAX_G
 # the MoE path: moonshot-v1-16b-a3b at full width on the dense cache
 MOE_FLAGS = ["--arch", "moonshot-v1-16b-a3b"]
 MOE_PARAMS = 28386592768
@@ -261,6 +304,42 @@ MOE_PARAMS = 28386592768
 # predicts it on the CPU (the reduced model at the full vocabulary)
 MOE_CLOCK = {"prefills": 64, "decode_steps": 252, "engine_steps": 841, "generated": 4096}
 MOE_LAYER_TOL = 1e-4      # one MoE layer in float32, card vs CPU: f32 sums in other orders
+# the rest of the dense registry at full width: arch -> the tag of its kernel rows
+WIDE_TAGS = {"minicpm-2b": "minicpm", "llama3.2-3b": "llama3b", "yi-34b": "yi",
+             "internvl2-76b": "internvl"}
+# internvl2-76b's 80 layers (141 GB of bf16 weights) cut to 16, which one card holds
+INTERNVL_LAYERS = 16
+# parameters at the depth run (internvl2-76b at INTERNVL_LAYERS)
+WIDE_PARAMS = {"minicpm-2b": 2725173504, "llama3.2-3b": 3212749824, "yi-34b": 34388917248,
+               "internvl2-76b": 15791824896}
+# step clocks as `scripts/torch_step_clock.py --arch <id> [PAGED_FLAGS]` predicts them
+# on the CPU (the reduced model at the full vocabulary: the vocabulary, not the
+# model, sets the random workload's prompt lengths, since a token draw's
+# rejection sampling depends on it)
+_DENSE_CLOCK = {"prefills": 64, "decode_steps": 252, "generated": 4096}
+WIDE_CLOCK = {("minicpm-2b", "dense"): {**_DENSE_CLOCK, "engine_steps": 841},
+              ("llama3.2-3b", "dense"): {**_DENSE_CLOCK, "engine_steps": 880},
+              ("yi-34b", "dense"): {**_DENSE_CLOCK, "engine_steps": 858},
+              ("internvl2-76b", "dense"): {**_DENSE_CLOCK, "engine_steps": 880},
+              ("minicpm-2b", "paged-hybrid"): {
+                  **_DENSE_CLOCK, "prefill_chunks": 603, "decode_steps": 610,
+                  "engine_steps": 624, "preemptions": 0},
+              ("llama3.2-3b", "paged-hybrid"): {
+                  **_DENSE_CLOCK, "prefill_chunks": 643, "decode_steps": 649,
+                  "engine_steps": 663, "preemptions": 0},
+              ("yi-34b", "paged-hybrid"): {
+                  **_DENSE_CLOCK, "prefill_chunks": 619, "decode_steps": 629,
+                  "engine_steps": 643, "preemptions": 0}}
+# the family whose paths also run synchronously, and its dense path eagerly
+# (tokens equal to the async graph run's); the other new paths run async
+# only, to keep the script inside its time
+REPEAT_ARCHS = ("yi-34b",)
+# float32 at full width, cut to 2 layers, card vs CPU (TF32 off): the logits of
+# a prefill (f32 sums in other orders through two layers and the unembedding)
+# and of a decode step (the plain decode also rounds p to the bf16 cache's
+# dtype before P.V, the kernel does not: as reference_check's 5e-2)
+F32_WIDE = {"prefill": 1e-3, "decode": 5e-2}
+MEM_FREED = 0.1e9         # bytes a freed card may hold before a full-width load
 
 
 def _time_ms(fns, iters: int = 30) -> float:
@@ -402,13 +481,13 @@ def _same_at_tensor_offset(out, q, k, v, off: int, ks=None, vs=None) -> None:
                              f"{_max_err(got, out)}")
 
 
-def prefill_phase(dev, kv: str | None = None, moe: bool = False) -> dict:
+def prefill_phase(dev, kv: str | None = None, tag: str | None = None) -> dict:
     """llama3.2-1b prefill attention (Hq 32, Hkv 8, D 64, bf16 queries, B 1)
     at odd prompt lengths, q_offset 0 (the main path) and 17; ``kv``:
     int8/fp8 K/V with (B, Sk, Hkv) f32 scales (the scaled variant);
-    ``moe``: at moonshot-v1-16b-a3b's heads (Hq = Hkv = 16, D 128)."""
-    Hq, Hkv, D = (16, 16, 128) if moe else (32, 8, 64)
-    name = "prefill_attention[moe]" if moe else _row_name("prefill_attention", kv)
+    ``tag``: at another family's heads (:data:`HEADS`)."""
+    Hq, Hkv, D = HEADS[tag] if tag else (32, 8, 64)
+    name = f"prefill_attention[{tag}]" if tag else _row_name("prefill_attention", kv)
     gen = torch.Generator(device=dev).manual_seed(2)
     cases, timed = [], None
     for sq, off in ((37, 0), (37, 17), (509, 17), (509, 0)):
@@ -462,18 +541,21 @@ def prefill_phase(dev, kv: str | None = None, moe: bool = False) -> dict:
     }
 
 
-def prefill_chunk_phase(dev, draft: bool = False) -> dict:
+def prefill_chunk_phase(dev, tag: str | None = None) -> dict:
     """llama3.2-1b prefill attention at the hybrid schedule's chunk shape
     (``--prefill-chunk 32``): 32 bf16 queries at q_offset 192 against the
     1024-position staging stripe (B 1, Hq 32, Hkv 8, D 64, causal), after
     the chunk's edge cases Sq in {1, 5, 32} x q_offset in {0, 17, 192,
-    991}.  ``draft``: the same at the ``--spec-depth`` draft's heads (Hq
-    4, Hkv 2, D 16), whose cache is prefilled in such chunks against its
-    1024-position stripe.  Yardstick: one SDPA call over ``k[:, :q_offset
+    991}.  ``tag`` "draft": the same at the ``--spec-depth`` draft's heads
+    (Hq 4, Hkv 2, D 16), whose cache is prefilled in such chunks against
+    its 1024-position stripe; another ``tag``: at that family's heads
+    (:data:`HEADS`), the paged-hybrid path's chunk.  Yardstick: one SDPA call over ``k[:, :q_offset
     + Sq]`` with a lower-right causal mask.  The bound counts the keys the
     chunk sees."""
-    Hq, Hkv, D, S = (4, 2, 16, 1024) if draft else (32, 8, 64, 1024)
-    name = "prefill_attention[draft-chunk]" if draft else "prefill_attention[chunk]"
+    draft = tag == "draft"
+    Hq, Hkv, D = (4, 2, 16) if draft else HEADS[tag] if tag else (32, 8, 64)
+    S = 1024
+    name = f"prefill_attention[{tag}-chunk]" if tag else "prefill_attention[chunk]"
     sq, off = CHUNK_SQ, CHUNK_OFFSET
     gen = torch.Generator(device=dev).manual_seed(3)
     n_copies = max(1, math.ceil(2 * L2_BYTES / (2 * S * Hkv * D * 2)))
@@ -603,18 +685,19 @@ def _poison(pool, spool, tables, lengths, bs: int, nan: bool):
     return pool, spool
 
 
-def paged_phase(dev, kv: str | None = None, bs: int = 16) -> dict:
+def paged_phase(dev, kv: str | None = None, bs: int = 16, tag: str | None = None) -> dict:
     """llama3.2-1b paged decode attention at the serve shapes: 16 slots,
     block 16, 64 blocks per row, a pool of 1025 blocks, bf16 queries; the
     decode row's ragged lengths (clamped to 1024 by the kernel), a
     scrambled table and garbage in null block 0 (of the scale pools too).
     ``kv``: an fp8/int8 pool with its f32 scale pools.  ``bs``: another
     block size over the same 1024 positions (``--block-size 128``: 8
-    blocks per row)."""
-    B, Hkv, G, D, MB = 16, 8, 4, 64, 1024 // bs
+    blocks per row).  ``tag``: at another family's heads (:data:`HEADS`)."""
+    Hq, Hkv, D = HEADS[tag] if tag else (32, 8, 64)
+    B, G, MB = 16, Hq // Hkv, 1024 // bs
     N = B * MB + 1
     name = _row_name("paged_decode_attention", ",".join(
-        x for x in (kv, None if bs == 16 else f"bs{bs}") if x) or None)
+        x for x in (tag, kv, None if bs == 16 else f"bs{bs}") if x) or None)
     gen = torch.Generator(device=dev).manual_seed(5)
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
     perm = torch.randperm(N - 1, generator=torch.Generator().manual_seed(5)) + 1
@@ -776,7 +859,8 @@ def graph_summary(eng) -> str:
 def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[str, dict],
                 tiered: bool = False, base: PathRun | None = None,
                 draft=None, min_accept: float = 0.0, eager: bool = False,
-                open_loop: bool = False, preempt_ok: bool = False) -> PathRun:
+                open_loop: bool = False, preempt_ok: bool = False,
+                sync: bool = True) -> PathRun:
     """One path through the serve entry point, every dispatch kind one
     CUDA graph: a short warm-up, the async
     run with every launch counter zeroed before it and read after it,
@@ -799,7 +883,8 @@ def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[st
     modes began a request's prefills at the same positions (a prefix read
     from the quantized pool is not bit-equal to one recomputed, and the
     modes' hits differ with their timing): such a path runs traced.
-    ``preempt_ok``: a tiered path whose host tier fills may preempt."""
+    ``preempt_ok``: a tiered path whose host tier fills may preempt.
+    ``sync=False`` skips the sync run (the async run's checks stay)."""
     cfg = model.cfg
     t_phase = time.perf_counter()
     # traced for the prefill chunks' positions; the trace is not written
@@ -871,7 +956,13 @@ def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[st
         if not (same_eager and ops.shape_counts() == shapes
                 and ref_run.stats.engine_steps == st.engine_steps):
             raise AssertionError(f"[{label}] graph and eager runs differ")
+        del ref_run                 # its cache, before the sync run's
 
+    if not sync:
+        wall = time.perf_counter() - t_phase
+        print(f"[{label}] phase wall {wall:.1f}s (warm-up and async run"
+              f"{', eager' if eager else ''}; no sync run)")
+        return PathRun(per_row, st, [r.out_tokens for r in reqs], wall, res)
     sync_args = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--async", "off"])
     sync = serve.serve(sync_args, model, params, draft)
     for line in serve.report(sync_args, sync):
@@ -1300,10 +1391,11 @@ def tier_launches(eng, label: str) -> None:
           f"{host_ms(cold):.4f} ms; spills so far {eng.stats.spills}")
 
 
-def _reduced_pair(dev, seeds=(3,), arch: str = "llama3.2-1b"):
-    """Reduced ``arch`` in float32 on the GPU and on the CPU, with the
-    same weights for each seed: (gpu, cpu, [(gpu params, cpu params)])."""
-    cfg = reduce_config(arch).with_overrides(dtype="float32")
+def _reduced_pair(dev, seeds=(3,), arch: str = "llama3.2-1b", **overrides):
+    """Reduced ``arch`` in float32 (and ``overrides``) on the GPU and on the
+    CPU, with the same weights for each seed: (gpu, cpu, [(gpu params,
+    cpu params)])."""
+    cfg = reduce_config(arch).with_overrides(dtype="float32", **overrides)
     gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
     out = []
     for seed in seeds:
@@ -1835,7 +1927,7 @@ def moe_phase(dev, rows: dict[str, dict]) -> PathRun:
     ``torch.profiler`` with graphs and eagerly.  Returns the path's run
     without its engine."""
     t_phase = time.perf_counter()
-    before = torch.cuda.memory_allocated(dev)
+    before = freed_card(dev, "moe")
     torch.cuda.reset_peak_memory_stats(dev)
     args = serve.build_parser().parse_args(SERVE_FLAGS + MOE_FLAGS)
     t0 = time.perf_counter()
@@ -1903,6 +1995,200 @@ def moe_phase(dev, rows: dict[str, dict]) -> PathRun:
     return run
 
 
+def kvq_sensitivity(model, model_q, params) -> None:
+    """One full-width decode step from one prefilled state: the first 16
+    prompts of the serve workload, one per slot, prefilled into a bf16
+    cache (the dense path) and an int8 one (``kv_quant``: the same prefill
+    logits, bit for bit), then decoded from the bf16 cache, from that cache
+    with every K/V value moved one bf16 ulp up or down at random (the size
+    of a rounding difference), and from the int8 cache.  Prints each
+    step's argmax agreement with the bf16 step's and its max |logit diff|
+    over the max |logit|: the random-weight model amplifies any change of
+    its cache, so the int8 cache's agreement reads against the 1-ulp
+    yardstick's (the sub-batches path's 1-ulp GEMM differences move its
+    tokens off the dense path's alike)."""
+    dev, cfg = model.device, model.cfg
+    arrivals = build_workload("random", 16, vocab=cfg.vocab, max_seq=1024, max_new=64, seed=0)
+    bf16, int8 = model.init_cache(16, 1024), model_q.init_cache(16, 1024)
+    first, same_prefill = [], True
+    for i, a in enumerate(arrivals):
+        prompt = torch.as_tensor(a.prompt[None], device=dev)
+        lg, _ = model.prefill(params, prompt, kv_cache.slot_view(bf16, i))
+        lq, _ = model_q.prefill(params, prompt, kv_cache.slot_view(int8, i))
+        same_prefill &= torch.equal(lg, lq)
+        first.append(lg.argmax(-1))
+    tok = torch.cat(first).to(torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    moved = {k: v.clone() for k, v in bf16.items()}
+    for k in ("k", "v"):
+        step = torch.randint(0, 2, moved[k].shape, generator=gen, device=dev,
+                             dtype=torch.int16) * 2 - 1
+        step *= moved[k] != 0           # zeros (past the lengths) stay: -1 is a NaN's bits
+        moved[k] = (moved[k].view(torch.int16) + step).view(torch.bfloat16)
+    base, _ = model.decode_step(params, {k: v.clone() for k, v in bf16.items()}, tok)
+    out = {"1-ulp bf16 cache": model.decode_step(params, moved, tok)[0],
+           "int8 cache": model_q.decode_step(params, int8, tok)[0]}
+    scale = float(base.float().abs().max())
+    print(f"[dense-kvq] one decode step from the same prefilled state (16 prompts; prefill "
+          f"logits bf16 == int8 bit for bit: {same_prefill}), against the bf16 cache's: "
+          + "; ".join(f"{k}: argmax equal {int((v.argmax(-1) == base.argmax(-1)).sum())}/16, "
+                      f"max |logit diff| / max |logit| {_max_err(v, base) / scale:.4f}"
+                      for k, v in out.items()))
+    if not same_prefill:
+        raise AssertionError("[dense-kvq] the int8 cache's prefill logits differ from bf16's")
+
+
+def freed_card(dev, label: str) -> int:
+    """Free what the previous phase left and print what the card still
+    holds before ``label``'s full-width load: bytes allocated, and the
+    blocks of 1 MiB or more by size.  The cuBLAS workspaces (one of 32 MiB
+    per stream that ran a product) are released only when no captured
+    graph is alive (``programs.release_workspaces``), so an engine that
+    outlived its phase shows here.  Raises above ``MEM_FREED``."""
+    gc.collect()
+    released = programs.release_workspaces()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    blocks = collections.Counter(
+        b["size"] for seg in torch.cuda.memory_snapshot() for b in seg["blocks"]
+        if b["state"] == "active_allocated" and b["size"] >= 1 << 20)
+    print(f"[{label}] before the load: {held / 1e9:.3f} GB allocated; cuBLAS workspaces "
+          f"released {released} (captured graphs alive: {programs.live_graphs()}); blocks "
+          f"of 1 MiB or more still allocated (bytes: count) {dict(blocks) or 'none'}")
+    if held > MEM_FREED:
+        raise AssertionError(f"[{label}] {held / 1e9:.3f} GB still allocated before the load")
+    return held
+
+
+def wide_f32_check(dev, arch: str) -> None:
+    """``arch`` at full width cut to 2 layers, in float32 with TF32 off:
+    seed-0 weights drawn on the card and copied to the CPU; a 24-token
+    prefill and one decode step through the kernels on the card against
+    the plain versions on the CPU.  Argmax equal, and the logits within
+    ``F32_WIDE``."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"[{arch}] TF32 matmuls are on: the float32 check needs them off")
+    t0 = time.perf_counter()
+    cfg = get_config(arch).with_overrides(n_layers=2, dtype="float32")
+    gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
+    p_gpu = gpu.init(0)
+    p_cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+             for k, v in p_gpu.items()}
+    prompt = torch.randint(1, cfg.vocab, (1, 24), generator=torch.Generator().manual_seed(12))
+    caches = gpu.init_cache(1, 64), cpu.init_cache(1, 64)
+    lg, _ = gpu.prefill(p_gpu, prompt.to(dev), caches[0])
+    lc, _ = cpu.prefill(p_cpu, prompt, caches[1])
+    err = {"prefill": _max_err(lg.cpu(), lc)}
+    same = {"prefill": bool(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)))}
+    tok = lc.argmax(-1).to(torch.int32)
+    lg, _ = gpu.decode_step(p_gpu, caches[0], tok.to(dev))
+    lc, _ = cpu.decode_step(p_cpu, caches[1], tok)
+    err["decode"] = _max_err(lg.cpu(), lc)
+    same["decode"] = bool(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)))
+    print(f"[{WIDE_TAGS[arch]}] float32 check (full width, 2 layers, TF32 off, card vs CPU): "
+          f"argmax equal {same}, max |logit diff| prefill {err['prefill']:.3e} / decode "
+          f"{err['decode']:.3e} (tol {F32_WIDE}), max |logit| "
+          f"{float(lc[:, :cfg.vocab].abs().max()):.3f}; "
+          f"{time.perf_counter() - t0:.1f}s")
+    if not (all(same.values()) and all(err[k] <= F32_WIDE[k] for k in err)):
+        raise AssertionError(f"[{arch}] float32 card and CPU differ: {err}, {same}")
+
+
+def embeds_check(model, params) -> None:
+    """internvl2-76b's stub frontend on the card: 256 embeddings
+    ``E = embed[u]`` prepended to a 100-token prompt ``t`` must prefill
+    exactly as the tokens ``u + t`` do (logits and cache bit for bit), the
+    cache holding ``256 + len(t)`` positions."""
+    cfg, dev = model.cfg, model.device
+    gen = torch.Generator(device=dev).manual_seed(13)
+    u = torch.randint(1, cfg.vocab, (1, cfg.frontend_len), generator=gen, device=dev)
+    t = torch.randint(1, cfg.vocab, (1, 100), generator=gen, device=dev)
+    a_logits, a = model.prefill(params, t, model.init_cache(1, 1024),
+                                embeds=params["embed"][u.long()])
+    b_logits, b = model.prefill(params, torch.cat([u, t], 1), model.init_cache(1, 1024))
+    same = torch.equal(a_logits, b_logits) and all(torch.equal(a[k], b[k]) for k in a)
+    print(f"[internvl] embeds check: prefill(t, embeds=embed[u]) == prefill(u + t) bit for bit "
+          f"(logits and cache): {same}; lengths {a['lengths'].tolist()} == frontend_len "
+          f"{cfg.frontend_len} + len(t) {t.shape[1]}")
+    if not (same and a["lengths"].tolist() == [cfg.frontend_len + t.shape[1]]):
+        raise AssertionError("[internvl] the embeds prefill differs from the tokens'")
+
+
+def family_phase(dev, arch: str, rows: dict[str, dict]) -> dict[str, PathRun]:
+    """One more dense architecture at full width on a freed card (memory
+    before the load must be under ``MEM_FREED``): for minicpm-2b and
+    yi-34b first :func:`wide_f32_check`; seeded random bf16 weights
+    through the serve CLI's loader (internvl2-76b built at
+    ``INTERNVL_LAYERS`` layers), memory before, after and at peak; the
+    serve shape on the dense cache, decode-only, and (not internvl2-76b)
+    paged-hybrid, through :func:`serve_phase` (yi-34b's paths also
+    synchronously and its dense path eagerly: tokens equal), each with its
+    launches per kernel row at the family's heads, its step clock against
+    ``WIDE_CLOCK``, tok/s and wall ms per decode step beside the bound of
+    the weight and KV streams;
+    internvl2-76b's :func:`embeds_check`; a profile of steady dense
+    decode steps under the graphs.  Returns the runs without engines."""
+    t_phase = time.perf_counter()
+    tag = WIDE_TAGS[arch]
+    if arch in ("minicpm-2b", "yi-34b"):
+        wide_f32_check(dev, arch)
+    before = freed_card(dev, tag)
+    torch.cuda.reset_peak_memory_stats(dev)
+    args = serve.build_parser().parse_args(SERVE_FLAGS + ["--arch", arch])
+    t0 = time.perf_counter()
+    if arch == "internvl2-76b":
+        model = build_model(get_config(arch).with_overrides(n_layers=INTERNVL_LAYERS), dev)
+        params = model.init(args.seed)
+    else:
+        model, params = serve.load_model(args)
+    torch.cuda.synchronize()
+    cfg, L = model.cfg, model.cfg.n_layers
+    print(f"[{tag}] serve: {cfg.name} n_params={model.n_params()} layers={L} "
+          f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+          f"head_dim={cfg.resolved_head_dim()} vocab={cfg.vocab} (padded "
+          f"{cfg.padded_vocab()}) weights {time.perf_counter() - t0:.1f}s; memory allocated "
+          f"{before / 1e9:.3f} GB before the load, {torch.cuda.memory_allocated(dev) / 1e9:.3f} "
+          f"GB after, peak {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    if model.n_params() != WIDE_PARAMS[arch]:
+        raise AssertionError(f"[{tag}] {model.n_params()} parameters, not {WIDE_PARAMS[arch]}")
+    weight_bytes = 2 * model.n_params()
+    kv_bytes = balance.kv_bytes_per_seq(cfg, 8115)
+    bound_ms = (weight_bytes + kv_bytes) / PEAK_BYTES_S * 1e3
+    runs = {}
+    paths = {tag: ([], lambda st: {f"decode_attention[{tag}]": st.decode_steps * L,
+                                   f"prefill_attention[{tag}]": st.prefills * L})}
+    if arch != "internvl2-76b":
+        paths[f"{tag}-paged-hybrid"] = (PAGED_FLAGS, lambda st: {
+            f"prefill_attention[{tag}-chunk]": st.prefill_chunks * L,
+            f"paged_decode_attention[{tag}]": st.decode_steps * L})
+    for label, (flags, want) in paths.items():
+        kind = "dense" if label == tag else "paged-hybrid"
+        run = serve_phase(model, params, label, ["--arch", arch] + flags, want, rows,
+                          eager=kind == "dense" and arch in REPEAT_ARCHS,
+                          sync=arch in REPEAT_ARCHS)
+        st = run.stats
+        want_clock = WIDE_CLOCK[arch, kind]
+        clock = {k: getattr(st, k) for k in want_clock}
+        print(f"[{label}] step clock {clock}, rounds {run.res.rounds}; the CPU's prediction "
+              f"{want_clock}")
+        if clock != want_clock:
+            raise AssertionError(f"[{label}] the step clock is not the CPU's prediction")
+        print(f"[{label}] {st.generated / run.res.wall_s:.1f} tok/s, "
+              f"{run.res.wall_s * 1e3 / st.decode_steps:.3f} wall ms per decode step (the run's "
+              f"wall over its {st.decode_steps} decode steps, prefills included); bound per "
+              f"decode step: the weights {weight_bytes / 1e9:.2f} GB in "
+              f"{weight_bytes / PEAK_BYTES_S * 1e3:.2f} ms + {kv_bytes / 1e9:.2f} GB of KV at "
+              f"8115 live positions = {bound_ms:.2f} ms, {16e3 / bound_ms:.0f} tok/s at 16 rows")
+        runs[label] = run._replace(res=None)
+        del run
+    if arch == "internvl2-76b":
+        embeds_check(model, params)
+    profile_phase(model, params, tag, ["--arch", arch], warm_steps=4, drain=False)
+    print(f"[{tag}] phase wall {time.perf_counter() - t_phase:.1f}s (f32 check, load, serve "
+          "runs, profile)")
+    return runs
+
+
 def moe_layer_check(model, params) -> None:
     """The first MoE layer of the loaded weights at full width, in float32,
     at T = 16 (a decode batch: capacity 6 rows per expert) on random
@@ -1930,31 +2216,56 @@ def moe_layer_check(model, params) -> None:
         raise AssertionError("[moe] the MoE layer differs between the card and the CPU")
 
 
-def moe_reference_check(dev) -> None:
-    """Reduced moonshot-v1-16b-a3b in float32, the same weights on the card
-    and on the CPU: engines async (the card's under CUDA graphs) and sync
-    at ``sub_batches`` 1 and 2, tokens and ``EngineStats`` equal."""
-    gpu, cpu, ((p_gpu, p_cpu),) = _reduced_pair(dev, arch="moonshot-v1-16b-a3b")
+def _engines_equal(label: str, gpu, cpu, p_gpu, p_cpu, combos: dict[str, dict]) -> None:
+    """Engines of the same float32 weights on the card (graphs) and on the
+    CPU, async and sync, for each combination of engine keywords in
+    ``combos``: tokens and ``EngineStats`` equal."""
     rng = np.random.default_rng(31)
     prompts = [rng.integers(1, gpu.cfg.vocab, n).astype(np.int32)
                for n in (5, 3, 11, 21, 4, 9, 30, 2)]
-    for async_mode in (True, False):
-        for n_sub in (1, 2):
+    for name, kw in combos.items():
+        for async_mode in (True, False):
             runs = []
             for m, p in ((gpu, p_gpu), (cpu, p_cpu)):
-                eng = Engine(m, p, n_slots=4, max_seq=64, async_mode=async_mode,
-                             sub_batches=n_sub)
+                eng = Engine(m, p, n_slots=4, max_seq=64, async_mode=async_mode, **kw)
                 reqs = [Request(uid=i, prompt=x, max_new_tokens=8)
                         for i, x in enumerate(prompts)]
                 for r in reqs:
                     eng.submit(r)
                 runs.append(([r.out_tokens for r in reqs], eng.run()))
             (tg, sg), (tc, sc) = runs
-            print(f"moe reference check ({'async' if async_mode else 'sync'}, sub_batches "
-                  f"{n_sub}, float32, GPU kernels vs CPU plain): tokens equal {tg == tc}, "
-                  f"stats equal {sg == sc}; decode steps {sg.decode_steps}")
+            print(f"{label} reference check ({'async' if async_mode else 'sync'}, {name}, "
+                  f"float32, GPU kernels vs CPU plain): tokens equal {tg == tc}, stats equal "
+                  f"{sg == sc}; decode steps {sg.decode_steps}")
             if not (tg == tc and sg == sc):
-                raise AssertionError("moe reference check: the card and the CPU differ")
+                raise AssertionError(f"{label} reference check: the card and the CPU differ")
+
+
+def moe_reference_check(dev) -> None:
+    """Reduced moonshot-v1-16b-a3b in float32, the same weights on the card
+    and on the CPU: engines async (the card's under CUDA graphs) and sync
+    at ``sub_batches`` 1 and 2, tokens and ``EngineStats`` equal."""
+    gpu, cpu, ((p_gpu, p_cpu),) = _reduced_pair(dev, arch="moonshot-v1-16b-a3b")
+    _engines_equal("moe", gpu, cpu, p_gpu, p_cpu,
+                   {"sub_batches 1": {}, "sub_batches 2": dict(sub_batches=2)})
+
+
+def wide_reference_check(dev) -> None:
+    """Float32 engines on the card (graphs) and on the CPU, async and sync,
+    tokens and ``EngineStats`` equal: reduced minicpm-2b (G 1 even reduced:
+    as many KV heads as query heads) on the dense cache and on the paged
+    pool with the hybrid schedule; reduced llama3.2-1b with ``kv_quant``
+    (int8 K/V, bf16 scales) on the dense cache at one and two
+    sub-batches."""
+    gpu, cpu, ((p_gpu, p_cpu),) = _reduced_pair(dev, arch="minicpm-2b")
+    if gpu.cfg.n_kv_heads != gpu.cfg.n_heads:
+        raise AssertionError("reduced minicpm-2b should keep G 1")
+    _engines_equal("minicpm", gpu, cpu, p_gpu, p_cpu, {
+        "dense": {}, "paged-hybrid": dict(cache_kind="paged", block_size=8,
+                                          schedule="hybrid", prefill_chunk=8)})
+    gpu, cpu, ((p_gpu, p_cpu),) = _reduced_pair(dev, kv_quant=True)
+    _engines_equal("dense-kvq", gpu, cpu, p_gpu, p_cpu,
+                   {"sub_batches 1": {}, "sub_batches 2": dict(sub_batches=2)})
 
 
 def ptxas_lines(name: str) -> list[str]:
@@ -1994,9 +2305,13 @@ def main() -> None:
     rows = [decode_phase(dev), prefill_phase(dev), prefill_chunk_phase(dev),
             prefill_phase(dev, "int8"), prefill_phase(dev, "fp8"), prefill_f32_phase(dev),
             paged_phase(dev), paged_phase(dev, "fp8"), paged_phase(dev, "int8"),
-            decode_phase(dev, "decode_attention[draft]"), prefill_chunk_phase(dev, draft=True),
+            decode_phase(dev, "decode_attention[draft]"), prefill_chunk_phase(dev, tag="draft"),
             paged_phase(dev, bs=128), paged_phase(dev, "fp8", bs=128),
-            decode_phase(dev, "decode_attention[moe]"), prefill_phase(dev, moe=True)]
+            decode_phase(dev, "decode_attention[moe]"), prefill_phase(dev, tag="moe")]
+    for tag in WIDE_TAGS.values():
+        rows += [decode_phase(dev, f"decode_attention[{tag}]"), prefill_phase(dev, tag=tag)]
+        if tag != "internvl":           # dense only: every other family has a paged path
+            rows += [prefill_chunk_phase(dev, tag), paged_phase(dev, tag=tag)]
     for r in rows:
         dev_off = (f" (at a device q_offset {r['device_offset_ms']:.4f})"
                    if "device_offset_ms" in r else "")
@@ -2005,6 +2320,7 @@ def main() -> None:
               f"{r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}) at {r['shape']}")
     by_name = {r["name"]: r for r in rows}
+    freed_card(dev, "llama3.2-1b")
     model, params = load_model()
     L, k = model.cfg.n_layers, SPEC_DEPTH
     Ld = serve.load_draft(serve.build_parser().parse_args(SERVE_FLAGS), model)[0].cfg.n_layers
@@ -2113,20 +2429,54 @@ def main() -> None:
     agreement("sub-batches", sub, by_path["dense-8"], exact=True)
     agreement("sub-batches", sub, by_path["dense"], floor=False)
     sub_batch_phase(model, params)
+    # the dense cache's int8 kv_quant form, on llama's weights (the same
+    # parameters): the prefill attends over unquantized K/V, so every first
+    # token must be the dense path's; the later ones are printed beside
+    # kvq_sensitivity's yardstick (the random-weight model amplifies any
+    # change of its cache, a 1-ulp one too)
+    model_q = build_model(model.cfg.with_overrides(kv_quant=True), dev)
+    by_path["dense-kvq"] = serve_phase(model_q, params, "dense-kvq", [], dense_want, by_name,
+                                       sync=False)
+    kvq, dense = by_path["dense-kvq"].res, by_path["dense"].res
+    agreement("dense-kvq", kvq.driver.submitted, by_path["dense"], floor=False)
+    ratio = kvq.engine.kv_bytes() / dense.engine.kv_bytes()
+    if not (all(a.out_tokens[0] == b[0] for a, b in zip(kvq.driver.submitted,
+                                                        by_path["dense"].tokens, strict=True))
+            and ratio < KVQ_BYTES):
+        raise AssertionError(f"[dense-kvq] a first token differs from dense's, or the cache is "
+                             f"{ratio:.4f}x of bf16's")
+    kvq_sensitivity(model, model_q, params)
+    print(f"[dense-kvq] cache {kvq.engine.kv_bytes() / 1e9:.4f} GB against bf16's "
+          f"{dense.engine.kv_bytes() / 1e9:.4f} GB: {ratio:.4f}x (< {KVQ_BYTES}); "
+          "wall ms per decode step "
+          f"{kvq.wall_s * 1e3 / kvq.stats.decode_steps:.3f} against dense's "
+          f"{dense.wall_s * 1e3 / dense.stats.decode_steps:.3f} (prefills included)")
+    # the dequantize a kv_quant decode step runs before the kernel, per layer
+    c = kvq.engine.cache
+    deq_ms = _device_ms([lambda: (dense_mod._kv_dequantize(c["k"][0], c["k_scale"][0]),
+                                  dense_mod._kv_dequantize(c["v"][0], c["v_scale"][0]))])
+    deq_bytes = 2 * c["k"][0].numel() * 3 + 2 * c["k_scale"][0].numel() * 2
+    print(f"[dense-kvq] dequantize of one layer's K and V ({tuple(c['k'][0].shape)} int8 and "
+          f"bf16 scales -> bf16): {deq_ms:.4f} ms device ({deq_bytes / 1e6:.1f} MB moved, bound "
+          f"{deq_bytes / PEAK_BYTES_S * 1e3:.4f} ms); x {L} layers = {deq_ms * L:.3f} ms per "
+          "decode step")
+    del kvq, dense, c
+    profile_phase(model_q, params, "dense-kvq", [], warm_steps=4, drain=False)
     observatory_phase(model, params)
     print("phase walls: " + ", ".join(f"{p} {r.wall_s:.1f}s" for p, r in by_path.items()))
-    for graphs in (True, False):
-        profile_phase(model, params, "dense", [], warm_steps=4, graphs=graphs)
-        profile_phase(model, params, "paged-hybrid", PAGED_FLAGS, warm_steps=48, graphs=graphs)
-        # 60 steps in, the profile's 32 requests have filled the pool and begun to spill
-        profile_phase(model, params, "paged-tiered", TIERED_FLAGS, warm_steps=60,
-                      graphs=graphs)
-        profile_phase(model, params, "dense-spec", SPEC_FLAGS, warm_steps=4, graphs=graphs)
-    # free llama's weights and every engine (caches, graph pools) for moonshot
-    del model, params, run, sub
+    # with graphs only: llama's eager profiles are left out to keep the
+    # script inside its time (moonshot's stays)
+    profile_phase(model, params, "dense", [], warm_steps=4)
+    profile_phase(model, params, "paged-hybrid", PAGED_FLAGS, warm_steps=48)
+    # 60 steps in, the profile's 32 requests have filled the pool and begun to spill
+    profile_phase(model, params, "paged-tiered", TIERED_FLAGS, warm_steps=60)
+    profile_phase(model, params, "dense-spec", SPEC_FLAGS, warm_steps=4)
+    # free llama's weights and every engine (caches, graph pools): each
+    # family below loads on a card freed of the one before (freed_card)
+    del model, model_q, params, run, sub
     by_path = {p: r._replace(res=None) for p, r in by_path.items()}
-    gc.collect()
-    torch.cuda.empty_cache()
+    for arch in WIDE_TAGS:
+        by_path.update(family_phase(dev, arch, by_name))
     by_path["moe"] = moe_phase(dev, by_name)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2141,6 +2491,7 @@ def main() -> None:
     cluster_reference_check(dev)
     sub_batch_check(dev)
     moe_reference_check(dev)
+    wide_reference_check(dev)
     print(f"reduced checks: {time.perf_counter() - t0:.1f}s")
     for r in rows:
         r["launches_by_path"] = {p: run.launches.get(r["name"], 0)

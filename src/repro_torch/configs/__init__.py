@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
 Arch ids accept dashes, underscores or dots interchangeably.  Only the
-architectures the port serves so far are registered: the dense llama and
-the MoE moonshot.
+architectures the port serves so far are registered (six of the
+reference's ten): the dense family (yi-34b, llama3.2-1b, llama3.2-3b,
+minicpm-2b and internvl2-76b's backbone) and the MoE moonshot.
 """
 from __future__ import annotations
 
@@ -12,8 +13,12 @@ from repro_torch.configs.base import DENSE, MOE, ModelConfig  # noqa: F401
 
 # arch id -> module name under repro_torch.configs
 ARCHS: dict[str, str] = {
+    "yi-34b": "yi_34b",
     "llama3.2-1b": "llama3_2_1b",
+    "llama3.2-3b": "llama3_2_3b",
+    "minicpm-2b": "minicpm_2b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "internvl2-76b": "internvl2_76b",
 }
 
 

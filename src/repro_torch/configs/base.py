@@ -2,8 +2,8 @@
 
 A copy of the fields of ``repro.configs.base.ModelConfig`` (and of its
 ``MoEConfig``) that the dense llama-family and the MoE serving paths
-read; the other families' sub-configs arrive with their slices of the
-port.
+read, the stub frontend's included; the other families' sub-configs
+arrive with their slices of the port.
 """
 from __future__ import annotations
 
@@ -43,9 +43,13 @@ class ModelConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # multimodal stub frontend (internvl patches): embeddings of length
+    # ``frontend_len`` prepended to the token embeddings at prefill
+    frontend: str = "none"             # none | patches
+    frontend_len: int = 0
     moe: MoEConfig | None = None
     dtype: str = "bfloat16"
-    kv_quant: bool = False             # int8 KV cache: not ported yet
+    kv_quant: bool = False             # int8 dense KV cache with bf16 scales: 2x capacity
 
     def padded_vocab(self, multiple: int = 256) -> int:
         """Vocab padded to a multiple of ``multiple``; the pad logits are

@@ -17,6 +17,7 @@ def reduce_config(arch: str, vocab: int = 512) -> ModelConfig:
         d_ff=128,
         vocab=vocab,
         head_dim=16,
+        frontend_len=8 if cfg.frontend != "none" else 0,
     )
     if cfg.moe is not None:
         kw["moe"] = MoEConfig(

@@ -18,9 +18,12 @@ from repro_torch.models import attention as attn
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      lengths: torch.Tensor, *, scale: float | None = None) -> torch.Tensor:
-    """q (B, Hq, D); caches (B, S, Hkv, D); lengths (B,) -> (B, Hq, D)."""
+    """q (B, Hq, D); caches (B, S, Hkv, D); lengths (B,) -> (B, Hq, D).
+    The kernel reads K and V in one dtype: a bf16 V beside an f32 K (the
+    dequantized ``kv_quant`` cache in float32 mode) is widened, exactly."""
     if q.is_cuda:
-        return ops.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+        return ops.decode_attention(q, k_cache, v_cache.to(k_cache.dtype), lengths,
+                                    scale=scale)
     return attn.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
 
 

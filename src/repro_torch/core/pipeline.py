@@ -84,6 +84,23 @@ def merge_cache(subs: list[Pytree], batch_axes: dict[str, int]) -> Pytree:
     return {k: torch.cat([s[k] for s in subs], dim=batch_axes.get(k, 1)) for k in subs[0]}
 
 
+_STREAMS: dict[torch.device, list[torch.cuda.Stream]] = {}
+
+
+def sub_batch_streams(device: torch.device, n_sub: int) -> list[torch.cuda.Stream]:
+    """The first ``n_sub`` of the device's sub-batch streams, made at first
+    use and shared by every engine on the device (engines step one at a
+    time): a stream holds a cuBLAS workspace for the life of the process
+    (``serving/programs.py``)."""
+    device = torch.device(device)
+    if device.index is None:                    # "cuda" and "cuda:0" are one card
+        device = torch.device(device.type, torch.cuda.current_device())
+    streams = _STREAMS.setdefault(device, [])
+    while len(streams) < n_sub:
+        streams.append(torch.cuda.Stream(device))
+    return streams[:n_sub]
+
+
 def pipelined_step(
     decode_fn: Callable[[Pytree, Pytree, torch.Tensor], tuple[torch.Tensor, Pytree]],
     n_sub: int,

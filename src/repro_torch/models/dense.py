@@ -6,9 +6,13 @@ the paged pool (``paged_cache_defs`` / ``init_paged_cache``,
 ``paged_decode_step``, ``paged_decode_sample_step``) with its tiered-KV
 leaves (fp8/int8 pools with f32 scale pools, the host tier) and chunked
 prefill (``prefill_step``, ``prefill_sample_step``) and speculation's
-``verify_step`` / ``paged_verify_step``; not the dense cache's
-``kv_quant``.  Layers are stacked on a leading dim as in the
-reference and iterated with a Python loop.  Attention goes through
+``verify_step`` / ``paged_verify_step``, and the dense cache's int8
+``kv_quant`` form (int8 K/V with bf16 scales, dequantized before the
+decode kernel; prefill attends over the unquantized K/V; chunked prefill
+and verify refuse it, as in the reference).  ``prefill`` takes
+a stub frontend's ``embeds``, which take cache positions.  Layers are
+stacked on a leading dim as in the reference and iterated with a Python
+loop.  Attention goes through
 ``core.offload``: the Hopper kernels on the GPU, the plain versions on
 the CPU.
 
@@ -77,17 +81,58 @@ def cache_defs(cfg, batch: int, max_seq: int) -> Pytree:
         ("layers", "kv_batch", "kv_seq", "kv_heads", "head_dim"),
         "zeros",
     )
-    return {"k": kv, "v": kv, "lengths": ParamDef((batch,), ("kv_batch",), "zeros")}
+    defs = {"k": kv, "v": kv, "lengths": ParamDef((batch,), ("kv_batch",), "zeros")}
+    if cfg.kv_quant:
+        sc = ParamDef((L, batch, max_seq, Hkv),
+                      ("layers", "kv_batch", "kv_seq", "kv_heads"), "zeros")
+        defs["k_scale"] = sc
+        defs["v_scale"] = sc
+    return defs
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                device: torch.device | str = "cpu") -> Pytree:
+    """Zeroed dense cache: ``k``/``v`` in ``dtype``, or with ``kv_quant``
+    int8 with bf16 ``k_scale``/``v_scale`` (whatever ``dtype``, as in the
+    reference)."""
     defs = cache_defs(cfg, batch, max_seq)
-    return {
-        k: torch.zeros(d.shape, dtype=dtype if k != "lengths" else torch.int32,
-                       device=device)
-        for k, d in defs.items()
-    }
+    if cfg.kv_quant:
+        dt = {"k": torch.int8, "v": torch.int8, "k_scale": torch.bfloat16,
+              "v_scale": torch.bfloat16}
+    else:
+        dt = {"k": dtype, "v": dtype}
+    return {k: torch.zeros(d.shape, dtype=dt.get(k, torch.int32), device=device)
+            for k, d in defs.items()}
+
+
+# ---------------------------------------------------------------------------
+# int8 KV quantization of the dense cache (``cfg.kv_quant``: 2x cache
+# capacity, the paper's scalability axis §VI-B).  Not ``ref.kv_quantize``:
+# this one has bf16 scales, a 1e-8 floor and no zero-scale case.
+# ---------------------------------------------------------------------------
+def _kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (..., Dh) -> (int8 payload (..., Dh), bf16 scale (...)).  The
+    scale is ``amax * f32(1 / 127)``, floored at 1e-8: the reference's
+    ``amax / 127.0`` as XLA compiles it under ``jax.jit``; the payload is
+    rounded half to even against the f32 scale, before the scale is
+    rounded to bf16, as the reference does."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) * (1.0 / 127.0)).clamp_min(1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor,
+                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """int8 payload times its bf16 scale, rounded to ``dtype``: the cache
+    the decode kernel reads (a torch op before the kernel; XLA fuses it
+    into the attention's operand read on a TPU).  The reference's product
+    is bf16, but under ``jax.jit`` XLA drops a bf16 rounding that an
+    upcast follows: K, which its score product promotes to the query's
+    dtype, is that dtype's product (f32 in float32 mode), while V stays
+    bf16 because P is cast to V's dtype.  One elementwise kernel: the
+    int8 payload widens exactly, and the product rounds once."""
+    return q * scale[..., None].to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -261,14 +306,21 @@ def _paged_pass(cfg, params, cache: Pytree, tokens: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
-def prefill(cfg, params, tokens: torch.Tensor, cache: Pytree):
+def prefill(cfg, params, tokens: torch.Tensor, cache: Pytree,
+            embeds: torch.Tensor | None = None):
     """Fill the cache with the S context tokens ``tokens (B, S)``; return
     last-position logits ``(B, V)`` and the cache.
 
-    K/V are written in place at positions ``[0, S)`` of ``cache``, which
-    may be a view of a larger cache (the engine passes one slot's
-    stripe); ``lengths`` is set to S."""
+    ``embeds (B, F, d_model)``, a stub frontend's, are prepended to the
+    token embeddings and take cache positions ``[0, F)``, so S counts
+    them.  K/V are written in place at positions ``[0, S)`` of ``cache``,
+    which may be a view of a larger cache (the engine passes one slot's
+    stripe); ``lengths`` is set to S.  With ``kv_quant`` each layer
+    attends over its unquantized K/V and writes them quantized, as the
+    reference does."""
     x = cm.embed_lookup(params["embed"], tokens)
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     for l in range(cfg.n_layers):
@@ -281,8 +333,11 @@ def prefill(cfg, params, tokens: torch.Tensor, cache: Pytree):
         x = x + cm.linear(o, p["wo"], n_in=2)
         h = cm.rmsnorm(x, p["ln2"], cfg.norm_eps)
         x = x + cm.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
-        cache["k"][l, :, :S].copy_(k)
-        cache["v"][l, :, :S].copy_(v)
+        for name, new in (("k", k), ("v", v)):
+            if cfg.kv_quant:
+                new, sc = _kv_quantize(new)
+                cache[f"{name}_scale"][l, :, :S].copy_(sc)
+            cache[name][l, :, :S].copy_(new)
     x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = cm.unembed(x[:, -1], _unembed_table(params), cfg.vocab)
     cache["lengths"].fill_(S)
@@ -294,13 +349,14 @@ def prefill(cfg, params, tokens: torch.Tensor, cache: Pytree):
 # ---------------------------------------------------------------------------
 def _append(cache_l: torch.Tensor, new: torch.Tensor, bidx: torch.Tensor,
             pos: torch.Tensor, valid: torch.Tensor) -> None:
-    """Write ``new (B, Hkv, Dh)`` at ``cache_l[b, pos[b]]`` in place, for
-    the rows where ``valid``.  A row at ``pos >= max_seq`` (an idle slot
-    that has run past the end; JAX drops such scatter writes, CUDA would
-    fault on them) rewrites what is already there, without a host sync."""
+    """Write ``new (B, ...)`` (K/V ``(B, Hkv, Dh)``, or their scales
+    ``(B, Hkv)``) at ``cache_l[b, pos[b]]`` in place, for the rows where
+    ``valid``.  A row at ``pos >= max_seq`` (an idle slot that has run
+    past the end; JAX drops such scatter writes, CUDA would fault on them)
+    rewrites what is already there, without a host sync."""
     old = cache_l[bidx, pos]
-    cache_l.index_put_((bidx, pos),
-                       torch.where(valid[:, None, None], new.to(cache_l.dtype), old))
+    keep = valid.view(-1, *(1,) * (new.dim() - 1))
+    cache_l.index_put_((bidx, pos), torch.where(keep, new.to(cache_l.dtype), old))
 
 
 def decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
@@ -308,7 +364,9 @@ def decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
 
     Every slot advances, idle ones included, as in the reference: the
     new token's K/V land at ``lengths`` (skipped where ``lengths >=
-    max_seq``) and ``lengths`` grows by one, in place."""
+    max_seq``) and ``lengths`` grows by one, in place.  With ``kv_quant``
+    the new K/V are appended quantized with their scales, and each layer's
+    cache is dequantized for the decode kernel (:func:`_kv_dequantize`)."""
     lengths = cache["lengths"]
     S = cache["k"].shape[2]
     B = tokens.shape[0]
@@ -325,8 +383,17 @@ def decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
         k = cm.rope(cm.linear(h, p["wk"])[:, None], pos[:, None], cfg.rope_theta)[:, 0]
         v = cm.linear(h, p["wv"])
         k_l, v_l = cache["k"][l], cache["v"][l]
-        _append(k_l, k, bidx, wpos, valid)
-        _append(v_l, v, bidx, wpos, valid)
+        if cfg.kv_quant:
+            ks_l, vs_l = cache["k_scale"][l], cache["v_scale"][l]
+            for pool, spool, new in ((k_l, ks_l, k), (v_l, vs_l, v)):
+                payload, sc = _kv_quantize(new)
+                _append(pool, payload, bidx, wpos, valid)
+                _append(spool, sc, bidx, wpos, valid)
+            k_l = _kv_dequantize(k_l, ks_l, torch.promote_types(q.dtype, torch.bfloat16))
+            v_l = _kv_dequantize(v_l, vs_l)
+        else:
+            _append(k_l, k, bidx, wpos, valid)
+            _append(v_l, v, bidx, wpos, valid)
         o = offload.decode_attention(q, k_l, v_l, attn_len)
         x = x + cm.linear(o, p["wo"], n_in=2)
         h = cm.rmsnorm(x, p["ln2"], cfg.norm_eps)
@@ -370,6 +437,8 @@ def prefill_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot, q_offse
     clamped index instead would repeat positions, and CUDA leaves the
     winner of repeated ``index_put_`` positions undefined, so a clamped
     pad write could race with the valid write at ``S - 1``."""
+    if cfg.kv_quant:
+        raise NotImplementedError("chunked prefill does not support kv_quant yet")
     C = tokens.shape[1]
     S = cache["k"].shape[2]
     if C > S:
@@ -423,6 +492,8 @@ def verify_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
     attention): greedy speculative output must be token-identical to
     plain decoding, and a differently shaped attention rounds bf16 logits
     differently."""
+    if cfg.kv_quant:
+        raise NotImplementedError("verify_step does not support kv_quant yet")
     saved = cache["lengths"].clone()
     logits = []
     for t in range(tokens.shape[1]):

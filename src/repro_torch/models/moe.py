@@ -194,12 +194,16 @@ def _ffn(cfg, p, h: torch.Tensor, is_moe: bool) -> torch.Tensor:
     return moe_ffn(cfg, p, h.reshape(-1, h.shape[-1])).reshape(h.shape)
 
 
-def prefill(cfg, params, tokens: torch.Tensor, cache: Pytree):
+def prefill(cfg, params, tokens: torch.Tensor, cache: Pytree,
+            embeds: torch.Tensor | None = None):
     """Fill the cache with ``tokens (B, S)``; last-position logits
     ``(B, V)`` and the cache, as :func:`dense.prefill` (K/V written in
-    place at ``[0, S)`` of ``cache``, which may be a slot's view).  The MoE
-    layers route all B * S tokens together."""
+    place at ``[0, S)`` of ``cache``, which may be a slot's view;
+    ``embeds`` prepended, taking cache positions).  The MoE layers route
+    all B * S tokens together."""
     x = cm.embed_lookup(params["embed"], tokens)
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     for l, p, is_moe in _blocks(cfg, params):

@@ -26,7 +26,7 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     param_defs: Pytree
-    # prefill(params, tokens (B, S), cache) -> (logits (B, V), cache)
+    # prefill(params, tokens (B, S), cache, embeds=None) -> (logits (B, V), cache)
     prefill: Callable[..., tuple[torch.Tensor, Pytree]]
     # decode_step(params, cache, tokens (B,)) -> (logits (B, V), cache)
     decode_step: Callable[..., tuple[torch.Tensor, Pytree]]
@@ -80,8 +80,6 @@ def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> M
         from repro_torch.models import moe as fam
     else:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    if cfg.kv_quant:
-        raise NotImplementedError("kv_quant (int8 dense KV cache) is not ported yet")
     optional = {name: functools.partial(getattr(fam, name), cfg)
                 for name in OPTIONAL_STEPS if hasattr(fam, name)}
     if hasattr(fam, "init_paged_cache"):

@@ -119,7 +119,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.pipeline import pipelined_step
+from repro_torch.core.pipeline import pipelined_step, sub_batch_streams
 from repro_torch.models.registry import Model
 from repro_torch.serving import kv_cache
 from repro_torch.serving.paged import BlockPool, PagedCacheManager
@@ -356,6 +356,8 @@ class Engine:
         if schedule == "hybrid" and model.prefill_step is None:
             raise ValueError(f"{model.cfg.family} has no prefill_step: hybrid scheduling "
                              "needs the chunked-prefill model entry point")
+        if schedule == "hybrid" and model.cfg.kv_quant:
+            raise NotImplementedError("hybrid schedule does not support kv_quant yet")
         if schedule == "hybrid" and sub_batches != 1:
             raise NotImplementedError(
                 "hybrid schedule does not compose with sub-batch pipelining yet")
@@ -395,7 +397,6 @@ class Engine:
         self.programs: dict[str, Program] = {}
         if self.graphs:
             self._graph_pool = torch.cuda.graph_pool_handle()
-            self._side_stream = torch.cuda.Stream(self.device)
         if cache_kind == "paged":
             self.block_size = block_size
             self.max_blocks = -(-max_seq // block_size)
@@ -417,9 +418,9 @@ class Engine:
             self._decode = model.decode_step
             self._decode_sampled = model.decode_sample_step
             if sub_batches != 1:
-                # one stream per sub-batch on the card, created before any
-                # capture; the CPU runs the sub-batches in order
-                streams = ([torch.cuda.Stream(self.device) for _ in range(sub_batches)]
+                # one stream per sub-batch on the card, the device's own
+                # (pipeline.sub_batch_streams); the CPU runs them in order
+                streams = (sub_batch_streams(self.device, sub_batches)
                            if self.device.type == "cuda" else None)
                 self._decode = pipelined_step(model.decode_step, sub_batches, streams)
                 self._decode_sampled = self._wrap_sampled(self._decode)
@@ -583,8 +584,7 @@ class Engine:
                 return eng()._dispatch_body(inp, n_chunks, decode)
         graph_kw = {}
         if self.graphs:
-            graph_kw = dict(graphs=True, pool=self._graph_pool, stream=self._side_stream,
-                            generators=(self._gen_dev,))
+            graph_kw = dict(graphs=True, pool=self._graph_pool, generators=(self._gen_dev,))
         prog = self.programs[kind] = Program(kind, body, inputs, self.device, **graph_kw)
         return prog
 

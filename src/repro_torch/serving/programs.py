@@ -23,6 +23,15 @@ device one CUDA graph of that body:
   the capture's static outputs, which the next replay overwrites: the
   caller reads them, or enqueues their copy, before it calls again.
 
+Streams and cuBLAS workspaces: PyTorch keeps one cuBLAS workspace (32
+MiB on Hopper) per (handle, stream) for the life of the process, and a
+new ``torch.cuda.Stream`` takes the next of its pool's 32 streams, so a
+stream per engine or per capture ended up holding 33 workspaces, 1.1 GB.
+Every program warms up and captures on the one :func:`side_stream` of its
+device; :func:`release_workspaces` frees the cached workspaces once no
+captured graph is alive (a graph keeps the address of the workspace its
+capture used).
+
 The kernels' launch counters count Python calls, which a replay does not
 make: the launches a capture counted are taken off the counters, kept
 with the graph and added back on every replay.  Generators the body
@@ -36,6 +45,7 @@ from __future__ import annotations
 import gc
 import math
 import time
+import weakref
 from collections.abc import Callable, Sequence
 
 import numpy as np
@@ -46,18 +56,50 @@ from repro_torch.serving.paged import device as paged_dev
 
 Outputs = tuple[torch.Tensor, ...]
 
+_SIDE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+# programs whose graph has been captured (held weakly: a dead engine's
+# programs leave the set with it)
+_CAPTURED: weakref.WeakSet = weakref.WeakSet()
+
+
+def side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The device's one side stream for warm-ups and captures, made at
+    first use."""
+    device = torch.device(device)
+    if device.index is None:                    # "cuda" and "cuda:0" are one card
+        device = torch.device(device.type, torch.cuda.current_device())
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
+
+
+def live_graphs() -> int:
+    """Captured programs still alive, on any device."""
+    return sum(p.graph is not None for p in _CAPTURED)
+
+
+def release_workspaces() -> bool:
+    """Free PyTorch's cached cuBLAS workspaces (they come back at the next
+    product) if no captured graph is alive, and say whether it did.  A
+    graph that is alive may replay into the workspace its capture used,
+    so then nothing is freed."""
+    if live_graphs() or not torch.cuda.is_available():
+        return False
+    torch._C._cuda_clearCublasWorkspaces()
+    return True
+
 
 class Program:
     """One dispatch kind: ``body(inputs) -> outputs`` over static inputs
     named and shaped by ``inputs`` (int32), run eagerly or, with
     ``graphs``, captured once and replayed.  ``pool`` is the graph memory
-    pool (``torch.cuda.graph_pool_handle()``), ``stream`` the side stream
-    of the warm-up and the capture, ``generators`` those the body draws
-    from."""
+    pool (``torch.cuda.graph_pool_handle()``), ``generators`` those the
+    body draws from.  The warm-up and the capture run on the device's
+    :func:`side_stream`."""
 
     def __init__(self, name: str, body: Callable[[dict[str, torch.Tensor]], Outputs],
                  inputs: dict[str, tuple[int, ...]], device: torch.device, *,
-                 graphs: bool = False, pool=None, stream: torch.cuda.Stream | None = None,
+                 graphs: bool = False, pool=None,
                  generators: Sequence[torch.Generator] = ()):
         if graphs and device.type != "cuda":
             raise ValueError(f"program {name}: CUDA graphs need a CUDA device, not {device}")
@@ -66,7 +108,6 @@ class Program:
         self.device = device
         self.graphs = graphs
         self.pool = pool
-        self.stream = stream
         self.generators = tuple(generators)
         sizes = {k: math.prod(shape) for k, shape in inputs.items()}
         self._host = np.zeros(sum(sizes.values()), np.int32)
@@ -104,7 +145,7 @@ class Program:
 
     def _warm_up_and_capture(self) -> Outputs:
         main = torch.cuda.current_stream(self.device)
-        side = self.stream if self.stream is not None else torch.cuda.Stream(self.device)
+        side = side_stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             out = self.body(self.inputs)        # this dispatch, eagerly: the warm-up
@@ -130,4 +171,5 @@ class Program:
             ops.restore_counts(snap)
         self.capture_s = time.perf_counter() - t0
         self.graph, self.outputs = graph, tuple(outputs)
+        _CAPTURED.add(self)
         return out

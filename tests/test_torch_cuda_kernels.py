@@ -29,6 +29,10 @@ DECODE_CASES = [
     (1, 33, 1, 2, 128),
     (16, 1024, 8, 4, 64),        # llama3.2-1b decode at 16 slots
     (16, 1024, 16, 1, 128),      # moonshot-v1-16b-a3b decode at 16 slots: G 1, D 128
+    (16, 1024, 36, 1, 64),       # minicpm-2b: G 1, D 64, Hkv 36
+    (16, 1024, 8, 3, 128),       # llama3.2-3b: G 3, D 128
+    (16, 1024, 8, 7, 128),       # yi-34b: G 7, D 128
+    (16, 1024, 8, 8, 128),       # internvl2-76b: G 8 (MAX_G), D 128
 ]
 PAGED_CASES = [
     # (B, Hkv, G, D, block_size, max_blocks, lengths) — tests/test_paged.py's
@@ -41,6 +45,16 @@ PAGED_CASES = [
     (16, 8, 4, 64, 16, 64, (1, 1024, 1033, 2, 37, 100, 255, 256, 257, 511, 512, 513,
                             700, 900, 1000, 1023)),
 ]
+# the bf16 paged-hybrid serve shapes of minicpm-2b (G 1, D 64, Hkv 36),
+# llama3.2-3b (G 3, D 128) and yi-34b (G 7, D 128)
+WIDE_PAGED_CASES = [
+    (16, 36, 1, 64, 16, 64, (1, 1024, 1033, 2, 37, 100, 255, 256, 257, 511, 512, 513,
+                             700, 900, 1000, 1023)),
+    (16, 8, 3, 128, 16, 64, (1, 1024, 1033, 2, 37, 100, 255, 256, 257, 511, 512, 513,
+                             700, 900, 1000, 1023)),
+    (16, 8, 7, 128, 16, 64, (1, 1024, 1033, 2, 37, 100, 255, 256, 257, 511, 512, 513,
+                             700, 900, 1000, 1023)),
+]
 PREFILL_CASES = [
     # (B, Sq, Sk, Hkv, G, D, causal)
     (1, 16, 16, 1, 1, 8, True),
@@ -51,6 +65,10 @@ PREFILL_CASES = [
     (1, 100, 100, 1, 2, 128, True),
     (1, 509, 509, 16, 1, 128, True),     # moonshot-v1-16b-a3b's whole prompt
     (1, 600, 600, 16, 1, 128, False),
+    (1, 509, 509, 36, 1, 64, True),      # minicpm-2b's whole prompt: G 1, D 64, Hkv 36
+    (1, 509, 509, 8, 3, 128, True),      # llama3.2-3b: G 3, D 128
+    (1, 509, 509, 8, 7, 128, True),      # yi-34b: G 7, D 128
+    (1, 765, 765, 8, 8, 128, True),      # internvl2-76b: 256 frontend positions + a prompt
 ]
 
 
@@ -191,7 +209,7 @@ def _paged_inputs(case, dev, dtype, q_dtype=None, seed=0):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("case", PAGED_CASES + WIDE_PAGED_CASES)
 def test_paged_kernel_matches_plain(cuda, case, dtype):
     q, kp, vp, tables, lengths = _paged_inputs(case, cuda, getattr(torch, dtype))
     before = ops.launch_counts()["paged_decode_attention"]
@@ -202,7 +220,7 @@ def test_paged_kernel_matches_plain(cuda, case, dtype):
     np.testing.assert_allclose(_np(out), _np(exp), atol=TOL[dtype], rtol=TOL[dtype])
 
 
-@pytest.mark.parametrize("case", PAGED_CASES[1:])
+@pytest.mark.parametrize("case", PAGED_CASES[1:] + WIDE_PAGED_CASES)
 def test_paged_kernel_window_and_lse(cuda, case):
     """``starts`` masks a prefix (including whole blocks below it and an
     empty window); the lse equals the oracle's."""
