@@ -133,9 +133,28 @@
    the bound; float32 at full width cut to 2 layers on the card against
    the CPU for minicpm-2b and yi-34b; and a graph profile of each dense
    path.
+   After moonshot, the deepseek path on a card freed of it:
+   deepseek-v3-671b at full width cut to 5 of its 61 layers (its 3 dense
+   and first 2 MoE layers; 27,304,652,800 parameters, seeded random bf16
+   weights drawn on the card: memory before and after the load, the peak),
+   float32 at full width cut to its 2 first (dense MLA) layers on the card
+   against the CPU, the MLA identity at full width (the absorbed decode
+   against expanding K and V per head, float32), its first MoE layer in
+   float32 (router and dispatch over all 256 experts; the whole MoE FFN on
+   the first 32 experts), the serve shape with ``--arch deepseek-v3-671b``
+   (graphs, ``--graphs off``, ``--async off``: tokens identical, the step
+   clock the CPU's, and no launch of the three attention kernels: prefill
+   runs the plain chunked attention at q/k head dim 192, decode the plain
+   absorbed MLA over the latent cache), tok/s against the bound of the
+   weights a step reads, the per-step f32 cast of W_O, a ``--profile 8``
+   run's decode MBU beside the bytes really read, a graph profile, and the
+   device time of one MoE layer's expert bmms, of one layer's MLA decode
+   (beside its bound and SDPA over the latent as one shared head) and of
+   its prefill attention (beside causal SDPA).
 5. Profiles (torch.profiler) of steady async steps on paths a, b, c and
    e, with graphs (eagerly only moonshot's, to keep the script inside its
-   time), for where the time goes: wall and device
+   time; the other families' and deepseek's with graphs), for where the
+   time goes: wall and device
    busy ms per step, device ops per step, host launches per step (graph
    launches and kernel launches apart) and every port kernel's time and
    launches per step (the split kernels and the combine kernel apart); on path c
@@ -188,6 +207,8 @@
 16. The same for reduced minicpm-2b (G 1) on the dense cache and on the
    paged pool with the hybrid schedule, and for reduced llama3.2-1b with
    ``kv_quant`` at one and two sub-batches.
+17. The same for reduced deepseek-v3-671b (MLA + MoE) at one and two
+   sub-batches.
 
 Any failure raises (non-zero exit).  The line before the last is a JSON
 object with one entry per kernel; the last is
@@ -219,7 +240,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.reduced import reduce_config  # noqa: E402
-from repro_torch.core import balance  # noqa: E402
+from repro_torch.core import balance, offload  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import heads as kernel_heads  # noqa: E402
 from repro_torch.kernels import decode_attention as kdec  # noqa: E402
@@ -227,6 +248,8 @@ from repro_torch.kernels import paged_decode_attention as kpaged  # noqa: E402
 from repro_torch.kernels import prefill_attention as kpre  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models import dense as dense_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
@@ -304,6 +327,20 @@ MOE_PARAMS = 28386592768
 # predicts it on the CPU (the reduced model at the full vocabulary)
 MOE_CLOCK = {"prefills": 64, "decode_steps": 252, "engine_steps": 841, "generated": 4096}
 MOE_LAYER_TOL = 1e-4      # one MoE layer in float32, card vs CPU: f32 sums in other orders
+# the DeepSeek path: deepseek-v3-671b at full width, cut from 61 layers to its 3
+# dense and first 2 MoE layers (54.61 GB of bf16 weights; 6 layers would be 77.6)
+DS_FLAGS = ["--arch", "deepseek-v3-671b"]
+DS_LAYERS = 5
+DS_PARAMS = 27304652800
+# its step clock as `scripts/torch_step_clock.py --arch deepseek-v3-671b` predicts it
+DS_CLOCK = {"prefills": 64, "decode_steps": 252, "engine_steps": 841, "generated": 4096}
+# the float32 MoE layer check: the router and the dispatch over all 256 experts, the
+# whole moe_ffn over the first 32 (its 45 GB of f32 experts fit neither beside the
+# weights on the card nor comfortably on the host)
+DS_EXPERT_SLICE = 32
+# absorbed vs expanded MLA at full width in f32: f32 sums of 512 and 192 terms in
+# other orders, against the largest output
+MLA_IDENTITY_TOL = 1e-4
 # the rest of the dense registry at full width: arch -> the tag of its kernel rows
 WIDE_TAGS = {"minicpm-2b": "minicpm", "llama3.2-3b": "llama3b", "yi-34b": "yi",
              "internvl2-76b": "internvl"}
@@ -1391,6 +1428,13 @@ def tier_launches(eng, label: str) -> None:
           f"{host_ms(cold):.4f} ms; spills so far {eng.stats.spills}")
 
 
+def _cpu(tree):
+    """A parameter tree (nested dicts of tensors) copied to the CPU."""
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
 def _reduced_pair(dev, seeds=(3,), arch: str = "llama3.2-1b", **overrides):
     """Reduced ``arch`` in float32 (and ``overrides``) on the GPU and on the
     CPU, with the same weights for each seed: (gpu, cpu, [(gpu params,
@@ -1400,8 +1444,7 @@ def _reduced_pair(dev, seeds=(3,), arch: str = "llama3.2-1b", **overrides):
     out = []
     for seed in seeds:
         p_gpu = gpu.init(seed=seed)
-        out.append((p_gpu, {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
-                                else v.cpu()) for k, v in p_gpu.items()}))
+        out.append((p_gpu, _cpu(p_gpu)))
     return gpu, cpu, out
 
 
@@ -2060,20 +2103,20 @@ def freed_card(dev, label: str) -> int:
     return held
 
 
-def wide_f32_check(dev, arch: str) -> None:
-    """``arch`` at full width cut to 2 layers, in float32 with TF32 off:
-    seed-0 weights drawn on the card and copied to the CPU; a 24-token
-    prefill and one decode step through the kernels on the card against
-    the plain versions on the CPU.  Argmax equal, and the logits within
+def wide_f32_check(dev, arch: str, tag: str | None = None, **overrides) -> None:
+    """``arch`` at full width cut to 2 layers (``overrides`` of its config
+    beside), in float32 with TF32 off: seed-0 weights drawn on the card and
+    copied to the CPU; a 24-token prefill and one decode step through the
+    kernels (deepseek: its plain attention) on the card against the plain
+    versions on the CPU.  Argmax equal, and the logits within
     ``F32_WIDE``."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError(f"[{arch}] TF32 matmuls are on: the float32 check needs them off")
     t0 = time.perf_counter()
-    cfg = get_config(arch).with_overrides(n_layers=2, dtype="float32")
+    cfg = get_config(arch).with_overrides(**{"n_layers": 2, **overrides}, dtype="float32")
     gpu, cpu = build_model(cfg, dev), build_model(cfg, "cpu")
     p_gpu = gpu.init(0)
-    p_cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
-             for k, v in p_gpu.items()}
+    p_cpu = _cpu(p_gpu)
     prompt = torch.randint(1, cfg.vocab, (1, 24), generator=torch.Generator().manual_seed(12))
     caches = gpu.init_cache(1, 64), cpu.init_cache(1, 64)
     lg, _ = gpu.prefill(p_gpu, prompt.to(dev), caches[0])
@@ -2085,7 +2128,8 @@ def wide_f32_check(dev, arch: str) -> None:
     lc, _ = cpu.decode_step(p_cpu, caches[1], tok)
     err["decode"] = _max_err(lg.cpu(), lc)
     same["decode"] = bool(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)))
-    print(f"[{WIDE_TAGS[arch]}] float32 check (full width, 2 layers, TF32 off, card vs CPU): "
+    print(f"[{tag or WIDE_TAGS[arch]}] float32 check (full width, 2 layers, TF32 off, card vs "
+          "CPU): "
           f"argmax equal {same}, max |logit diff| prefill {err['prefill']:.3e} / decode "
           f"{err['decode']:.3e} (tol {F32_WIDE}), max |logit| "
           f"{float(lc[:, :cfg.vocab].abs().max()):.3f}; "
@@ -2265,6 +2309,326 @@ def wide_reference_check(dev) -> None:
                                           schedule="hybrid", prefill_chunk=8)})
     gpu, cpu, ((p_gpu, p_cpu),) = _reduced_pair(dev, kv_quant=True)
     _engines_equal("dense-kvq", gpu, cpu, p_gpu, p_cpu,
+                   {"sub_batches 1": {}, "sub_batches 2": dict(sub_batches=2)})
+
+
+# ----------------------------------------------------------- DeepSeek path
+def mla_identity_check(model, params) -> None:
+    """The MLA identity at full width on the card, in float32 (TF32 off):
+    the absorbed decode (W_UK folded into the query, attention over the
+    latent, then W_UV) against expanding per-head K and V from the latent
+    and attending, with layer 0's W_UK / W_UV, random latents, rope keys
+    and queries at the serve shape (16 rows, 1024 positions, the kernel
+    phase's lengths).  Within ``MLA_IDENTITY_TOL`` of the largest output."""
+    cfg, dev, a = model.cfg, model.device, model.cfg.mla
+    B, S, H = 16, 1024, cfg.n_heads
+    gen = torch.Generator(device=dev).manual_seed(19)
+    w_uk, w_uv = (params["dense_blocks"][k][0].float() for k in ("w_uk", "w_uv"))
+    ckv, krope, q_nope, q_rope = (
+        torch.randn(shape, generator=gen, device=dev)
+        for shape in ((B, S, a.kv_lora_rank), (B, S, a.qk_rope_head_dim),
+                      (B, H, a.qk_nope_head_dim), (B, H, a.qk_rope_head_dim)))
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(a.qk_nope_head_dim + a.qk_rope_head_dim)
+    kf = torch.cat([torch.einsum("bsr,rhk->bshk", ckv, w_uk),
+                    krope[:, :, None].expand(B, S, H, a.qk_rope_head_dim)], -1)
+    vf = torch.einsum("bsr,rhk->bshk", ckv, w_uv)
+    expected = attn_mod.decode_attention(torch.cat([q_nope, q_rope], -1), kf, vf,
+                                               lengths, scale=scale)
+    del kf, vf
+    lat = offload.mla_decode_attention(torch.einsum("bhn,rhn->bhr", q_nope, w_uk), q_rope,
+                                       ckv, krope, lengths, scale=scale)
+    got = torch.einsum("bhr,rhn->bhn", lat, w_uv)
+    err, top = _max_err(got, expected), float(expected.abs().max())
+    print(f"[deepseek] MLA identity (full width, float32, B={B} S={S} H={H}, "
+          f"{int(lengths.clamp(max=S).sum())} live positions): absorbed vs expanded max "
+          f"|diff| {err:.3e}, max |out| {top:.3f} (tol {MLA_IDENTITY_TOL} of it)")
+    if not err <= MLA_IDENTITY_TOL * top:
+        raise AssertionError("[deepseek] the absorbed MLA decode differs from the expanded one")
+
+
+def ds_moe_layer_check(model, params) -> None:
+    """The first MoE layer of the loaded weights, in float32 on the card
+    against the CPU, at T = 16 (a decode batch) on random inputs: at full
+    width (256 experts) the router (top-8 ids equal, weights within 1e-6)
+    and the dropping dispatch (rows, drops and buffers equal); the whole
+    ``moe_ffn`` (router, dispatch, expert products, combine, shared expert)
+    on the first ``DS_EXPERT_SLICE`` experts, within ``MOE_LAYER_TOL``."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("[deepseek] TF32 matmuls are on: the float32 check needs them off")
+    dev = model.device
+    cfg = model.cfg.with_overrides(dtype="float32")
+    layer = {k: v[0] for k, v in params["moe_blocks"].items()}
+    x = torch.randn(16, cfg.d_model, generator=torch.Generator().manual_seed(11))
+    router = layer["router"].float()
+    (wg, ig), (wc, ic) = (moe_mod.router_scores(cfg, r, t)
+                          for r, t in ((router, x.to(dev)), (router.cpu(), x)))
+    (dg, mg), (dc, mc) = (moe_mod.dispatch(cfg, t, i) for t, i in ((x.to(dev), ig), (x, ic)))
+    same_dispatch = (torch.equal(dg.cpu()[:, :-1], dc[:, :-1])
+                     and all(torch.equal(g.cpu(), c) for g, c in zip(mg, mc)))
+    E = min(DS_EXPERT_SLICE, cfg.moe.n_experts)
+    sliced = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, n_experts=E))
+    p_gpu = {k: (v[..., :E] if k == "router" else v[:E] if k.startswith("we_") else v).float()
+             for k, v in layer.items() if k == "router" or k.startswith(("we_", "ws_"))}
+    p_cpu = _cpu(p_gpu)
+    (_, sg), (_, sc) = (moe_mod.router_scores(sliced, p["router"], t)
+                        for p, t in ((p_gpu, x.to(dev)), (p_cpu, x)))
+    yg, yc = (moe_mod.moe_ffn(sliced, p, t) for p, t in ((p_gpu, x.to(dev)), (p_cpu, x)))
+    err = _max_err(yg.cpu(), yc)
+    print(f"[deepseek] MoE layer check (moe_blocks[0], float32, T=16): full width, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, capacity "
+          f"{moe_mod.capacity(cfg, 16)}: expert ids card == CPU {torch.equal(ig.cpu(), ic)}, "
+          f"router weights max diff {_max_err(wg.cpu(), wc):.2e}, dispatch rows, drops and "
+          f"buffers equal {same_dispatch} ({int(mc[2].sum())} of {mc[2].numel()} assignments "
+          f"dropped); moe_ffn on the first {E} experts (capacity {moe_mod.capacity(sliced, 16)}"
+          f"): expert ids equal {torch.equal(sg.cpu(), sc)}, output max |diff| {err:.2e} "
+          f"(tol {MOE_LAYER_TOL}, max |y| {float(yc.abs().max()):.3f})")
+    if not (torch.equal(ig.cpu(), ic) and _max_err(wg.cpu(), wc) <= 1e-6 and same_dispatch
+            and torch.equal(sg.cpu(), sc) and err <= MOE_LAYER_TOL):
+        raise AssertionError("[deepseek] the MoE layer differs between the card and the CPU")
+
+
+def mla_decode_timing(model) -> float:
+    """The absorbed MLA decode of one layer (``offload.mla_decode_attention``,
+    plain torch: the reference has no Pallas kernel for it) at the serve
+    shape: 16 rows, bf16 queries and latent cache of 1024 positions, the
+    kernel phase's 8115 live positions.  Device time, device ops per call,
+    and the bound: the whole cache read once (the plain version reads every
+    position; the live ones alone beside it), queries read and output
+    written once.  Beside it, ``scaled_dot_product_attention`` over the
+    latent as one K/V head shared by every query head (never used by the
+    port), checked to compute the same.  Returns the device ms."""
+    cfg, dev, a = model.cfg, model.device, model.cfg.mla
+    B, S, H, Dc, Dr = 16, 1024, cfg.n_heads, a.kv_lora_rank, a.qk_rope_head_dim
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q_lat, q_rope, ckv, krope = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+                                 for shape in ((B, H, Dc), (B, H, Dr), (B, S, Dc), (B, S, Dr)))
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(a.qk_nope_head_dim + Dr)
+
+    def mla():
+        return offload.mla_decode_attention(q_lat, q_rope, ckv, krope, lengths, scale=scale)
+
+    q = torch.cat([q_lat, q_rope], -1)[:, :, None]
+    k = torch.cat([ckv, krope], -1)[:, None].expand(B, H, S, Dc + Dr)
+    v = ckv[:, None].expand(B, H, S, Dc)
+    mask = (torch.arange(S, device=dev)[None] < lengths[:, None])[:, None, None]
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)[:, :, 0]
+
+    out = mla()
+    lib_err = _max_err(library(), out)
+    ms, lib_ms = _device_ms([mla]), _device_ms([library], 10)
+    calls = 20
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            mla()
+        torch.cuda.synchronize()
+    n_ops = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+    ops_per_call = (f"{n_ops / calls:.0f} device ops per call" if n_ops else
+                    "device ops per call not measured (the profiler saw no device activity)")
+    io = (q_lat.numel() + q_rope.numel() + out.numel()) * 2
+    live = int(lengths.clamp(max=S).sum())
+    whole, live_bytes = B * S * (Dc + Dr) * 2 + io, live * (Dc + Dr) * 2 + io
+    flops = 2 * H * live * (2 * Dc + Dr)
+    bound_ms, by = _bound(whole, flops, PEAK_BF16_FLOPS)
+    print(f"[deepseek] MLA decode (one layer, plain torch, B={B} H={H} S={S} Dc={Dc} Dr={Dr}, "
+          f"bf16): {ms:.4f} ms device, {ops_per_call}; bound {bound_ms:.4f} "
+          f"ms ({by}: {whole / 1e6:.1f} MB, the whole cache; the {live} live positions "
+          f"{live_bytes / 1e6:.1f} MB: {live_bytes / PEAK_BYTES_S * 1e3:.4f} ms; "
+          f"{flops / 1e9:.2f} GFLOP: {flops / PEAK_BF16_FLOPS * 1e3:.4f} ms); SDPA over the "
+          f"latent as one shared K/V head {lib_ms:.4f} ms (max |diff| {lib_err:.2e}, tol "
+          f"{BF16_TOL})")
+    if lib_err > BF16_TOL:
+        raise AssertionError("[deepseek] SDPA over the latent differs from the MLA decode")
+    return ms
+
+
+def mla_prefill_timing(model) -> None:
+    """The expanded MLA's prefill attention of one layer
+    (``attention.chunked_attention``, plain torch, f32 inside: no flash
+    kernel takes q/k head dim 192 beside v 128) at a 509-token prompt,
+    bf16 in and out: event time against its bound (q, k, v read and the
+    output written once; the causal half of the products) and against
+    causal ``scaled_dot_product_attention`` on the same inputs (never used
+    by the port), checked to compute the same."""
+    cfg, dev, a = model.cfg, model.device, model.cfg.mla
+    S, H, Dqk, Dv = 509, cfg.n_heads, a.qk_nope_head_dim + a.qk_rope_head_dim, a.v_head_dim
+    gen = torch.Generator(device=dev).manual_seed(27)
+    q, k, v = (torch.randn(1, S, H, d, generator=gen, device=dev).bfloat16()
+               for d in (Dqk, Dqk, Dv))
+    scale = 1.0 / math.sqrt(Dqk)
+
+    def plain():
+        return attn_mod.chunked_attention(q, k, v, causal=True, scale=scale)
+
+    def library():
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=True,
+                                              scale=scale).transpose(1, 2)
+
+    err = _max_err(library(), plain())
+    # event time over back-to-back calls, host included: the plain version
+    # makes its int q_offset a device tensor, a copy from pageable memory
+    # that waits for the device, so no call can be queued ahead of it
+    ms, lib_ms = _time_ms([plain], 10), _time_ms([library], 10)
+    nbytes = (2 * q.numel() + 2 * v.numel()) * 2
+    flops = 2 * H * (S * (S + 1) // 2) * (Dqk + Dv)
+    bound_ms, by = _bound(nbytes, flops, PEAK_BF16_FLOPS)
+    print(f"[deepseek] MLA prefill attention (one layer, plain chunked, Sq=Sk={S} H={H} q/k "
+          f"D {Dqk} v D {Dv}, bf16): {ms:.4f} ms (events, host included); bound {bound_ms:.4f} ms ({by}: "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); causal SDPA {lib_ms:.4f} ms "
+          f"(max |diff| {err:.2e}, tol {BF16_TOL})")
+    if err > BF16_TOL:
+        raise AssertionError("[deepseek] SDPA differs from the plain MLA prefill attention")
+
+
+def expert_bmm_timing(model, params) -> float:
+    """The three expert ``bmm``s of one MoE layer at a decode batch's shape
+    (16 tokens routed top-8 over 256 experts: capacity 8, 9 rows each),
+    device time, against their weight stream.  Returns the device ms."""
+    cfg, dev = model.cfg, model.device
+    p = {k: v[0] for k, v in params["moe_blocks"].items()}
+    x = torch.randn(16, cfg.d_model, generator=torch.Generator(device=dev).manual_seed(23),
+                    device=dev).bfloat16()
+    disp, _ = moe_mod.dispatch(cfg, x, moe_mod.router_scores(cfg, p["router"], x)[1])
+
+    def experts():
+        h = F.silu(torch.bmm(disp, p["we_gate"])) * torch.bmm(disp, p["we_up"])
+        return torch.bmm(h, p["we_down"])
+
+    ms = _device_ms([experts], 10)
+    nbytes = sum(p[k].numel() for k in ("we_gate", "we_up", "we_down")) * 2
+    print(f"[deepseek] expert bmms of one MoE layer (disp {tuple(disp.shape)}): {ms:.3f} ms "
+          f"device, {nbytes / 1e9:.2f} GB of experts at {nbytes / ms / 1e9:.2f} TB/s (bound "
+          f"{nbytes / PEAK_BYTES_S * 1e3:.3f} ms)")
+    return ms
+
+
+def deepseek_phase(dev) -> PathRun:
+    """deepseek-v3-671b at full width, cut to ``DS_LAYERS`` layers (its 3
+    dense and first 2 MoE layers: every kind of layer and the dense-to-MoE
+    transition), on a card that holds nothing of the phases before:
+    first the float32 check at full width cut to its 2 first (dense MLA)
+    layers, card against CPU (:func:`wide_f32_check`); seed-0 bf16 weights
+    drawn on the card (memory allocated before and after, the peak, the
+    load seconds); the MLA identity (:func:`mla_identity_check`) and the
+    MoE layer in float32 (:func:`ds_moe_layer_check`); ``SERVE_FLAGS``
+    with ``--arch deepseek-v3-671b`` through :func:`serve_phase` (async
+    through the CUDA graphs with the launch counters zeroed, ``--graphs
+    off``, ``--async off``: tokens identical, and none of the three
+    attention kernels launched: prefill runs the plain chunked attention at
+    q/k head dim 192, decode the plain absorbed MLA), its step clock held to
+    ``DS_CLOCK``, tok/s and wall ms per decode step beside the bound of the
+    weights a step reads and the latent cache; the per-step f32 cast of
+    W_O; a ``--profile 8`` run's measured decode MBU (the cost model counts
+    the active experts, the dropping dispatch streams all 256); steady
+    decode steps under ``torch.profiler`` with graphs, the expert bmms'
+    and the MLA decode's device time (:func:`expert_bmm_timing`,
+    :func:`mla_decode_timing`) and the prefill attention's
+    (:func:`mla_prefill_timing`).  Returns the path's run without its
+    engine."""
+    t_phase = time.perf_counter()
+    full = get_config("deepseek-v3-671b")
+    wide_f32_check(dev, full.name, "deepseek", mtp_depth=0,
+                   moe=dataclasses.replace(full.moe, moe_layer_start=2))
+    before = freed_card(dev, "deepseek")
+    torch.cuda.reset_peak_memory_stats(dev)
+    args = serve.build_parser().parse_args(SERVE_FLAGS + DS_FLAGS)
+    t0 = time.perf_counter()
+    model = build_model(full.with_overrides(n_layers=DS_LAYERS), dev)
+    params = model.init(args.seed)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg, m, a, L = model.cfg, model.cfg.moe, model.cfg.mla, model.cfg.n_layers
+    print(f"[deepseek] serve: {cfg.name} n_params={model.n_params()} layers={L} "
+          f"({m.moe_layer_start} dense, {L - m.moe_layer_start} MoE; of {full.n_layers}) "
+          f"d_model={cfg.d_model} heads={cfg.n_heads} q/k head dim "
+          f"{a.qk_nope_head_dim}+{a.qk_rope_head_dim} v {a.v_head_dim} latent "
+          f"{a.kv_lora_rank}+{a.qk_rope_head_dim} experts={m.n_experts} top_k={m.top_k} "
+          f"shared={m.n_shared} weights {load_s:.1f}s; memory allocated "
+          f"{before / 1e9:.3f} GB before the load, {torch.cuda.memory_allocated(dev) / 1e9:.3f} "
+          f"GB after, peak {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    if model.n_params() != DS_PARAMS:
+        raise AssertionError(f"[deepseek] {model.n_params()} parameters, not {DS_PARAMS}")
+    mla_identity_check(model, params)
+    ds_moe_layer_check(model, params)
+    run = serve_phase(model, params, "deepseek", DS_FLAGS, lambda st: {}, {}, eager=True)
+    counts = ops.launch_counts()
+    print(f"[deepseek] attention kernel launches over the eager and sync runs: {counts} "
+          "(the async run's are checked by serve_phase: none expected)")
+    if any(counts.values()):
+        raise AssertionError("[deepseek] an attention kernel launched on the MLA path")
+    st, res = run.stats, run.res
+    clock = {k: getattr(st, k) for k in DS_CLOCK}
+    print(f"[deepseek] step clock {clock}, rounds {res.rounds}; the CPU's prediction {DS_CLOCK}")
+    if clock != DS_CLOCK:
+        raise AssertionError("[deepseek] the step clock is not the CPU's prediction")
+    defs = model.param_defs
+    # a decode step reads every weight but the embedding table (16 rows of it)
+    # and the MTP block (serving never runs it)
+    stream = 2 * (model.n_params() - cm.count_params(defs["mtp"])
+                  - math.prod(defs["embed"].shape))
+    kv_bytes = balance.kv_bytes_per_seq(cfg, 8115)
+    bound_ms = (stream + kv_bytes) / PEAK_BYTES_S * 1e3
+    print(f"[deepseek] {st.generated / res.wall_s:.1f} tok/s, "
+          f"{res.wall_s * 1e3 / st.decode_steps:.3f} wall ms per decode step (the run's wall "
+          f"over its {st.decode_steps} decode steps, its 64 whole-prompt prefills included); "
+          f"bound per decode step: the weights read {stream / 1e9:.2f} GB in "
+          f"{stream / PEAK_BYTES_S * 1e3:.2f} ms + {kv_bytes / 1e9:.4f} GB of latent cache at "
+          f"8115 live positions = {bound_ms:.2f} ms, {16e3 / bound_ms:.0f} tok/s at 16 rows")
+    tokens = run.tokens
+    run = run._replace(res=None)
+    del res
+    wo = params["dense_blocks"]["wo"][0]
+    cast_ms = _device_ms([lambda: wo.float()], 10)
+    print(f"[deepseek] W_O's f32 cast per layer and step (the reference's f32 output product; "
+          f"kept over an f32 copy at load, which would hold {L * wo.numel() * 4 / 1e9:.2f} GB "
+          f"more): {cast_ms:.4f} ms device ({wo.numel() * 6 / 1e9:.3f} GB moved), x {L} layers "
+          f"= {cast_ms * L:.3f} ms per decode step")
+
+    pargs = serve.build_parser().parse_args(SERVE_FLAGS + DS_FLAGS
+                                            + ["--profile", str(PROFILE_EVERY)])
+    pres = serve.serve(pargs, model, params)
+    for line in serve.telemetry_lines(pres):
+        print(f"[deepseek profile] {line}")
+    same = [r.out_tokens for r in pres.driver.submitted] == tokens
+    decode = [s for s in pres.profiler.samples if s.kind == "decode"]
+    top = max(max(s.measured_mfu, s.measured_mbu) for s in pres.profiler.samples)
+    med = statistics.median(s.seconds for s in decode)
+    active = balance._active_params(cfg)
+    print(f"[deepseek] measured decode (--profile {PROFILE_EVERY}, graphs): {len(decode)} "
+          f"samples, median {med * 1e3:.3f} ms, MBU "
+          f"{statistics.median(s.measured_mbu for s in decode):.4f} against the cost model's "
+          f"{2 * active / 1e9:.2f} GB of active weights ({active:.4e} active params); the "
+          f"{stream / 1e9:.2f} GB a step really reads at that median: "
+          f"{stream / med / PEAK_BYTES_S:.4f} of {PEAK_BYTES_S / 1e12:.2f} TB/s; largest share "
+          f"{top:.4f}; tokens as the unprofiled run's: {same}")
+    if not same or top > MAX_SHARE:
+        raise AssertionError("[deepseek] the profiled run differs, or a measured share > "
+                             f"{MAX_SHARE}")
+    del pres
+    profile_phase(model, params, "deepseek", DS_FLAGS, warm_steps=4, drain=False)
+    bmm_ms = expert_bmm_timing(model, params)
+    mla_ms = mla_decode_timing(model)
+    mla_prefill_timing(model)
+    print(f"[deepseek] per decode step: expert bmms {bmm_ms * (L - m.moe_layer_start):.3f} ms "
+          f"({L - m.moe_layer_start} MoE layers), MLA decode {mla_ms * L:.4f} ms ({L} layers), "
+          f"W_O casts {cast_ms * L:.3f} ms")
+    print(f"[deepseek] phase wall {time.perf_counter() - t_phase:.1f}s (f32 check, load, "
+          "checks, serve runs, profiles)")
+    return run
+
+
+def deepseek_reference_check(dev) -> None:
+    """Reduced deepseek-v3-671b in float32, the same weights on the card and
+    on the CPU: engines async (the card's under CUDA graphs) and sync at
+    ``sub_batches`` 1 and 2, tokens and ``EngineStats`` equal."""
+    gpu, cpu, ((p_gpu, p_cpu),) = _reduced_pair(dev, arch="deepseek-v3-671b")
+    _engines_equal("deepseek", gpu, cpu, p_gpu, p_cpu,
                    {"sub_batches 1": {}, "sub_batches 2": dict(sub_batches=2)})
 
 
@@ -2478,6 +2842,7 @@ def main() -> None:
     for arch in WIDE_TAGS:
         by_path.update(family_phase(dev, arch, by_name))
     by_path["moe"] = moe_phase(dev, by_name)
+    deepseek_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2492,6 +2857,7 @@ def main() -> None:
     sub_batch_check(dev)
     moe_reference_check(dev)
     wide_reference_check(dev)
+    deepseek_reference_check(dev)
     print(f"reduced checks: {time.perf_counter() - t0:.1f}s")
     for r in rows:
         r["launches_by_path"] = {p: run.launches.get(r["name"], 0)

@@ -1,15 +1,16 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
 Arch ids accept dashes, underscores or dots interchangeably.  Only the
-architectures the port serves so far are registered (six of the
+architectures the port serves so far are registered (seven of the
 reference's ten): the dense family (yi-34b, llama3.2-1b, llama3.2-3b,
-minicpm-2b and internvl2-76b's backbone) and the MoE moonshot.
+minicpm-2b and internvl2-76b's backbone), the MoE moonshot and
+deepseek-v3 (MLA + MoE).
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import DENSE, MOE, ModelConfig  # noqa: F401
+from repro_torch.configs.base import DEEPSEEK, DENSE, MOE, ModelConfig  # noqa: F401
 
 # arch id -> module name under repro_torch.configs
 ARCHS: dict[str, str] = {
@@ -19,6 +20,7 @@ ARCHS: dict[str, str] = {
     "minicpm-2b": "minicpm_2b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "internvl2-76b": "internvl2_76b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 

@@ -1,9 +1,9 @@
-"""Model configuration (dense and MoE families).
+"""Model configuration (dense, MoE and DeepSeek families).
 
 A copy of the fields of ``repro.configs.base.ModelConfig`` (and of its
-``MoEConfig``) that the dense llama-family and the MoE serving paths
-read, the stub frontend's included; the other families' sub-configs
-arrive with their slices of the port.
+``MoEConfig`` and ``MLAConfig``) that the dense llama-family, the MoE and
+the DeepSeek serving paths read, the stub frontend's included; the other
+families' sub-configs arrive with their slices of the port.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Any
 
 DENSE = "dense"        # llama-style decoder
 MOE = "moe"            # moonshot (GQA + MoE FFN)
+DEEPSEEK = "deepseek"  # deepseek-v3: MLA + MoE + MTP
 
 
 @dataclass(frozen=True)
@@ -26,6 +27,15 @@ class MoEConfig:
     capacity_factor: float = 1.25   # dropping MoE capacity (tests may raise)
     score_func: str = "softmax"     # softmax | sigmoid (dsv3 uses sigmoid)
     moe_layer_start: int = 0        # dense layers before MoE starts (dsv3: 3)
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -48,6 +58,8 @@ class ModelConfig:
     frontend: str = "none"             # none | patches
     frontend_len: int = 0
     moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
+    mtp_depth: int = 0                 # deepseek multi-token-prediction heads
     dtype: str = "bfloat16"
     kv_quant: bool = False             # int8 dense KV cache with bf16 scales: 2x capacity
 

@@ -1,10 +1,10 @@
 """Reduced (smoke-test scale) variants of the registered architectures:
-same family and topology, tiny dims (the dense and MoE branches of
-``repro.configs.reduced.reduce_config``)."""
+same family and topology, tiny dims (the dense, MoE, MLA and MTP
+branches of ``repro.configs.reduced.reduce_config``)."""
 from __future__ import annotations
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
 
 
 def reduce_config(arch: str, vocab: int = 512) -> ModelConfig:
@@ -30,4 +30,11 @@ def reduce_config(arch: str, vocab: int = 512) -> ModelConfig:
             capacity_factor=2.0,
         )
         kw["n_layers"] = 3
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(
+            q_lora_rank=48, kv_lora_rank=32,
+            qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+        )
+    if cfg.mtp_depth:
+        kw["mtp_depth"] = 1
     return cfg.with_overrides(**kw)

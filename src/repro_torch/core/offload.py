@@ -1,7 +1,8 @@
 """Decode and prefill attention routed to the device that holds the data.
 
 Single-device counterpart of ``repro.core.offload`` (``decode_attention``,
-``paged_decode_attention`` and ``prefill_attention``).  On the TPU mesh
+``paged_decode_attention``, ``prefill_attention`` and
+``mla_decode_attention``).  On the TPU mesh
 that module split the KV cache into an "HPU layout"; on one GPU the
 cache is already where the attention runs, so what is left is the
 choice of implementation: the Hopper kernels for CUDA tensors, the
@@ -65,3 +66,15 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.is_cuda:
         return ops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
     return attn.chunked_attention(q, k, v, causal=True, q_offset=q_offset, chunk=chunk)
+
+
+def mla_decode_attention(q_latent: torch.Tensor, q_rope: torch.Tensor,
+                         ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
+                         lengths: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """MLA absorbed decode over the latent cache (no head axis):
+    q_latent (B, H, Dc), q_rope (B, H, Dr), ckv_cache (B, S, Dc),
+    krope_cache (B, S, Dr), lengths (B,) -> (B, H, Dc).  The reference
+    has no Pallas kernel here, so both devices run the plain version, with
+    the reference's one-device f32 combine (``Env.bf16_combine`` off)."""
+    return attn.mla_decode_attention(q_latent, q_rope, ckv_cache, krope_cache, lengths,
+                                     scale=scale)

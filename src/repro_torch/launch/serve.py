@@ -21,9 +21,16 @@
   python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \\
       --requests 64 --slots 16 --max-seq 1024 --max-new 64
 
-Counterpart of ``repro.launch.serve`` for the dense llama family and the
-MoE family (``--arch moonshot-v1-16b-a3b``: dense cache, decode-only, as
-the reference serves it), for the dense per-slot KV cache
+  python -m repro_torch.launch.serve --arch deepseek-v3-671b --reduced \\
+      --device cpu --requests 6 --slots 3 --max-seq 64 --max-new 6
+
+Counterpart of ``repro.launch.serve`` for the dense llama family, the
+MoE family (``--arch moonshot-v1-16b-a3b``) and the DeepSeek family
+(``--arch deepseek-v3-671b``: MLA over a latent cache on the MoE FFN;
+one card holds 5 of its 61 layers, so a full-width run builds its model
+with ``get_config(...).with_overrides(n_layers=5)`` and passes it to
+:func:`serve`), both on the dense cache with the decode-only schedule, as
+the reference serves them; for the dense per-slot KV cache
 and the paged block pool (``--cache``, ``--block-size``, ``--blocks``),
 tiered KV on the pool (``--kv-dtype fp8|int8`` stores it quantized,
 ``--host-blocks`` adds the host tier that cold blocks spill to), the

@@ -110,3 +110,42 @@ def decode_attention(
     o = torch.einsum("bhgk,bkhd->bhgd", pv, v_cache.float())
     o = o / l.clamp_min(1e-30)
     return o.reshape(B, Hq, Dv).to(q.dtype)
+
+
+def mla_decode_attention(
+    q_latent: torch.Tensor,
+    q_rope: torch.Tensor,
+    ckv_cache: torch.Tensor,
+    krope_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """DeepSeek MLA absorbed decode over the latent cache.
+
+    q_latent (B, H, Dc): the query projected into the compressed-KV
+    latent space (W_UK absorbed); q_rope (B, H, Dr); ckv_cache (B, S, Dc);
+    krope_cache (B, S, Dr); lengths (B,) -> (B, H, Dc), the
+    attention-weighted latent (the caller applies W_UV and W_O).  The
+    reference's casts: the queries are rounded to the caches' dtype, the
+    scores are f32 sums of those products, p is rounded to the cache
+    dtype before P·ckv, whose sum and the division by l run in f32 (the
+    reference's ``acc_dtype`` on one device: its bf16 combine is a
+    cross-shard option).  Every product runs on f32 operands that hold the
+    rounded values (exact), so a bf16 matmul's own output rounding never
+    enters (TF32 must be off on the card)."""
+    S = ckv_cache.shape[1]
+    ckv = ckv_cache.float()
+    ql = q_latent.to(ckv_cache.dtype).float()
+    qr = q_rope.to(krope_cache.dtype).float()
+    s = torch.bmm(ql, ckv.transpose(1, 2))
+    s = s + torch.bmm(qr, krope_cache.float().transpose(1, 2))
+    s = s * scale
+    mask = (torch.arange(S, device=s.device)[None] < lengths[:, None])[:, None]
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~mask, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.bmm(p.to(ckv_cache.dtype).float(), ckv)
+    out = out / l.clamp_min(1e-30)
+    return out.to(q_latent.dtype)

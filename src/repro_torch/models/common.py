@@ -57,19 +57,20 @@ def _leaves(tree: Pytree, prefix: tuple = ()):
 SLAB_ELEMENTS = 1 << 30
 
 
-def _normal(shape: tuple[int, ...], std: float, generator: torch.Generator,
-            dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """An f32 normal draw times ``std``, cast to ``dtype``.  A leaf above
-    ``SLAB_ELEMENTS`` (an MoE expert stack: 8.7e9 elements at
-    moonshot-v1-16b-a3b's width) is drawn slab by slab into the ``dtype``
-    destination, so the f32 transient is one slab and not the leaf."""
-    if math.prod(shape) <= SLAB_ELEMENTS or len(shape) < 2:
-        return torch.randn(shape, generator=generator, device=device,
-                           dtype=torch.float32).mul_(std).to(dtype)
-    out = torch.empty(shape, dtype=dtype, device=device)
-    for slab in out:
-        slab.copy_(_normal(tuple(slab.shape), std, generator, dtype, device))
-    return out
+def _fill_normal(dst: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """Fill ``dst`` in place with an f32 normal draw times ``std``, cast to
+    its dtype.  A destination above ``SLAB_ELEMENTS`` (an MoE expert
+    stack: 8.7e9 elements at moonshot-v1-16b-a3b's width) is filled one
+    leading-axis slab at a time, and a slab still above it (one layer of
+    deepseek-v3-671b's: 256 x 7168 x 2048) one slab of its own leading
+    axis at a time, so no f32 transient exceeds ``SLAB_ELEMENTS`` and no
+    slab is staged outside ``dst``."""
+    if dst.numel() <= SLAB_ELEMENTS or dst.dim() < 2:
+        dst.copy_(torch.randn(dst.shape, generator=generator, device=dst.device,
+                              dtype=torch.float32).mul_(std))
+        return
+    for slab in dst:
+        _fill_normal(slab, std, generator)
 
 
 def init_params(tree: Pytree, generator: torch.Generator, dtype: torch.dtype,
@@ -87,7 +88,8 @@ def init_params(tree: Pytree, generator: torch.Generator, dtype: torch.dtype,
             fill = torch.zeros if defn.init == "zeros" else torch.ones
             val = fill(defn.shape, dtype=dtype, device=device)
         else:
-            val = _normal(defn.shape, _std(defn), generator, dtype, device)
+            val = torch.empty(defn.shape, dtype=dtype, device=device)
+            _fill_normal(val, _std(defn), generator)
         node[path[-1]] = val
     return out
 

@@ -1,6 +1,7 @@
 """Model API: ``build_model(cfg, device)`` -> :class:`Model`.
 
-Counterpart of ``repro.models.registry`` for the dense and MoE families.
+Counterpart of ``repro.models.registry`` for the dense, MoE and DeepSeek
+families.
 A Model binds a config and a device to the family's step functions; the
 steps a family does not define are None.  The device
 is CUDA unless the caller asks for another (``device="cpu"``); with no
@@ -14,7 +15,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs.base import DENSE, MOE, ModelConfig
+from repro_torch.configs.base import DEEPSEEK, DENSE, MOE, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
 
@@ -32,8 +33,8 @@ class Model:
     decode_step: Callable[..., tuple[torch.Tensor, Pytree]]
     cache_defs: Callable[[int, int], Pytree]
     init_cache: Callable[..., Pytree]
-    # The steps below are None for a family without them (the MoE family
-    # has none), as in the reference.
+    # The steps below are None for a family without them (the MoE and
+    # DeepSeek families have none), as in the reference.
     # decode_sample_step(params, cache, tokens, generator, eos_ids, *, sampler)
     #   -> (tokens' (B,), eos_hit (B,), cache)
     decode_sample_step: Callable[..., tuple[torch.Tensor, ...]] | None = None
@@ -78,6 +79,8 @@ def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> M
         from repro_torch.models import dense as fam
     elif cfg.family == MOE:
         from repro_torch.models import moe as fam
+    elif cfg.family == DEEPSEEK:
+        from repro_torch.models import deepseek as fam
     else:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     optional = {name: functools.partial(getattr(fam, name), cfg)
