@@ -17,7 +17,7 @@
    card could take.  Every prefill case also runs with ``q_offset`` as a
    ``(1,)`` int32 device tensor (what a captured graph passes), which must
    give the int form's bits; the chunk rows are timed in that form too.
-   Twenty-nine rows: decode (split across CTAs, partials
+   Thirty-four rows: decode (split across CTAs, partials
    merged by a second kernel); prefill unscaled at a whole prompt and at
    the hybrid chunk shape (32 queries at q_offset 192 against the
    1024-position staging stripe, after the chunk edge cases), int8 and
@@ -30,7 +30,10 @@
    Hkv 36), llama3.2-3b (G 3), yi-34b (G 7) and internvl2-76b (G 8, the
    kernels' limit; all three D 128, Hkv 8): decode and whole-prompt
    prefill, and for the first three the chunk and paged rows of their
-   paged-hybrid paths.  The paged variants are also checked with f32 queries,
+   paged-hybrid paths; decode and whole-prompt prefill at zamba2-1.2b's
+   shared block (Hq = Hkv = 32, D 128) and at seamless-m4t-medium's
+   decoder heads (Hq = Hkv = 16, D 64), whose decode also reads the 512
+   cached frames whole in every row (``decode_attention[seamless-cross]``).  The paged variants are also checked with f32 queries,
    with a ``starts`` window + lse, with NaN in null block 0 and past each
    row's length (never read: equal to the plain version on zeros there)
    and with every window empty (the cold launch of a step with nothing
@@ -151,6 +154,19 @@
    device time of one MoE layer's expert bmms, of one layer's MLA decode
    (beside its bound and SDPA over the latent as one shared head) and of
    its prefill attention (beside causal SDPA).
+   Then, each on a card freed of the one before, rwkv6-7b and zamba2-1.2b
+   at full width and depth (float32 check at 2 layers; the first 32
+   requests of the serve shape with ``--arch``, async through the graphs,
+   eager and sync: tokens identical, the step clock the CPU's; no attention
+   launch on rwkv6, the decode and flash kernels once per shared-block slot
+   of each decode step and prefill on zamba2; tok/s against the bound of
+   the bytes a step reads; a graph profile; one layer's WKV / SSD scan at a
+   decode step and over 509 tokens; a 509-token prefill's wall), and
+   seamless-m4t-medium at model level (float32 check at 2 + 2 layers; 16
+   rows of seeded frames, a 32-token prompt, 64 greedy steps as one CUDA
+   graph: 12 flash launches a prefill and 24 decode launches a step; the
+   same against the plain attention on the card; the decode step's busy
+   time against its bound).
 5. Profiles (torch.profiler) of steady async steps on paths a, b, c and
    e, with graphs (eagerly only moonshot's, to keep the script inside its
    time; the other families' and deepseek's with graphs), for where the
@@ -217,7 +233,9 @@ object with one entry per kernel; the last is
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -251,7 +269,10 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models import dense as dense_mod  # noqa: E402
+from repro_torch.models import mamba2 as mamba2_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import rwkv6 as rwkv6_mod  # noqa: E402
+from repro_torch.models import zamba2 as zamba2_mod  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving.cluster import Cluster  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
@@ -312,14 +333,20 @@ DECODE_SHAPES = {"decode_attention": (16, 1024, 8, 4, 64),          # llama3.2-1
                  "decode_attention[minicpm]": (16, 1024, 36, 1, 64),
                  "decode_attention[llama3b]": (16, 1024, 8, 3, 128),
                  "decode_attention[yi]": (16, 1024, 8, 7, 128),
-                 "decode_attention[internvl]": (16, 1024, 8, 8, 128)}
+                 "decode_attention[internvl]": (16, 1024, 8, 8, 128),
+                 "decode_attention[zamba2]": (16, 1024, 32, 1, 128),      # its shared block
+                 "decode_attention[seamless]": (16, 1024, 16, 1, 64),     # decoder self
+                 # decoder cross: every row reads all 512 cached frames
+                 "decode_attention[seamless-cross]": (16, 512, 16, 1, 64)}
 # attention heads (Hq, Hkv, D) of the full-width families beside llama3.2-1b,
 # by the tag their kernel rows carry
 HEADS = {"moe": (16, 16, 128),            # moonshot-v1-16b-a3b
          "minicpm": (36, 36, 64),         # minicpm-2b: G 1, the paper's regime
          "llama3b": (24, 8, 128),         # llama3.2-3b: G 3
          "yi": (56, 8, 128),              # yi-34b: G 7
-         "internvl": (64, 8, 128)}        # internvl2-76b's backbone: G 8, the kernels' MAX_G
+         "internvl": (64, 8, 128),        # internvl2-76b's backbone: G 8, the kernels' MAX_G
+         "zamba2": (32, 32, 128),         # zamba2-1.2b's shared block: 2 * 2048 / 32 wide
+         "seamless": (16, 16, 64)}        # seamless-m4t-medium's decoder self-attention
 # the MoE path: moonshot-v1-16b-a3b at full width on the dense cache
 MOE_FLAGS = ["--arch", "moonshot-v1-16b-a3b"]
 MOE_PARAMS = 28386592768
@@ -376,7 +403,31 @@ REPEAT_ARCHS = ("yi-34b",)
 # and of a decode step (the plain decode also rounds p to the bf16 cache's
 # dtype before P.V, the kernel does not: as reference_check's 5e-2)
 F32_WIDE = {"prefill": 1e-3, "decode": 5e-2}
+# the same for the encoder-decoder: its 4-D attention weights are drawn with
+# the reference's fan-in of their second-to-last axis (the 16 heads), so the
+# random model's q and k reach ~40 and its scores hundreds, where f32 ulps of
+# a score move the near one-hot softmax: the plain attention alone, on the
+# same inputs, differs by 1.2e-3 of outputs ~35 between card and CPU
+F32_WIDE_ENCDEC = {"prefill": 5e-2, "decode": 5e-2}
 MEM_FREED = 0.1e9         # bytes a freed card may hold before a full-width load
+# the recurrent families at full width and depth, served on the dense state
+# cache: arch -> the tag of their lines and kernel rows
+RECURRENT_TAGS = {"rwkv6-7b": "rwkv6", "zamba2-1.2b": "zamba2"}
+RECURRENT_PARAMS = {"rwkv6-7b": 7577026560, "zamba2-1.2b": 1322652544}
+# their eager whole-prompt prefills step the recurrence one token at a time,
+# host-bound (~0.4 s for 509 tokens): their serve paths take the first 32 of
+# the serve shape's 64 requests, to keep the script inside its time
+RECURRENT_REQUESTS = ["--requests", "32"]
+# their step clocks as `scripts/torch_step_clock.py --arch <id> --requests 32`
+# predicts them
+_RECURRENT_CLOCK = {"prefills": 32, "decode_steps": 126, "engine_steps": 468,
+                    "generated": 2048}
+RECURRENT_CLOCK = {"rwkv6-7b": _RECURRENT_CLOCK, "zamba2-1.2b": _RECURRENT_CLOCK}
+# seamless-m4t-medium at model level (the serving engine passes no frames):
+# rows, frames of the stub frontend, decoder prompt tokens, greedy steps
+SEAMLESS = "seamless-m4t-medium"
+SEAMLESS_PARAMS = 977860608
+SEAMLESS_ROWS, SEAMLESS_PROMPT, SEAMLESS_STEPS = 16, 32, 64
 
 
 def _time_ms(fns, iters: int = 30) -> float:
@@ -446,10 +497,11 @@ def decode_phase(dev, name: str = "decode_attention") -> dict:
     ``--spec-depth`` draft's (reduced llama3.2-1b: Hkv 2, G 2, D 16, padded
     to 32 in the tensor-core kernel), which decodes k + 1 times per
     speculative step; moonshot-v1-16b-a3b's (Hkv 16, G 1, D 128: one real
-    row in each m16 tile)."""
+    row in each m16 tile); and the full-width families'."""
     B, S, Hkv, G, D = DECODE_SHAPES[name]
     gen = torch.Generator(device=dev).manual_seed(1)
-    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    # a cache shorter than LENGTHS' (the cross cache) is read whole by every row
+    lengths = torch.tensor(LENGTHS if S == 1024 else [S] * B, dtype=torch.int32, device=dev)
     cache_bytes = 2 * B * S * Hkv * D * 2
     n_copies = max(1, math.ceil(2 * L2_BYTES / cache_bytes))
     sets = []
@@ -2103,13 +2155,14 @@ def freed_card(dev, label: str) -> int:
     return held
 
 
-def wide_f32_check(dev, arch: str, tag: str | None = None, **overrides) -> None:
+def wide_f32_check(dev, arch: str, tag: str | None = None, tol: dict = F32_WIDE,
+                   **overrides) -> None:
     """``arch`` at full width cut to 2 layers (``overrides`` of its config
     beside), in float32 with TF32 off: seed-0 weights drawn on the card and
     copied to the CPU; a 24-token prefill and one decode step through the
     kernels (deepseek: its plain attention) on the card against the plain
-    versions on the CPU.  Argmax equal, and the logits within
-    ``F32_WIDE``."""
+    versions on the CPU (the encoder-decoder's prefill also encodes
+    seeded random frames).  Argmax equal, and the logits within ``tol``."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError(f"[{arch}] TF32 matmuls are on: the float32 check needs them off")
     t0 = time.perf_counter()
@@ -2119,8 +2172,13 @@ def wide_f32_check(dev, arch: str, tag: str | None = None, **overrides) -> None:
     p_cpu = _cpu(p_gpu)
     prompt = torch.randint(1, cfg.vocab, (1, 24), generator=torch.Generator().manual_seed(12))
     caches = gpu.init_cache(1, 64), cpu.init_cache(1, 64)
-    lg, _ = gpu.prefill(p_gpu, prompt.to(dev), caches[0])
-    lc, _ = cpu.prefill(p_cpu, prompt, caches[1])
+    frames = None
+    if cfg.frontend == "frames":
+        frames = torch.randn(1, cfg.frontend_len, cfg.d_model,
+                             generator=torch.Generator().manual_seed(14))
+    lg, _ = gpu.prefill(p_gpu, prompt.to(dev), caches[0],
+                        embeds=None if frames is None else frames.to(dev))
+    lc, _ = cpu.prefill(p_cpu, prompt, caches[1], embeds=frames)
     err = {"prefill": _max_err(lg.cpu(), lc)}
     same = {"prefill": bool(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)))}
     tok = lc.argmax(-1).to(torch.int32)
@@ -2131,10 +2189,10 @@ def wide_f32_check(dev, arch: str, tag: str | None = None, **overrides) -> None:
     print(f"[{tag or WIDE_TAGS[arch]}] float32 check (full width, 2 layers, TF32 off, card vs "
           "CPU): "
           f"argmax equal {same}, max |logit diff| prefill {err['prefill']:.3e} / decode "
-          f"{err['decode']:.3e} (tol {F32_WIDE}), max |logit| "
+          f"{err['decode']:.3e} (tol {tol}), max |logit| "
           f"{float(lc[:, :cfg.vocab].abs().max()):.3f}; "
           f"{time.perf_counter() - t0:.1f}s")
-    if not (all(same.values()) and all(err[k] <= F32_WIDE[k] for k in err)):
+    if not (all(same.values()) and all(err[k] <= tol[k] for k in err)):
         raise AssertionError(f"[{arch}] float32 card and CPU differ: {err}, {same}")
 
 
@@ -2631,6 +2689,415 @@ def deepseek_reference_check(dev) -> None:
     _engines_equal("deepseek", gpu, cpu, p_gpu, p_cpu,
                    {"sub_batches 1": {}, "sub_batches 2": dict(sub_batches=2)})
 
+def _profiled_busy_ms(fn, n: int = 3) -> float:
+    """Device-busy ms of one call of ``fn`` (device-side events under
+    ``torch.profiler``, over ``n`` calls after one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
+
+
+def scan_timing(model, tag: str) -> None:
+    """One layer's recurrence as the serve path runs it, on seeded random f32
+    inputs of the layer's shapes: the WKV scan (rwkv6) or the SSD scan
+    (zamba2), at a 16-row decode step (S 1) and over a 509-token prompt
+    (B 1).  Device time (at S 1 the calls queued behind a spin kernel; the
+    prompt's ~1500 launches overflow the device's launch queue, so there
+    the device-busy time under ``torch.profiler``), event time over
+    back-to-back calls (the host's, once it is slower), and the bound:
+    each input read once, the output and the state written once, the
+    operations (5 per state element and step: the read-out's 2, the
+    update's 3) at the f32 CUDA-core peak."""
+    cfg, dev = model.cfg, model.device
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    for B, S in ((16, 1), (1, 509)):
+        if tag == "rwkv6":
+            H, N = rwkv6_mod._dims(cfg)
+            w = torch.rand(B, S, H, N, generator=gen, device=dev)     # decays in (0, 1)
+            args = (rnd(B, S, H, N), rnd(B, S, H, N), rnd(B, S, H, N), w,
+                    rnd(H, N, scale=0.1), rnd(B, H, N, N, scale=0.1))
+            fn, name = functools.partial(rwkv6_mod._wkv_scan, *args), "WKV scan"
+            ins, outs, state = 4 * B * S * H * N + H * N, B * S * H * N, B * H * N * N
+        else:
+            _, H, _, _ = mamba2_mod.dims(cfg)
+            P, N = cfg.ssm.d_head, cfg.ssm.d_state
+            dt = torch.rand(B, S, H, generator=gen, device=dev) * 0.1
+            args = (rnd(B, S, H, P), rnd(B, S, H, N), rnd(B, S, H, N), dt,
+                    -torch.rand(H, generator=gen, device=dev), rnd(B, H, P, N, scale=0.1))
+            fn, name = functools.partial(mamba2_mod._ssd_scan, *args), "SSD scan"
+            ins, outs, state = B * S * H * (P + 2 * N + 1) + H, B * S * H * P, B * H * P * N
+        nbytes = 4 * (ins + outs + 2 * state)
+        flops = 5 * S * state
+        bound_ms, bound_by = _bound(nbytes, flops, PEAK_F32_FLOPS)
+        if S == 1:
+            dev_ms, event_ms = _device_ms([fn]), _time_ms([fn])
+        else:   # more launches than the device's queue holds: none can wait behind a spin
+            dev_ms, event_ms = _profiled_busy_ms(fn), _time_ms([fn], 3)
+        print(f"[{tag}] one layer's {name} at B={B} S={S} (f32): {dev_ms:.4f} ms device"
+              f"{'' if S == 1 else ' busy (torch.profiler)'}, {event_ms:.4f} ms event time "
+              f"(the host's, once it is slower); bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP); {dev_ms / bound_ms:.1f}x the "
+              f"bound; x {cfg.n_layers} layers = {dev_ms * cfg.n_layers:.3f} ms device")
+
+
+def recurrent_phase(dev, arch: str, rows: dict[str, dict]) -> PathRun:
+    """rwkv6-7b or zamba2-1.2b at full width and depth on a freed card:
+    first the float32 check at full width cut to 2 layers, card against
+    CPU (:func:`wide_f32_check`; zamba2 at a shared-block period of 2, so
+    that its second layer is followed by the shared block and both kernels
+    run with f32 queries); seed-0 bf16 weights through the serve CLI's
+    loader (memory before and after, the peak); the serve shape on the
+    dense state cache, decode-only, through :func:`serve_phase` (async
+    through the graphs, ``--graphs off``, ``--async off``: tokens
+    identical; rwkv6 launches no attention kernel, zamba2 the decode kernel
+    6 times per decode step and the flash kernel 6 times per prefill, one
+    per shared-block slot); the step clock against ``RECURRENT_CLOCK``;
+    tok/s and wall ms per decode step beside the bound of the bytes a step
+    reads (every weight but the embedding table, zamba2's weight-tied
+    shared block once per slot, the K/V at 8115 live positions, and the
+    recurrent state read and written); steady decode steps under
+    ``torch.profiler`` with graphs; one layer's scan (:func:`scan_timing`);
+    and a 509-token prompt's whole prefill, wall time.  Returns the path's
+    run without its engine."""
+    t_phase = time.perf_counter()
+    tag, full = RECURRENT_TAGS[arch], get_config(arch)
+    wide_f32_check(dev, arch, tag, **({"hybrid": dataclasses.replace(
+        full.hybrid, shared_block_period=2)} if full.hybrid else {}))
+    before = freed_card(dev, tag)
+    torch.cuda.reset_peak_memory_stats(dev)
+    flags = ["--arch", arch, *RECURRENT_REQUESTS]
+    print(f"[{tag}] the serve path takes the first 32 of the serve shape's 64 requests "
+          f"({' '.join(flags)}): its eager prefills step the recurrence one token at a time")
+    t0 = time.perf_counter()
+    model, params = serve.load_model(serve.build_parser().parse_args(SERVE_FLAGS + flags))
+    torch.cuda.synchronize()
+    cfg, defs = model.cfg, model.param_defs
+    print(f"[{tag}] serve: {cfg.name} n_params={model.n_params()} layers={cfg.n_layers} "
+          f"d_model={cfg.d_model} d_ff={cfg.d_ff} vocab={cfg.vocab} weights "
+          f"{time.perf_counter() - t0:.1f}s; memory allocated {before / 1e9:.3f} GB before the "
+          f"load, {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB after, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    if model.n_params() != RECURRENT_PARAMS[arch]:
+        raise AssertionError(f"[{tag}] {model.n_params()} parameters, not "
+                             f"{RECURRENT_PARAMS[arch]}")
+    if tag == "zamba2":
+        n_slots = len(zamba2_mod._slots(cfg))
+
+        def want(st):
+            return {"decode_attention[zamba2]": st.decode_steps * n_slots,
+                    "prefill_attention[zamba2]": st.prefills * n_slots}
+    else:
+        def want(st):
+            return {}
+    run = serve_phase(model, params, tag, flags, want, rows, eager=True)
+    if tag == "rwkv6":
+        counts = ops.launch_counts()
+        print(f"[rwkv6] attention kernel launches over the eager and sync runs: {counts} (the "
+              "async run's are checked by serve_phase: none expected)")
+        if any(counts.values()):
+            raise AssertionError("[rwkv6] an attention kernel launched on the attention-free "
+                                 "path")
+    st, res = run.stats, run.res
+    clock = {k: getattr(st, k) for k in RECURRENT_CLOCK[arch]}
+    print(f"[{tag}] step clock {clock}, rounds {res.rounds}; the CPU's prediction "
+          f"{RECURRENT_CLOCK[arch]}")
+    if clock != RECURRENT_CLOCK[arch]:
+        raise AssertionError(f"[{tag}] the step clock is not the CPU's prediction")
+    # a decode step reads every weight but the embedding table (16 rows of it)
+    stream = 2 * (model.n_params() - math.prod(defs["embed"].shape))
+    c, kv = res.engine.cache, 0
+    if tag == "zamba2":
+        tied = cm.count_params({k: d for k, d in defs["shared"].items()
+                                if k not in ("lora_a", "lora_b", "down")})
+        stream += 2 * (n_slots - 1) * tied
+        kv = 2 * n_slots * 8115 * cfg.n_kv_heads * c["k"].shape[-1] * 2
+    state = 2 * sum(t.numel() * t.element_size() for k, t in c.items() if k not in
+                    ("k", "v", "lengths"))
+    bound_ms = (stream + kv + state) / PEAK_BYTES_S * 1e3
+    print(f"[{tag}] {st.generated / res.wall_s:.1f} tok/s, "
+          f"{res.wall_s * 1e3 / st.decode_steps:.3f} wall ms per decode step (the run's wall "
+          f"over its {st.decode_steps} decode steps, its {st.prefills} whole-prompt prefills "
+          f"included); bound per decode step: the weights read {stream / 1e9:.3f} GB"
+          + (f" (the shared block's {2 * tied / 1e9:.3f} GB once per slot, x {n_slots})"
+             if tag == "zamba2" else "")
+          + f" + {kv / 1e9:.3f} GB of K/V at 8115 live positions + the state read and written "
+          f"{state / 1e9:.3f} GB = {(stream + kv + state) / 1e9:.3f} GB in {bound_ms:.3f} ms, "
+          f"{16e3 / bound_ms:.0f} tok/s at 16 rows")
+    run = run._replace(res=None)
+    del res, c
+    profile_phase(model, params, tag, flags, warm_steps=4, drain=False)
+    scan_timing(model, tag)
+    prompt = torch.randint(1, cfg.vocab, (1, 509), generator=torch.Generator().manual_seed(19))
+    cache = model.init_cache(1, 1024)
+    walls = []
+    for _ in range(2):
+        kv_cache.reset_slot(cache, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, prompt.to(dev), cache)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"[{tag}] a 509-token prompt's whole prefill (B 1, eager): {walls[1]:.1f} ms wall "
+          f"(first call {walls[0]:.1f} ms)")
+    print(f"[{tag}] phase wall {time.perf_counter() - t_phase:.1f}s (f32 check, load, serve "
+          "runs, profile, timings)")
+    return run
+
+
+def encoder_attention_timing(model) -> None:
+    """The encoder's non-causal self-attention as the port runs it (the
+    plain ``chunked_attention``: no TPU kernel takes it) at the seamless
+    phase's shape, 16 rows x 512 frames x 16 heads of 64, bf16, against
+    one non-causal SDPA call on the same inputs: device-busy time under
+    ``torch.profiler`` (the plain call's host-to-device copy of its
+    ``q_offset`` cannot wait behind a spin kernel) and the bound."""
+    cfg, dev = model.cfg, model.device
+    B, T, H, D = SEAMLESS_ROWS, cfg.frontend_len, cfg.n_heads, cfg.resolved_head_dim()
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev).bfloat16() for _ in range(3))
+
+    def plain():
+        return attn_mod.chunked_attention(q, k, v, causal=False)
+
+    def library():
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2)).transpose(1, 2)
+
+    err = _max_err(plain(), library())
+    nbytes, flops = 4 * q.numel() * 2, 4 * B * H * T * T * D
+    bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_FLOPS)
+    print(f"[seamless] encoder self-attention (B={B} T={T} H={H} D={D} bf16, non-causal): plain "
+          f"chunked_attention {_profiled_busy_ms(plain):.4f} ms device busy, {_time_ms([plain], 10):.4f} "
+          f"ms event time; SDPA {_device_ms([library]):.4f} ms device; bound {bound_ms:.4f} ms "
+          f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); max |plain - SDPA| "
+          f"{err:.2e}; x {cfg.n_enc_layers} encoder layers per prefill")
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route ``core.offload``'s decode and prefill attention to the plain
+    model-level versions (those CPU tensors take) for CUDA tensors too."""
+    saved = offload.decode_attention, offload.prefill_attention
+    offload.decode_attention = attn_mod.decode_attention
+    offload.prefill_attention = functools.partial(attn_mod.chunked_attention, causal=True)
+    try:
+        yield
+    finally:
+        offload.decode_attention, offload.prefill_attention = saved
+
+
+@contextlib.contextmanager
+def checked_attention(errs: dict[str, list]):
+    """Run ``core.offload``'s decode and prefill attention through the
+    kernels as usual, and beside each call the kernel's plain version on
+    the same inputs: ``errs["decode"]`` / ``errs["prefill"]`` collect
+    (max |kernel - plain|, max |plain|) per call.  The plain calls launch
+    no kernel."""
+    saved = offload.decode_attention, offload.prefill_attention
+
+    def decode(q, k_cache, v_cache, lengths, **kw):
+        out = saved[0](q, k_cache, v_cache, lengths, **kw)
+        exp = kdec.plain(q, k_cache, v_cache, lengths, **kw)
+        errs.setdefault("decode", []).append((_max_err(out, exp), float(exp.abs().max())))
+        return out
+
+    def prefill(q, k, v, **kw):
+        out = saved[1](q, k, v, **kw)
+        exp = kpre.plain(q, k, v, causal=True, q_offset=kw.get("q_offset", 0))
+        errs.setdefault("prefill", []).append((_max_err(out, exp), float(exp.abs().max())))
+        return out
+
+    offload.decode_attention, offload.prefill_attention = decode, prefill
+    try:
+        yield errs
+    finally:
+        offload.decode_attention, offload.prefill_attention = saved
+
+
+def _teacher_forced(model, params, frames, prompt, feed, ref_logits) -> dict:
+    """Prefill ``prompt`` over ``frames`` and decode, eagerly, feeding the
+    tokens ``feed`` (B, n) of another run; each step's logits against that
+    run's ``ref_logits``: ``errs`` (max |logit diff| per step), ``differ``
+    (greedy tokens that differ), ``first`` (of them, the prefill's), and
+    ``near`` / ``flips``: rows whose reference top-two margin is at most
+    twice the row's largest logit difference (rounding may flip them), and
+    tokens that differ outside them."""
+    cache = model.init_cache(frames.shape[0], 1024)
+    out = {"errs": [], "differ": 0, "first": 0, "near": 0, "flips": 0}
+    for i, want in enumerate(ref_logits):
+        if i:
+            lp, _ = model.decode_step(params, cache, feed[:, i - 1])
+        else:
+            lp, _ = model.prefill(params, prompt, cache, embeds=frames)
+        diff = (lp.float() - want.float()).abs().amax(-1)
+        top = want.float().topk(2, dim=-1).values
+        tie = (top[:, 0] - top[:, 1]) <= 2 * diff
+        differ = lp.argmax(-1) != want.argmax(-1)
+        out["errs"].append(float(diff.max()))
+        out["differ"] += int(differ.sum())
+        out["first"] += int(differ.sum()) if i == 0 else 0
+        out["near"] += int(tie.sum())
+        out["flips"] += int((differ & ~tie).sum())
+    return out
+
+
+def seamless_phase(dev, rows: dict[str, dict]) -> PathRun:
+    """seamless-m4t-medium at full width and depth at model level (the
+    serving engine passes no frames; the reference's cannot serve it
+    either): first the float32 check at full width cut to 2 encoder and 2
+    decoder layers, card against CPU; seed-0 bf16 weights on a freed card;
+    ``SEAMLESS_ROWS`` rows of seeded random frames (512 x 1024) and a
+    ``SEAMLESS_PROMPT``-token decoder prompt: ``prefill(..., embeds=)``
+    eagerly (the flash kernel once per decoder layer), then
+    ``SEAMLESS_STEPS`` greedy ``decode_step`` calls as one CUDA graph (the
+    decode kernel twice per layer and step: the self cache and the 512
+    cached frames), launches checked per kernel row; the decode step's
+    wall and device-busy ms (8 graph replays under ``torch.profiler``)
+    beside the bound of the bytes it reads (the decoder's weights but the
+    encoder's and the cross K/V projections, the unembedding, the static
+    cross K/V and the self cache at the run's mean length); the encoder
+    attention's time (:func:`encoder_attention_timing`).  Then the same
+    prefill and steps eagerly, fed the graph run's tokens, with every
+    kernel call held against the kernel's plain version on the same inputs
+    (:func:`checked_attention`: within ``BF16_TOL`` of the call's largest
+    output, as the kernel rows hold unit-scale ones) and the greedy tokens
+    equal to the graph run's outside near-ties; and, printed only, the
+    whole path with the plain attention (:func:`plain_attention`) beside a
+    yardstick: the plain path again with every frame moved one bf16 ulp.
+    The random model at full depth moves its logits by O(1) under either
+    (its 4-D attention weights drawn with the reference's fan-in of their
+    second-to-last axis make q and k ~8x wide, scores reach hundreds, and
+    the plain decode rounds ``q * scale`` to bf16 where the kernels scale
+    f32 scores), so no logit tolerance can hold between them.  Returns the
+    graph run's launches and tokens."""
+    t_phase = time.perf_counter()
+    wide_f32_check(dev, SEAMLESS, "seamless", F32_WIDE_ENCDEC, n_enc_layers=2)
+    before = freed_card(dev, "seamless")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_model(get_config(SEAMLESS), dev)
+    params = model.init(0)
+    torch.cuda.synchronize()
+    cfg, L = model.cfg, model.cfg.n_layers
+    print(f"[seamless] {cfg.name} n_params={model.n_params()} encoder {cfg.n_enc_layers} + "
+          f"decoder {L} layers, d_model={cfg.d_model} heads={cfg.n_heads} of "
+          f"{cfg.resolved_head_dim()} vocab={cfg.vocab} weights {time.perf_counter() - t0:.1f}s; "
+          f"memory allocated {before / 1e9:.3f} GB before the load, "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB after, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    if model.n_params() != SEAMLESS_PARAMS:
+        raise AssertionError(f"[seamless] {model.n_params()} parameters, not {SEAMLESS_PARAMS}")
+    B, n = SEAMLESS_ROWS, SEAMLESS_STEPS
+    gen = torch.Generator(device=dev).manual_seed(17)
+    frames = torch.randn(B, cfg.frontend_len, cfg.d_model, generator=gen, device=dev)
+    prompt = torch.randint(1, cfg.vocab, (B, SEAMLESS_PROMPT), generator=gen, device=dev)
+
+    ops.reset_launch_counts()
+    cache = model.init_cache(B, 1024)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = model.prefill(params, prompt, cache, embeds=frames.bfloat16())
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prog = Program("seamless-decode",
+                   lambda inp: (model.decode_step(params, cache, inp["tokens"])[0],),
+                   {"tokens": (B,)}, dev, graphs=True, pool=torch.cuda.graph_pool_handle())
+    steps, toks = [logits.clone()], [logits.argmax(-1)]
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out, = prog(tokens=toks[-1].cpu().numpy())
+        steps.append(out.clone())
+        toks.append(out.argmax(-1))
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n
+    per_row = {"prefill_attention[seamless]": L, "decode_attention[seamless]": n * L,
+               "decode_attention[seamless-cross]": n * L}
+    exp_variant, exp_shape = _expected(per_row, rows)
+    launches, shapes = ops.variant_counts(), ops.shape_counts()
+    tokens = torch.stack(toks, 1)
+    print(f"[seamless] prefill ({B} rows x {SEAMLESS_PROMPT} tokens over {cfg.frontend_len} "
+          f"frames, eager) {prefill_ms:.1f} ms; {n} decode steps as one CUDA graph "
+          f"({prog.replays} replays, capture {prog.capture_s * 1e3:.1f} ms): {decode_ms:.3f} "
+          f"wall ms per step with the host's token round trip; launches {launches} by head "
+          f"shape {shapes}, expected {exp_variant} / {exp_shape}")
+    if launches != exp_variant or shapes != exp_shape:
+        raise AssertionError("[seamless] kernel launches differ from the expected")
+    if not (all(bool(torch.isfinite(x[:, :cfg.vocab]).all()) for x in steps)
+            and bool(((tokens >= 0) & (tokens < cfg.vocab)).all())):
+        raise AssertionError("[seamless] non-finite logits or a token outside the vocabulary")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    feed = toks[-1].cpu().numpy()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            prog(tokens=feed)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 8
+    busy = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in busy) / 1e3 / 8
+    dec = params["dec_blocks"]
+    weights = 2 * (sum(t.numel() for k, t in dec.items() if k not in ("x_wk", "x_wv"))
+                   + params["unembed"].numel() + params["final_norm"].numel())
+    cross = sum(cache[k].numel() * 2 for k in ("xk", "xv"))
+    mean_len = SEAMLESS_PROMPT + n / 2
+    self_kv = 2 * L * B * mean_len * cfg.n_kv_heads * cfg.resolved_head_dim() * 2
+    bound_ms = (weights + cross + self_kv) / PEAK_BYTES_S * 1e3
+    print(f"[seamless] decode step, graph replays under torch.profiler: wall {wall_ms:.3f} ms "
+          f"(with the token copy), device busy {busy_ms:.3f} ms, "
+          f"{sum(e.count for e in busy) // 8} device ops per step; bound: the weights read "
+          f"{weights / 1e9:.3f} GB + the static cross K/V {cross / 1e9:.3f} GB + the self cache "
+          f"{self_kv / 1e9:.4f} GB at {mean_len:.0f} positions = "
+          f"{(weights + cross + self_kv) / 1e9:.3f} GB in {bound_ms:.3f} ms; busy "
+          f"{busy_ms / bound_ms:.1f}x the bound")
+    for e in sorted(busy, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3 / 8:8.3f} ms/step "
+              f"{e.count / 8:7.1f}x  {e.key[:90]}")
+    encoder_attention_timing(model)
+    del cache, prog
+
+    errs: dict[str, list] = {}
+    with checked_attention(errs):
+        eager = _teacher_forced(model, params, frames.bfloat16(), prompt, tokens, steps)
+    worst = {k: max(e / max(m, 1.0) for e, m in v) for k, v in errs.items()}
+    print(f"[seamless] eager, fed the graph run's tokens: every kernel call against its plain "
+          f"version on the same inputs, largest error over max(1, the call's largest output): "
+          f"{ {k: f'{w:.2e}' for k, w in worst.items()} } over "
+          f"{ {k: len(v) for k, v in errs.items()} } calls (tol {BF16_TOL}); logits against the "
+          f"graph run's: max |diff| {max(eager['errs']):.3e}, tokens that differ "
+          f"{eager['differ']}/{B * (n + 1)} ({eager['flips']} outside near-ties)")
+    if max(worst.values()) > BF16_TOL or eager["flips"]:
+        raise AssertionError("[seamless] a kernel call differs from its plain version, or the "
+                             "eager run's tokens from the graph run's")
+    bf16_frames = frames.bfloat16()
+    moved = (bf16_frames.view(torch.int16) + 1).view(torch.bfloat16)   # one ulp outwards
+    with plain_attention():
+        plain = _teacher_forced(model, params, bf16_frames, prompt, tokens, steps)
+        ulp = _teacher_forced(model, params, moved, prompt, tokens, [
+            model.prefill(params, prompt, model.init_cache(B, 1024), embeds=bf16_frames)[0]])
+    print(f"[seamless] the whole path with the plain attention, fed the same tokens (printed, "
+          f"not held): max |logit diff| prefill {plain['errs'][0]:.3e}, decode "
+          f"{max(plain['errs'][1:]):.3e}; tokens that differ {plain['differ']}/{B * (n + 1)}, "
+          f"first tokens {plain['first']}/{B}; yardstick, the plain prefill with every frame "
+          f"moved one bf16 ulp: max |logit diff| {ulp['errs'][0]:.3e}, first tokens that differ "
+          f"{ulp['first']}/{B}")
+    del model, params, steps
+    wall = time.perf_counter() - t_phase
+    print(f"[seamless] phase wall {wall:.1f}s (f32 check, load, graph run, profile, checked "
+          "and plain runs)")
+    return PathRun(per_row, None, tokens.tolist(), wall, None)
+
 
 def ptxas_lines(name: str) -> list[str]:
     """One line per kernel of ``csrc/<name>.cu`` from its build log
@@ -2676,6 +3143,10 @@ def main() -> None:
         rows += [decode_phase(dev, f"decode_attention[{tag}]"), prefill_phase(dev, tag=tag)]
         if tag != "internvl":           # dense only: every other family has a paged path
             rows += [prefill_chunk_phase(dev, tag), paged_phase(dev, tag=tag)]
+    rows += [decode_phase(dev, "decode_attention[zamba2]"), prefill_phase(dev, tag="zamba2"),
+             decode_phase(dev, "decode_attention[seamless]"),
+             decode_phase(dev, "decode_attention[seamless-cross]"),
+             prefill_phase(dev, tag="seamless")]
     for r in rows:
         dev_off = (f" (at a device q_offset {r['device_offset_ms']:.4f})"
                    if "device_offset_ms" in r else "")
@@ -2843,6 +3314,9 @@ def main() -> None:
         by_path.update(family_phase(dev, arch, by_name))
     by_path["moe"] = moe_phase(dev, by_name)
     deepseek_phase(dev)
+    for arch, tag in RECURRENT_TAGS.items():
+        by_path[tag] = recurrent_phase(dev, arch, by_name)
+    by_path["seamless"] = seamless_phase(dev, by_name)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -1,10 +1,10 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-Arch ids accept dashes, underscores or dots interchangeably.  Only the
-architectures the port serves so far are registered (seven of the
-reference's ten): the dense family (yi-34b, llama3.2-1b, llama3.2-3b,
-minicpm-2b and internvl2-76b's backbone), the MoE moonshot and
-deepseek-v3 (MLA + MoE).
+Arch ids accept dashes, underscores or dots interchangeably.  All ten of
+the reference's architectures: the dense family (yi-34b, llama3.2-1b,
+llama3.2-3b, minicpm-2b and internvl2-76b's backbone), the MoE moonshot,
+deepseek-v3 (MLA + MoE), rwkv6-7b, zamba2-1.2b (mamba2 + a shared
+attention block) and seamless-m4t-medium (encoder-decoder).
 """
 from __future__ import annotations
 
@@ -18,9 +18,12 @@ ARCHS: dict[str, str] = {
     "llama3.2-1b": "llama3_2_1b",
     "llama3.2-3b": "llama3_2_3b",
     "minicpm-2b": "minicpm_2b",
+    "rwkv6-7b": "rwkv6_7b",
+    "zamba2-1.2b": "zamba2_1p2b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "internvl2-76b": "internvl2_76b",
-    "deepseek-v3-671b": "deepseek_v3_671b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 

@@ -1,9 +1,11 @@
-"""Model configuration (dense, MoE and DeepSeek families).
+"""Model configuration of every family the reference defines.
 
-A copy of the fields of ``repro.configs.base.ModelConfig`` (and of its
-``MoEConfig`` and ``MLAConfig``) that the dense llama-family, the MoE and
-the DeepSeek serving paths read, the stub frontend's included; the other
-families' sub-configs arrive with their slices of the port.
+A copy of ``repro.configs.base.ModelConfig`` and its sub-configs
+(``MoEConfig``, ``MLAConfig``, ``SSMConfig``, ``RWKVConfig``,
+``HybridConfig``) for the dense llama family, the MoE, DeepSeek, RWKV6,
+Zamba2 and encoder-decoder families, the stub frontends included.  The
+reference's shape and parallelism configs serve its trainer and dry-run
+and come with training.
 """
 from __future__ import annotations
 
@@ -14,6 +16,9 @@ from typing import Any
 DENSE = "dense"        # llama-style decoder
 MOE = "moe"            # moonshot (GQA + MoE FFN)
 DEEPSEEK = "deepseek"  # deepseek-v3: MLA + MoE + MTP
+RWKV6 = "rwkv6"        # attention-free
+ZAMBA2 = "zamba2"      # mamba2 hybrid + shared attention blocks
+ENCDEC = "encdec"      # seamless-m4t backbone
 
 
 @dataclass(frozen=True)
@@ -39,6 +44,30 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 64        # N
+    d_head: int = 64         # P (mamba2 head dim)
+    n_groups: int = 1        # B/C groups
+    d_conv: int = 4
+    chunk: int = 128         # chunked-scan block length
+    expand: int = 2          # d_inner = expand * d_model
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64     # rank of data-dependent decay LoRA
+    mix_lora: int = 32       # rank of token-shift mix LoRA
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    shared_block_period: int = 6   # a shared attention block every N mamba blocks
+    lora_rank: int = 8             # per-slot LoRA on the shared block
+    concat_input: bool = True      # zamba: shared block sees [x, x_embed0]
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -53,15 +82,24 @@ class ModelConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    # multimodal stub frontend (internvl patches): embeddings of length
-    # ``frontend_len`` prepended to the token embeddings at prefill
-    frontend: str = "none"             # none | patches
+    # encoder-decoder (seamless)
+    n_enc_layers: int = 0
+    # multimodal stub frontends: internvl's patch embeddings, prepended to
+    # the token embeddings at prefill; seamless's frame embeddings, the
+    # encoder's input; both of length ``frontend_len``
+    frontend: str = "none"             # none | patches | frames
     frontend_len: int = 0
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
+    ssm: SSMConfig | None = None
+    rwkv: RWKVConfig | None = None
+    hybrid: HybridConfig | None = None
     mtp_depth: int = 0                 # deepseek multi-token-prediction heads
     dtype: str = "bfloat16"
     kv_quant: bool = False             # int8 dense KV cache with bf16 scales: 2x capacity
+    # applicability of the paper's technique
+    attention_offload: bool = True     # False for attention-free archs
+    subquadratic: bool = False         # True -> runs long_500k
 
     def padded_vocab(self, multiple: int = 256) -> int:
         """Vocab padded to a multiple of ``multiple``; the pad logits are

@@ -1,31 +1,24 @@
 """Per-token parameter and KV-byte counts (paper §IV-C's napkin math).
 
 The part of ``repro.core.balance`` that the serving telemetry's cost
-model reads: :func:`_active_params` and :func:`kv_bytes_per_seq`, for the
-dense, MoE and DeepSeek (MLA) families (those the port has).  The RWKV
-and Zamba branches come with those families (ROADMAP queue 1 item 7) and
-raise until then.  ``plan``, which picks a KV placement policy and a
+model reads: :func:`_active_params` and :func:`kv_bytes_per_seq`, for
+every family.  ``plan``, which picks a KV placement policy and a
 sub-batch count from a mesh, needs ``placement.kv_rules`` / ``lanes``
-and ``resolve_spec`` and waits for multi-device placement (queue 1 item
-9).
+and ``resolve_spec`` and waits for multi-device placement (ROADMAP queue
+1 item 9).
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import DEEPSEEK, DENSE, MOE, ModelConfig
+from repro_torch.configs.base import RWKV6, ZAMBA2, ModelConfig
 from repro_torch.core.oi import BYTES_PER_EL
-
-
-def _ported(cfg: ModelConfig) -> None:
-    if cfg.family not in (DENSE, MOE, DEEPSEEK):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP.md queue 1 item 7")
 
 
 def _active_params(cfg: ModelConfig) -> float:
     """Per-token active linear params: attention projections (MLA's low-rank
     ones for DeepSeek) and the gated FFN per layer (an MoE layer counts its
-    top-k and shared experts only), plus embedding and unembedding."""
-    _ported(cfg)
+    top-k and shared experts only), plus embedding and unembedding.  The
+    reference's formula for every family: the recurrent ones are counted
+    as if they had attention of their configured heads."""
     D, F, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab
     Dh = cfg.resolved_head_dim()
     if cfg.mla is not None:
@@ -51,8 +44,21 @@ def _active_params(cfg: ModelConfig) -> float:
 def kv_bytes_per_seq(cfg: ModelConfig, seq: int) -> float:
     """K and V bytes of ``seq`` positions over all layers (MLA: the latent
     and rope key), at ``BYTES_PER_EL`` (2) bytes an element whatever the
-    cache stores."""
-    _ported(cfg)
+    cache stores.  RWKV6: the whole f32 WKV state and the two shifts, and
+    Zamba2: the shared block's K/V at ``seq`` positions plus the whole f32
+    SSM state, whatever ``seq`` is, as the reference counts them (so a
+    cost model that multiplies the bytes of one position by the positions
+    attended counts the state once per position)."""
+    if cfg.family == RWKV6:
+        H = cfg.d_model // cfg.rwkv.head_dim
+        return cfg.n_layers * (H * cfg.rwkv.head_dim**2 * 4 + 2 * cfg.d_model * BYTES_PER_EL)
+    if cfg.family == ZAMBA2:
+        n_slots = max(cfg.n_layers // cfg.hybrid.shared_block_period, 1)
+        attn = (2 * n_slots * seq * cfg.n_kv_heads * (2 * cfg.d_model // cfg.n_heads)
+                * BYTES_PER_EL)
+        d_inner = cfg.ssm.expand * cfg.d_model
+        ssm = cfg.n_layers * (d_inner // cfg.ssm.d_head) * cfg.ssm.d_head * cfg.ssm.d_state * 4
+        return attn + ssm
     if cfg.mla is not None:
         a = cfg.mla
         return cfg.n_layers * seq * (a.kv_lora_rank + a.qk_rope_head_dim) * BYTES_PER_EL

@@ -109,6 +109,16 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
     return (out * (1.0 + scale.float())).to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm with a scale and a bias, in f32: the population variance
+    (``jnp.var``'s, ``correction=0``)."""
+    x32 = x.float()
+    var, mu = torch.var_mean(x32, dim=-1, keepdim=True, correction=0)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding, half split.  x: (..., S, H, D), positions: (..., S)."""
     half = x.shape[-1] // 2

@@ -1,9 +1,9 @@
 """Model API: ``build_model(cfg, device)`` -> :class:`Model`.
 
-Counterpart of ``repro.models.registry`` for the dense, MoE and DeepSeek
-families.
-A Model binds a config and a device to the family's step functions; the
-steps a family does not define are None.  The device
+Counterpart of ``repro.models.registry`` for all six families: dense,
+MoE, DeepSeek, RWKV6, Zamba2 and the encoder-decoder.  A Model binds a
+config and a device to the family's step functions; the steps a family
+does not define are None.  The device
 is CUDA unless the caller asks for another (``device="cpu"``); with no
 GPU and no explicit device, :func:`build_model` raises.
 """
@@ -15,7 +15,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs.base import DEEPSEEK, DENSE, MOE, ModelConfig
+from repro_torch.configs.base import DEEPSEEK, DENSE, ENCDEC, MOE, RWKV6, ZAMBA2, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
 
@@ -33,8 +33,9 @@ class Model:
     decode_step: Callable[..., tuple[torch.Tensor, Pytree]]
     cache_defs: Callable[[int, int], Pytree]
     init_cache: Callable[..., Pytree]
-    # The steps below are None for a family without them (the MoE and
-    # DeepSeek families have none), as in the reference.
+    # The steps below are None for a family without them (the MoE,
+    # DeepSeek, RWKV6, Zamba2 and encoder-decoder families have none), as
+    # in the reference.
     # decode_sample_step(params, cache, tokens, generator, eos_ids, *, sampler)
     #   -> (tokens' (B,), eos_hit (B,), cache)
     decode_sample_step: Callable[..., tuple[torch.Tensor, ...]] | None = None
@@ -81,8 +82,14 @@ def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> M
         from repro_torch.models import moe as fam
     elif cfg.family == DEEPSEEK:
         from repro_torch.models import deepseek as fam
+    elif cfg.family == RWKV6:
+        from repro_torch.models import rwkv6 as fam
+    elif cfg.family == ZAMBA2:
+        from repro_torch.models import zamba2 as fam
+    elif cfg.family == ENCDEC:
+        from repro_torch.models import encdec as fam
     else:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        raise ValueError(f"unknown family {cfg.family}")
     optional = {name: functools.partial(getattr(fam, name), cfg)
                 for name in OPTIONAL_STEPS if hasattr(fam, name)}
     if hasattr(fam, "init_paged_cache"):

@@ -235,8 +235,17 @@ def test_cost_model_matches_reference(which):
     assert balance._active_params(moe) == jbalance._active_params(jmoe)
     assert roofline.dispatch_flops_bytes(moe, 16, 8115) == \
         jroofline.dispatch_flops_bytes(jmoe, 16, 8115)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        balance._active_params(cfg.with_overrides(family="rwkv6"))
+    # the recurrent families and the encoder-decoder, as the reference counts
+    # them (the recurrent state once per attended position: ROADMAP §3)
+    for arch in ("rwkv6-7b", "zamba2-1.2b", "seamless-m4t-medium"):
+        c, jc = ((reduce_config(arch), jreduce_config(arch)) if which == "reduced" else
+                 (get_config(arch), jget_config(arch)))
+        assert balance._active_params(c) == jbalance._active_params(jc), arch
+        for seq in (1, 1000):
+            assert balance.kv_bytes_per_seq(c, seq) == jbalance.kv_bytes_per_seq(jc, seq), arch
+        for args in [(16, 8115), (0, 0, 509, 129795), (3, 700, 32, 6656, 1e6)]:
+            assert roofline.dispatch_flops_bytes(c, *args) == \
+                jroofline.dispatch_flops_bytes(jc, *args), arch
 
 
 def test_roofline_helpers_match_reference():
