@@ -3,9 +3,9 @@
 A copy of ``repro.configs.base.ModelConfig`` and its sub-configs
 (``MoEConfig``, ``MLAConfig``, ``SSMConfig``, ``RWKVConfig``,
 ``HybridConfig``) for the dense llama family, the MoE, DeepSeek, RWKV6,
-Zamba2 and encoder-decoder families, the stub frontends included.  The
-reference's shape and parallelism configs serve its trainer and dry-run
-and come with training.
+Zamba2 and encoder-decoder families, the stub frontends included, and the
+trainer's ``ParallelConfig``, ``TrainConfig`` and ``RunConfig``.  The
+reference's shape configs serve its dry-run only.
 """
 from __future__ import annotations
 
@@ -111,3 +111,44 @@ class ModelConfig:
 
     def with_overrides(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# run / parallelism config (the reference's, field for field; the port runs
+# on one device, so ``kv_policy``, ``offload``, ``sub_batches``,
+# ``sequence_parallel``, ``zero_stage`` and ``remat`` are carried but read
+# by nothing in training until placement comes: ROADMAP queue 1 item 9)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ParallelConfig:
+    kv_policy: str = "batch"        # "batch" | "head"   (paper Fig. 4)
+    offload: str = "hpu"            # "hpu" (disaggregated) | "none" (baseline)
+    sub_batches: int = 2            # sub-batch pipelining factor (paper Fig. 3)
+    sequence_parallel: bool = False # beyond-paper: SP for train/prefill
+    zero_stage: int = 1             # 0: replicated opt state, 1: sharded over data
+    remat: str = "block"            # "none" | "block" | "full"
+    grad_accum: int = 1
+    grad_compression: str = "none"  # "none" | "int8"
+    grad_accum_dtype: str = "float32"  # accumulator/wire dtype ("bfloat16" halves AR bytes)
+    optimizer_dtype: str = "float32"  # adam moments dtype ("bfloat16" for huge models)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    schedule: str = "cosine"   # "cosine" | "wsd" (minicpm) | "const"
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    stable_frac: float = 0.8   # WSD stable phase fraction
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)

@@ -59,11 +59,20 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_offset: int | torch.Tensor = 0, chunk: int = 1024) -> torch.Tensor:
-    """Causal prefill attention; ``q_offset`` places q[:, 0] at an
-    absolute position: a host int, or a ``(1,)`` int32 tensor on q's
-    device (read by the kernel, or by the plain path, with no host
-    sync)."""
+    """Causal prefill (and train) attention; ``q_offset`` places q[:, 0] at
+    an absolute position: a host int, or a ``(1,)`` int32 tensor on q's
+    device (read by the kernel, or by the plain path, with no host sync).
+    CUDA inputs that need a gradient (the train step) go through
+    ``ops.FlashAttentionFn``: the flash kernel with its log-sum-exp and
+    the flash backward kernel; serving keeps the plain kernel call.  CPU
+    inputs take the plain ``chunked_attention``, under autograd when
+    training."""
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            if isinstance(q_offset, torch.Tensor) or q_offset != 0:
+                raise ValueError("prefill_attention: the train path takes q_offset 0")
+            return ops.FlashAttentionFn.apply(q, k, v, None)
         return ops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
     return attn.chunked_attention(q, k, v, causal=True, q_offset=q_offset, chunk=chunk)
 

@@ -63,7 +63,9 @@
 // kernel's start (the TPU kernel's scalar prefetch; a CUDA graph captures
 // one launch for every offset); ragged Sq and Sk are masked here (any
 // length works); a row with no visible key gives 0, not NaN (the
-// max(l, 1e-30) guard).
+// max(l, 1e-30) guard).  For training, both can also write each row's
+// log-sum-exp (an optional f32 output read by flash_attention_bwd.cu);
+// with no lse pointer the launch computes and writes what it did before.
 #include <type_traits>
 
 #include "common.cuh"
@@ -94,9 +96,9 @@ __global__ void __launch_bounds__(THREADS)
 flash_prefill_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                      const TKV* __restrict__ v, const float* __restrict__ k_scale,
                      const float* __restrict__ v_scale, long long ss_b, long long ss_s,
-                     long long ss_h, TQ* __restrict__ out, int Sq, int Sk, int Hq, int Hkv,
-                     int D, int q_offset, const int* __restrict__ q_offset_dev, int causal,
-                     float scale) {
+                     long long ss_h, TQ* __restrict__ out, float* __restrict__ lse, int Sq,
+                     int Sk, int Hq, int Hkv, int D, int q_offset,
+                     const int* __restrict__ q_offset_dev, int causal, float scale) {
   if (q_offset_dev != nullptr) q_offset = *q_offset_dev;
   extern __shared__ float smem[];
   const int QS = D + 1;
@@ -247,6 +249,8 @@ flash_prefill_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     const int r = q0 + ty * RQ + i;
     if (r < Sq) {
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
+      if (lse != nullptr && tx == 0)
+        lse[((long long)b * Hq + h) * Sq + r] = m[i] + logf(fmaxf(l[i], 1e-30f));
       TQ* orow = out + (((long long)b * Sq + r) * Hq + h) * D;
 #pragma unroll
       for (int dd = 0; dd < MAX_DC; ++dd)
@@ -281,8 +285,9 @@ __global__ void __launch_bounds__(THREADS)
 flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k,
                          const TKV* __restrict__ v, const float* __restrict__ k_scale,
                          const float* __restrict__ v_scale, long long ss_b, long long ss_s,
-                         long long ss_h, __nv_bfloat16* __restrict__ out, int Sq, int Sk,
-                         int Hq, int Hkv, int D, int q_offset,
+                         long long ss_h, __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int D,
+                         int q_offset,
                          const int* __restrict__ q_offset_dev, int causal, float scale) {
   if (q_offset_dev != nullptr) q_offset = *q_offset_dev;
   using bf16 = __nv_bfloat16;
@@ -461,6 +466,10 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restr
     const int R = w0 + gid + 8 * i;
     if (R < rows) {
       const float inv = 1.f / fmaxf(l, 1e-30f);
+      // natural-log lse of the scaled scores: m_r is in the log2 domain
+      if (lse != nullptr && tig == 0)
+        lse[((long long)b * Hq + hk * G + R % G) * Sq + R / G] =
+            (m_r[i] + log2f(fmaxf(l, 1e-30f))) * 0.6931471805599453f;
       bf16* orow = out + (((long long)b * Sq + R / G) * Hq + hk * G + R % G) * D;
 #pragma unroll
       for (int dn = 0; dn < DN; ++dn) {
@@ -476,8 +485,9 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restr
 template <typename TKV, int DP>
 int launch_mma(const void* q, const void* k, const void* v, const void* k_scale,
                const void* v_scale, long long ss_b, long long ss_s, long long ss_h,
-               void* out, int B, int Sq, int Sk, int Hq, int Hkv, int D, int q_offset,
-               const int* q_offset_dev, int causal, float scale, cudaStream_t st) {
+               void* out, float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int D,
+               int q_offset, const int* q_offset_dev, int causal, float scale,
+               cudaStream_t st) {
   const size_t smem = mma_smem_bytes<TKV>(DP, D);
   static std::atomic<size_t> allowed{0};
   const cudaError_t err =
@@ -488,8 +498,8 @@ int launch_mma(const void* q, const void* k, const void* v, const void* k_scale,
       static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), ss_b, ss_s, ss_h,
-      static_cast<__nv_bfloat16*>(out), Sq, Sk, Hq, Hkv, D, q_offset, q_offset_dev, causal,
-      scale);
+      static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, Hq, Hkv, D, q_offset, q_offset_dev,
+      causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -498,7 +508,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* k_scale,
 template <typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
            const void* v_scale, long long ss_b, long long ss_s, long long ss_h, void* out,
-           int B, int Sq, int Sk, int Hq, int Hkv, int D, int q_offset,
+           float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int D, int q_offset,
            const int* q_offset_dev, int causal, float scale, cudaStream_t st) {
   if (D % Vec<TQ>::N || D % Vec<TKV>::N) return (int)cudaErrorInvalidValue;
   // scales exactly when K/V are quantized
@@ -506,8 +516,8 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
     return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<TQ, __nv_bfloat16>::value) {
 #define REPRO_MMA(DP) \
-  launch_mma<TKV, DP>(q, k, v, k_scale, v_scale, ss_b, ss_s, ss_h, out, B, Sq, Sk, Hq, Hkv, \
-                      D, q_offset, q_offset_dev, causal, scale, st)
+  launch_mma<TKV, DP>(q, k, v, k_scale, v_scale, ss_b, ss_s, ss_h, out, lse, B, Sq, Sk, Hq, \
+                      Hkv, D, q_offset, q_offset_dev, causal, scale, st)
     if (D <= 32) return REPRO_MMA(32);
     if (D <= 64) return REPRO_MMA(64);
     return REPRO_MMA(128);
@@ -522,7 +532,7 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
     flash_prefill_fma_kernel<TQ, TKV><<<grid, THREADS, smem, st>>>(
         static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
         static_cast<const float*>(k_scale), static_cast<const float*>(v_scale), ss_b, ss_s,
-        ss_h, static_cast<TQ*>(out), Sq, Sk, Hq, Hkv, D, q_offset, q_offset_dev, causal,
+        ss_h, static_cast<TQ*>(out), lse, Sq, Sk, Hq, Hkv, D, q_offset, q_offset_dev, causal,
         scale);
     return (int)cudaGetLastError();
   }
@@ -531,7 +541,11 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
 }  // namespace
 
 // q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), out (B, Sq, Hq, D) of q's type, all
-// contiguous (the model layout).  k_scale/v_scale: f32 (B, Sk, Hkv) with
+// contiguous (the model layout).  lse: null, or f32 (B, Hq, Sq) that
+// receives each row's log-sum-exp of its scaled scores, log(sum_k exp(scale
+// * q.k)) in the natural log whatever the kernel's own domain (the flash
+// backward recomputes P = exp(scale * q.k - lse) from it); a row with no
+// visible key gets <= -1e29.  k_scale/v_scale: f32 (B, Sk, Hkv) with
 // element strides ss_b, ss_s, ss_h (the same for both) for int8/fp8 K/V,
 // else null.  q_offset_dev: null, or one int32 in device memory that the
 // kernels read in place of q_offset (a captured CUDA graph's launch then
@@ -540,16 +554,17 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
 extern "C" int prefill_attention_launch(const void* q, const void* k, const void* v,
                                         const void* k_scale, const void* v_scale,
                                         long long ss_b, long long ss_s, long long ss_h,
-                                        void* out, int B, int Sq, int Sk, int Hq,
-                                        int Hkv, int D, int q_offset,
+                                        void* out, void* lse, int B, int Sq, int Sk,
+                                        int Hq, int Hkv, int D, int q_offset,
                                         const void* q_offset_dev, int causal, float scale,
                                         int q_dtype, int kv_dtype, void* stream) {
   if (D < 8 || D > MAX_D || D % 8 || Hkv < 1 || Hq % Hkv) return (int)cudaErrorInvalidValue;
   if (Sq < 1 || Sk < 1) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_LAUNCH(TQ, TKV) \
-  launch<TQ, TKV>(q, k, v, k_scale, v_scale, ss_b, ss_s, ss_h, out, B, Sq, Sk, Hq, Hkv, D, \
-                  q_offset, static_cast<const int*>(q_offset_dev), causal, scale, st)
+  launch<TQ, TKV>(q, k, v, k_scale, v_scale, ss_b, ss_s, ss_h, out, static_cast<float*>(lse), \
+                  B, Sq, Sk, Hq, Hkv, D, q_offset, static_cast<const int*>(q_offset_dev), causal, \
+                  scale, st)
   if (q_dtype == BF16 && kv_dtype == BF16) return REPRO_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (q_dtype == F32 && kv_dtype == BF16) return REPRO_LAUNCH(float, __nv_bfloat16);
   if (q_dtype == F32 && kv_dtype == F32) return REPRO_LAUNCH(float, float);

@@ -8,6 +8,11 @@ counts its launches (:func:`launch_counts`), by variant too
 head shape (:func:`shape_counts`).  A captured CUDA graph's replay makes no
 Python call: the program that replays it adds the launches its capture
 made (:func:`snapshot_counts`, :func:`counts_since`, :func:`add_counts`).
+:class:`FlashAttentionFn` is causal self-attention with a gradient on
+CUDA tensors: the flash kernel forward with its log-sum-exp (counted as
+the prefill kernel's ``"lse"`` variant), the flash backward kernel
+(``kernels/flash_attention_bwd.py``, counted under
+``"flash_attention_bwd"``) as its backward.
 """
 from __future__ import annotations
 
@@ -15,11 +20,12 @@ import torch
 
 from repro_torch.kernels import LaunchCounter
 from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention_bwd as _bwd
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import prefill_attention as _prefill
 
 KERNELS = {"decode_attention": _decode, "prefill_attention": _prefill,
-           "paged_decode_attention": _paged}
+           "paged_decode_attention": _paged, "flash_attention_bwd": _bwd}
 
 
 def launch_counts() -> dict[str, int]:
@@ -131,3 +137,28 @@ def flash_attention(
     fn = _prefill.plain if _on_cpu(q, "flash_attention") else _prefill.kernel
     return fn(q, k, v, causal=causal, scale=scale, q_offset=q_offset, k_scale=k_scale,
               v_scale=v_scale)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal self-attention (``Sq == Sk``, ``q_offset`` 0) with a gradient
+    on CUDA tensors: ``FlashAttentionFn.apply(q, k, v, scale)``, q (B, S,
+    Hq, D), k and v (B, S, Hkv, D).  The forward launches the flash kernel
+    with its log-sum-exp and saves q, k, v, the output and the lse; the
+    backward launches the flash backward kernel on them.  Either kernel
+    raises if it cannot build or launch (on CPU tensors too); nothing
+    gives way to a plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        _bwd.check(q, k, v)
+        out, lse = _prefill.kernel(q, k, v, causal=True, scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_bwd.kernel(q, k, v, out, do.contiguous(), lse, scale=ctx.scale), None)
+

@@ -9,7 +9,10 @@ query heads of each KV head packed as the rows of one tile); f32 queries
 (float32 mode) on f32 FMA.  int8 or fp8-e4m3 K/V come with f32 scales
 ``k_scale``/``v_scale`` in the model layout ``(B, Sk, Hkv)`` and are
 dequantized in the kernel (the TPU kernel's scaled variant; no serving
-path of the reference reaches it).
+path of the reference reaches it).  For training, ``return_lse`` also
+returns each row's log-sum-exp ``(B, Hq, Sq)`` f32 of the scaled scores
+(natural log), which the flash backward (``flash_attention_bwd``) reads;
+such a launch is counted as the ``"lse"`` variant.
 """
 from __future__ import annotations
 
@@ -29,9 +32,14 @@ _KV_DTYPES = {**_Q_DTYPES, torch.float8_e4m3fn: 2, torch.int8: 3}
 
 
 def plain(q, k, v, *, causal: bool = True, scale: float | None = None,
-          q_offset: int | torch.Tensor = 0, k_scale=None, v_scale=None):
-    return ref.naive_attention(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-                               k_scale=k_scale, v_scale=v_scale)
+          q_offset: int | torch.Tensor = 0, k_scale=None, v_scale=None,
+          return_lse: bool = False):
+    out = ref.naive_attention(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+                              k_scale=k_scale, v_scale=v_scale)
+    if not return_lse:
+        return out
+    return out, ref.attention_lse(q, k, causal=causal, scale=scale, q_offset=q_offset,
+                                  k_scale=k_scale)
 
 
 def _check_scales(k, k_scale, v_scale) -> None:
@@ -63,7 +71,7 @@ def _lib():
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         ll = ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, ll, ll, ll, p, i, i, i, i, i, i, i, p, i,
+        fn.argtypes = [p, p, p, p, p, ll, ll, ll, p, p, i, i, i, i, i, i, i, p, i,
                        ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
@@ -84,14 +92,16 @@ def _offset(q_offset, device) -> tuple[int, int | None]:
 
 
 def kernel(q, k, v, *, causal: bool = True, scale: float | None = None,
-           q_offset: int | torch.Tensor = 0, k_scale=None, v_scale=None):
+           q_offset: int | torch.Tensor = 0, k_scale=None, v_scale=None,
+           return_lse: bool = False):
     """q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D) on the GPU,
     in q's dtype.  ``q_offset`` is the absolute position of q[:, 0]: a
     host int, or a ``(1,)`` int32 CUDA tensor that the kernel reads from
     device memory (the TPU kernel's scalar prefetch; the grid does not
     depend on it).  q and k/v may differ in dtype (the chunked prefill of
     float32 mode attends f32 queries against the bf16 cache); int8/fp8
-    K/V need ``k_scale``/``v_scale`` (B, Sk, Hkv) f32."""
+    K/V need ``k_scale``/``v_scale`` (B, Sk, Hkv) f32.  ``return_lse``:
+    ``(out, lse (B, Hq, Sq) f32)``."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("prefill_attention kernel needs CUDA tensors")
     if q.dtype not in _Q_DTYPES or k.dtype not in _KV_DTYPES or v.dtype != k.dtype:
@@ -117,13 +127,15 @@ def kernel(q, k, v, *, causal: bool = True, scale: float | None = None,
     ss = (0, 0, 0) if k_scale is None else k_scale.stride()
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
+    lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device) if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if k_scale is None else k_scale.data_ptr(),
                  None if v_scale is None else v_scale.data_ptr(), *ss, out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  B, Sq, Sk, Hq, Hkv, D, off, off_ptr, int(causal), scale,
                  _Q_DTYPES[q.dtype], _KV_DTYPES[k.dtype], stream)
     if err != 0:
         raise RuntimeError(f"prefill_attention kernel launch failed: CUDA error {err}")
-    COUNTER.count(variant(k.dtype), heads(Hkv, Hq // Hkv, D))
-    return out
+    COUNTER.count("lse" if return_lse else variant(k.dtype), heads(Hkv, Hq // Hkv, D))
+    return (out, lse) if return_lse else out

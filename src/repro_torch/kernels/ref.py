@@ -110,6 +110,33 @@ def naive_attention(
     return o.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
 
 
+def attention_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+    q_offset: int | torch.Tensor | None = None,
+    k_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Row log-sum-exp of :func:`naive_attention`'s scaled scores, natural
+    log: ``(B, Hq, Sq)`` f32, ``log(sum_k exp(scale * q.k))`` over each
+    row's visible keys (a row with none gives about -1e30)."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    kf = k.float() if k_scale is None else k.float() * k_scale.float()[..., None]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float().reshape(B, Sq, Hkv, G, D), kf) * scale
+    if causal:
+        off = Sk - Sq if q_offset is None else q_offset
+        if isinstance(off, torch.Tensor):
+            off = off.reshape(()).to(q.device)
+        q_pos = off + torch.arange(Sq, device=q.device)[:, None]
+        s = s.masked_fill(q_pos < torch.arange(Sk, device=q.device)[None, :], NEG_INF)
+    return torch.logsumexp(s, dim=-1).reshape(B, Hq, Sq)
+
+
 def naive_decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,

@@ -5,7 +5,8 @@ The tests build weights with the JAX package, convert them with
 :func:`params_from_numpy`, so both frameworks compute the same function
 key for key.  numpy has no native bfloat16; arrays of the ``ml_dtypes``
 bfloat16 dtype that JAX hands out are widened to f32 (exact) and cast
-back, which is exact too.
+back, which is exact too.  :func:`state_from_numpy` carries a whole train
+state the same way.
 """
 from __future__ import annotations
 
@@ -34,3 +35,15 @@ def params_from_numpy(tree: Pytree, device: str | torch.device = "cpu",
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     return _tensor(np.asarray(tree), device, dtype)
+
+
+def state_from_numpy(tree: Pytree, device: str | torch.device = "cpu") -> Pytree:
+    """A whole train state carried across (``jax.tree.map(np.asarray,
+    state)`` of the reference trainer's: ``params``, ``opt`` with ``m``,
+    ``v`` and the int32 ``step``, and ``err`` under int8 compression) ->
+    the port's state on ``device``, every leaf in its own dtype, so both
+    packages can step from the same state."""
+    missing = {"params", "opt"} - set(tree)
+    if missing or {"m", "v", "step"} - set(tree["opt"]):
+        raise KeyError(f"not a train state: keys {sorted(tree)}")
+    return params_from_numpy(tree, device)

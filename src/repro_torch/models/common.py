@@ -14,6 +14,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 Pytree = Any
 
@@ -159,3 +160,41 @@ def unembed(x: torch.Tensor, table: torch.Tensor,
     if true_vocab is not None and true_vocab < table.shape[0]:
         logits[..., true_vocab:] = -1e30
     return logits
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token CE in f32.  logits (B, S, V), targets (B, S).
+
+    The reference's form: the max is detached, and the gold logit is taken
+    by an iota-compare-select sum, not a gather (whose CUDA backward
+    scatters with float atomics, so reruns would differ)."""
+    logits32 = logits.float()
+    m = logits32.amax(dim=-1, keepdim=True).detach()
+    logz = torch.log(torch.exp(logits32 - m).sum(dim=-1)) + m[..., 0]
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(iota == targets[..., None], logits32, 0.0).sum(dim=-1)
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def unstack(tree: dict[str, torch.Tensor]) -> list[dict[str, torch.Tensor]]:
+    """Stacked ``(L, ...)`` leaves -> one dict of slices per layer, through
+    ``unbind``: under autograd each stacked leaf then takes its gradient
+    from its layers' slices in one stack, not one full-size scatter per
+    layer."""
+    parts = {k: v.unbind(0) for k, v in tree.items()}
+    n = len(next(iter(parts.values()), ()))
+    return [{k: p[l] for k, p in parts.items()} for l in range(n)]
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward: the
+    reference's per-block ``jax.checkpoint`` with ``nothing_saveable``
+    (non-reentrant ``torch.utils.checkpoint``; the block draws no random
+    numbers, so no RNG state is kept)."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)

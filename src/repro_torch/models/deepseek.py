@@ -10,7 +10,7 @@ As in the reference the family has no chunked prefill, paged pool, fused
 sampled step or speculative verify: the engine serves it on the dense
 cache with the decode-only schedule, sampling through its
 ``_wrap_sampled``.  ``hidden_states``, ``loss_fn`` and the MTP loss wait
-for training.
+for ROADMAP queue 1 item 8b (the registry's ``loss_fn`` raises).
 
 The cache holds only the compressed latent ``ckv (L, B, S, kv_lora_rank)``
 and the rope key ``krope (L, B, S, qk_rope_head_dim)`` shared by all

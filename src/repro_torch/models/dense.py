@@ -1,4 +1,4 @@
-"""Dense llama-family decoder LM: the serving path.
+"""Dense llama-family decoder LM: the serving and training paths.
 
 Counterpart of ``repro.models.dense`` for ``param_defs``, ``cache_defs``
 / ``init_cache``, ``prefill``, ``decode_step``, ``decode_sample_step``,
@@ -6,10 +6,12 @@ the paged pool (``paged_cache_defs`` / ``init_paged_cache``,
 ``paged_decode_step``, ``paged_decode_sample_step``) with its tiered-KV
 leaves (fp8/int8 pools with f32 scale pools, the host tier) and chunked
 prefill (``prefill_step``, ``prefill_sample_step``) and speculation's
-``verify_step`` / ``paged_verify_step``, and the dense cache's int8
-``kv_quant`` form (int8 K/V with bf16 scales, dequantized before the
-decode kernel; prefill attends over the unquantized K/V; chunked prefill
-and verify refuse it, as in the reference).  ``prefill`` takes
+``verify_step`` / ``paged_verify_step``, training's ``hidden_states``
+/ ``loss_fn`` (one block per layer recomputed in the backward), and the
+dense cache's int8 ``kv_quant`` form (int8 K/V with bf16 scales,
+dequantized before the decode kernel; prefill attends over the
+unquantized K/V; chunked prefill and verify refuse it, as in the
+reference).  ``prefill`` takes
 a stub frontend's ``embeds``, which take cache positions.  Layers are
 stacked on a leading dim as in the reference and iterated with a Python
 loop.  Attention goes through
@@ -304,6 +306,59 @@ def _paged_pass(cfg, params, cache: Pytree, tokens: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# forward (train / prefill shared block)
+# ---------------------------------------------------------------------------
+def _embed(params, tokens: torch.Tensor, embeds: torch.Tensor | None):
+    """Token embeddings (B, S', D), a stub frontend's ``embeds`` prepended,
+    and their positions (B, S)."""
+    x = cm.embed_lookup(params["embed"], tokens)
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    B, S = x.shape[:2]
+    return x, torch.arange(S, device=x.device).expand(B, S)
+
+
+def _attn(cfg, p, x: torch.Tensor, positions: torch.Tensor):
+    """The pre-norm causal attention sublayer of a whole sequence (prefill
+    and training): ``(x + attention, k, v)``."""
+    h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q = cm.rope(cm.linear(h, p["wq"]), positions, cfg.rope_theta)
+    k = cm.rope(cm.linear(h, p["wk"]), positions, cfg.rope_theta)
+    v = cm.linear(h, p["wv"])
+    o = offload.prefill_attention(q, k, v)
+    return x + cm.linear(o, p["wo"], n_in=2), k, v
+
+
+def _block_train(cfg, p, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    x = _attn(cfg, p, x, positions)[0]
+    h = cm.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + cm.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def hidden_states(cfg, params, tokens: torch.Tensor,
+                  embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Token (+ optional prepended frontend) embeddings -> final hidden
+    (B, S, D), each layer's block recomputed in the backward.  The
+    attention of a CUDA input that needs a gradient runs the flash kernel
+    with its log-sum-exp and the flash backward kernel."""
+    x, positions = _embed(params, tokens, embeds)
+    for p in cm.unstack(params["blocks"]):
+        x = cm.remat(_block_train, cfg, p, x, positions)
+    return cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+
+def loss_fn(cfg, params, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Mean next-token CE of ``batch`` (``inputs``, ``targets``, optional
+    ``mask`` and ``embeds``; the loss covers token positions only) ->
+    ``(loss, {"loss": loss})``."""
+    hid = hidden_states(cfg, params, batch["inputs"], batch.get("embeds"))
+    n_front = 0 if "embeds" not in batch else batch["embeds"].shape[1]
+    logits = cm.unembed(hid[:, n_front:], _unembed_table(params), cfg.vocab)
+    loss = cm.cross_entropy_loss(logits, batch["targets"], batch.get("mask"))
+    return loss, {"loss": loss}
+
+
+# ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
 def prefill(cfg, params, tokens: torch.Tensor, cache: Pytree,
@@ -318,19 +373,11 @@ def prefill(cfg, params, tokens: torch.Tensor, cache: Pytree,
     stripe); ``lengths`` is set to S.  With ``kv_quant`` each layer
     attends over its unquantized K/V and writes them quantized, as the
     reference does."""
-    x = cm.embed_lookup(params["embed"], tokens)
-    if embeds is not None:
-        x = torch.cat([embeds.to(x.dtype), x], dim=1)
-    B, S = x.shape[:2]
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    x, positions = _embed(params, tokens, embeds)
+    S = x.shape[1]
     for l in range(cfg.n_layers):
         p = _layer(params, l)
-        h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
-        q = cm.rope(cm.linear(h, p["wq"]), positions, cfg.rope_theta)
-        k = cm.rope(cm.linear(h, p["wk"]), positions, cfg.rope_theta)
-        v = cm.linear(h, p["wv"])
-        o = offload.prefill_attention(q, k, v)
-        x = x + cm.linear(o, p["wo"], n_in=2)
+        x, k, v = _attn(cfg, p, x, positions)
         h = cm.rmsnorm(x, p["ln2"], cfg.norm_eps)
         x = x + cm.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
         for name, new in (("k", k), ("v", v)):

@@ -8,7 +8,7 @@ precomputed frame embeddings, are the encoder's input, and
 :func:`prefill` raises without them, as the reference's does, so the
 serving engine (which passes none) cannot serve the family; it runs as
 ``prefill(params, tokens, cache, embeds=frames)`` then ``decode_step``.
-``loss_fn`` waits for training.
+``loss_fn`` waits for ROADMAP queue 1 item 8b.
 
 The encoder's self-attention is non-causal and the prefill's
 cross-attention reads all frames: both run the plain

@@ -1,5 +1,5 @@
 """MoE FFN + the moonshot-v1-16b-a3b family (GQA attention + MoE layers):
-the serving path.
+the serving and training paths.
 
 Counterpart of ``repro.models.moe`` for ``param_defs``,
 :func:`router_scores`, the dropping dispatch and combine, :func:`moe_ffn`
@@ -8,8 +8,9 @@ Counterpart of ``repro.models.moe`` for ``param_defs``,
 :func:`decode_step`.  As in the reference the family has no chunked
 prefill, paged pool, fused sampled step or speculative verify: the engine
 serves it on the dense cache with the decode-only schedule, sampling
-through its ``_wrap_sampled``.  ``hidden_states`` and ``loss_fn`` wait
-for training.
+through its ``_wrap_sampled``.  Training: :func:`hidden_states` and
+:func:`loss_fn` (CE plus the router's load-balance aux,
+:func:`load_balance_aux`), one layer recomputed in the backward.
 
 Router: top-k of softmax or sigmoid scores over f32 logits, renormalised.
 Dispatch is the reference's dropping formulation: each (token, choice)
@@ -109,8 +110,15 @@ def router_scores(cfg, router_w: torch.Tensor, x: torch.Tensor):
 
     ``lax.top_k``'s order: scores descending, ties to the lower expert id
     (a stable descending sort)."""
+    return _top_k(cfg, _router_logits(router_w, x))
+
+
+def _router_logits(router_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return x.float() @ router_w.float()
+
+
+def _top_k(cfg, logits: torch.Tensor):
     m = cfg.moe
-    logits = x.float() @ router_w.float()
     if m.score_func == "sigmoid":
         scores = torch.sigmoid(logits)
     else:
@@ -118,6 +126,17 @@ def router_scores(cfg, router_w: torch.Tensor, x: torch.Tensor):
     topw, topi = torch.sort(scores, dim=-1, descending=True, stable=True)
     topw, topi = topw[:, :m.top_k], topi[:, :m.top_k]
     return topw / topw.sum(-1, keepdim=True).clamp(min=1e-9), topi
+
+
+def load_balance_aux(cfg, logits: torch.Tensor, topi: torch.Tensor) -> torch.Tensor:
+    """The reference router's switch-style load-balance loss, f32 scalar:
+    ``E * sum_e f_e * P_e / K`` with f_e the share of the T * K choices
+    routed to expert e and P_e the mean softmax probability of e."""
+    m = cfg.moe
+    probs = torch.softmax(logits, dim=-1)
+    onehot = F.one_hot(topi, m.n_experts).float()             # (T, K, E)
+    f = onehot.sum(dim=1).mean(dim=0)
+    return m.n_experts * (f * probs.mean(dim=0)).sum() / m.top_k
 
 
 def capacity(cfg, n_tokens: int) -> int:
@@ -164,15 +183,57 @@ def combine(out_e: torch.Tensor, meta, topw: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def moe_ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    """x (T, D) -> (T, D).  p: one layer of :func:`moe_ffn_defs`."""
-    topw, topi = router_scores(cfg, p["router"], x)
+def moe_ffn(cfg, p, x: torch.Tensor, return_aux: bool = False):
+    """x (T, D) -> (T, D).  p: one layer of :func:`moe_ffn_defs`.  All T
+    tokens route as one group (the reference's ``dp = 1``), so the
+    capacity is ``capacity(cfg, T)``.  ``return_aux`` (training): ``(y,
+    load-balance aux)``."""
+    logits = _router_logits(p["router"], x)
+    topw, topi = _top_k(cfg, logits)
     disp, meta = dispatch(cfg, x, topi)
     h = F.silu(torch.bmm(disp, p["we_gate"])) * torch.bmm(disp, p["we_up"])
     y = combine(torch.bmm(h, p["we_down"]), meta, topw)
     if cfg.moe.n_shared:
         y = y + cm.swiglu(x, p["ws_gate"], p["ws_up"], p["ws_down"])
-    return y.to(x.dtype)
+    y = y.to(x.dtype)
+    return (y, load_balance_aux(cfg, logits, topi)) if return_aux else y
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+def _block_train(cfg, p, x: torch.Tensor, positions: torch.Tensor, is_moe: bool):
+    """One layer: ``(x', load-balance aux)``, aux 0 for a dense layer."""
+    x = dense._attn(cfg, p, x, positions)[0]
+    h = cm.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if not is_moe:
+        return x + cm.swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), None
+    y, aux = moe_ffn(cfg, p, h.reshape(-1, h.shape[-1]), return_aux=True)
+    return x + y.reshape(h.shape), aux
+
+
+def hidden_states(cfg, params, tokens: torch.Tensor, embeds: torch.Tensor | None = None):
+    """-> (final hidden (B, S, D), mean load-balance aux over the MoE
+    layers); each layer's block recomputed in the backward."""
+    x, positions = dense._embed(params, tokens, embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for tree, is_moe in ((params["dense_blocks"], False), (params["moe_blocks"], True)):
+        for p in cm.unstack(tree):
+            x, a = cm.remat(_block_train, cfg, p, x, positions, is_moe)
+            if is_moe:
+                aux = aux + a
+    x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x, aux / max(cfg.n_layers - cfg.moe.moe_layer_start, 1)
+
+
+def loss_fn(cfg, params, batch: dict) -> tuple[torch.Tensor, dict]:
+    """``ce + router_aux_coef * aux`` -> ``(loss, {"loss", "ce", "aux"})``."""
+    hid, aux = hidden_states(cfg, params, batch["inputs"], batch.get("embeds"))
+    n_front = 0 if "embeds" not in batch else batch["embeds"].shape[1]
+    logits = cm.unembed(hid[:, n_front:], dense._unembed_table(params), cfg.vocab)
+    ce = cm.cross_entropy_loss(logits, batch["targets"], batch.get("mask"))
+    loss = ce + cfg.moe.router_aux_coef * aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -201,18 +262,10 @@ def prefill(cfg, params, tokens: torch.Tensor, cache: Pytree,
     place at ``[0, S)`` of ``cache``, which may be a slot's view;
     ``embeds`` prepended, taking cache positions).  The MoE layers route
     all B * S tokens together."""
-    x = cm.embed_lookup(params["embed"], tokens)
-    if embeds is not None:
-        x = torch.cat([embeds.to(x.dtype), x], dim=1)
-    B, S = x.shape[:2]
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    x, positions = dense._embed(params, tokens, embeds)
+    S = x.shape[1]
     for l, p, is_moe in _blocks(cfg, params):
-        h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
-        q = cm.rope(cm.linear(h, p["wq"]), positions, cfg.rope_theta)
-        k = cm.rope(cm.linear(h, p["wk"]), positions, cfg.rope_theta)
-        v = cm.linear(h, p["wv"])
-        o = offload.prefill_attention(q, k, v)
-        x = x + cm.linear(o, p["wo"], n_in=2)
+        x, k, v = dense._attn(cfg, p, x, positions)
         h = cm.rmsnorm(x, p["ln2"], cfg.norm_eps)
         x = x + _ffn(cfg, p, h, is_moe)
         cache["k"][l, :, :S].copy_(k)

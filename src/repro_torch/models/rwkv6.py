@@ -8,7 +8,7 @@ pieces (:func:`_ddlerp`, :func:`_decay`, :func:`_wkv_scan`,
 reference the family has no chunked prefill, paged pool, fused sampled
 step or verify step: the engine serves it on the dense state cache with
 the decode-only schedule.  ``hidden_states`` / ``loss_fn`` wait for
-training.
+ROADMAP queue 1 item 8b (a differentiable scan first).
 
 There is no attention and no KV cache: per layer an (H, N, N) f32 WKV
 state and the last token of the previous segment for each of the two

@@ -8,7 +8,8 @@ role) and of decode, the backbone traversal, ``cache_defs`` /
 ``init_cache``, :func:`prefill` and :func:`decode_step`.  As in the
 reference the family has no chunked prefill, paged pool, fused sampled
 step or verify step: the engine serves it on the dense cache with the
-decode-only schedule.  ``hidden_states`` / ``loss_fn`` wait for training.
+decode-only schedule.  ``hidden_states`` / ``loss_fn`` wait for ROADMAP
+queue 1 item 8b (a differentiable scan first).
 
 The shared block runs after every ``shared_block_period``-th mamba layer
 (its invocation slots, :func:`_slots`), on ``concat([x, x_embed])``

@@ -179,4 +179,4 @@ def test_failed_capture_raises(cuda):
         prog()
     assert prog.graph is None
     assert ops.launch_counts() == {"decode_attention": 0, "prefill_attention": 0,
-                                   "paged_decode_attention": 0}
+                                   "paged_decode_attention": 0, "flash_attention_bwd": 0}

@@ -733,3 +733,77 @@ def test_paged_verify_window_across_a_block_edge_and_past_the_table(cuda):
         assert changed == {0, 3, 7, 9}, (key, changed)
         np.testing.assert_allclose(_np(cg[key][:, 1:]), _np(cc[key][:, 1:]), atol=2e-2,
                                    rtol=2e-2)
+
+
+# ------------------------------------------------ training: lse + backward
+BWD_CASES = [
+    # (B, S, Hkv, G, D): llama3.2-1b's and minicpm-2b's training shapes,
+    # then causal edges with S not a multiple of the 64-row block
+    (8, 1024, 8, 4, 64),
+    (2, 1024, 36, 1, 64),
+    (2, 100, 2, 4, 64),
+    (1, 130, 1, 8, 128),
+    (3, 37, 2, 2, 16),
+    (1, 65, 4, 1, 32),
+]
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}       # of max(1, |plain|)
+# ||kernel - plain|| / ||plain|| of each bf16 gradient: bf16 rounding of P,
+# dS and the outputs reads a few 1e-3; a wrong delta or lse reads 1e-1
+BWD_REL_NORM_TOL = 1e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_lse_and_backward_match_plain(cuda, case, dtype):
+    """The forward's lse against the plain ``logsumexp(scale * q k^T)``
+    (1e-4: f32 in both), its output bit-equal to the launch without lse,
+    and dq, dk, dv against the plain backward from the same saved tensors,
+    each within the tolerance of max(1, |plain|) (and, in bf16, within
+    ``BWD_REL_NORM_TOL`` in norm); two launches give the same bits (no
+    atomics)."""
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    from repro_torch.kernels import prefill_attention as kpre
+
+    B, S, Hkv, G, D = case
+    if dtype == "float32" and B * S * Hkv * G > 200_000:
+        B = 1                                   # the f32 FMA kernels at a smaller batch
+    rng = np.random.default_rng(S + G)
+    dt = getattr(torch, dtype)
+    q, do = (_randn(rng, (B, S, Hkv * G, D), cuda, dt) for _ in range(2))
+    k, v = (_randn(rng, (B, S, Hkv, D), cuda, dt) for _ in range(2))
+    out, lse = kpre.kernel(q, k, v, return_lse=True)
+    assert torch.equal(out, kpre.kernel(q, k, v))
+    np.testing.assert_allclose(_np(lse), _np(ref.attention_lse(q, k)), atol=1e-4, rtol=1e-5)
+    got = kbwd.kernel(q, k, v, out, do, lse)
+    again = kbwd.kernel(q, k, v, out, do, lse)
+    want = kbwd.plain(q, k, v, out, do, lse)
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == dt and torch.equal(a, b)
+        err = ((a.float() - c.float()).abs() / c.float().abs().clamp_min(1)).max()
+        assert float(err) <= BWD_TOL[dtype], float(err)
+        if dtype == "bfloat16":
+            rel = (a.float() - c.float()).norm() / c.float().norm()
+            assert float(rel) <= BWD_REL_NORM_TOL, float(rel)
+
+
+def test_flash_attention_fn_gradient_through_autograd(cuda):
+    """``ops.FlashAttentionFn`` under autograd launches the lse forward
+    once and the backward once, and its gradients are the backward
+    kernel's."""
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    from repro_torch.kernels import prefill_attention as kpre
+
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (2, 200, 8, 64), cuda, torch.bfloat16).requires_grad_()
+    k = _randn(rng, (2, 200, 2, 64), cuda, torch.bfloat16).requires_grad_()
+    v = _randn(rng, (2, 200, 2, 64), cuda, torch.bfloat16).requires_grad_()
+    do = _randn(rng, (2, 200, 8, 64), cuda, torch.bfloat16)
+    ops.reset_launch_counts()
+    out = ops.FlashAttentionFn.apply(q, k, v, None)
+    out.backward(do)
+    assert ops.variant_counts()["prefill_attention"] == {"lse": 1}
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    o, lse = kpre.kernel(q.detach(), k.detach(), v.detach(), return_lse=True)
+    for g, w in zip((q.grad, k.grad, v.grad), kbwd.kernel(q.detach(), k.detach(), v.detach(),
+                                                          o, do, lse)):
+        assert torch.equal(g, w)

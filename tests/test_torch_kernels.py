@@ -194,7 +194,8 @@ def test_ops_on_cpu_never_touch_the_kernel_library():
         "offload.paged_decode_attention(q, pool, pool, t, torch.tensor([6, 3]))\n"
         "assert 'repro_torch.kernels._build' not in sys.modules\n"
         "assert ops.launch_counts() == {'decode_attention': 0, 'prefill_attention': 0,\n"
-        "                               'paged_decode_attention': 0}\n"
+        "                               'paged_decode_attention': 0,\n"
+        "                               'flash_attention_bwd': 0}\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

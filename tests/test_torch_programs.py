@@ -192,11 +192,11 @@ def test_launch_counter_delta_and_replay_algebra():
         delta = ops.counts_since(snap)
         ops.restore_counts(snap)
         assert ops.launch_counts() == {"decode_attention": 1, "prefill_attention": 0,
-                                       "paged_decode_attention": 0}
+                                       "paged_decode_attention": 0, "flash_attention_bwd": 0}
         for _ in range(4):                               # four replays
             ops.add_counts(delta)
         assert ops.launch_counts() == {"decode_attention": 5, "prefill_attention": 0,
-                                       "paged_decode_attention": 8}
+                                       "paged_decode_attention": 8, "flash_attention_bwd": 0}
         assert ops.variant_counts()["paged_decode_attention"] == {"fp8": 8}
         assert ops.shape_counts()["decode_attention"] == {
             ("unscaled", "Hkv2 G2 D16"): 1, ("unscaled", "Hkv8 G4 D64"): 4}
