@@ -21,7 +21,12 @@ decode at the serve shape, flash prefill over a whole prompt (Sq = Sk =
 at the serve shape over a bf16, an fp8 and an int8 pool, plus the tiered
 pair of one layer over the fp8 pool: the hot window (``starts`` at each
 row's cold prefix, lse out) and the cold call of a step with nothing
-spilled (every window empty).  To compare two versions of the kernels, run it on
+spilled (every window empty); and the training pair at both train shapes
+(llama3.2-1b's B 8, S 1024, Hq 32, Hkv 8, D 64 and minicpm-2b's B 4, Hq =
+Hkv = 36): the flash forward with its lse and the flash backward (held to
+2e-2 of max(1, |plain|)), with SDPA's causal forward + backward through
+autograd on the same tensors timed beside them as the yardstick.  To
+compare two versions of the kernels, run it on
 both trees in turns (A, B, B, A) on one card, back to back: the inputs
 are the same, made from fixed seeds.
 """
@@ -194,6 +199,34 @@ def main() -> None:
                                    if float(lse.max()) <= -1e30 else float("inf"))
         timed("tier_cold_empty", [lambda s=s: call(ops.paged_decode_attention, *s, n=empty,
                                                    return_lse=True) for s in sets])
+
+    # training: the flash forward with lse and the flash backward, SDPA beside them
+    from repro_torch.kernels import flash_attention_bwd as kbwd
+    from repro_torch.kernels import prefill_attention as kpre
+
+    for tag, (B, S, Hq, Hkv, D) in (("", (8, 1024, 32, 8, 64)),
+                                    ("_minicpm", (4, 1024, 36, 36, 64))):
+        q, do = randn(B, S, Hq, D).bfloat16(), randn(B, S, Hq, D).bfloat16()
+        k, v = randn(B, S, Hkv, D).bfloat16(), randn(B, S, Hkv, D).bfloat16()
+        out, lse = kpre.kernel(q, k, v, return_lse=True)
+        got = kbwd.kernel(q, k, v, out, do, lse)
+        want = kbwd.plain(q, k, v, out, do, lse)
+        errs[f"flash_bwd{tag}"] = max(
+            float(((a.float() - b.float()).abs() / b.float().abs().clamp_min(1)).max())
+            for a, b in zip(got, want))
+        del got, want
+        qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        do_t = do.transpose(1, 2)
+
+        def sdpa(qs=qs, ks=ks, vs=vs, do_t=do_t):
+            o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                                 enable_gqa=True)
+            return torch.autograd.grad(o, (qs, ks, vs), do_t)
+
+        timed(f"train_lse{tag}", [lambda q=q, k=k, v=v: kpre.kernel(q, k, v, return_lse=True)])
+        timed(f"flash_bwd{tag}", [lambda a=(q, k, v, out, do, lse): kbwd.kernel(*a)])
+        timed(f"sdpa_fwd_bwd{tag}", [sdpa])
+        del q, k, v, do, out, lse, qs, ks, vs, do_t
 
     bad = {k: e for k, e in errs.items() if not e <= 2e-2}
     if bad:

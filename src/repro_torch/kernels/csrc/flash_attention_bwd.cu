@@ -15,24 +15,48 @@
 // What bounds it on the H100: operations.  At llama3.2-1b's training shape
 // (B 8, S 1024, Hq 32, Hkv 8, D 64) the five products of the visible
 // (query, key) pairs are ~8.6e10 flop, ~0.087 ms at the bf16 tensor-core
-// peak, against ~0.05 ms of traffic at 3.35 TB/s.
+// peak, against ~0.05 ms of traffic at 3.35 TB/s.  Without atomics the two
+// kernels below recompute S and dP: seven products for the bound's five.
+// On mma.sync what holds them back is issue and latency (8 warps an SM,
+// each running products and the elementwise in turn) and shared-memory
+// operand reads, so the design aims at those:
+//  * 32-row warp tiles: each B fragment read from shared memory feeds two
+//    m16n8k16 products, half the reads per product of 16-row warps;
+//  * the next fragment loads while the current ones multiply, and both
+//    score products (S and dP) issue before the elementwise pass (the mma
+//    asm keeps program order, so the source order is the issue order);
+//  * the streamed tiles go through a ring of cp.async stages, the next
+//    tile loading while one is used; two CTAs of 4 warps an SM;
+//  * a warp skips a step whose columns its rows cannot see; only steps on
+//    the diagonal or at S are masked; exp2 is one MUFU.EX2 (ftz).
 //
-// Three kernels, one stream, no float atomics (a rerun gives the same
-// bits, which the trainer's bit-equal resume relies on):
-//  * bwd_delta_kernel: delta (B, Hq, S) f32, one warp per (row, head);
-//  * dK/dV: one CTA per (batch, KV head, 64-key block); it loops over the
-//    G query heads of its group and over the 64-query blocks at or after
-//    its key block, so the group's sum stays inside the CTA;
-//  * dQ: one CTA per (batch, query head, 64-query block), looping over the
-//    key blocks up to its diagonal.
-// bf16 runs on the tensor cores (mma.sync m16n8k16 through the forward's
-// warp helpers: a warp owns 16 rows, P and dS are rounded to bf16 as the
-// A operand of their products, every sum is f32); f32 (float32 mode) on
-// f32 FMA with the forward FMA kernel's 4 x 8 thread tiles.  This first
-// design has no pipelining: each tile is loaded with cp.async (or plain
-// loads for f32), waited for, and used.  Rows past S are zero-filled and
-// masked; masked entries of P are 0, never exp of a mask value, so a
-// row's fully masked block gives no NaN.
+// bf16 (the train path) runs on the tensor cores, two kernels on one
+// stream, no float atomics (a rerun gives the same bits, which the
+// trainer's bit-equal resume relies on):
+//  * dQ first: one CTA per (query block of 128, batch, head), the last
+//    query block (the most key tiles) launched first.  Its prologue
+//    computes delta = rowsum(dO * O) of its rows from the dO and O tiles
+//    and writes it for dK/dV, so there is no delta pass.  Each warp holds
+//    its 32 rows of Q and dO as mma A fragments, and their lse and delta,
+//    in registers; 64-key tiles of K and V stream through the ring up to
+//    the diagonal, 16 keys a step.
+//  * dK/dV: one CTA per (key block of 128, batch, KV head), key block 0
+//    (every query tile of the G heads) first.  The (query head, 64-query
+//    tile) pairs at or after the block are one flat loop, so the ring of
+//    Q, dO, lse and delta tiles runs across head boundaries and the
+//    group's sum stays in the CTA; 16 queries a step.  K and V are read
+//    from shared memory: as fragments beside the two 32-row f32
+//    accumulators they would spill.
+// At D 128 the accumulators alone take 64 to 128 registers a thread: 8
+// warps of 16 rows per CTA (Tile below).  Numerics are the forward's: P
+// and dS rounded to bf16 as A operands, every sum f32, P recomputed as
+// exp2(s * scale * log2e - lse * log2e), masked entries exactly 0 (never
+// exp of a mask value, so a fully masked row gives no NaN).  Rows past S
+// are zero-filled.
+//
+// f32 (float32 mode, reduced checks only) runs a delta pass and two f32 FMA
+// kernels with 4 x 8 thread tiles over 64-row tiles, loaded and used
+// without pipelining.
 #include "common.cuh"
 
 namespace {
@@ -40,13 +64,13 @@ namespace {
 using namespace repro;
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 128;
-constexpr int BLK = 64;                    // queries or keys per tile
+constexpr int THREADS = 128;               // the f32 kernels
+constexpr int BLK = 64;                    // f32: queries or keys per tile
 constexpr int MAX_D = 128;
 constexpr int MAX_G = 8;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// ----------------------------------------------------------------- delta
+// --------------------------------------------------------- delta (f32)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
@@ -65,36 +89,134 @@ bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __r
 }
 
 // ------------------------------------------------ tensor-core kernels (bf16)
-// s (16 x 64) = A B^T with A the warp's 16 rows (stride LD, in shared
-// memory) and B a tile of 64 rows: warp_qk with the A fragments loaded per
-// k-step instead of held in registers.
+constexpr int TILE = 64;                   // rows of a streamed tile (one ring stage)
+// The warp tiles.  A CTA is WARPS warps; a warp owns MT x 16 rows (keys in
+// dK/dV, queries in dQ) and takes a streamed tile NJ x 16 columns at a
+// time.  dQ holds its fixed A operands (Q, dO) as fragments in registers;
+// dK/dV reads K and V from shared memory (beside two f32 accumulators its
+// fragments would spill).  Up to DP 64: 4 warps of 32 rows, two CTAs an SM
+// (ptxas at DP 64: 218 registers dQ, 242 dK/dV, no spills); at DP 128 the
+// accumulators take 64 to 128 registers a 16-row warp: 8 warps of 16 rows,
+// one CTA an SM.  Chosen on the H100 at llama3.2-1b's and minicpm-2b's
+// training shapes (PERF.md).
+constexpr int RING = 2;                    // stages of streamed tiles
+
+template <int DP>
+struct Tile {
+  static constexpr bool SMALL_D = DP <= 64;
+  static constexpr int WARPS = SMALL_D ? 4 : 8;
+  static constexpr int MT = SMALL_D ? 2 : 1;
+  static constexpr int NJ = SMALL_D ? 1 : 2;
+  static constexpr int MIN_BLOCKS = SMALL_D ? 2 : 1;       // CTAs an SM must hold
+  static constexpr int ROWS = WARPS * MT * 16;     // keys or queries of a CTA
+  static constexpr int LD = DP + 8;        // shared row stride: ldmatrix without bank conflicts
+  static constexpr int KSTEPS = DP / 16, DN = DP / 8;
+};
+
+// 2^x, flushing a subnormal result to 0 (one MUFU.EX2).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The A fragments of 16 rows a (stride LD), one per k-step.
 template <int KSTEPS, int LD>
-__device__ __forceinline__ void warp_abt(float s[8][4], const bf16* a, const bf16* bt, int lane,
-                                         int D) {
+__device__ __forceinline__ void load_a(uint32_t (*af)[4], const bf16* a, int lane) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  for (int kk = 0; kk < KSTEPS; ++kk)
+    ldmatrix_x4(af[kk], a + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+}
+
+// s (MT x 16 rows by NJ x 16 columns, mma c layout: s[m][j] covers columns
+// 8j..8j+7) = A B^T over the DP columns (past D both are zero).  A: the
+// warp's rows, as fragments af[m][kk] (REGS; a unused) or from shared
+// memory a (stride LD; af unused); B: 16 NJ rows bt.  Each B fragment feeds MT products, and
+// the next fragments load while the current ones multiply (the asm keeps
+// program order).
+template <int MT, int NJ, bool REGS, int KSTEPS, int LD, typename AF>
+__device__ __forceinline__ void mma_abt(float (&s)[MT][2 * NJ][4], const AF& af, const bf16* a,
+                                        const bf16* bt, int lane) {
+  const bf16* b_lane = bt + ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
+  const bf16* a_lane = REGS ? a : a + (lane & 15) * LD + (lane >> 4) * 8;
 #pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    if (kk * 16 >= D) break;
-    uint32_t af[4];
-    ldmatrix_x4(af, a + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t bk[4];
-      ldmatrix_x4(bk, bt + (j * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                          ((lane >> 3) & 1) * 8);
-      mma_bf16_16816(s[2 * j], af, bk[0], bk[1]);
-      mma_bf16_16816(s[2 * j + 1], af, bk[2], bk[3]);
+    for (int j = 0; j < 2 * NJ; ++j) s[m][j][0] = s[m][j][1] = s[m][j][2] = s[m][j][3] = 0.f;
+  uint32_t bk[2][4], am[2][MT][4];
+  ldmatrix_x4(bk[0], b_lane);
+  if constexpr (!REGS) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) ldmatrix_x4(am[0][m], a_lane + m * 16 * LD);
+  }
+#pragma unroll
+  for (int t = 0; t < KSTEPS * NJ; ++t) {
+    const int kk = t / NJ, j = t % NJ, tn = t + 1;
+    if (tn < KSTEPS * NJ) {
+      ldmatrix_x4(bk[tn & 1], b_lane + (tn % NJ) * 16 * LD + (tn / NJ) * 16);
+      if constexpr (!REGS) {
+        if (tn % NJ == 0) {
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            ldmatrix_x4(am[(tn / NJ) & 1][m], a_lane + m * 16 * LD + (tn / NJ) * 16);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const uint32_t* fa;
+      if constexpr (REGS)
+        fa = af[m][kk];
+      else
+        fa = am[kk & 1][m];
+      mma_bf16_16816(s[m][2 * j], fa, bk[t & 1][0], bk[t & 1][1]);
+      mma_bf16_16816(s[m][2 * j + 1], fa, bk[t & 1][2], bk[t & 1][3]);
     }
   }
 }
 
-// One 64-row tile of head `h` (rows r0.., head stride Hn heads of D) into
-// shared memory with 16-byte cp.async; rows past S are zero-filled.
+// o (MT x 16 rows by DP) += P X: P in s (as mma_abt leaves it) rounded to
+// bf16 as the A operand, X 16 NJ rows xt by DP (stride LD).  Each B
+// fragment feeds MT products; the next one loads while they run.
+template <int MT, int NJ, int DN, int LD>
+__device__ __forceinline__ void mma_px(float (&o)[MT][DN][4], const float (&s)[MT][2 * NJ][4],
+                                       const bf16* xt, int lane) {
+  constexpr int NDN = DN / 2;              // pairs of output tiles
+  const bf16* x_lane = xt + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+  uint32_t bv[2][4], pa[MT][4];
+  ldmatrix_x4_trans(bv[0], x_lane);
+#pragma unroll
+  for (int t = 0; t < NJ * NDN; ++t) {
+    const int kk = t / NDN, dn = t % NDN, tn = t + 1;   // 16 rows of X per k-step
+    if (dn == 0) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float* p0 = s[m][2 * kk];
+        const float* p1 = s[m][2 * kk + 1];
+        pa[m][0] = pack_bf16(p0[0], p0[1]);
+        pa[m][1] = pack_bf16(p0[2], p0[3]);
+        pa[m][2] = pack_bf16(p1[0], p1[1]);
+        pa[m][3] = pack_bf16(p1[2], p1[3]);
+      }
+    }
+    if (tn < NJ * NDN)
+      ldmatrix_x4_trans(bv[tn & 1], x_lane + (tn / NDN) * 16 * LD + (tn % NDN) * 16);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      mma_bf16_16816(o[m][2 * dn], pa[m], bv[t & 1][0], bv[t & 1][1]);
+      mma_bf16_16816(o[m][2 * dn + 1], pa[m], bv[t & 1][2], bv[t & 1][3]);
+    }
+  }
+}
+
+// NR rows of head h (rows r0.., global row stride Hn heads of D) into
+// shared memory with 16-byte cp.async by NT threads; rows past S are
+// zero-filled.
+template <int NR, int NT>
 __device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, int b, int r0, int h,
                                            int S, int Hn, int D, int LD, int tid) {
   const int dchunks = D / 8;
-  for (int c = tid; c < BLK * dchunks; c += THREADS) {
+  for (int c = tid; c < NR * dchunks; c += NT) {
     const int r = c / dchunks, d0 = (c % dchunks) * 8;
     const bool ok = r0 + r < S;
     const long long off = ok ? (((long long)b * S + r0 + r) * Hn + h) * D + d0 : 0;
@@ -102,30 +224,37 @@ __device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, int b, in
   }
 }
 
-// lse (as log2) and delta of the 64 query rows q0.. of head h
-__device__ __forceinline__ void rows_stats(float* lse_s, float* dl_s, const float* lse,
-                                           const float* delta, long long bh, int q0, int S,
-                                           int tid) {
-  if (tid < BLK) {
-    const bool ok = q0 + tid < S;
-    lse_s[tid] = ok ? lse[bh * S + q0 + tid] * LOG2E : 0.f;
-    dl_s[tid] = ok ? delta[bh * S + q0 + tid] : 0.f;
+// lse and delta of the TILE query rows q0.. of (batch, head) bh, by
+// threads [0, 2 TILE) with 4-byte cp.async; rows past S read 0.
+__device__ __forceinline__ void stats_async(float* lse_s, float* dl_s, const float* lse,
+                                            const float* delta, long long bh, int q0, int S,
+                                            int tid) {
+  if (tid < 2 * TILE) {
+    const int r = tid % TILE;
+    const bool ok = q0 + r < S;
+    const long long off = ok ? bh * S + q0 + r : 0;
+    if (tid < TILE)
+      cp_async4(lse_s + r, lse + off, ok ? 4 : 0);
+    else
+      cp_async4(dl_s + r, delta + off, ok ? 4 : 0);
   }
 }
 
+template <int NT>
 __device__ __forceinline__ void zero_pad(bf16* base, int n_rows, int D, int DP, int LD,
                                          int tid) {
   if (D < DP) {                            // cp.async never writes columns [D, DP)
     const int pad = DP - D;
-    for (int i = tid; i < n_rows * pad; i += THREADS)
+    for (int i = tid; i < n_rows * pad; i += NT)
       base[(i / pad) * LD + D + i % pad] = __float2bfloat16(0.f);
   }
 }
 
+// 16 rows of a warp's accumulator (c layout) times mul, as bf16.
 template <int DN>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (*acc)[4], float mul, int b,
-                                           int row0, int h, int S, int Hn, int D, int gid,
-                                           int tig) {
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[DN][4], float mul,
+                                           int b, int row0, int h, int S, int Hn, int D,
+                                           int gid, int tig) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row0 + gid + 8 * i;
@@ -142,139 +271,247 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (*acc)[4], flo
 }
 
 template <int DP>
-size_t mma_smem_bytes() {
-  return sizeof(bf16) * 4 * BLK * (DP + 8) + sizeof(float) * 2 * BLK;
+constexpr size_t dkdv_smem_bytes() {
+  using T = Tile<DP>;
+  return sizeof(bf16) * (2 * T::ROWS + RING * 2 * TILE) * T::LD +
+         sizeof(float) * RING * 2 * TILE;
 }
 
-// dK, dV of 64 keys of KV head hk: the warp's 16 keys are the A rows.
 template <int DP>
-__global__ void __launch_bounds__(THREADS)
+constexpr size_t dq_smem_bytes() {
+  using T = Tile<DP>;
+  return sizeof(bf16) * (2 * T::ROWS + RING * 2 * TILE) * T::LD;
+}
+
+// dK, dV of a block of keys of KV head hk: the warp's MT x 16 keys are the
+// A rows of S^T = K Q^T and dP^T = V dO^T.  Reads the delta dQ wrote.
+template <int DP>
+__global__ void __launch_bounds__(Tile<DP>::WARPS * 32, Tile<DP>::MIN_BLOCKS)
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Hq, int Hkv,
-                          int D, float scale) {
-  constexpr int LD = DP + 8, KSTEPS = DP / 16, DN = DP / 8;
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int S, int Hq,
+                          int Hkv, int D, float scale) {
+  using T = Tile<DP>;
+  constexpr int LD = T::LD, KSTEPS = T::KSTEPS, DN = T::DN, MT = T::MT, NJ = T::NJ;
+  constexpr int NT = T::WARPS * 32, BK = T::ROWS, WR = 16 * MT, STEP = 16 * NJ;
+  static_assert(NT >= 2 * TILE, "stats_async loads with 2 TILE threads");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);   // 4 tiles of BLK x LD
-  bf16* v_s = k_s + BLK * LD;
-  bf16* q_s = v_s + BLK * LD;
-  bf16* do_s = q_s + BLK * LD;
-  float* lse_s = reinterpret_cast<float*>(do_s + BLK * LD);
-  float* dl_s = lse_s + BLK;
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* v_s = k_s + BK * LD;
+  bf16* ring = v_s + BK * LD;              // stage st: Q at ring + 2 st TILE LD, dO after it
+  float* stats = reinterpret_cast<float*>(ring + RING * 2 * TILE * LD);   // st: lse, delta
   const int G = Hq / Hkv;
-  const int k0 = blockIdx.x * BLK, hk = blockIdx.y, b = blockIdx.z;
+  int idx = blockIdx.x;                    // (key block, batch, KV head), key block 0 first
+  const int hk = idx % Hkv;
+  idx /= Hkv;
+  const int b = idx % B, k0 = idx / B * BK;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int key_lo = k0 + warp * 16;
+  const int key_lo = k0 + warp * WR;
   const float sl2 = scale * LOG2E;
+  const int nq = (S - k0 + TILE - 1) / TILE, n = G * nq;   // flat (query head, query tile)
 
-  zero_pad(k_s, 4 * BLK, D, DP, LD, tid);
-  tile_async(k_s, k, b, k0, hk, S, Hkv, D, LD, tid);
-  tile_async(v_s, v, b, k0, hk, S, Hkv, D, LD, tid);
+  zero_pad<NT>(k_s, 2 * BK + RING * 2 * TILE, D, DP, LD, tid);
+  tile_async<BK, NT>(k_s, k, b, k0, hk, S, Hkv, D, LD, tid);
+  tile_async<BK, NT>(v_s, v, b, k0, hk, S, Hkv, D, LD, tid);
   cp_async_commit();
+  auto load = [&](int i) {
+    if (i < n) {
+      const int g = i / nq, q0 = k0 + (i - g * nq) * TILE, st = i % RING;
+      const long long bh = (long long)b * Hq + hk * G + g;
+      bf16* q_st = ring + st * 2 * TILE * LD;
+      tile_async<TILE, NT>(q_st, q, b, q0, hk * G + g, S, Hq, D, LD, tid);
+      tile_async<TILE, NT>(q_st + TILE * LD, dout, b, q0, hk * G + g, S, Hq, D, LD, tid);
+      stats_async(stats + st * 2 * TILE, stats + st * 2 * TILE + TILE, lse, delta, bh, q0, S,
+                  tid);
+    }
+    cp_async_commit();                     // empty past the end: one group per iteration
+  };
+#pragma unroll
+  for (int i = 0; i < RING - 1; ++i) load(i);
+  cp_async_wait<RING - 1>();               // the K, V group
+  __syncthreads();
+  float dk_acc[MT][DN][4], dv_acc[MT][DN][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[m][dn][e] = dv_acc[m][dn][e] = 0.f;
 
-  float dk_acc[DN][4], dv_acc[DN][4];
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<RING - 2>();
+    __syncthreads();                       // tile i landed; stage (i - 1) % RING is consumed
+    load(i + RING - 1);
+    const int g = i / nq, q0 = k0 + (i - g * nq) * TILE, st = i % RING;
+    const bf16* q_st = ring + st * 2 * TILE * LD;
+    const bf16* do_st = q_st + TILE * LD;
+    const float* lse_st = stats + st * 2 * TILE;
+    const float* dl_st = lse_st + TILE;
 #pragma unroll
-  for (int dn = 0; dn < DN; ++dn)
+    for (int cs = 0; cs < TILE; cs += STEP) {
+      const int qc = q0 + cs;
+      if (key_lo > qc + STEP - 1 || key_lo >= S || qc >= S) continue;  // nothing visible
+      const bool edge = key_lo + WR - 1 > qc || qc + STEP > S;
+      float p[MT][2 * NJ][4], ds[MT][2 * NJ][4];   // S^T, dP^T: the warp's keys x STEP queries
+      mma_abt<MT, NJ, false, KSTEPS, LD>(p, nullptr, k_s + warp * WR * LD, q_st + cs * LD, lane);
+      mma_abt<MT, NJ, false, KSTEPS, LD>(ds, nullptr, v_s + warp * WR * LD, do_st + cs * LD,
+                                         lane);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dn][e] = dv_acc[dn][e] = 0.f;
-
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    for (int q0 = k0; q0 < S; q0 += BLK) {
-      __syncthreads();                     // the previous Q/dO tiles are consumed
-      tile_async(q_s, q, b, q0, h, S, Hq, D, LD, tid);
-      tile_async(do_s, dout, b, q0, h, S, Hq, D, LD, tid);
-      cp_async_commit();
-      rows_stats(lse_s, dl_s, lse, delta, (long long)b * Hq + h, q0, S, tid);
-      cp_async_wait<0>();
-      __syncthreads();
-
-      float p[8][4];                       // P^T: 16 keys x 64 queries
-      warp_abt<KSTEPS, LD>(p, k_s + warp * 16 * LD, q_s, lane, D);
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 2 * NJ; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = j * 8 + tig * 2 + (e & 1), qp = q0 + c;
-          const bool ok = qp < S && qp >= key_lo + gid + 8 * (e >> 1);
-          p[j][e] = ok ? exp2f(p[j][e] * sl2 - lse_s[c]) : 0.f;
-        }
-      warp_pv<DN, LD, false>(dv_acc, p, do_s, lane, D);        // dV += P^T dO
-      float ds[8][4];                      // dP^T = V dO^T, then dS^T
-      warp_abt<KSTEPS, LD>(ds, v_s + warp * 16 * LD, do_s, lane, D);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - dl_s[j * 8 + tig * 2 + (e & 1)]);
-      warp_pv<DN, LD, false>(dk_acc, ds, q_s, lane, D);        // dK += dS^T Q
+          for (int e = 0; e < 4; ++e) {
+            const int c = cs + j * 8 + tig * 2 + (e & 1);
+            float x = exp2_ftz(p[m][j][e] * sl2 - lse_st[c] * LOG2E);
+            if (edge) {
+              const int qp = q0 + c;
+              x = qp < S && qp >= key_lo + m * 16 + gid + 8 * (e >> 1) ? x : 0.f;
+            }
+            p[m][j][e] = x;
+            ds[m][j][e] = x * (ds[m][j][e] - dl_st[c]);
+          }
+      mma_px<MT, NJ, DN, LD>(dv_acc, p, do_st + cs * LD, lane);            // dV += P^T dO
+      mma_px<MT, NJ, DN, LD>(dk_acc, ds, q_st + cs * LD, lane);          // dK += dS^T Q
     }
   }
-  store_rows<DN>(dk, dk_acc, scale, b, key_lo, hk, S, Hkv, D, gid, tig);
-  store_rows<DN>(dv, dv_acc, 1.f, b, key_lo, hk, S, Hkv, D, gid, tig);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    store_rows<DN>(dk, dk_acc[m], scale, b, key_lo + m * 16, hk, S, Hkv, D, gid, tig);
+    store_rows<DN>(dv, dv_acc[m], 1.f, b, key_lo + m * 16, hk, S, Hkv, D, gid, tig);
+  }
 }
 
-// dQ of 64 queries of head h: the warp's 16 queries are the A rows.
+// dQ of a block of queries of head h, and delta = rowsum(dO * O) of those
+// rows for the dK/dV kernel: the warp's MT x 16 queries are the A rows of
+// S = Q K^T and dP = dO V^T.
 template <int DP>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Tile<DP>::WARPS * 32, Tile<DP>::MIN_BLOCKS)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int S, int Hq, int Hkv, int D, float scale) {
-  constexpr int LD = DP + 8, KSTEPS = DP / 16, DN = DP / 8;
+                        const bf16* __restrict__ v, const bf16* __restrict__ o,
+                        const bf16* __restrict__ dout, const float* __restrict__ lse,
+                        float* __restrict__ delta, bf16* __restrict__ dq, int B, int S, int Hq,
+                        int Hkv, int D, float scale) {
+  using T = Tile<DP>;
+  constexpr int LD = T::LD, KSTEPS = T::KSTEPS, DN = T::DN, MT = T::MT, NJ = T::NJ;
+  constexpr int NT = T::WARPS * 32, BQ = T::ROWS, WR = 16 * MT, STEP = 16 * NJ;
+  constexpr int LPR = 32 / WR;             // lanes per row of the delta sums
+  static_assert(BQ <= 2 * TILE, "the O tile borrows the last ring stage");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + BLK * LD;
-  bf16* k_s = do_s + BLK * LD;
-  bf16* v_s = k_s + BLK * LD;
-  float* lse_s = reinterpret_cast<float*>(v_s + BLK * LD);
-  float* dl_s = lse_s + BLK;
-  const int q0 = blockIdx.x * BLK, h = blockIdx.y, b = blockIdx.z;
+  bf16* do_s = q_s + BQ * LD;
+  bf16* ring = do_s + BQ * LD;             // stage st: K at ring + 2 st TILE LD, V after it
+  // O is read once, before the loop: it borrows the last stage, which the
+  // first iteration fills after its barrier.
+  bf16* o_s = ring + (RING - 1) * 2 * TILE * LD;
+  const int nqb = (S + BQ - 1) / BQ;
+  int idx = blockIdx.x;                    // (query block, batch, head), the last block first
+  const int h = idx % Hq;
+  idx /= Hq;
+  const int b = idx % B, q0 = (nqb - 1 - idx / B) * BQ;
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int row_lo = q0 + warp * 16;
+  const int row_lo = q0 + warp * WR;
   const float sl2 = scale * LOG2E;
+  const long long bh = (long long)b * Hq + h;
+  const int n = (min(S, q0 + BQ) + TILE - 1) / TILE;      // key tiles up to the diagonal
 
-  zero_pad(q_s, 4 * BLK, D, DP, LD, tid);
-  tile_async(q_s, q, b, q0, h, S, Hq, D, LD, tid);
-  tile_async(do_s, dout, b, q0, h, S, Hq, D, LD, tid);
+  zero_pad<NT>(q_s, 2 * BQ + RING * 2 * TILE, D, DP, LD, tid);
+  tile_async<BQ, NT>(q_s, q, b, q0, h, S, Hq, D, LD, tid);
+  tile_async<BQ, NT>(do_s, dout, b, q0, h, S, Hq, D, LD, tid);
+  tile_async<BQ, NT>(o_s, o, b, q0, h, S, Hq, D, LD, tid);
   cp_async_commit();
-  rows_stats(lse_s, dl_s, lse, delta, (long long)b * Hq + h, q0, S, tid);
-
-  float dq_acc[DN][4];
-#pragma unroll
-  for (int dn = 0; dn < DN; ++dn) dq_acc[dn][0] = dq_acc[dn][1] = dq_acc[dn][2] = dq_acc[dn][3] = 0.f;
-
-  const int k_end = min(S, q0 + BLK);
-  for (int kk0 = 0; kk0 < k_end; kk0 += BLK) {
-    __syncthreads();                       // the previous K/V tiles are consumed
-    tile_async(k_s, k, b, kk0, hk, S, Hkv, D, LD, tid);
-    tile_async(v_s, v, b, kk0, hk, S, Hkv, D, LD, tid);
+  auto load = [&](int i) {
+    if (i < n) {
+      bf16* k_st = ring + (i % RING) * 2 * TILE * LD;
+      tile_async<TILE, NT>(k_st, k, b, i * TILE, hk, S, Hkv, D, LD, tid);
+      tile_async<TILE, NT>(k_st + TILE * LD, v, b, i * TILE, hk, S, Hkv, D, LD, tid);
+    }
     cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    float p[8][4];                         // P: 16 queries x 64 keys
-    warp_abt<KSTEPS, LD>(p, q_s + warp * 16 * LD, k_s, lane, D);
+  };
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+  for (int i = 0; i < RING - 1; ++i) load(i);
+  float lse2[MT][2], dl[MT][2];            // rows m * 16 + gid (+ 8) of the warp
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = warp * 16 + gid + 8 * (e >> 1), qp = q0 + r;
-        const bool ok = qp < S && kk0 + j * 8 + tig * 2 + (e & 1) <= qp;
-        p[j][e] = ok ? exp2f(p[j][e] * sl2 - lse_s[r]) : 0.f;
-      }
-    float ds[8][4];                        // dP = dO V^T, then dS
-    warp_abt<KSTEPS, LD>(ds, do_s + warp * 16 * LD, v_s, lane, D);
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int i = 0; i < 2; ++i) {
+      const int r = row_lo + m * 16 + gid + 8 * i;
+      lse2[m][i] = r < S ? lse[bh * S + r] * LOG2E : 0.f;
+    }
+  cp_async_wait<RING - 1>();               // the Q, dO, O group
+  __syncthreads();
+  {                                        // delta: LPR lanes sum parts of row lane / LPR
+    const int r = lane / LPR, c0 = (lane % LPR) * (DP / LPR);
+    const bf16* dr = do_s + (warp * WR + r) * LD + c0;
+    const bf16* orow = o_s + (warp * WR + r) * LD + c0;
+    float acc = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - dl_s[warp * 16 + gid + 8 * (e >> 1)]);
-    warp_pv<DN, LD, false>(dq_acc, ds, k_s, lane, D);          // dQ += dS K
+    for (int c = 0; c < DP / LPR; c += 8) {
+      float x[8], y[8];
+      load16(dr + c, x);
+      load16(orow + c, y);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc += x[e] * y[e];
+    }
+    if constexpr (LPR == 2) acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        dl[m][i] = __shfl_sync(0xffffffffu, acc, (m * 16 + gid + 8 * i) * LPR);
+    if (lane % LPR == 0 && row_lo + r < S) delta[bh * S + row_lo + r] = acc;
   }
-  store_rows<DN>(dq, dq_acc, scale, b, row_lo, h, S, Hq, D, gid, tig);
+  uint32_t qf[MT][KSTEPS][4], dof[MT][KSTEPS][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    load_a<KSTEPS, LD>(qf[m], q_s + (warp * WR + m * 16) * LD, lane);
+    load_a<KSTEPS, LD>(dof[m], do_s + (warp * WR + m * 16) * LD, lane);
+  }
+  float dq_acc[MT][DN][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq_acc[m][dn][e] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<RING - 2>();
+    __syncthreads();                       // tile i landed; stage (i - 1) % RING is consumed
+    load(i + RING - 1);
+    const bf16* k_st = ring + (i % RING) * 2 * TILE * LD;
+    const bf16* v_st = k_st + TILE * LD;
+#pragma unroll
+    for (int ks = 0; ks < TILE; ks += STEP) {
+      const int kc = i * TILE + ks;
+      if (kc > row_lo + WR - 1 || row_lo >= S || kc >= S) continue;      // nothing visible
+      const bool edge = kc + STEP - 1 > row_lo || row_lo + WR > S;
+      float p[MT][2 * NJ][4], ds[MT][2 * NJ][4];   // P and dP = dO V^T: rows x STEP keys
+      mma_abt<MT, NJ, true, KSTEPS, LD>(p, qf, nullptr, k_st + ks * LD, lane);
+      mma_abt<MT, NJ, true, KSTEPS, LD>(ds, dof, nullptr, v_st + ks * LD, lane);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < 2 * NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = exp2_ftz(p[m][j][e] * sl2 - lse2[m][e >> 1]);
+            if (edge) {
+              const int qp = row_lo + m * 16 + gid + 8 * (e >> 1);
+              x = qp < S && kc + j * 8 + tig * 2 + (e & 1) <= qp ? x : 0.f;
+            }
+            ds[m][j][e] = x * (ds[m][j][e] - dl[m][e >> 1]);
+          }
+      mma_px<MT, NJ, DN, LD>(dq_acc, ds, k_st + ks * LD, lane);          // dQ += dS K
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+    store_rows<DN>(dq, dq_acc[m], scale, b, row_lo + m * 16, h, S, Hq, D, gid, tig);
 }
 
 // ---------------------------------------------------- f32 FMA kernels (f32)
@@ -479,27 +716,31 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k
 }
 
 template <int DP>
-int launch_mma(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* delta, void* dq, void* dk, void* dv, int B, int S, int Hq, int Hkv,
-               int D, float scale, cudaStream_t st) {
-  const size_t smem = mma_smem_bytes<DP>();
+int launch_mma(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int S,
+               int Hq, int Hkv, int D, float scale, cudaStream_t st) {
+  using T = Tile<DP>;
+  constexpr size_t smem_kv = dkdv_smem_bytes<DP>(), smem_q = dq_smem_bytes<DP>();
   static std::atomic<size_t> allowed_kv{0}, allowed_q{0};
-  cudaError_t err = allow_smem((const void*)flash_bwd_dkdv_mma_kernel<DP>, smem, allowed_kv);
+  cudaError_t err = allow_smem((const void*)flash_bwd_dkdv_mma_kernel<DP>, smem_kv, allowed_kv);
   if (err == cudaSuccess)
-    err = allow_smem((const void*)flash_bwd_dq_mma_kernel<DP>, smem, allowed_q);
+    err = allow_smem((const void*)flash_bwd_dq_mma_kernel<DP>, smem_q, allowed_q);
   if (err != cudaSuccess) return (int)err;
-  const int nb = (S + BLK - 1) / BLK;
   const auto* qb = static_cast<const bf16*>(q);
   const auto* kb = static_cast<const bf16*>(k);
   const auto* vb = static_cast<const bf16*>(v);
   const auto* db = static_cast<const bf16*>(dout);
-  flash_bwd_dkdv_mma_kernel<DP><<<dim3(nb, Hkv, B), THREADS, smem, st>>>(
-      qb, kb, vb, db, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Hq, Hkv, D,
-      scale);
+  const long long q_blocks = (long long)((S + T::ROWS - 1) / T::ROWS) * B * Hq;
+  const long long kv_blocks = (long long)((S + T::ROWS - 1) / T::ROWS) * B * Hkv;
+  if (q_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  flash_bwd_dq_mma_kernel<DP><<<(unsigned)q_blocks, T::WARPS * 32, smem_q, st>>>(
+      qb, kb, vb, static_cast<const bf16*>(o), db, lse, delta, static_cast<bf16*>(dq), B, S,
+      Hq, Hkv, D, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_mma_kernel<DP><<<dim3(nb, Hq, B), THREADS, smem, st>>>(
-      qb, kb, vb, db, lse, delta, static_cast<bf16*>(dq), S, Hq, Hkv, D, scale);
+  flash_bwd_dkdv_mma_kernel<DP><<<(unsigned)kv_blocks, T::WARPS * 32, smem_kv, st>>>(
+      qb, kb, vb, db, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, S, Hq, Hkv,
+      D, scale);
   return (int)cudaGetLastError();
 }
 
@@ -543,8 +784,9 @@ int launch_delta(const void* o, const void* dout, float* delta, int B, int S, in
 // (B, S, Hq, D); k, v, dk, dv (B, S, Hkv, D): all contiguous, of one type
 // (dtype 1 bf16 or 0 f32).  lse (B, Hq, S) f32, the forward's natural-log
 // row log-sum-exp of scale * q.k; delta: f32 scratch of B * Hq * S.
-// G = Hq / Hkv <= 8, D <= 128 and D % 8 == 0.  Launches the delta, dK/dV
-// and dQ kernels in that order on `stream`; returns the first CUDA error.
+// G = Hq / Hkv <= 8, D <= 128 and D % 8 == 0.  Launches on `stream` the
+// dQ kernel (which writes delta) and then the dK/dV kernel for bf16; the
+// delta, dK/dV and dQ kernels for f32.  Returns the first CUDA error.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
                                           void* delta, void* dq, void* dk, void* dv, int B,
@@ -562,10 +804,8 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
     return launch_fma(q, k, v, dout, lsef, dl, dq, dk, dv, B, S, Hq, Hkv, D, scale, st);
   }
   if (dtype != BF16) return (int)cudaErrorInvalidValue;
-  int err = launch_delta<bf16>(o, dout, dl, B, S, Hq, D, st);
-  if (err) return err;
 #define REPRO_MMA(DP) \
-  launch_mma<DP>(q, k, v, dout, lsef, dl, dq, dk, dv, B, S, Hq, Hkv, D, scale, st)
+  launch_mma<DP>(q, k, v, o, dout, lsef, dl, dq, dk, dv, B, S, Hq, Hkv, D, scale, st)
   if (D <= 32) return REPRO_MMA(32);
   if (D <= 64) return REPRO_MMA(64);
   return REPRO_MMA(128);

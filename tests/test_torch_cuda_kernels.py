@@ -745,6 +745,16 @@ BWD_CASES = [
     (1, 130, 1, 8, 128),
     (3, 37, 2, 2, 16),
     (1, 65, 4, 1, 32),
+    # the 128-row CTAs' edges: S not a multiple of 128 or under one 64-row
+    # tile; G 3 and 7, whose flat (head, query tile) loop crosses head
+    # boundaries inside the ring; D 16 / 32 / 64 / 128 and D not a
+    # multiple of 16 (40, 120: zero-padded contraction columns)
+    (1, 1000, 2, 3, 64),
+    (2, 191, 1, 7, 128),
+    (1, 129, 3, 2, 32),
+    (2, 17, 2, 7, 16),
+    (1, 257, 2, 3, 40),
+    (1, 150, 1, 4, 120),
 ]
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}       # of max(1, |plain|)
 # ||kernel - plain|| / ||plain|| of each bf16 gradient: bf16 rounding of P,
