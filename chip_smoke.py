@@ -47,8 +47,11 @@
    dv against the plain backward, 2e-2 of max(1, |plain|) and 1e-2 in
    norm; two launches bit-equal; an f32 case at 1e-4), at llama3.2-1b's training shape (B 8,
    S 1024, Hq 32, Hkv 8, D 64) and minicpm-2b's microbatch (B 4, Hq = Hkv
-   = 36, D 64); their yardsticks are causal SDPA's forward and SDPA's
-   forward + backward through autograd.
+   = 36, D 64), and (slice 16) at moonshot's (B 4, Hq = Hkv = 16, D 128:
+   the backward's 8-warp route), zamba2's shared block (B 4, Hq = Hkv =
+   32, D 128) and seamless's decoder (B 4, Hq = Hkv = 16, D 64); their
+   yardsticks are causal SDPA's forward and SDPA's forward + backward
+   through autograd.
 4. Serve phase: full-width llama3.2-1b with seeded random weights through
    ``repro_torch.launch.serve``, seventeen paths, every dispatch kind of each
    one captured CUDA graph (the engine's default on the card; the counts
@@ -187,9 +190,17 @@
    (``--layers 2``; the loss must fall: at full depth the reference's init makes grad norms ~1e11
    and 20 steps do not move it), minicpm-2b at full width and depth
    through ``examples/torch_train_minicpm_wsd.py`` (WSD, grad_accum 2,
-   int8 compression, 4 steps), and reduced llama3.2-1b and moonshot in
-   float32, card against CPU: loss (ce, aux), every gradient leaf, one
-   ``train_step``.
+   int8 compression, 4 steps); then (``family_train_phase``, each on a
+   freed card, no checkpoint written) moonshot-v1-16b-a3b at 4 layers,
+   deepseek-v3-671b at its 3 dense layers and the MTP block, rwkv6-7b at 4
+   layers and zamba2-1.2b whole through the train CLI, and
+   seamless-m4t-medium at model level through ``make_train_step`` (each:
+   losses finite, whether they fall printed; launches per step as
+   ``train_launches`` says; the plain ``chunked_attention`` calls the
+   reference makes too, deepseek's MLA and seamless's encoder and cross
+   attention, counted; ms per step, tokens/s, MFU, peak memory); and
+   every family reduced in float32, card against CPU: loss and metrics,
+   every gradient leaf, one ``train_step``.
 5. Profiles (torch.profiler) of steady async steps on paths a, b, c and
    e, with graphs (eagerly only moonshot's, to keep the script inside its
    time; the other families' and deepseek's with graphs), for where the
@@ -295,6 +306,7 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models import dense as dense_mod  # noqa: E402
+from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import mamba2 as mamba2_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rwkv6 as rwkv6_mod  # noqa: E402
@@ -309,7 +321,7 @@ from repro_torch.serving.sampler import SamplerConfig, sample_on_device  # noqa:
 from repro_torch.serving.telemetry import build_request_trees, validate_trace  # noqa: E402
 from repro_torch.serving.workload import build_workload  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, host_batch  # noqa: E402
-from repro_torch.training.optimizer import leaves  # noqa: E402
+from repro_torch.training.optimizer import leaves, tree_map  # noqa: E402
 from repro_torch.training.trainer import make_train_step, to_device  # noqa: E402
 from repro_torch.configs.base import ParallelConfig, RunConfig, TrainConfig  # noqa: E402
 
@@ -468,9 +480,31 @@ TRAIN_FLAGS = ["--arch", "llama3.2-1b", "--batch", "8", "--seq", "1024", "--step
 TRAIN_RESUME_FLAGS = ["--fail-at-step", "12", "--ckpt-every", "10"]
 TRAIN_STEPS, TRAIN_FAIL, TRAIN_CKPT = 20, 12, 10
 MINICPM_TRAIN_STEPS = 4
+# the other families' train paths at full width, each on a card freed of
+# the one before: moonshot-v1-16b-a3b cut to 4 layers (1 dense + 3 MoE),
+# deepseek-v3-671b to its 3 dense layers and the MTP block (one MoE layer
+# alone is 11.3e9 parameters), rwkv6-7b to 4 layers, zamba2-1.2b whole; no
+# checkpoint is written (--ckpt-every 0)
+FAMILY_TRAIN = {
+    "train-moe": ["--arch", "moonshot-v1-16b-a3b", "--layers", "4", "--batch", "4",
+                  "--seq", "1024", "--steps", "4"],
+    "train-deepseek": ["--arch", "deepseek-v3-671b", "--layers", "3", "--batch", "1",
+                       "--seq", "1024", "--steps", "3"],
+    "train-rwkv6": ["--arch", "rwkv6-7b", "--layers", "4", "--batch", "4", "--seq", "1024",
+                    "--steps", "3"],
+    "train-zamba2": ["--arch", "zamba2-1.2b", "--batch", "4", "--seq", "1024", "--steps", "3"],
+}
+# seamless-m4t-medium at full depth, at model level (the synthetic batches
+# hold no source frames): rows, decoder tokens, steps; frontend_len frames
+SEAMLESS_TRAIN = (4, 1024, 4)
+# the kernel rows of each train path, by the tag of its attention shape
+TRAIN_TAGS = {"train-moe": "moe", "train-zamba2": "zamba2", "train-seamless": "seamless"}
 # (B, S, Hq, Hkv, D) of the attention on each train path: llama's batch,
-# and minicpm's microbatch of 4 rows
-TRAIN_SHAPES = {None: (8, 1024, 32, 8, 64), "minicpm": (4, 1024, 36, 36, 64)}
+# minicpm's microbatch of 4 rows, moonshot's (D 128, the backward's
+# 8-warp route), zamba2's shared block (D 128) and seamless's decoder
+TRAIN_SHAPES = {None: (8, 1024, 32, 8, 64), "minicpm": (4, 1024, 36, 36, 64),
+                "moe": (4, 1024, 16, 16, 128), "zamba2": (4, 1024, 32, 32, 128),
+                "seamless": (4, 1024, 16, 16, 64)}
 TRAIN_F32_CASE = (1, 300, 4)      # (B, S, Hkv/G scale-down) of the f32 backward check
 LSE_TOL = 1e-4                    # f32 in both: the kernel's log2-domain sums vs logsumexp
 # each bf16 gradient's ||kernel - plain|| / ||plain||: bf16 rounding of P,
@@ -3269,23 +3303,44 @@ def train_bwd_phase(dev, tag: str | None = None) -> dict:
     }
 
 
+# the modules whose own plain chunked_attention calls the reference makes too
+# (not through offload): deepseek's causal MLA (q/k D 192, v D 128) and the
+# encoder-decoder's non-causal encoder and cross attention
+PLAIN_CALLERS = {"repro_torch.models.deepseek": True, "repro_torch.models.encdec": False}
+
+
 @contextlib.contextmanager
-def forbid_plain():
-    """Make every plain attention (forward or backward) raise while a train
-    path runs on the card: the path must go through the kernels."""
-    names = ((attn_mod, "chunked_attention"), (ref, "naive_attention"), (kpre, "plain"),
-             (kbwd, "plain"))
-    saved = [getattr(m, n) for m, n in names]
+def forbid_plain(calls: collections.Counter | None = None):
+    """Make every plain attention (forward or backward) that the reference
+    routes through ``offload.prefill_attention`` raise while a train path
+    runs on the card: the path must go through the kernels.  The plain
+    ``chunked_attention`` calls the reference makes itself
+    (:data:`PLAIN_CALLERS`, each with its causality) run and are counted in
+    ``calls`` by (module, "causal" | "non-causal"); any other raises."""
+    plain_chunked = attn_mod.chunked_attention
+    calls = collections.Counter() if calls is None else calls
+
+    def chunked(*a, causal: bool = True, **kw):
+        caller = sys._getframe(1).f_globals.get("__name__")
+        if PLAIN_CALLERS.get(caller) is not causal:
+            raise AssertionError(f"a plain {'causal' if causal else 'non-causal'} attention "
+                                 f"from {caller} ran on the card's train path")
+        calls[(caller.rsplit(".", 1)[-1], "causal" if causal else "non-causal")] += 1
+        return plain_chunked(*a, causal=causal, **kw)
 
     def refuse(*a, **kw):
         raise AssertionError("a plain attention ran on the card's train path")
 
-    for m, n in names:
-        setattr(m, n, refuse)
+    names = [(attn_mod, "chunked_attention", chunked),
+             (encdec_mod, "chunked_attention", chunked), (ref, "naive_attention", refuse),
+             (kpre, "plain", refuse), (kbwd, "plain", refuse)]
+    saved = [getattr(m, n) for m, n, _ in names]
+    for m, n, f in names:
+        setattr(m, n, f)
     try:
-        yield
+        yield calls
     finally:
-        for (m, n), f in zip(names, saved):
+        for (m, n, _), f in zip(names, saved):
             setattr(m, n, f)
 
 
@@ -3297,28 +3352,95 @@ def train_flops(cfg, n_params: int, B: int, S: int) -> float:
     return 6 * n_params * B * S + 12 * cfg.n_layers * pairs * cfg.n_heads * cfg.resolved_head_dim()
 
 
-def _train_counts(label: str, want_fwd: int, want_bwd: int, heads: str) -> None:
+def _train_counts(label: str, want_fwd: int, want_bwd: int, heads: str | None) -> None:
     """Every launch of a train path: the lse forward and the backward at
-    ``heads``, nothing else (no serving variant, no decode, no paged)."""
+    ``heads``, nothing else (no serving variant, no decode, no paged; none
+    at all on a path without flash attention)."""
     want_v = {k: {} for k in ops.KERNELS}
     want_s = {k: {} for k in ops.KERNELS}
-    want_v["prefill_attention"], want_s["prefill_attention"] = \
-        {"lse": want_fwd}, {("lse", heads): want_fwd}
-    want_v["flash_attention_bwd"], want_s["flash_attention_bwd"] = \
-        {"unscaled": want_bwd}, {("unscaled", heads): want_bwd}
+    if want_fwd:
+        want_v["prefill_attention"], want_s["prefill_attention"] = \
+            {"lse": want_fwd}, {("lse", heads): want_fwd}
+    if want_bwd:
+        want_v["flash_attention_bwd"], want_s["flash_attention_bwd"] = \
+            {"unscaled": want_bwd}, {("unscaled", heads): want_bwd}
     got_v, got_s = ops.variant_counts(), ops.shape_counts()
     if (got_v, got_s) != (want_v, want_s):
         raise AssertionError(f"[{label}] launches {got_s}, expected {want_s}")
-    print(f"[{label}] launches: flash forward with lse {want_fwd}, backward {want_bwd} at "
-          f"{heads} (= the counters)")
+    print(f"[{label}] launches: flash forward with lse {want_fwd}, backward {want_bwd}"
+          + (f" at {heads}" if heads else "") + " (= the counters)")
+
+
+def train_launches(cfg):
+    """Per train step of ``cfg``'s family: (flash forwards with lse, flash
+    backwards, their head shape, the plain ``chunked_attention`` calls by
+    (module, causality)).  A block under remat runs its forward twice;
+    zamba2's shared block and deepseek's MTP block run without remat, as in
+    the reference."""
+    L = cfg.n_layers
+    if cfg.family in ("dense", "moe"):
+        return 2 * L, L, kernel_heads(cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                                      cfg.resolved_head_dim()), {}
+    if cfg.family == "deepseek":
+        return 0, 0, None, {("deepseek", "causal"): 2 * L + cfg.mtp_depth}
+    if cfg.family == "zamba2":
+        n = len(zamba2_mod._slots(cfg))
+        return n, n, kernel_heads(cfg.n_heads, 1, 2 * cfg.d_model // cfg.n_heads), {}
+    if cfg.family == "encdec":
+        return 2 * L, L, kernel_heads(cfg.n_heads, 1, cfg.resolved_head_dim()), \
+            {("encdec", "non-causal"): 2 * (cfg.n_enc_layers + L)}
+    return 0, 0, None, {}                                # rwkv6: no attention
+
+
+def family_train_flops(cfg, n_params: int, B: int, S: int) -> tuple[float, str]:
+    """Model flops of one train step of the families beside the dense one,
+    and what they count: 6 x (weights in a product) x (tokens through
+    them), plus 6 x pairs x heads x (Dqk + Dv) for each attending layer
+    (the forward's 2 products, the backward's 4).  An embedding lookup is
+    no product; the recurrences' scans are not counted."""
+    pairs = B * S * (S + 1) // 2
+    V, D, L, H = cfg.padded_vocab(), cfg.d_model, cfg.n_layers, cfg.n_heads
+    Dh = cfg.resolved_head_dim()
+    if cfg.family == "moe":
+        return (6 * balance._active_params(cfg) * B * S + 12 * L * pairs * H * Dh,
+                "6 N T with N the active parameters of core/balance.py:_active_params "
+                "(top-k and shared experts; embedding and unembedding) + attention")
+    if cfg.family == "deepseek":
+        a = cfg.mla
+        d_qk = a.qk_nope_head_dim + a.qk_rope_head_dim
+        attn = 6 * (L + cfg.mtp_depth) * pairs * H * (d_qk + a.v_head_dim)
+        return (6 * n_params * B * S + attn,
+                "6 N T over all parameters (the embedding is looked up, the unembedding runs "
+                "for the main and the MTP head) + MLA attention at q/k 192, v 128")
+    if cfg.family == "rwkv6":
+        return (6 * (n_params - V * D) * B * S,
+                "6 N T without the embedding; the WKV scan not counted")
+    if cfg.family == "zamba2":
+        n = len(zamba2_mod._slots(cfg))
+        core = cm.count_params({k: v for k, v in zamba2_mod.param_defs(cfg)["shared"].items()
+                                if k not in ("lora_a", "lora_b", "down")})
+        attn = 12 * n * pairs * H * (2 * D // H)
+        return (6 * (n_params - V * D + (n - 1) * core) * B * S + attn,
+                f"6 N T without the embedding, the shared block counted at each of its {n} "
+                "slots; its attention; the SSD scan not counted")
+    T = cfg.frontend_len                                  # encoder-decoder
+    defs = encdec_mod.param_defs(cfg)
+    cross_kv = L * 2 * D * H * Dh
+    per_frame = cm.count_params(defs["enc_blocks"]) + cross_kv
+    per_token = cm.count_params(defs["dec_blocks"]) - cross_kv + V * D
+    attn = 12 * H * Dh * (cfg.n_enc_layers * B * T * T + L * B * S * T + L * pairs)
+    return (6 * (per_frame * B * T + per_token * B * S) + attn,
+            f"6 N T: encoder (and the cross K/V) over {T} frames, decoder and unembedding over "
+            "the tokens; encoder, cross and causal self attention")
 
 
 def _train_report(label: str, cfg, n_params: int, losses: dict, step_s: dict, B: int,
                   S: int, peak: int, grad_norms: dict | None = None,
-                  must_fall: bool = False) -> dict:
+                  must_fall: bool = False, flops: tuple[float, str] | None = None) -> dict:
     """Print a train run's losses (and grad norms), ms per step, tokens/s,
     MFU and peak memory; raise on a loss that is not finite, or with
-    ``must_fall`` on a last loss not below the first."""
+    ``must_fall`` on a last loss not below the first.  ``flops``: a step's
+    model flops and what they count (default :func:`train_flops`)."""
     steps = sorted(losses)
     vals = [losses[s] for s in steps]
     if not all(math.isfinite(x) for x in vals) or (must_fall and not vals[-1] < vals[0]):
@@ -3329,42 +3451,56 @@ def _train_report(label: str, cfg, n_params: int, losses: dict, step_s: dict, B:
     steady = [step_s[s] for s in steps[1:]]
     ms = 1e3 * statistics.mean(steady)
     tok_s = B * S / (ms / 1e3)
-    flops = train_flops(cfg, n_params, B, S)
+    flops, counted = flops or (train_flops(cfg, n_params, B, S),
+                               "6 N T + attention")
     mfu = flops / (ms / 1e3) / PEAK_BF16_FLOPS
     print(f"[{label}] loss by step: " + ", ".join(f"{s} {losses[s]:.4f}" for s in steps)
           + f"; last {'below' if vals[-1] < vals[0] else 'not below'} the first")
     print(f"[{label}] {ms:.3f} ms per step (mean of steps 1-{steps[-1]}; step 0 "
           f"{step_s[steps[0]] * 1e3:.1f} ms), {tok_s:.1f} tokens/s, MFU {mfu:.4f} "
-          f"({flops / 1e12:.2f} TFLOP a step: 6 N T + attention, against 989 TFLOP/s bf16), "
+          f"({flops / 1e12:.2f} TFLOP a step: {counted}; against 989 TFLOP/s bf16), "
           f"peak device memory {peak / 1e9:.2f} GB")
     return {"ms": ms, "tok_s": tok_s, "mfu": mfu, "peak_gb": peak / 1e9}
 
 
+def _reduced_train_batch(cfg, dev=None, B: int = 4, S: int = 64, step: int = 0) -> dict:
+    """The synthetic pipeline's batch; the encoder-decoder's also holds
+    ``src_embeds`` (B, frontend_len, d_model), seeded (on ``dev``)."""
+    b = host_batch(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B), step, 0, 1)
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=dev or "cpu").manual_seed(step)
+        b["src_embeds"] = torch.randn(B, cfg.frontend_len, cfg.d_model, generator=gen,
+                                      device=dev or "cpu").to(torch.bfloat16)
+    return b
+
+
 def train_reference_check(dev) -> None:
-    """Reduced llama3.2-1b and moonshot-v1-16b-a3b in float32 (TF32 off),
-    the same weights on the card (the flash kernels with lse and the f32
-    backward kernels) and on the CPU (plain, under autograd): loss (and
-    ``ce``, ``aux``) within 1e-5 relative and every gradient leaf within
-    ``TRAIN_GRAD_TOL`` of its largest element; the card's launches 2 L
-    forward (remat) and L backward; then one ``train_step`` each from the
-    same state: loss, lr and grad norm."""
-    for arch in ("llama3.2-1b", "moonshot-v1-16b-a3b"):
+    """Every family reduced, in float32 (TF32 off), the same weights on the
+    card (the flash kernels with lse and the f32 backward kernels where the
+    family attends through them) and on the CPU (plain, under autograd):
+    loss and every metric within 1e-5 relative and every gradient leaf
+    within ``TRAIN_GRAD_TOL`` of its largest element; the card's launches
+    as :func:`train_launches` says; then one ``train_step`` each from the
+    same state: loss, lr and grad norm.  deepseek's reduced model has its
+    MoE layers and the MTP block."""
+    for arch in ("llama3.2-1b", "moonshot-v1-16b-a3b", "deepseek-v3-671b",
+                 "seamless-m4t-medium", "rwkv6-7b", "zamba2-1.2b"):
         gpu, cpu, ((p_gpu, p_cpu),) = _reduced_pair(dev, arch=arch)
         cfg = gpu.cfg
-        batch = host_batch(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4), 0, 0, 1)
+        batch = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                 for k, v in _reduced_train_batch(cfg).items()}
         res = []
         ops.reset_launch_counts()
         for model, params in ((gpu, p_gpu), (cpu, p_cpu)):
-            req = {k: ({kk: vv.detach().requires_grad_() for kk, vv in v.items()}
-                       if isinstance(v, dict) else v.detach().requires_grad_())
-                   for k, v in params.items()}
+            req = tree_map(lambda t: t.detach().requires_grad_(), params)
             loss, metrics = model.loss_fn(req, to_device(batch, model.device))
-            grads = torch.autograd.grad(loss, leaves(req))
-            res.append(({k: float(v) for k, v in metrics.items()}, [g.cpu() for g in grads]))
+            grads = torch.autograd.grad(loss, leaves(req), allow_unused=True,
+                                        materialize_grads=True)
+            res.append(({k: float(v.detach()) for k, v in metrics.items()},
+                        [g.cpu() for g in grads]))
             if model is gpu:
-                _train_counts(f"train-check {arch}", 2 * cfg.n_layers, cfg.n_layers,
-                              kernel_heads(cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
-                                           cfg.resolved_head_dim()))
+                fwd, bwd, heads, _ = train_launches(cfg)
+                _train_counts(f"train-check {arch}", fwd, bwd, heads)
         (mg, gg), (mc, gc_) = res
         loss_err = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30) for k in mc}
         grad_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
@@ -3385,6 +3521,86 @@ def train_reference_check(dev) -> None:
                 and step_err["loss"] <= TRAIN_LOSS_TOL and step_err["lr"] == 0
                 and step_err["grad_norm"] <= TRAIN_GRAD_TOL):
             raise AssertionError(f"[train-check] {arch}: card and CPU differ")
+
+
+def _family_train_check(label: str, cfg, n_params: int, losses: dict, step_s: dict, B: int,
+                        S: int, peak: int, n_steps: int, plain: collections.Counter,
+                        wall: float, grad_norms: dict | None = None) -> PathRun:
+    """The launches and plain calls of one of the other families' train
+    runs (:func:`train_launches` a step), and its report."""
+    fwd, bwd, heads, want_plain = train_launches(cfg)
+    _train_counts(label, fwd * n_steps, bwd * n_steps, heads)
+    want_plain = {k: v * n_steps for k, v in want_plain.items()}
+    if dict(plain) != want_plain:
+        raise AssertionError(f"[{label}] plain chunked_attention calls {dict(plain)}, "
+                             f"expected {want_plain}")
+    print(f"[{label}] plain chunked_attention calls the reference makes too: "
+          f"{dict(plain) or 'none'} (expected)")
+    rep = _train_report(label, cfg, n_params, losses, step_s, B, S, peak, grad_norms,
+                        flops=family_train_flops(cfg, n_params, B, S))
+    print(f"[{label}] {cfg.name} at full width, {cfg.n_layers} layers, {n_params:,} params, "
+          f"B {B} x S {S}, {n_steps} steps: wall {wall:.1f}s")
+    tag = TRAIN_TAGS.get(label)
+    launches = ({f"prefill_attention[train-lse-{tag}]": fwd * n_steps,
+                 f"flash_attention_bwd[{tag}]": bwd * n_steps} if tag else {})
+    return PathRun(launches, rep, [], wall, None)
+
+
+def family_train_phase(dev) -> dict[str, PathRun]:
+    """The other families' train paths at full width, each on a card freed
+    of the one before, every plain attention but the reference's own
+    refused (:func:`forbid_plain`): moonshot, deepseek, rwkv6 and zamba2
+    through the train CLI (:data:`FAMILY_TRAIN`), seamless at model level
+    through ``make_train_step`` on batches with source frames.  Each
+    prints its losses (finite; whether the last is below the first),
+    launches, ms per step, tokens/s, MFU and peak memory."""
+    t_phase = time.perf_counter()
+    runs: dict[str, PathRun] = {}
+    with tempfile.TemporaryDirectory() as tmp, forbid_plain() as plain:
+        for label, flags in FAMILY_TRAIN.items():
+            freed_card(dev, label)
+            ops.reset_launch_counts()
+            plain.clear()
+            t0 = time.perf_counter()
+            args = train_cli.build_parser().parse_args(
+                flags + ["--device", "cuda", "--ckpt-every", "0",
+                         "--ckpt-dir", f"{tmp}/{label}"])
+            res = train_cli.run(args)
+            wall = time.perf_counter() - t0
+            cfg = get_config(args.arch).with_overrides(n_layers=args.layers or
+                                                       get_config(args.arch).n_layers)
+            runs[label] = _family_train_check(label, cfg, res.n_params, res.losses, res.step_s,
+                                              args.batch, args.seq, res.peak_bytes, args.steps,
+                                              plain, wall, res.grad_norms)
+            del res
+        freed_card(dev, "train-seamless")
+        ops.reset_launch_counts()
+        plain.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        B, S, n_steps = SEAMLESS_TRAIN
+        t0 = time.perf_counter()
+        cfg = get_config(SEAMLESS)
+        model = build_model(cfg, dev)
+        run = RunConfig(model=cfg, parallel=ParallelConfig(),
+                        train=TrainConfig(lr=3e-3, warmup_steps=2, total_steps=n_steps))
+        init_state, train_step, _ = make_train_step(model, run)
+        state = init_state(0)
+        losses, step_s, norms = {}, {}, {}
+        for i in range(n_steps):
+            batch = _reduced_train_batch(cfg, dev, B, S, i)
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            state, m = train_step(state, batch)
+            losses[i], norms[i] = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize(dev)
+            step_s[i] = time.perf_counter() - t1
+        wall = time.perf_counter() - t0
+        runs["train-seamless"] = _family_train_check(
+            "train-seamless", cfg, model.n_params(), losses, step_s, B, S,
+            torch.cuda.max_memory_allocated(dev), n_steps, plain, wall, norms)
+        del state, model
+    print(f"[train-families] phase wall {time.perf_counter() - t_phase:.1f}s")
+    return runs
 
 
 def _load_example(name: str):
@@ -3493,6 +3709,7 @@ def train_phase(dev, rows: dict[str, dict]) -> dict[str, PathRun]:
                                          "flash_attention_bwd[minicpm]": n_fwd // 2},
                                         rep, [], wall, None)
         del out
+    runs.update(family_train_phase(dev))
     freed_card(dev, "train-check")
     train_reference_check(dev)
     print(f"[train] phase wall {time.perf_counter() - t_phase:.1f}s")
@@ -3549,6 +3766,8 @@ def main() -> None:
              prefill_phase(dev, tag="seamless")]
     rows += [train_lse_phase(dev), train_bwd_phase(dev), train_lse_phase(dev, "minicpm"),
              train_bwd_phase(dev, "minicpm")]
+    for tag in TRAIN_TAGS.values():
+        rows += [train_lse_phase(dev, tag), train_bwd_phase(dev, tag)]
     for r in rows:
         dev_off = (f" (at a device q_offset {r['device_offset_ms']:.4f})"
                    if "device_offset_ms" in r else "")

@@ -14,11 +14,18 @@ supervisor (restart from the last checkpoint on a failure;
 ``--fail-at-step N`` simulates one).  Its flags, defaults and printed
 lines (``arch= params= mesh=``, ``step ... loss ... lr ... gnorm ...``,
 ``restored from step N``, ``done (n restart(s)); checkpoints: [...]``)
-are the reference's; its own flags are ``--seed`` (the random weights),
-``--device`` (default cuda; ``cpu`` runs the plain path) and ``--layers``
-(the arch's width at fewer layers), and it also prints tokens/s, ms per step and the peak device memory.  The dense
-and MoE families train; the others raise (ROADMAP queue 1 item 8b).
-``--model-parallel`` above 1 needs placement (queue 1 item 9).
+are the reference's; its own are ``--seed`` (the random weights),
+``--device`` (default cuda; ``cpu`` runs the plain path), ``--layers``
+(the arch's width at fewer layers: deepseek keeps its first
+``moe_layer_start`` dense layers and the MTP block, so ``--layers 3`` of
+deepseek-v3-671b is its three dense layers and no MoE layer) and the
+value 0 of ``--ckpt-every`` (no checkpoint: a full-width state of tens
+of GB is not written); it also prints tokens/s, ms per step and the
+peak device memory.  Every family trains; seamless-m4t-medium's loss
+reads ``src_embeds``, which the synthetic batches lack, so it fails
+with the reference's KeyError and trains at model level
+(``training.trainer.make_train_step``).  ``--model-parallel`` above 1
+needs placement (queue 1 item 9).
 
 One difference from the reference: before it restarts, the supervisor
 waits for the checkpoint being written, so a failure right after a save
@@ -59,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--grad-compression", default="none", choices=["none", "int8"])
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
                                                        "repro_torch_ckpt"))
-    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--ckpt-every", type=int, default=20,
+                    help="save every N steps and at the end; 0 saves none (the port's own)")
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--fail-at-step", type=int, default=-1,
                     help="simulate a node failure at this step (tests recovery)")
@@ -144,7 +152,8 @@ def run(args: argparse.Namespace, echo: bool = True) -> TrainResult:
             monitor.record(0, dt)
             out["losses"][step], out["step_s"][step] = loss, dt
             out["grad_norms"][step] = float(metrics["grad_norm"])
-            if (step + 1) % args.ckpt_every == 0 or step + 1 == args.steps:
+            if args.ckpt_every and ((step + 1) % args.ckpt_every == 0
+                                    or step + 1 == args.steps):
                 ck.save(step + 1, state, blocking=False)
             if step % 10 == 0 or step + 1 == args.steps:
                 say(f"step {step:5d} loss {loss:.4f} lr {float(metrics['lr']):.2e} "

@@ -21,6 +21,8 @@ import math
 
 import torch
 
+from repro_torch.models.common import acc_dtype
+
 
 def _pick_chunk(sk: int, want: int) -> int:
     c = min(want, sk)
@@ -39,7 +41,8 @@ def chunked_attention(
     chunk: int = 1024,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Online-softmax attention over KV chunks, f32 accumulation.
+    """Online-softmax attention over KV chunks, f32 accumulation (f64 for
+    f64 inputs: :func:`common.acc_dtype`).
 
     ``q_offset``: absolute position of q[:, 0] (int or (B,))."""
     B, Sq, Hq, D = q.shape
@@ -48,18 +51,18 @@ def chunked_attention(
     G = Hq // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     chunk = _pick_chunk(Sk, chunk)
-    dev = q.device
+    dev, dt = q.device, acc_dtype(q)
 
-    qf = q.float().reshape(B, Sq, Hkv, G, D) * scale
+    qf = q.to(dt).reshape(B, Sq, Hkv, G, D) * scale
     off = torch.as_tensor(q_offset, dtype=torch.int64, device=dev).expand(B)
     q_pos = off[:, None] + torch.arange(Sq, device=dev)[None, :]        # (B,Sq)
 
-    m = torch.full((B, Sq, Hkv, G), float("-inf"), device=dev)
-    l = torch.zeros((B, Sq, Hkv, G), device=dev)
-    acc = torch.zeros((B, Sq, Hkv, G, Dv), device=dev)
+    m = torch.full((B, Sq, Hkv, G), float("-inf"), dtype=dt, device=dev)
+    l = torch.zeros((B, Sq, Hkv, G), dtype=dt, device=dev)
+    acc = torch.zeros((B, Sq, Hkv, G, Dv), dtype=dt, device=dev)
     for j in range(Sk // chunk):
-        kj = k[:, j * chunk:(j + 1) * chunk].float()
-        vj = v[:, j * chunk:(j + 1) * chunk].float()
+        kj = k[:, j * chunk:(j + 1) * chunk].to(dt)
+        vj = v[:, j * chunk:(j + 1) * chunk].to(dt)
         s = torch.einsum("bqhgd,bchd->bqhgc", qf, kj)
         k_pos = j * chunk + torch.arange(chunk, device=dev)
         mask = torch.ones((B, Sq, chunk), dtype=torch.bool, device=dev)

@@ -102,35 +102,42 @@ def count_params(tree: Pytree) -> int:
 # ---------------------------------------------------------------------------
 # core layers
 # ---------------------------------------------------------------------------
+def acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype of the reference's f32 casts for ``x``: f32, widened to
+    f64 for an f64 tensor (a float64 model then runs in f64 throughout,
+    as the train path's conditioning check compares it with the reference
+    under x64 with the same casts widened)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMS norm that scales by ``1 + scale`` (zero-initialised scales)."""
-    x32 = x.float()
+    x32 = x.to(acc_dtype(x))
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
-    return (out * (1.0 + scale.float())).to(x.dtype)
+    return (out * (1.0 + scale.to(x32.dtype))).to(x.dtype)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     """Layer norm with a scale and a bias, in f32: the population variance
     (``jnp.var``'s, ``correction=0``)."""
-    x32 = x.float()
+    x32 = x.to(acc_dtype(x))
     var, mu = torch.var_mean(x32, dim=-1, keepdim=True, correction=0)
     out = (x32 - mu) * torch.rsqrt(var + eps)
-    return (out * scale.float() + bias.float()).to(x.dtype)
+    return (out * scale.to(x32.dtype) + bias.to(x32.dtype)).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding, half split.  x: (..., S, H, D), positions: (..., S)."""
-    half = x.shape[-1] // 2
+    half, dt = x.shape[-1] // 2, acc_dtype(x)
     freqs = torch.exp(
-        -math.log(theta) * torch.arange(0, half, dtype=torch.float32, device=x.device)
-        / half
+        -math.log(theta) * torch.arange(0, half, dtype=dt, device=x.device) / half
     )
-    ang = positions.float()[..., None] * freqs            # (..., S, half)
+    ang = positions.to(dt)[..., None] * freqs             # (..., S, half)
     cos = torch.cos(ang)[..., None, :]                    # (..., S, 1, half)
     sin = torch.sin(ang)[..., None, :]
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    x1, x2 = x[..., :half].to(dt), x[..., half:].to(dt)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
@@ -169,7 +176,7 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     The reference's form: the max is detached, and the gold logit is taken
     by an iota-compare-select sum, not a gather (whose CUDA backward
     scatters with float atomics, so reruns would differ)."""
-    logits32 = logits.float()
+    logits32 = logits.to(acc_dtype(logits))
     m = logits32.amax(dim=-1, keepdim=True).detach()
     logz = torch.log(torch.exp(logits32 - m).sum(dim=-1)) + m[..., 0]
     iota = torch.arange(logits.shape[-1], device=logits.device)
@@ -177,7 +184,7 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     nll = logz - gold
     if mask is None:
         return nll.mean()
-    mask = mask.float()
+    mask = mask.to(logits32.dtype)
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
@@ -189,6 +196,27 @@ def unstack(tree: dict[str, torch.Tensor]) -> list[dict[str, torch.Tensor]]:
     parts = {k: v.unbind(0) for k, v in tree.items()}
     n = len(next(iter(parts.values()), ()))
     return [{k: p[l] for k, p in parts.items()} for l in range(n)]
+
+
+# time steps per recomputed chunk of a train scan (the reference's chunk)
+SCAN_REMAT_CHUNK = 256
+
+
+def scan_in_chunks(steps, state: torch.Tensor, xs: list[torch.Tensor],
+                   chunk: int = SCAN_REMAT_CHUNK):
+    """``steps(state, *xs) -> (ys, state)`` over time-major ``xs`` (S
+    leading), with the reference's remat over time: when ``S > chunk`` and
+    ``chunk`` divides S, chunk by chunk, each chunk recomputed in the
+    backward (:func:`remat`), so autograd keeps only the states at chunk
+    boundaries; otherwise all S steps at once."""
+    S = xs[0].shape[0]
+    if S <= chunk or S % chunk:
+        return steps(state, *xs)
+    ys = []
+    for c0 in range(0, S, chunk):
+        y, state = remat(steps, state, *(x[c0:c0 + chunk] for x in xs))
+        ys.append(y)
+    return torch.cat(ys), state
 
 
 def remat(fn, *args):

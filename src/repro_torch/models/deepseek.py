@@ -1,16 +1,18 @@
 """DeepSeek-V3: Multi-head Latent Attention (MLA) on top of the MoE FFN, with
-an MTP block in the weights: the serving path.
+an MTP block in the weights: the serving and training paths.
 
 Counterpart of ``repro.models.deepseek`` for ``param_defs`` (the MTP
-block included: serving never reads it, but the weights and ``n_params``
-carry it), the expanded MLA of prefill (:func:`_mla_train_attn`), the
-absorbed MLA decode over the latent cache (:func:`_mla_decode_attn`),
-``cache_defs`` / ``init_cache``, :func:`prefill` and :func:`decode_step`.
-As in the reference the family has no chunked prefill, paged pool, fused
-sampled step or speculative verify: the engine serves it on the dense
-cache with the decode-only schedule, sampling through its
-``_wrap_sampled``.  ``hidden_states``, ``loss_fn`` and the MTP loss wait
-for ROADMAP queue 1 item 8b (the registry's ``loss_fn`` raises).
+block included: serving never reads it), the expanded MLA of prefill and
+training (:func:`_mla_train_attn`), the absorbed MLA decode over the
+latent cache (:func:`_mla_decode_attn`), ``cache_defs`` / ``init_cache``,
+:func:`prefill`, :func:`decode_step` and training
+(:func:`hidden_states`, :func:`loss_fn`: CE, the router's load-balance
+aux over the MoE layers and the MTP head's CE at weight
+:data:`MTP_WEIGHT`; each layer recomputed in the backward, the MTP block
+not, as in the reference).  As in the reference the family has no
+chunked prefill, paged pool, fused sampled step or speculative verify:
+the engine serves it on the dense cache with the decode-only schedule,
+sampling through its ``_wrap_sampled``.
 
 The cache holds only the compressed latent ``ckv (L, B, S, kv_lora_rank)``
 and the rope key ``krope (L, B, S, qk_rope_head_dim)`` shared by all
@@ -38,6 +40,8 @@ from repro_torch.models import dense, moe
 from repro_torch.models.common import ParamDef
 
 Pytree = Any
+
+MTP_WEIGHT = 0.3
 
 
 def _dims(cfg):
@@ -151,6 +155,69 @@ def _mla_decode_attn(cfg, p, x: torch.Tensor, ckv_l: torch.Tensor, kr_l: torch.T
                                               scale=1.0 / math.sqrt(d_qk))
     v_out = torch.einsum("bhr,rhn->bhn", out_latent.float(), p["w_uv"].float())
     return cm.linear(v_out, p["wo"].float(), n_in=2).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+def _block_train(cfg, p, x: torch.Tensor, positions: torch.Tensor, is_moe: bool):
+    """One layer: ``(x', load-balance aux)``, aux None for a dense layer."""
+    x = x + _mla_train_attn(cfg, p, x, positions)[0]
+    h = cm.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if not is_moe:
+        return x + cm.swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), None
+    y, aux = moe.moe_ffn(cfg, p, h.reshape(-1, h.shape[-1]), return_aux=True)
+    return x + y.reshape(h.shape), aux
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    B, S = x.shape[:2]
+    return torch.arange(S, device=x.device).expand(B, S)
+
+
+def hidden_states(cfg, params, tokens: torch.Tensor):
+    """-> (final hidden (B, S, D), mean load-balance aux over the MoE
+    layers, 0 when there are none); each layer's block recomputed in the
+    backward."""
+    x = cm.embed_lookup(params["embed"], tokens)
+    positions = _positions(x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for tree, is_moe in ((params["dense_blocks"], False), (params["moe_blocks"], True)):
+        for p in cm.unstack(tree):
+            x, a = cm.remat(_block_train, cfg, p, x, positions, is_moe)
+            if is_moe:
+                aux = aux + a
+    x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x, aux / max(cfg.n_layers - cfg.moe.moe_layer_start, 1)
+
+
+def loss_fn(cfg, params, batch: dict) -> tuple[torch.Tensor, dict]:
+    """``ce + router_aux_coef * aux`` (``+ MTP_WEIGHT * mtp_ce`` with the
+    MTP block) -> ``(loss, {"loss", "ce", "aux"[, "mtp_ce"]})``.  The MTP
+    block predicts token t + 2 from ``[norm(h_t); norm(embed(tok_{t+1}))]``
+    projected back to d_model, sharing the embedding and the output head."""
+    hid, aux = hidden_states(cfg, params, batch["inputs"])
+    table = params["unembed"]
+    ce = cm.cross_entropy_loss(cm.unembed(hid, table, cfg.vocab), batch["targets"],
+                               batch.get("mask"))
+    loss = ce + cfg.moe.router_aux_coef * aux
+    metrics = {"loss": loss, "ce": ce, "aux": aux}
+    if cfg.mtp_depth and "mtp" in params:
+        mp, tgt, mask = params["mtp"], batch["targets"], batch.get("mask")
+        h_in = cm.rmsnorm(hid[:, :-1], mp["norm_h"], cfg.norm_eps)
+        e_in = cm.rmsnorm(cm.embed_lookup(params["embed"], tgt[:, :-1]), mp["norm_e"],
+                          cfg.norm_eps)
+        x = cm.linear(torch.cat([h_in, e_in], dim=-1), mp["proj"])
+        positions = _positions(x)
+        for p in cm.unstack(mp["block"]):
+            x, _ = _block_train(cfg, p, x, positions, False)
+        x = cm.rmsnorm(x, mp["final_norm"], cfg.norm_eps)
+        mtp_ce = cm.cross_entropy_loss(cm.unembed(x, table, cfg.vocab), tgt[:, 1:],
+                                       None if mask is None else mask[:, 1:])
+        loss = loss + MTP_WEIGHT * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+        metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

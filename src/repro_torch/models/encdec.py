@@ -2,13 +2,19 @@
 an autoregressive text decoder, at model level.
 
 Counterpart of ``repro.models.encdec`` for ``param_defs``, :func:`encode`,
-``cache_defs`` / ``init_cache``, :func:`prefill` and :func:`decode_step`.
-The speech frontend is a stub: ``embeds`` (B, frontend_len, d_model),
-precomputed frame embeddings, are the encoder's input, and
-:func:`prefill` raises without them, as the reference's does, so the
-serving engine (which passes none) cannot serve the family; it runs as
-``prefill(params, tokens, cache, embeds=frames)`` then ``decode_step``.
-``loss_fn`` waits for ROADMAP queue 1 item 8b.
+``cache_defs`` / ``init_cache``, :func:`prefill`, :func:`decode_step`
+and :func:`loss_fn`.  The speech frontend is a stub: ``embeds`` (B,
+frontend_len, d_model), precomputed frame embeddings, are the encoder's
+input, and :func:`prefill` raises without them, as the reference's does,
+so the serving engine (which passes none) cannot serve the family; it
+runs as ``prefill(params, tokens, cache, embeds=frames)`` then
+``decode_step``.  Training reads them as ``batch["src_embeds"]``: the
+reference's synthetic data pipeline has none, so the family trains at
+model level (``training.trainer.make_train_step`` on a batch that holds
+them); the train CLI fails on its batches with the reference's KeyError.
+In training every encoder and decoder layer is recomputed in the
+backward, and the decoder's causal self-attention takes
+``ops.FlashAttentionFn`` on the card (``core.offload.prefill_attention``).
 
 The encoder's self-attention is non-causal and the prefill's
 cross-attention reads all frames: both run the plain
@@ -104,15 +110,54 @@ def _mlp_residual(cfg, p, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # encoder
 # ---------------------------------------------------------------------------
-def encode(cfg, params, src_embeds: torch.Tensor) -> torch.Tensor:
-    """src_embeds (B, T, D) -> encoder hidden (B, T, D)."""
+def _enc_block(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = (cm.linear(h, p[w]) for w in ("wq", "wk", "wv"))
+    o = chunked_attention(q, k, v, causal=False)
+    return _mlp_residual(cfg, p, x + cm.linear(o, p["wo"], n_in=2))
+
+
+def encode(cfg, params, src_embeds: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    """src_embeds (B, T, D) -> encoder hidden (B, T, D); ``remat``
+    (training) recomputes each layer in the backward."""
     x = src_embeds.to(cm.param_dtype(cfg))
-    for _, p in _blocks(params, "enc_blocks"):
-        h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = (cm.linear(h, p[w]) for w in ("wq", "wk", "wv"))
-        o = chunked_attention(q, k, v, causal=False)
-        x = _mlp_residual(cfg, p, x + cm.linear(o, p["wo"], n_in=2))
+    for p in cm.unstack(params["enc_blocks"]):
+        x = cm.remat(_enc_block, cfg, p, x) if remat else _enc_block(cfg, p, x)
     return cm.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+def _dec_block_train(cfg, p, x: torch.Tensor, enc_out: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """One decoder layer over x (B, S, D): causal self-attention through
+    ``offload.prefill_attention``, then cross attention over ``enc_out``
+    (B, T, D) through the plain non-causal ``chunked_attention``, as the
+    reference calls it, then the MLP."""
+    h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q = cm.rope(cm.linear(h, p["wq"]), positions, cfg.rope_theta)
+    k = cm.rope(cm.linear(h, p["wk"]), positions, cfg.rope_theta)
+    x = x + cm.linear(offload.prefill_attention(q, k, cm.linear(h, p["wv"])), p["wo"], n_in=2)
+    h = cm.rmsnorm(x, p["lnx"], cfg.norm_eps)
+    xk, xv = cm.linear(enc_out, p["x_wk"]), cm.linear(enc_out, p["x_wv"])
+    o = chunked_attention(cm.linear(h, p["x_wq"]), xk, xv, causal=False)
+    return _mlp_residual(cfg, p, x + cm.linear(o, p["x_wo"], n_in=2))
+
+
+def loss_fn(cfg, params, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Mean next-token CE of the decoder over ``batch["inputs"]`` given the
+    encoded ``batch["src_embeds"]`` -> ``(loss, {"loss"})``."""
+    enc_out = encode(cfg, params, batch["src_embeds"], remat=True)
+    x = cm.embed_lookup(params["embed"], batch["inputs"])
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for p in cm.unstack(params["dec_blocks"]):
+        x = cm.remat(_dec_block_train, cfg, p, x, enc_out, positions)
+    x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = cm.unembed(x, params["unembed"], cfg.vocab)
+    loss = cm.cross_entropy_loss(logits, batch["targets"], batch.get("mask"))
+    return loss, {"loss": loss}
 
 
 # ---------------------------------------------------------------------------

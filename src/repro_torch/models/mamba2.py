@@ -10,10 +10,11 @@ in f32, a scalar decay per head):
     y_t = C_t . h_t + D_h * x'_t
 
 then the gated RMSNorm of y * silu(z) -> out_proj.  The recurrence runs
-one time step at a time in f32, as the reference's scan does (its
-chunked remat changes only what autodiff keeps).  :func:`forward`
-advances the SSM state it is given in place and returns the new conv
-state.
+one time step at a time in f32, as the reference's scan does.
+:func:`forward` advances the SSM state it is given in place and returns
+the new conv state; with ``train`` it reads the state and writes
+nothing, through the functional :func:`_ssd_scan_train` with the
+reference's time-chunked remat, so autograd can take it.
 """
 from __future__ import annotations
 
@@ -87,11 +88,38 @@ def _ssd_scan(xp: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, dt: torch.Te
     return torch.cat(ys).transpose(0, 1), state
 
 
+def _ssd_steps(state: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+               decay: torch.Tensor):
+    """Functional SSD steps over time-major dtx (C, B, H, P), Bm / Cm
+    (C, B, H, N), decay (C, B, H) from ``state``: ``(C_t . h_t`` for each
+    step (C, B, H, P), the last state)``.  Nothing is written in place:
+    each step is one ``addcmul``; the inputs ``dt x (x) B`` and the
+    read-outs are one batched product each."""
+    hs = []
+    for a, d in zip((dtx[..., None] * Bm[..., None, :]).unbind(0),
+                    decay[..., None, None].unbind(0)):
+        state = torch.addcmul(a, state, d)
+        hs.append(state)
+    return torch.einsum("cbhpn,cbhn->cbhp", torch.stack(hs), Cm), state
+
+
+def _ssd_scan_train(xp: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, dt: torch.Tensor,
+                    A: torch.Tensor, state: torch.Tensor, chunk: int = cm.SCAN_REMAT_CHUNK):
+    """The SSD recurrence of :func:`_ssd_scan` in a functional form for
+    training: the same shapes, ``state`` (B, H, P, N) f32 read and not
+    written; returns y (B, S, H, P) and the final state, with the
+    reference's remat over time (:func:`common.scan_in_chunks`)."""
+    xs = [dt[..., None] * xp, Bm, Cm, torch.exp(dt * A)]
+    y, state = cm.scan_in_chunks(_ssd_steps, state, [t.transpose(0, 1) for t in xs], chunk)
+    return y.transpose(0, 1), state
+
+
 def forward(cfg, p, x: torch.Tensor, conv_state: torch.Tensor, ssm_state: torch.Tensor,
-            norm_eps: float = 1e-5):
+            norm_eps: float = 1e-5, train: bool = False):
     """One mamba2 layer over a segment.  x (B, S, D); conv_state
     (B, d_conv - 1, conv_dim); ssm_state (B, H, P, N) f32, advanced in
-    place.  Returns (out (B, S, D), new conv state, the SSM state)."""
+    place (``train``: read only, the new state returned).  Returns
+    (out (B, S, D), new conv state, the new SSM state)."""
     s = cfg.ssm
     d_inner, H, conv_dim, _ = dims(cfg)
     B, S, _ = x.shape
@@ -115,7 +143,7 @@ def forward(cfg, p, x: torch.Tensor, conv_state: torch.Tensor, ssm_state: torch.
     dtv = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
 
-    y, ssm_state = _ssd_scan(xp, Bm, Cm, dtv, A, ssm_state)
+    y, ssm_state = (_ssd_scan_train if train else _ssd_scan)(xp, Bm, Cm, dtv, A, ssm_state)
     y = y + p["D_skip"].float()[None, None, :, None] * xp
     y = y.reshape(B, S, d_inner) * F.silu(z.float())
     y = cm.rmsnorm(y, p["norm_s"], norm_eps)

@@ -3,7 +3,8 @@
 Counterpart of ``repro.models.registry`` for all six families: dense,
 MoE, DeepSeek, RWKV6, Zamba2 and the encoder-decoder.  A Model binds a
 config and a device to the family's step functions and its training
-``loss_fn``; the steps a family does not define are None.  The device
+``loss_fn`` (every family trains); the steps a family does not define
+are None.  The device
 is CUDA unless the caller asks for another (``device="cpu"``); with no
 GPU and no explicit device, :func:`build_model` raises.
 """
@@ -34,7 +35,6 @@ class Model:
     cache_defs: Callable[[int, int], Pytree]
     init_cache: Callable[..., Pytree]
     # loss_fn(params, batch) -> (loss, metrics): the train step's objective
-    # (dense and MoE families; the others raise NotImplementedError)
     loss_fn: Callable[..., tuple[torch.Tensor, dict]]
     # The steps below are None for a family without them (the MoE,
     # DeepSeek, RWKV6, Zamba2 and encoder-decoder families have none), as
@@ -71,13 +71,6 @@ class Model:
         return cm.count_params(self.param_defs)
 
 
-def _no_loss(family: str):
-    def loss_fn(params, batch):
-        raise NotImplementedError(
-            f"training the {family} family is not ported yet (ROADMAP queue 1 item 8b)")
-    return loss_fn
-
-
 # the steps a family may lack; a family opts in by defining them
 OPTIONAL_STEPS = ("decode_sample_step", "prefill_step", "prefill_sample_step",
                   "paged_cache_defs", "paged_decode_step", "paged_decode_sample_step",
@@ -112,7 +105,6 @@ def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> M
         decode_step=functools.partial(fam.decode_step, cfg),
         cache_defs=functools.partial(fam.cache_defs, cfg),
         init_cache=functools.partial(fam.init_cache, cfg, device=dev),
-        loss_fn=(functools.partial(fam.loss_fn, cfg) if hasattr(fam, "loss_fn")
-                 else _no_loss(cfg.family)),
+        loss_fn=functools.partial(fam.loss_fn, cfg),
         **optional,
     )

@@ -1,23 +1,25 @@
 """RWKV6 "Finch": an attention-free RNN with data-dependent decay
-[arXiv:2404.05892], the serving path.
+[arXiv:2404.05892], the serving and training paths.
 
 Counterpart of ``repro.models.rwkv6`` for ``param_defs``, the time-mix
 pieces (:func:`_ddlerp`, :func:`_decay`, :func:`_wkv_scan`,
 :func:`_time_mix`), :func:`_channel_mix`, the blocks, ``cache_defs`` /
-``init_cache``, :func:`prefill` and :func:`decode_step`.  As in the
-reference the family has no chunked prefill, paged pool, fused sampled
-step or verify step: the engine serves it on the dense state cache with
-the decode-only schedule.  ``hidden_states`` / ``loss_fn`` wait for
-ROADMAP queue 1 item 8b (a differentiable scan first).
+``init_cache``, :func:`prefill`, :func:`decode_step` and training
+(:func:`hidden_states`, :func:`loss_fn`).  As in the reference the
+family has no chunked prefill, paged pool, fused sampled step or verify
+step: the engine serves it on the dense state cache with the decode-only
+schedule.
 
 There is no attention and no KV cache: per layer an (H, N, N) f32 WKV
 state and the last token of the previous segment for each of the two
 token shifts, O(1) in the sequence length.  The WKV recurrence runs one
-time step at a time in f32 (:func:`_wkv_scan`), as the reference's scan
-does; its chunked remat changes only what autodiff keeps.  The shift
-leaves hold the model's dtype from the start, where the reference's
-``init_cache`` allocates them in bf16 and its steps return them in the
-activation dtype (ROADMAP §3).  The cache is written in place.
+time step at a time in f32, as the reference's scan does: serving
+advances the state in place (:func:`_wkv_scan`), training runs the
+functional form :func:`_wkv_scan_train` from zero states, with the
+reference's time-chunked remat.  The shift leaves hold the model's
+dtype from the start, where the reference's ``init_cache`` allocates
+them in bf16 and its steps return them in the activation dtype (ROADMAP
+§3).  The cache is written in place.
 """
 from __future__ import annotations
 
@@ -145,6 +147,32 @@ def _wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
     return torch.cat(ys).transpose(0, 1) + bonus, state
 
 
+def _wkv_steps(state: torch.Tensor, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor):
+    """Functional WKV steps over time-major r, k, v, w (C, B, H, N) from
+    ``state``: ``(r_t S_{t-1}`` for each step (C, B, H, N), the last
+    state)``.  Nothing is written in place, so autograd can take it: each
+    step is one ``addcmul``; the outer products and the read-outs are one
+    batched product each."""
+    prev = []
+    for a, wt in zip((k[..., None] * v[..., None, :]).unbind(0), w[..., None].unbind(0)):
+        prev.append(state)
+        state = torch.addcmul(a, state, wt)
+    return torch.einsum("cbhi,cbhij->cbhj", r, torch.stack(prev)), state
+
+
+def _wkv_scan_train(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                    u: torch.Tensor, state: torch.Tensor, chunk: int = cm.SCAN_REMAT_CHUNK):
+    """The WKV recurrence of :func:`_wkv_scan` in a functional form for
+    training: the same shapes, ``state`` (B, H, N, N) f32 read and not
+    written; returns y (B, S, H, N) and the final state, with the
+    reference's remat over time (:func:`common.scan_in_chunks`)."""
+    bonus = (r * u * k).sum(-1, keepdim=True) * v                  # (B, S, H, N)
+    y, state = cm.scan_in_chunks(_wkv_steps, state,
+                                 [t.transpose(0, 1) for t in (r, k, v, w)], chunk)
+    return y.transpose(0, 1) + bonus, state
+
+
 def _group_norm(cfg, p, y: torch.Tensor) -> torch.Tensor:
     """Per-head norm of the WKV output (B, S, H, N) f32 -> (B, S, D) f32:
     the population variance (``jnp.var``), eps 64e-5, then the f32 scale
@@ -160,9 +188,11 @@ def _shifted(x: torch.Tensor, shift_in: torch.Tensor) -> torch.Tensor:
     return torch.cat([shift_in[:, None].to(x.dtype), x[:, :-1]], dim=1)
 
 
-def _time_mix(cfg, p, x: torch.Tensor, shift_in: torch.Tensor, state: torch.Tensor):
+def _time_mix(cfg, p, x: torch.Tensor, shift_in: torch.Tensor, state: torch.Tensor,
+              train: bool = False):
     """x (B, S, D); shift_in (B, D); state (B, H, N, N) f32, advanced in
-    place.  Returns (out (B, S, D), new shift (B, D), the state)."""
+    place (``train``: read only, through :func:`_wkv_scan_train`).
+    Returns (out (B, S, D), new shift (B, D), the new state)."""
     H, N = _dims(cfg)
     B, S, _ = x.shape
     x_w, x_k, x_v, x_r, x_g = _ddlerp(p, x, _shifted(x, shift_in))
@@ -171,7 +201,8 @@ def _time_mix(cfg, p, x: torch.Tensor, shift_in: torch.Tensor, state: torch.Tens
     v = cm.linear(x_v, p["wv"]).reshape(B, S, H, N)
     g = F.silu(cm.linear(x_g, p["wg"]))
     w = _decay(p, x_w).reshape(B, S, H, N)
-    y, state = _wkv_scan(r.float(), k.float(), v.float(), w, p["u"].float(), state)
+    scan = _wkv_scan_train if train else _wkv_scan
+    y, state = scan(r.float(), k.float(), v.float(), w, p["u"].float(), state)
     y = _group_norm(cfg, p, y)
     return cm.linear(y.to(x.dtype) * g, p["wo"]), x[:, -1], state
 
@@ -200,6 +231,40 @@ def _run_blocks(cfg, params, x: torch.Tensor, cache: Pytree) -> torch.Tensor:
         cache["tm_shift"][l].copy_(tm)
         cache["cm_shift"][l].copy_(cmx)
     return x
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+def _block_train(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    """One layer over x (B, S, D) from zero shifts and a zero state (the
+    reference's ``_block`` under ``_run_blocks`` with no cache), nothing
+    written in place."""
+    H, N = _dims(cfg)
+    B = x.shape[0]
+    shift0 = x.new_zeros(B, cfg.d_model)
+    state0 = torch.zeros(B, H, N, N, dtype=torch.float32, device=x.device)
+    h = cm.layernorm(x, p["ln1_s"], p["ln1_b"], cfg.norm_eps)
+    x = x + _time_mix(cfg, p, h, shift0, state0, train=True)[0]
+    h = cm.layernorm(x, p["ln2_s"], p["ln2_b"], cfg.norm_eps)
+    return x + _channel_mix(cfg, p, h, shift0)[0]
+
+
+def hidden_states(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
+    """-> final hidden (B, S, D); each layer recomputed in the backward."""
+    x = cm.embed_lookup(params["embed"], tokens)
+    x = cm.layernorm(x, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
+    for p in cm.unstack(params["blocks"]):
+        x = cm.remat(_block_train, cfg, p, x)
+    return cm.layernorm(x, params["final_norm_s"], params["final_norm_b"], cfg.norm_eps)
+
+
+def loss_fn(cfg, params, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Mean next-token CE -> ``(loss, {"loss"})``."""
+    logits = cm.unembed(hidden_states(cfg, params, batch["inputs"]), params["unembed"],
+                        cfg.vocab)
+    loss = cm.cross_entropy_loss(logits, batch["targets"], batch.get("mask"))
+    return loss, {"loss": loss}
 
 
 # ---------------------------------------------------------------------------

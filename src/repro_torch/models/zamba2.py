@@ -1,15 +1,17 @@
 """Zamba2 hybrid: a mamba2 backbone and one *shared* attention+MLP block
-[arXiv:2411.15242], the serving path.
+[arXiv:2411.15242], the serving and training paths.
 
 Counterpart of ``repro.models.zamba2`` for ``param_defs``,
 :func:`_shared_qkv` (the weight-tied q/k/v with per-slot LoRA deltas), the
-shared block of prefill (``_shared_block_train`` without its training
-role) and of decode, the backbone traversal, ``cache_defs`` /
-``init_cache``, :func:`prefill` and :func:`decode_step`.  As in the
-reference the family has no chunked prefill, paged pool, fused sampled
-step or verify step: the engine serves it on the dense cache with the
-decode-only schedule.  ``hidden_states`` / ``loss_fn`` wait for ROADMAP
-queue 1 item 8b (a differentiable scan first).
+shared block of prefill and training (:func:`_shared_block_train`) and
+of decode, the backbone traversal, ``cache_defs`` /
+``init_cache``, :func:`prefill`, :func:`decode_step` and training
+(:func:`hidden_states`, :func:`loss_fn`: each mamba layer recomputed in
+the backward, its scan the functional ``mamba2._ssd_scan_train``, the
+shared block not recomputed, as in the reference).  As in the reference
+the family has no chunked prefill, paged pool, fused sampled step or
+verify step: the engine serves it on the dense cache with the
+decode-only schedule.
 
 The shared block runs after every ``shared_block_period``-th mamba layer
 (its invocation slots, :func:`_slots`), on ``concat([x, x_embed])``
@@ -104,9 +106,12 @@ def _shared_out(cfg, p, slot: int, h_in: torch.Tensor, o: torch.Tensor) -> torch
     return cm.linear(h_in, p["down"][slot])
 
 
-def _shared_block_prefill(cfg, p, slot: int, x: torch.Tensor, x0: torch.Tensor,
-                          positions: torch.Tensor):
-    """x, x0 (B, S, D) -> (delta to x (B, S, D), k, v (B, S, H, Dh))."""
+def _shared_block_train(cfg, p, slot: int, x: torch.Tensor, x0: torch.Tensor,
+                        positions: torch.Tensor):
+    """The shared block of prefill and training: x, x0 (B, S, D) ->
+    (delta to x (B, S, D), k, v (B, S, H, Dh)).  Its attention goes through
+    ``offload.prefill_attention`` (on the card the flash kernel, with its
+    lse and the backward kernel when training)."""
     h_in = torch.cat([x, x0], dim=-1)
     q, k, v = _shared_qkv(cfg, p, slot, cm.rmsnorm(h_in, p["ln1"], cfg.norm_eps))
     q = cm.rope(q, positions, cfg.rope_theta)
@@ -159,6 +164,43 @@ def _run_mamba(cfg, params, x: torch.Tensor, cache: Pytree, lo: int, hi: int) ->
 
 
 # ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+def _mamba_train(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    """One mamba layer's residual delta from zero conv and SSM states (the
+    reference's ``_empty_cache``), nothing written in place."""
+    s = cfg.ssm
+    _, H, conv_dim, _ = mamba2.dims(cfg)
+    B = x.shape[0]
+    conv0 = x.new_zeros(B, s.d_conv - 1, conv_dim)
+    ssm0 = torch.zeros(B, H, s.d_head, s.d_state, dtype=torch.float32, device=x.device)
+    return mamba2.forward(cfg, p, x, conv0, ssm0, cfg.norm_eps, train=True)[0]
+
+
+def hidden_states(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
+    """-> final hidden (B, S, D): the mamba layers (each recomputed in the
+    backward) with the shared block after every slot's layer."""
+    x = x0 = cm.embed_lookup(params["embed"], tokens)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    mamba = cm.unstack(params["mamba"])
+    for lo, hi, slot in _segments(cfg):
+        for p in mamba[lo:hi]:
+            x = x + cm.remat(_mamba_train, cfg, p, x)
+        if slot is not None:
+            x = x + _shared_block_train(cfg, params["shared"], slot, x, x0, positions)[0]
+    return cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+
+def loss_fn(cfg, params, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Mean next-token CE -> ``(loss, {"loss"})``."""
+    logits = cm.unembed(hidden_states(cfg, params, batch["inputs"]), params["unembed"],
+                        cfg.vocab)
+    loss = cm.cross_entropy_loss(logits, batch["targets"], batch.get("mask"))
+    return loss, {"loss": loss}
+
+
+# ---------------------------------------------------------------------------
 # cache / prefill / decode
 # ---------------------------------------------------------------------------
 def cache_defs(cfg, batch: int, max_seq: int) -> Pytree:
@@ -200,7 +242,7 @@ def prefill(cfg, params, tokens: torch.Tensor, cache: Pytree,
     for lo, hi, slot in _segments(cfg):
         x = _run_mamba(cfg, params, x, cache, lo, hi)
         if slot is not None:
-            delta, k, v = _shared_block_prefill(cfg, params["shared"], slot, x, x0, positions)
+            delta, k, v = _shared_block_train(cfg, params["shared"], slot, x, x0, positions)
             cache["k"][slot, :, :S].copy_(k)
             cache["v"][slot, :, :S].copy_(v)
             x = x + delta

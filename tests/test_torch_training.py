@@ -1,7 +1,9 @@
 """The port's training path against the JAX package's, on the CPU: LR
 schedules, AdamW, int8 gradient compression, the flash backward's plain
-version, loss and gradients of reduced llama3.2-1b and moonshot, a
-carried-across trajectory, gradient accumulation, bit-exact resume and
+version, loss and gradients of reduced llama3.2-1b and moonshot, the
+first-step grad norm at llama3.2-1b's attention width in float32 and, at
+full depth, in float64 (where rounding no longer hides the comparison),
+a carried-across trajectory, gradient accumulation, bit-exact resume and
 the train CLI.
 
 Tolerances (float32 unless said): schedules 1e-7 of the peak lr (both
@@ -290,12 +292,121 @@ def test_first_step_grad_norm_at_full_attention_width_matches_reference(n_layers
     assert abs(np.log(got / want)) <= abs(np.log(moved / want)), (got, want, moved)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "rwkv6-7b", "zamba2-1.2b",
-                                  "seamless-m4t-medium"])
-def test_other_families_refuse_to_train(arch):
-    model = build_model(reduce_config(arch), "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
-        model.loss_fn({}, {})
+class _WideJnp:
+    """``jax.numpy`` with ``float32`` read as ``float64``: put in the place
+    of the reference's ``jnp`` in ``repro.models.common`` (rmsnorm,
+    layernorm, rope, cross-entropy) and ``repro.models.attention``
+    (chunked attention), it widens their f32 casts under x64, as the
+    port's ``common.acc_dtype`` does for an f64 model.  Nothing else of
+    the reference changes; AdamW (``repro.training.optimizer``) keeps its
+    f32 update on both sides."""
+
+    def __getattr__(self, name):
+        return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+
+def test_full_depth_at_attention_width_matches_reference_in_float64(monkeypatch):
+    """The open fault of the float32 test above, decided where rounding
+    is no longer the noise: llama3.2-1b's attention width at 16 layers
+    (FFN 256, vocab 512, 1 x 32 tokens), the reference's weights carried
+    over, both packages in float64 (the reference under
+    ``jax.enable_x64()``, no global flag) with the f32 casts of rmsnorm,
+    rope, chunked attention and cross-entropy widened to f64 on both sides
+    (:class:`_WideJnp`; left in f32 they put f32 noise back in).  At step
+    0 the loss agrees within 1e-7 relative and the global grad norm
+    within 1e-3: one f64 ulp on the reference's own weights moves its
+    norm by a few 1e-6 (printed), so the problem's condition number, not
+    the port, sets that figure.  Then two AdamW steps each (f32 updates,
+    as both optimizers compute them): after one update the losses are
+    within 0.1 of each other (the reference moved by its ulp nudge
+    differs by ~2e-2 after one, ~0.3 after two; printed).  Last, the
+    reference's own float32 train step
+    at this width and depth over six steps, printed: its loss does not
+    fall either."""
+    import repro.models.attention as jattn_mod
+    import repro.models.common as jcommon
+
+    L, n_steps = 16, 3
+    kw = dict(n_layers=L, d_ff=256, vocab=512)
+    dc = JDataConfig(vocab=512, seq_len=32, global_batch=1)
+    jp32 = jbuild_model(jget_config("llama3.2-1b").with_overrides(dtype="float32", **kw),
+                        Env()).init(jax.random.key(0))
+    jtc = JTrainConfig(lr=3e-3, warmup_steps=2, total_steps=50)
+    monkeypatch.setattr(jcommon, "jnp", _WideJnp())
+    monkeypatch.setattr(jattn_mod, "jnp", _WideJnp())
+    with jax.enable_x64(True):
+        jmodel = jbuild_model(jget_config("llama3.2-1b").with_overrides(dtype="float64", **kw),
+                              Env())
+        jp = jax.tree.map(lambda a: jnp.asarray(np.asarray(a), jnp.float64), jp32)
+        vg = jax.jit(jax.value_and_grad(lambda p, b: jmodel.loss_fn(p, b)[0]))
+        jb = jax.tree.map(jnp.asarray, host_batch(DataConfig(vocab=512, seq_len=32,
+                                                             global_batch=1), 0, 0, 1))
+        jloss, jg = vg(jp, jb)
+        want = (float(jloss), _grad_norm(jax.tree.leaves(jg)))
+        del jg
+        nudged = vg(jax.tree.map(lambda a: jnp.nextafter(a, jnp.inf) if a.ndim >= 2 else a,
+                                 jp), jb)
+        moved = (float(nudged[0]), _grad_norm(jax.tree.leaves(nudged[1])))
+        del nudged
+        _, jstep, _, _ = jmake_train_step(jmodel, JRunConfig(model=jmodel.cfg,
+                                                             parallel=JParallelConfig(),
+                                                             train=jtc))
+        jstep = jax.jit(jstep)
+        zeros = lambda t: jax.tree.map(lambda a: jnp.zeros(a.shape, jnp.float32), t)  # noqa: E731
+        state0 = _tree_np({"params": jp, "opt": {"m": zeros(jp), "v": zeros(jp),
+                                                 "step": jnp.int32(0)}})
+        jlosses = []
+        for nudge in (False, True):
+            st = jax.tree.map(jnp.asarray, state0)
+            if nudge:
+                st["params"] = jax.tree.map(
+                    lambda a: jnp.nextafter(a, jnp.inf) if a.ndim >= 2 else a, st["params"])
+            out = []
+            for i in range(n_steps):
+                st, m = jstep(st, jax.tree.map(jnp.asarray, jhost_batch(dc, i, 0, 1)))
+                out.append(float(m["loss"]))
+            jlosses.append(out)
+            del st
+        del jp
+    model = build_model(get_config("llama3.2-1b").with_overrides(dtype="float64", **kw), "cpu")
+    state = state_from_numpy(state0)
+    del state0
+    req = jax.tree.map(lambda p: p.detach().requires_grad_(), state["params"])
+    loss, _ = model.loss_fn(req, {k: torch.from_numpy(v) for k, v in jhost_batch(dc, 0, 0, 1)
+                                  .items()})
+    assert loss.dtype == torch.float64
+    got = (float(loss.detach()), _grad_norm(torch.autograd.grad(loss, leaves(req))))
+    del req, loss
+    run = RunConfig(model=model.cfg, parallel=ParallelConfig(), train=TrainConfig(
+        lr=3e-3, warmup_steps=2, total_steps=50))
+    _, step, _ = make_train_step(model, run)
+    losses = []
+    for i in range(n_steps):
+        state, m = step(state, host_batch(DataConfig(vocab=512, seq_len=32, global_batch=1),
+                                          i, 0, 1))
+        losses.append(float(m["loss"]))
+    del state
+    print(f"float64, {L} layers at llama3.2-1b's attention width, step 0: loss reference "
+          f"{want[0]!r} port {got[0]!r}; grad norm reference {want[1]:.6g} port {got[1]:.6g} "
+          f"(the reference one f64 ulp up: loss {moved[0]!r}, grad norm {moved[1]:.6g})")
+    print(f"  losses by step: reference {jlosses[0]}, reference one ulp up {jlosses[1]}, "
+          f"port {losses}")
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-7)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-3)
+    assert all(np.isfinite(losses)) and abs(losses[1] - jlosses[0][1]) < 0.1, (losses, jlosses)
+    # the reference's own train step in float32, no cast widened
+    monkeypatch.undo()
+    jmodel = jbuild_model(jget_config("llama3.2-1b").with_overrides(dtype="float32", **kw), Env())
+    jinit, jstep, _, _ = jmake_train_step(jmodel, JRunConfig(model=jmodel.cfg,
+                                                             parallel=JParallelConfig(),
+                                                             train=jtc))
+    st, jstep, own = jinit(jax.random.key(0)), jax.jit(jstep), []
+    for i in range(6):
+        st, m = jstep(st, jax.tree.map(jnp.asarray, jhost_batch(dc, i, 0, 1)))
+        own.append(round(float(m["loss"]), 4))
+    print(f"  the reference's own float32 train step, {L} layers, losses by step: {own} "
+          f"(last {'below' if own[-1] < own[0] else 'not below'} the first)")
+    assert all(np.isfinite(own))
 
 
 # ------------------------------------------------------------ the step

@@ -138,7 +138,7 @@ def test_shared_blocks_match_reference():
     pos = np.broadcast_to(np.arange(5, dtype=np.int32), (B, 5))
     want = jzamba2._shared_block_train(jcfg, Env(), jp, 1, jnp.asarray(x), jnp.asarray(x0),
                                        jnp.asarray(pos))
-    got = zamba2._shared_block_prefill(cfg, p, 1, torch.from_numpy(x), torch.from_numpy(x0),
+    got = zamba2._shared_block_train(cfg, p, 1, torch.from_numpy(x), torch.from_numpy(x0),
                                        torch.from_numpy(pos.copy()))
     for a, b in zip(got, want):
         np.testing.assert_allclose(_np(a), _np(b), rtol=1e-4, atol=1e-5)
