@@ -17,7 +17,7 @@
    card could take.  Every prefill case also runs with ``q_offset`` as a
    ``(1,)`` int32 device tensor (what a captured graph passes), which must
    give the int form's bits; the chunk rows are timed in that form too.
-   Thirty-eight rows: decode (split across CTAs, partials
+   Forty-one rows: decode (split across CTAs, partials
    merged by a second kernel); prefill unscaled at a whole prompt and at
    the hybrid chunk shape (32 queries at q_offset 192 against the
    1024-position staging stripe, after the chunk edge cases), int8 and
@@ -51,7 +51,12 @@
    the backward's 8-warp route), zamba2's shared block (B 4, Hq = Hkv =
    32, D 128) and seamless's decoder (B 4, Hq = Hkv = 16, D 64); their
    yardsticks are causal SDPA's forward and SDPA's forward + backward
-   through autograd.
+   through autograd.  Three rows of the placed paths (slice 17): the
+   decode kernel with its lse output at the serve shape (out and lse
+   against the plain version; the two halves of the cache lse-merged
+   against the whole-cache kernel; SDPA, which gives no lse, as the
+   yardstick), at the head policy's shard on two ranks (Hkv 4) and at the
+   sequence policy's window (512 positions, with lse).
 4. Serve phase: full-width llama3.2-1b with seeded random weights through
    ``repro_torch.launch.serve``, seventeen paths, every dispatch kind of each
    one captured CUDA graph (the engine's default on the card; the counts
@@ -96,6 +101,24 @@
       ``--sub-batches 1`` in turns, and a profile of its decode steps
       (graphs and eager): kernels per stream id and how long kernels ran
       at once.
+   o. The placed paths (slice 17): the serve CLI's ``balancer:`` line on
+      one rank and on two, checked against the strings the CPU test pins;
+      then two ranks of this script on the one card over gloo (started as
+      ``torchrun`` starts them, ``--placed-worker``), eager (gloo
+      collectives cannot be captured), a's first 16 requests, each rank
+      with its own load check (the bytes of its shards): placed-dp (the
+      serve CLI's placement: mesh data 2, the batch policy; each rank
+      decodes 8 rows) must give n's tokens exactly; placed-head and
+      placed-seq (mesh model 2, tensor parallel, the KV heads or the
+      positions split) a teacher-forced decode step in float32 (weights,
+      activations and cache) at full width cut to 2 layers within 0.1 of
+      one rank's logits (at full depth the random model amplifies any
+      rounding difference: ``scripts/torch_placed_depth.py``), and in
+      bf16 at full depth (the served models) equal to a's model rounding
+      wo and w_down as two ranks do (``tp_rounding``), the distance to a's
+      own step printed; their agreement with a printed; every rank's tokens,
+      ``EngineStats`` and launches (per layer of each step, at the shard's
+      heads) equal.
    Paths a-k, m and n run async (dispatch-ahead) and then sync; the greedy tokens must
    be identical, each kernel row must have launched once per layer of
    every prefill, chunk and decode step of its path (twice per layer of a
@@ -117,14 +140,15 @@
    prints per dispatch kind the samples, median measured ms, MFU, MBU and
    GB/s, and tok/s traced vs untraced.
    Then the moe path, once llama's weights and every engine are freed:
-   moonshot-v1-16b-a3b at full width (28,386,592,768 parameters, seeded
-   random bf16 weights through the serve CLI's loader: memory allocated
+   moonshot-v1-16b-a3b at full width cut to 8 of its 48 layers
+   (``SERVE_LAYERS``: 4,872,112,128 parameters, seeded random bf16
+   weights as the serve CLI's loader draws them: memory allocated
    before and after, the peak), its first MoE layer in float32 on the card
    against the CPU (expert ids equal), the serve shape with ``--arch
    moonshot-v1-16b-a3b`` as a-k are run (async through the graphs with
    the counters zeroed, eager, sync: tokens identical; the decode kernel
-   48 times per decode step and the prefill kernel 48 times per prefill
-   at moonshot's heads), its step clock against the CPU's prediction,
+   once per layer of every decode step and the prefill kernel once per
+   layer of every prefill at moonshot's heads), its step clock against the CPU's prediction,
    tok/s and wall ms per decode step beside the weight stream's bound, a
    ``--profile 8`` run's measured decode MBU beside the bytes the
    dropping dispatch really streams, and profiles with graphs and eagerly
@@ -138,9 +162,10 @@
    rest of the dense registry, one family per phase on a card freed of the
    one before (at most 0.1 GB allocated before each full-width load,
    moonshot's too, with the blocks still held by size): minicpm-2b,
-   llama3.2-3b and yi-34b at full width and depth (dense and paged-hybrid;
-   yi-34b's also sync, and its dense eagerly) and internvl2-76b
-   at full width and 16 of its 80 layers (dense; prefilling 256
+   llama3.2-3b at full width and depth and yi-34b at full width and 16
+   of its 60 layers (dense and paged-hybrid; yi-34b's also sync, and its
+   dense eagerly) and internvl2-76b at full width and 16 of its 80
+   layers (dense; prefilling 256
    ``embeds`` rows ``embed[u]`` before a prompt equals prefilling ``u``
    with it, bit for bit); each path's step clock against the CPU's
    prediction, its launches per kernel row at its heads, tok/s against
@@ -166,7 +191,7 @@
    (beside its bound and SDPA over the latent as one shared head) and of
    its prefill attention (beside causal SDPA).
    Then, each on a card freed of the one before, rwkv6-7b and zamba2-1.2b
-   at full width and depth (float32 check at 2 layers; the first 32
+   at full width, cut to 8 of 32 and 12 of 38 layers (float32 check at 2 layers; the first 32
    requests of the serve shape with ``--arch``, async through the graphs,
    eager and sync: tokens identical, the step clock the CPU's; no attention
    launch on rwkv6, the decode and flash kernels once per shared-block slot
@@ -193,7 +218,7 @@
    int8 compression, 4 steps); then (``family_train_phase``, each on a
    freed card, no checkpoint written) moonshot-v1-16b-a3b at 4 layers,
    deepseek-v3-671b at its 3 dense layers and the MTP block, rwkv6-7b at 4
-   layers and zamba2-1.2b whole through the train CLI, and
+   layers and zamba2-1.2b at 12 layers through the train CLI, and
    seamless-m4t-medium at model level through ``make_train_step`` (each:
    losses finite, whether they fall printed; launches per step as
    ``train_launches`` says; the plain ``chunked_attention`` calls the
@@ -277,6 +302,7 @@ import os
 import re
 import shutil
 import statistics
+import socket
 import subprocess
 import sys
 import tempfile
@@ -286,6 +312,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 
@@ -301,7 +328,9 @@ from repro_torch.kernels import flash_attention_bwd as kbwd  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as kpaged  # noqa: E402
 from repro_torch.kernels import prefill_attention as kpre  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.core.placement import Env  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, mesh_axes  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
@@ -313,7 +342,7 @@ from repro_torch.models import rwkv6 as rwkv6_mod  # noqa: E402
 from repro_torch.models import zamba2 as zamba2_mod  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving.cluster import Cluster  # noqa: E402
-from repro_torch.serving.engine import Engine, Request  # noqa: E402
+from repro_torch.serving.engine import Engine, EngineStats, Request  # noqa: E402
 from repro_torch.serving.paged import device as pdev  # noqa: E402
 from repro_torch.serving import kv_cache, programs  # noqa: E402
 from repro_torch.serving.programs import Program  # noqa: E402
@@ -379,7 +408,38 @@ DECODE_SHAPES = {"decode_attention": (16, 1024, 8, 4, 64),          # llama3.2-1
                  "decode_attention[zamba2]": (16, 1024, 32, 1, 128),      # its shared block
                  "decode_attention[seamless]": (16, 1024, 16, 1, 64),     # decoder self
                  # decoder cross: every row reads all 512 cached frames
-                 "decode_attention[seamless-cross]": (16, 512, 16, 1, 64)}
+                 "decode_attention[seamless-cross]": (16, 512, 16, 1, 64),
+                 # placement (slice 17): llama3.2-1b's decode with the lse output
+                 # at the serve shape, and the shards of two ranks: the head
+                 # policy's 4 KV heads, the sequence policy's 512-position window
+                 "decode_attention[lse]": (16, 1024, 8, 4, 64),
+                 "decode_attention[shard-head2]": (16, 1024, 4, 4, 64),
+                 "decode_attention[shard-seq2]": (16, 512, 8, 4, 64)}
+# the decode rows that return the lse (f32, held to LSE_DECODE_TOL), and the
+# window row, whose lengths are rank 0's: LENGTHS clamped to its 512
+DECODE_LSE_ROWS = ("decode_attention[lse]", "decode_attention[shard-seq2]")
+LSE_DECODE_TOL = 1e-3
+# the placed paths: two ranks on the one card over gloo (NCCL refuses two
+# ranks on one device), each a process of this script (--placed-worker)
+PLACED_RANKS = 2
+PLACED_FLAGS = ["--requests", "16", "--graphs", "off"]
+PLACED_TIMEOUT = 420
+# a teacher-forced decode step, 2 ranks (tensor parallel) vs 1.  In float32
+# at full width cut to 2 layers, within PLACED_LOGIT_TOL of one rank: the
+# random model amplifies any rounding difference about tenfold every 2
+# layers (scripts/torch_placed_depth.py), so only a shallow step can be held
+# to one rank.  In bf16 (the served route) at full depth, equal
+# (PLACED_TP_ROUNDING_TOL) to the one-rank model that rounds wo and w_down
+# as two ranks do (tp_rounding): that rounding is the whole difference
+PLACED_LOGIT_TOL = 0.1
+PLACED_CHECK_LAYERS = 2
+PLACED_TP_ROUNDING_TOL = 0.0
+# the serve CLI's balancer line for llama3.2-1b on a world of 1 and of 2
+# (data 2): tests/test_torch_placement.py pins the same strings
+BALANCER = {1: "balancer: policy=batch sub_batches=1 bottleneck=attention "
+               "(t_att=167.81ms t_lin=3.66ms)",
+            2: "balancer: policy=batch sub_batches=1 bottleneck=attention "
+               "(t_att=83.91ms t_lin=1.83ms)"}
 # attention heads (Hq, Hkv, D) of the full-width families beside llama3.2-1b,
 # by the tag their kernel rows carry
 HEADS = {"moe": (16, 16, 128),            # moonshot-v1-16b-a3b
@@ -391,7 +451,7 @@ HEADS = {"moe": (16, 16, 128),            # moonshot-v1-16b-a3b
          "seamless": (16, 16, 64)}        # seamless-m4t-medium's decoder self-attention
 # the MoE path: moonshot-v1-16b-a3b at full width on the dense cache
 MOE_FLAGS = ["--arch", "moonshot-v1-16b-a3b"]
-MOE_PARAMS = 28386592768
+MOE_PARAMS = 4872112128
 # its step clock as `scripts/torch_step_clock.py --arch moonshot-v1-16b-a3b`
 # predicts it on the CPU (the reduced model at the full vocabulary)
 MOE_CLOCK = {"prefills": 64, "decode_steps": 252, "engine_steps": 841, "generated": 4096}
@@ -413,10 +473,14 @@ MLA_IDENTITY_TOL = 1e-4
 # the rest of the dense registry at full width: arch -> the tag of its kernel rows
 WIDE_TAGS = {"minicpm-2b": "minicpm", "llama3.2-3b": "llama3b", "yi-34b": "yi",
              "internvl2-76b": "internvl"}
-# internvl2-76b's 80 layers (141 GB of bf16 weights) cut to 16, which one card holds
-INTERNVL_LAYERS = 16
-# parameters at the depth run (internvl2-76b at INTERNVL_LAYERS)
-WIDE_PARAMS = {"minicpm-2b": 2725173504, "llama3.2-3b": 3212749824, "yi-34b": 34388917248,
+# the families served at full width and a cut depth: internvl2-76b's 80
+# layers (141 GB of bf16 weights) to 16, which one card holds; the others
+# so that the whole script ends well inside its 1200 s limit on the
+# slowest host measured (PERF.md: at full depth it took 1408 s)
+SERVE_LAYERS = {"internvl2-76b": 16, "yi-34b": 16, "moonshot-v1-16b-a3b": 8,
+                "rwkv6-7b": 8, "zamba2-1.2b": 12}
+# parameters at the depth run
+WIDE_PARAMS = {"minicpm-2b": 2725173504, "llama3.2-3b": 3212749824, "yi-34b": 9843219456,
                "internvl2-76b": 15791824896}
 # step clocks as `scripts/torch_step_clock.py --arch <id> [PAGED_FLAGS]` predicts them
 # on the CPU (the reduced model at the full vocabulary: the vocabulary, not the
@@ -452,10 +516,10 @@ F32_WIDE = {"prefill": 1e-3, "decode": 5e-2}
 # same inputs, differs by 1.2e-3 of outputs ~35 between card and CPU
 F32_WIDE_ENCDEC = {"prefill": 5e-2, "decode": 5e-2}
 MEM_FREED = 0.1e9         # bytes a freed card may hold before a full-width load
-# the recurrent families at full width and depth, served on the dense state
+# the recurrent families at full width and SERVE_LAYERS' depth, served on the dense state
 # cache: arch -> the tag of their lines and kernel rows
 RECURRENT_TAGS = {"rwkv6-7b": "rwkv6", "zamba2-1.2b": "zamba2"}
-RECURRENT_PARAMS = {"rwkv6-7b": 7577026560, "zamba2-1.2b": 1322652544}
+RECURRENT_PARAMS = {"rwkv6-7b": 2296922112, "zamba2-1.2b": 623062784}
 # their eager whole-prompt prefills step the recurrence one token at a time,
 # host-bound (~0.4 s for 509 tokens): their serve paths take the first 32 of
 # the serve shape's 64 requests, to keep the script inside its time
@@ -483,7 +547,7 @@ MINICPM_TRAIN_STEPS = 4
 # the other families' train paths at full width, each on a card freed of
 # the one before: moonshot-v1-16b-a3b cut to 4 layers (1 dense + 3 MoE),
 # deepseek-v3-671b to its 3 dense layers and the MTP block (one MoE layer
-# alone is 11.3e9 parameters), rwkv6-7b to 4 layers, zamba2-1.2b whole; no
+# alone is 11.3e9 parameters), rwkv6-7b to 4 layers, zamba2-1.2b to 12; no
 # checkpoint is written (--ckpt-every 0)
 FAMILY_TRAIN = {
     "train-moe": ["--arch", "moonshot-v1-16b-a3b", "--layers", "4", "--batch", "4",
@@ -492,7 +556,8 @@ FAMILY_TRAIN = {
                        "--seq", "1024", "--steps", "3"],
     "train-rwkv6": ["--arch", "rwkv6-7b", "--layers", "4", "--batch", "4", "--seq", "1024",
                     "--steps", "3"],
-    "train-zamba2": ["--arch", "zamba2-1.2b", "--batch", "4", "--seq", "1024", "--steps", "3"],
+    "train-zamba2": ["--arch", "zamba2-1.2b", "--layers", "12", "--batch", "4", "--seq", "1024",
+                     "--steps", "3"],
 }
 # seamless-m4t-medium at full depth, at model level (the synthetic batches
 # hold no source frames): rows, decoder tokens, steps; frontend_len frames
@@ -587,9 +652,13 @@ def decode_phase(dev, name: str = "decode_attention") -> dict:
     speculative step; moonshot-v1-16b-a3b's (Hkv 16, G 1, D 128: one real
     row in each m16 tile); and the full-width families'."""
     B, S, Hkv, G, D = DECODE_SHAPES[name]
+    lse = name in DECODE_LSE_ROWS
     gen = torch.Generator(device=dev).manual_seed(1)
-    # a cache shorter than LENGTHS' (the cross cache) is read whole by every row
+    # a cache shorter than LENGTHS' (the cross cache) is read whole by every
+    # row; the sequence policy's window holds LENGTHS' first 512 positions
     lengths = torch.tensor(LENGTHS if S == 1024 else [S] * B, dtype=torch.int32, device=dev)
+    if name == "decode_attention[shard-seq2]":
+        lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev).clamp(max=S)
     cache_bytes = 2 * B * S * Hkv * D * 2
     n_copies = max(1, math.ceil(2 * L2_BYTES / cache_bytes))
     sets = []
@@ -599,12 +668,32 @@ def decode_phase(dev, name: str = "decode_attention") -> dict:
         v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).bfloat16()
         sets.append((q, k, v))
     q, k, v = sets[0]
-    out = ops.decode_attention(q, k, v, lengths)
-    exp = kdec.plain(q, k, v, lengths)
+    extra = {}
+    if lse:
+        out, out_lse = ops.decode_attention(q, k, v, lengths, return_lse=True)
+        exp, exp_lse = kdec.plain(q, k, v, lengths, return_lse=True)
+        extra["lse_max_abs_err"] = _max_err(out_lse, exp_lse)
+        if not extra["lse_max_abs_err"] <= LSE_DECODE_TOL:
+            raise AssertionError(f"{name} kernel lse vs plain: max err {extra}")
+    else:
+        out = ops.decode_attention(q, k, v, lengths)
+        exp = kdec.plain(q, k, v, lengths)
     torch.cuda.synchronize()
     err = _max_err(out, exp)
     if not err <= BF16_TOL:
         raise AssertionError(f"{name} kernel vs plain: max err {err}")
+    if name == "decode_attention[lse]":
+        # the sequence policy on two ranks: each half with its lse, merged,
+        # against the kernel over the whole cache
+        h = S // 2
+        halves = [ops.decode_attention(q, k[:, a:a + h], v[:, a:a + h],
+                                       (lengths - a).clamp(0, h), return_lse=True)
+                  for a in (0, h)]
+        extra["merged_halves_err"] = _max_err(ref.lse_merge(halves), out)
+        if not extra["merged_halves_err"] <= BF16_TOL:
+            raise AssertionError(f"{name}: merged halves vs the whole cache {extra}")
+        print(f"kernel {name}: two windows' partials lse-merged vs the whole-cache kernel: "
+              f"max err {extra['merged_halves_err']:.2e} (tol {BF16_TOL})")
 
     pos = torch.arange(S, device=dev)
     mask = (pos[None] < lengths[:, None])[:, None, None, :]            # (B,1,1,S)
@@ -617,15 +706,15 @@ def decode_phase(dev, name: str = "decode_attention") -> dict:
     lib_out = library(q, k, v).view(B, Hkv * G, D)
     lib_err = _max_err(lib_out, exp)
     live = int(lengths.clamp(max=S).sum())
-    nbytes = 2 * live * Hkv * D * 2 + 2 * q.numel() * 2 + B * 4
+    nbytes = 2 * live * Hkv * D * 2 + 2 * q.numel() * 2 + B * 4 + (B * Hkv * G * 4 if lse else 0)
     flops = 4 * live * Hkv * G * D
     bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_FLOPS)
     return {
-        "name": name, "kernel": "decode_attention", "variant": "unscaled",
+        "name": name, "kernel": "decode_attention", "variant": "lse" if lse else "unscaled",
         "heads": kernel_heads(Hkv, G, D), "route": "cuda", "source": kdec.SOURCE,
-        "replaces": kdec.REPLACES, "max_abs_err": err, "tol": BF16_TOL,
-        **_times([lambda s=s: ops.decode_attention(*s, lengths) for s in sets],
-                 [lambda s=s: kdec.plain(*s, lengths) for s in sets],
+        "replaces": kdec.REPLACES, "max_abs_err": err, "tol": BF16_TOL, **extra,
+        **_times([lambda s=s: ops.decode_attention(*s, lengths, return_lse=lse) for s in sets],
+                 [lambda s=s: kdec.plain(*s, lengths, return_lse=lse) for s in sets],
                  [lambda s=s: library(*s) for s in sets]),
         "library_max_abs_err": lib_err,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
@@ -983,6 +1072,15 @@ def paged_phase(dev, kv: str | None = None, bs: int = 16, tag: str | None = None
 
 
 # ------------------------------------------------------------ serve phase
+def load_cut(args):
+    """``serve.load_model(args)`` at ``SERVE_LAYERS``' depth for ``--arch``
+    (the same seeded weights for the layers kept)."""
+    cfg = serve.load_config(args)
+    model = build_model(cfg.with_overrides(n_layers=SERVE_LAYERS.get(args.arch, cfg.n_layers)),
+                        args.device)
+    return model, model.init(args.seed)
+
+
 def load_model():
     args = serve.build_parser().parse_args(SERVE_FLAGS)
     t0 = time.perf_counter()
@@ -1365,6 +1463,289 @@ def cluster_phase(model, params, label: str, flags: list[str], want, rows: dict[
     wall = time.perf_counter() - t_phase
     print(f"[{label}] phase wall {wall:.1f}s (warm-up and async run)")
     return PathRun(per_row, cs, [r.out_tokens for r in reqs], wall, res)
+
+
+# ----------------------------------------------------- placed paths (slice 17)
+def teacher_forced(model, params, prompts) -> torch.Tensor:
+    """One decode step's logits (B, V) f32 after each prompt is prefilled
+    into its slot of a fresh cache as the engine admits it (a slot's
+    view), each row fed its prompt's last token: fixed inputs, so a placed
+    model and the one-rank model can be held to each other.  The cache is
+    in the model's dtype: a float32 model's is f32 too, since one bf16 ulp
+    anywhere in the cache moves every argmax of the random model at full
+    depth (``kvq_sensitivity``)."""
+    cache = model.init_cache(len(prompts), 1024, dtype=cm.param_dtype(model.cfg))
+    for i, p in enumerate(prompts):
+        model.prefill(params, torch.as_tensor(p, dtype=torch.int64, device=model.device)[None],
+                      kv_cache.slot_view(cache, i))
+    feed = torch.tensor([int(p[-1]) for p in prompts], dtype=torch.int32, device=model.device)
+    return model.decode_step(params, cache, feed)[0].float()
+
+
+@contextlib.contextmanager
+def tp_rounding(cfg, n: int = PLACED_RANKS):
+    """While open, a one-rank dense model rounds its row-parallel products
+    (``wo``, ``w_down``) as ``n`` tensor-parallel ranks do: ``n`` partial
+    products over consecutive slices of the contracted dim, each rounded
+    to the model's dtype, then summed in that dtype (the all-reduce).  For
+    bf16 that is one more rounding per product than one rank makes."""
+    plain = cm.linear
+
+    def linear(x, w, n_in=1):
+        if not (n_in == 2 or w.shape[0] == cfg.d_ff):     # wo (H, Dh, D), w_down (F, D)
+            return plain(x, w, n_in)
+        k = math.prod(w.shape[:n_in])
+        lead = x.shape[: x.dim() - n_in]
+        xs, ws = x.reshape(*lead, k), w.reshape(k, -1)
+        out = functools.reduce(torch.add, [xs[..., i * k // n:(i + 1) * k // n]
+                                           @ ws[i * k // n:(i + 1) * k // n] for i in range(n)])
+        return out.reshape(*lead, *w.shape[n_in:])
+
+    cm.linear = linear
+    try:
+        yield
+    finally:
+        cm.linear = plain
+
+
+def _placed_run(args, env, mesh, label: str, out: Path, warm_up: bool = False,
+                teacher: bool = False) -> dict:
+    """One placed path on this rank, through the serve entry points: the
+    load (each rank keeps its shards: checked by their bytes), a warm-up
+    (the process's first path: cuBLAS handles, the allocator), then the
+    run with every launch counter zeroed before it and read after it;
+    rank 0 keeps the run's prompts and, with ``teacher``, the served
+    model's teacher-forced step over them (``{label}-bfloat16.pt``)."""
+    t0 = time.perf_counter()
+    model, params = serve.load_model(args, env, mesh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    specs = model.param_specs()
+    held = sum(t.numel() * t.element_size() for t in leaves(params))
+    want = 0
+    for path, defn in cm._leaves(model.param_defs):
+        spec = functools.reduce(lambda t, k: t[k], path, specs)
+        want += math.prod(model.placement.local_shape(spec, defn.shape)) * 2
+    if warm_up:
+        warm = serve.build_parser().parse_args(SERVE_FLAGS + PLACED_FLAGS + ["--requests", "4"])
+        warm.device = args.device
+        serve.serve(warm, model, params)
+    ops.reset_launch_counts()
+    res = serve.serve(args, model, params)
+    shapes = {k: {f"{v}|{h}": n for (v, h), n in d.items()}
+              for k, d in ops.shape_counts().items() if d}
+    reqs = res.driver.submitted
+    row = {"load_s": load_s, "param_bytes": held, "shard_bytes": want,
+           "full_bytes": model.n_params() * 2, "wall_s": res.wall_s,
+           "graphs": res.engine.graphs, "stats": dataclasses.asdict(res.stats),
+           "tokens": [r.out_tokens for r in reqs], "launches": shapes,
+           "lines": serve.report(args, res), "axes": dict(env.axes), "policy": env.kv_policy}
+    prompts = [np.asarray(r.prompt) for r in reqs]
+    logits = teacher_forced(model, params, prompts) if teacher else None
+    if dist.get_rank() == 0:
+        torch.save(prompts, out / "prompts.pt")
+        if teacher:
+            torch.save(logits.cpu(), out / f"{label}-bfloat16.pt")
+    del model, params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def placed_worker(out: Path) -> None:
+    """A rank of the placed paths (``chip_smoke.py --placed-worker DIR``,
+    started by :func:`placed_phase` as torchrun starts one): placed-dp
+    through the serve CLI's own placement (the launcher's world as a
+    (data 2, model 1) mesh, the balancer's policy), then placed-head and
+    placed-seq on a (data 1, model 2) mesh; writes ``rank{r}.json``."""
+    args = serve.build_parser().parse_args(SERVE_FLAGS + PLACED_FLAGS)
+    args.device = None                   # the serve CLI's default: this rank's card
+    mesh, env, line = serve.place(args, serve.load_config(args))
+    rank = dist.get_rank()
+    got = {"balancer": line, "backend": dist.get_backend(), "device": args.device}
+    got["placed-dp"] = _placed_run(args, env, mesh, "placed-dp", out, warm_up=True)
+    mesh = make_host_mesh(2, device=args.device)
+    envs = {"placed-head": Env(axes=mesh_axes(mesh), kv_policy="head"),
+            "placed-seq": Env(axes=mesh_axes(mesh), kv_policy="sequence")}
+    for label, env in envs.items():
+        got[label] = _placed_run(args, env, mesh, label, out, teacher=True)
+    # the teacher-forced step in float32 (f32 weights, activations and
+    # cache) at PLACED_CHECK_LAYERS: both policies on one set of f32 shards
+    # (the weights' split does not depend on the KV policy)
+    prompts = torch.load(out / "prompts.pt", weights_only=False)
+    cfg = serve.load_config(args).with_overrides(dtype="float32",
+                                                 n_layers=PLACED_CHECK_LAYERS)
+    params = None
+    for label, env in envs.items():
+        model = build_model(cfg, args.device, env, mesh)
+        params = params or model.init(args.seed)
+        logits = teacher_forced(model, params, prompts)
+        if rank == 0:
+            torch.save(logits.cpu(), out / f"{label}-float32.pt")
+    del model, params
+    (out / f"rank{rank}.json").write_text(json.dumps(got))
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(out: Path) -> None:
+    """Start :data:`PLACED_RANKS` processes of this script as ``torchrun``
+    would (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, a rendezvous on a free
+    localhost port) and wait for them, killing every one of them on a
+    failure or at :data:`PLACED_TIMEOUT`."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, WORLD_SIZE=str(PLACED_RANKS), LOCAL_WORLD_SIZE=str(PLACED_RANKS),
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    logs = [out / f"rank{r}.log" for r in range(PLACED_RANKS)]
+    procs = []
+    try:
+        for r in range(PLACED_RANKS):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--placed-worker", str(out)],
+                    env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=log,
+                    stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + PLACED_TIMEOUT
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if any(p.returncode for p in procs):
+        for r, log in enumerate(logs):
+            print(f"[placed] rank {r} exit {procs[r].returncode}, log tail:\n"
+                  f"{log.read_text()[-4000:]}")
+        raise AssertionError("[placed] a rank failed or timed out")
+
+
+def placed_phase(model, params, by_path: dict[str, PathRun]) -> dict[str, PathRun]:
+    """The placed paths of llama3.2-1b at full width: two ranks over gloo on
+    the one card, eagerly (gloo collectives cannot be captured in a CUDA
+    graph), the first 16 requests of the serve workload.  placed-dp (mesh
+    data 2, the batch policy: each rank decodes 8 rows) must give
+    dense-8's tokens exactly; placed-head and placed-seq (mesh model 2:
+    the tensor-parallel model, the KV heads or the positions split) must
+    give a teacher-forced decode step's logits in float32 (an f32 cache
+    too) at PLACED_CHECK_LAYERS within PLACED_LOGIT_TOL of the one-rank
+    model's (at full depth the random model turns any rounding difference
+    into whole logits: ``scripts/torch_placed_depth.py``) and in bf16 at
+    full depth those of the one-rank model rounding as two ranks do
+    (:func:`placed_logit_check`); their token agreement with dense is
+    printed.  Every rank
+    holds the same tokens and ``EngineStats``; each kernel launched once
+    per layer of every prefill and decode step at its shard's heads."""
+    t0 = time.perf_counter()
+    cfg, L = model.cfg, model.cfg.n_layers
+    line = serve.place(serve.build_parser().parse_args(SERVE_FLAGS + PLACED_FLAGS), cfg)[2]
+    print(f"[placed] one rank: {line}")
+    if line != BALANCER[1]:
+        raise AssertionError(f"[placed] balancer line {line!r} != {BALANCER[1]!r}")
+    out = Path(tempfile.mkdtemp(prefix="placed-"))
+    try:
+        _spawn_ranks(out)
+        got = [json.loads((out / f"rank{r}.json").read_text()) for r in range(PLACED_RANKS)]
+        logits = {(lb, dt): torch.load(out / f"{lb}-{dt}.pt")
+                  for lb in ("placed-head", "placed-seq") for dt in ("float32", "bfloat16")}
+        prompts = torch.load(out / "prompts.pt", weights_only=False)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    g0 = got[0]
+    print(f"[placed] {PLACED_RANKS} ranks on one card, backend {g0['backend']}: {g0['balancer']}")
+    if g0["backend"] != "gloo" or g0["balancer"] != BALANCER[2]:
+        raise AssertionError(f"[placed] backend {g0['backend']}, line {g0['balancer']!r}")
+    # per path: the decode kernel's variant and KV heads per rank, its row
+    # (the prefill runs at the compute side's heads: 8 on data 2, 4 on model 2)
+    paths = {"placed-dp": ("unscaled", 8, 8, "decode_attention"),
+             "placed-head": ("unscaled", 4, 4, "decode_attention[shard-head2]"),
+             "placed-seq": ("lse", 8, 4, "decode_attention[shard-seq2]")}
+    runs = {}
+    for label, (variant, hkv, hkv_pre, row) in paths.items():
+        rs = [g[label] for g in got]
+        r0 = rs[0]
+        st = EngineStats(**r0["stats"])
+        for line in r0["lines"]:
+            print(f"[{label}] {line}")
+        want = {"decode_attention": {f"{variant}|{kernel_heads(hkv, 4, 64)}": st.decode_steps * L},
+                "prefill_attention": {f"unscaled|{kernel_heads(hkv_pre, 4, 64)}": st.prefills * L}}
+        print(f"[{label}] mesh {r0['axes']} policy {r0['policy']}; load {r0['load_s']:.1f}s, "
+              f"{r0['param_bytes'] / 1e9:.3f} GB of weights held per rank (shard "
+              f"{r0['shard_bytes'] / 1e9:.3f}, whole {r0['full_bytes'] / 1e9:.3f}); "
+              f"launches per rank {r0['launches']} expected {want}; wall {r0['wall_s']:.2f}s "
+              f"-> {st.generated / r0['wall_s']:.1f} tok/s "
+              f"graphs={'on' if r0['graphs'] else 'off'}")
+        for r in rs:
+            if not (r["param_bytes"] == r["shard_bytes"] and r["launches"] == want
+                    and r["stats"] == r0["stats"] and r["tokens"] == r0["tokens"]
+                    and not r["graphs"]):
+                raise AssertionError(f"[{label}] a rank's load, launches, stats or tokens differ")
+        if label != "placed-dp" and not r0["shard_bytes"] < r0["full_bytes"]:
+            raise AssertionError(f"[{label}] the tensor-parallel ranks hold whole weights")
+        per_row = {row: st.decode_steps * L}
+        if label == "placed-dp":
+            per_row["prefill_attention"] = st.prefills * L
+        runs[label] = PathRun(per_row, st, r0["tokens"], r0["wall_s"], None)
+    if not all(runs[p].stats == runs["placed-dp"].stats for p in runs):
+        raise AssertionError("[placed] the paths' EngineStats differ: placement changed the clock")
+    sub = [Request(uid=i, prompt=p, max_new_tokens=64) for i, p in enumerate(prompts)]
+    first16 = {p: by_path[p]._replace(tokens=by_path[p].tokens[:len(sub)])
+               for p in ("dense-8", "dense")}
+    for r, toks in zip(sub, runs["placed-dp"].tokens):
+        r.out_tokens = toks
+    agreement("placed-dp", sub, first16["dense-8"], exact=True)
+    placed_logit_check(model, params, logits, prompts)
+    for label in ("placed-head", "placed-seq"):
+        for r, toks in zip(sub, runs[label].tokens):
+            r.out_tokens = toks
+        agreement(label, sub, first16["dense"], floor=False)
+    print(f"[placed] phase wall {time.perf_counter() - t0:.1f}s")
+    return runs
+
+
+def placed_logit_check(model, params, logits: dict, prompts) -> None:
+    """The tensor-parallel teacher-forced steps ``logits[(label, dtype)]``
+    (placed-head, placed-seq; :func:`placed_worker`) against one rank's.
+    float32 at PLACED_CHECK_LAYERS: within PLACED_LOGIT_TOL of the one-rank
+    model's.  bf16 at full depth (the served models, the decode kernel's
+    mma route): the ranks round each row-parallel partial product (wo,
+    w_down) to bf16 before the all-reduce sums them, one rounding more
+    than one rank makes, so the step is held to ``model`` (the served
+    one-rank model) rounding as two ranks do (:func:`tp_rounding`), within
+    PLACED_TP_ROUNDING_TOL; its distance to ``model`` itself is printed."""
+    f32 = build_model(model.cfg.with_overrides(dtype="float32", n_layers=PLACED_CHECK_LAYERS),
+                      model.device)
+    one = {"float32": teacher_forced(f32, f32.init(0), prompts).cpu(),
+           "bfloat16": teacher_forced(model, params, prompts).cpu()}
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tp_rounding(model.cfg):
+        rounded = teacher_forced(model, params, prompts).cpu()
+    n = len(prompts)
+    for label in ("placed-head", "placed-seq"):
+        got = logits[(label, "float32")]
+        err = _max_err(got, one["float32"])
+        same = int((got.argmax(-1) == one["float32"].argmax(-1)).sum())
+        print(f"[{label}] teacher-forced decode step in float32 at {PLACED_CHECK_LAYERS} layers "
+              f"vs one rank: logits max err {err:.2e} (tol {PLACED_LOGIT_TOL}), argmax equal "
+              f"{same}/{n}")
+        if not err <= PLACED_LOGIT_TOL:
+            raise AssertionError(f"[{label}] float32 logits {err} from one rank's")
+        got = logits[(label, "bfloat16")]
+        err = _max_err(got, rounded)
+        print(f"[{label}] teacher-forced decode step in bf16 at {model.cfg.n_layers} layers vs "
+              f"one rank rounding wo and w_down as two ranks do: logits max err {err:.2e} (tol "
+              f"{PLACED_TP_ROUNDING_TOL}), argmax equal "
+              f"{int((got.argmax(-1) == rounded.argmax(-1)).sum())}/{n}; vs one rank "
+              f"{_max_err(got, one['bfloat16']):.2e}, argmax equal "
+              f"{int((got.argmax(-1) == one['bfloat16'].argmax(-1)).sum())}/{n}; one rank "
+              f"rounding as two vs one rank {_max_err(rounded, one['bfloat16']):.2e}")
+        if not err <= PLACED_TP_ROUNDING_TOL:
+            raise AssertionError(f"[{label}] bf16 logits {err} from one rank's with TP rounding")
 
 
 def _concurrency(kernels: list[dict]) -> tuple[float, float, float]:
@@ -2093,15 +2474,15 @@ def sub_batch_check(dev) -> None:
 
 # ---------------------------------------------------------------- MoE path
 def moe_phase(dev, rows: dict[str, dict]) -> PathRun:
-    """moonshot-v1-16b-a3b at full width, on a card that holds nothing of
-    the llama phases: its weights from seed 0 through the serve CLI's
-    ``load_model`` (memory allocated before and after, the peak, the load
+    """moonshot-v1-16b-a3b at full width and ``SERVE_LAYERS``' depth, on a
+    card that holds nothing of the llama phases: its weights from seed 0
+    as the serve CLI's ``load_model`` draws them (:func:`load_cut`; memory allocated before and after, the peak, the load
     seconds); one full-width MoE layer on the card against the CPU
     (:func:`moe_layer_check`); ``SERVE_FLAGS`` with ``--arch
     moonshot-v1-16b-a3b`` through :func:`serve_phase` (async through the
     CUDA graphs with the launch counters zeroed before it, ``--graphs
-    off``, ``--async off``: tokens identical; the decode kernel 48 times
-    per decode step and the prefill kernel 48 times per prefill, at
+    off``, ``--async off``: tokens identical; the decode kernel once per
+    layer of a decode step and the prefill kernel once per layer of a prefill, at
     moonshot's heads), its step clock held to the CPU's prediction
     (``MOE_CLOCK``), tok/s and wall ms per decode step beside the weight
     stream's bound; a ``--profile 8`` run's measured decode MBU (the
@@ -2114,7 +2495,7 @@ def moe_phase(dev, rows: dict[str, dict]) -> PathRun:
     torch.cuda.reset_peak_memory_stats(dev)
     args = serve.build_parser().parse_args(SERVE_FLAGS + MOE_FLAGS)
     t0 = time.perf_counter()
-    model, params = serve.load_model(args)
+    model, params = load_cut(args)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     cfg, m = model.cfg, model.cfg.moe
@@ -2308,8 +2689,8 @@ def family_phase(dev, arch: str, rows: dict[str, dict]) -> dict[str, PathRun]:
     """One more dense architecture at full width on a freed card (memory
     before the load must be under ``MEM_FREED``): for minicpm-2b and
     yi-34b first :func:`wide_f32_check`; seeded random bf16 weights
-    through the serve CLI's loader (internvl2-76b built at
-    ``INTERNVL_LAYERS`` layers), memory before, after and at peak; the
+    as the serve CLI's loader draws them (internvl2-76b and yi-34b at
+    ``SERVE_LAYERS``' depth, :func:`load_cut`), memory before, after and at peak; the
     serve shape on the dense cache, decode-only, and (not internvl2-76b)
     paged-hybrid, through :func:`serve_phase` (yi-34b's paths also
     synchronously and its dense path eagerly: tokens equal), each with its
@@ -2326,11 +2707,7 @@ def family_phase(dev, arch: str, rows: dict[str, dict]) -> dict[str, PathRun]:
     torch.cuda.reset_peak_memory_stats(dev)
     args = serve.build_parser().parse_args(SERVE_FLAGS + ["--arch", arch])
     t0 = time.perf_counter()
-    if arch == "internvl2-76b":
-        model = build_model(get_config(arch).with_overrides(n_layers=INTERNVL_LAYERS), dev)
-        params = model.init(args.seed)
-    else:
-        model, params = serve.load_model(args)
+    model, params = load_cut(args)
     torch.cuda.synchronize()
     cfg, L = model.cfg, model.cfg.n_layers
     print(f"[{tag}] serve: {cfg.name} n_params={model.n_params()} layers={L} "
@@ -2839,7 +3216,7 @@ def scan_timing(model, tag: str) -> None:
 
 
 def recurrent_phase(dev, arch: str, rows: dict[str, dict]) -> PathRun:
-    """rwkv6-7b or zamba2-1.2b at full width and depth on a freed card:
+    """rwkv6-7b or zamba2-1.2b at full width and ``SERVE_LAYERS``' depth on a freed card:
     first the float32 check at full width cut to 2 layers, card against
     CPU (:func:`wide_f32_check`; zamba2 at a shared-block period of 2, so
     that its second layer is followed by the shared block and both kernels
@@ -2867,7 +3244,7 @@ def recurrent_phase(dev, arch: str, rows: dict[str, dict]) -> PathRun:
     print(f"[{tag}] the serve path takes the first 32 of the serve shape's 64 requests "
           f"({' '.join(flags)}): its eager prefills step the recurrence one token at a time")
     t0 = time.perf_counter()
-    model, params = serve.load_model(serve.build_parser().parse_args(SERVE_FLAGS + flags))
+    model, params = load_cut(serve.build_parser().parse_args(SERVE_FLAGS + flags))
     torch.cuda.synchronize()
     cfg, defs = model.cfg, model.param_defs
     print(f"[{tag}] serve: {cfg.name} n_params={model.n_params()} layers={cfg.n_layers} "
@@ -3766,6 +4143,9 @@ def main() -> None:
              prefill_phase(dev, tag="seamless")]
     rows += [train_lse_phase(dev), train_bwd_phase(dev), train_lse_phase(dev, "minicpm"),
              train_bwd_phase(dev, "minicpm")]
+    rows += [decode_phase(dev, name) for name in
+             ("decode_attention[lse]", "decode_attention[shard-head2]",
+              "decode_attention[shard-seq2]")]
     for tag in TRAIN_TAGS.values():
         rows += [train_lse_phase(dev, tag), train_bwd_phase(dev, tag)]
     for r in rows:
@@ -3887,6 +4267,7 @@ def main() -> None:
     agreement("sub-batches", sub, by_path["dense-8"], exact=True)
     agreement("sub-batches", sub, by_path["dense"], floor=False)
     sub_batch_phase(model, params)
+    by_path.update(placed_phase(model, params, by_path))
     # the dense cache's int8 kv_quant form, on llama's weights (the same
     # parameters): the prefill attends over unquantized K/V, so every first
     # token must be the dense path's; the later ones are printed beside
@@ -3966,9 +4347,12 @@ def main() -> None:
         # float32 mode runs in the reference checks) and block size 128
         # (a --block-size the serve paths do not pass; block128_check runs
         # it at reduced size)
+        # and the lse decode at the serve shape (the placed-seq path
+        # launches it at each rank's window, counted in [shard-seq2])
         r["on_main_path"] = not ((r["kernel"] == "prefill_attention"
                                   and r["variant"] not in ("unscaled", "lse"))
-                                 or "bs128" in r["name"])
+                                 or "bs128" in r["name"]
+                                 or r["name"] == "decode_attention[lse]")
         if r["on_main_path"] and not r["launches"]:
             raise AssertionError(f"{r['name']} never launched on the main paths")
     print(f"card: {smi}")
@@ -3979,4 +4363,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--placed-worker"]:
+        placed_worker(Path(sys.argv[2]))
+    else:
+        main()

@@ -4,7 +4,7 @@ The part of ``repro.analysis.roofline`` the serving step timeline reads:
 :func:`dispatch_flops_bytes`.  The reference's ``model_flops``,
 ``model_bytes``, ``roofline`` and ``recompute_cell`` read XLA cost cells
 of a compiled dry run; they wait for ``hlo_cost``'s counterpart
-(ROADMAP.md queue 1 item 9).
+(ROADMAP.md queue 1 item 9c).
 """
 from __future__ import annotations
 

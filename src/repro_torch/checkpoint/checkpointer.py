@@ -23,7 +23,7 @@ either package restores in the other:
     and ``np.load`` take one thread and 256 KiB pieces.
 
 Restoring onto another mesh (the reference's ``shardings``) waits for
-placement (ROADMAP queue 1 item 9).
+training placement (ROADMAP queue 1 item 9a).
 """
 from __future__ import annotations
 

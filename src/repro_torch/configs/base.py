@@ -5,7 +5,8 @@ A copy of ``repro.configs.base.ModelConfig`` and its sub-configs
 ``HybridConfig``) for the dense llama family, the MoE, DeepSeek, RWKV6,
 Zamba2 and encoder-decoder families, the stub frontends included, and the
 trainer's ``ParallelConfig``, ``TrainConfig`` and ``RunConfig``.  The
-reference's shape configs serve its dry-run only.
+reference's shape cells (``ShapeConfig``, ``SHAPES``) are here too: the
+serve CLI's balancer plans at one of them.
 """
 from __future__ import annotations
 
@@ -114,10 +115,29 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# input shapes (the reference's cells; the balancer plans at decode_32k)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
 # run / parallelism config (the reference's, field for field; the port runs
 # on one device, so ``kv_policy``, ``offload``, ``sub_batches``,
 # ``sequence_parallel``, ``zero_stage`` and ``remat`` are carried but read
-# by nothing in training until placement comes: ROADMAP queue 1 item 9)
+# by nothing in training until its placement comes: ROADMAP queue 1 item 9a)
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class ParallelConfig:

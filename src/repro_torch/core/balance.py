@@ -1,16 +1,33 @@
-"""Per-token parameter and KV-byte counts (paper §IV-C's napkin math).
+"""GPU/HPU load balancing: the paper's §IV-C napkin math.
 
-The part of ``repro.core.balance`` that the serving telemetry's cost
-model reads: :func:`_active_params` and :func:`kv_bytes_per_seq`, for
-every family.  ``plan``, which picks a KV placement policy and a
-sub-batch count from a mesh, needs ``placement.kv_rules`` / ``lanes``
-and ``resolve_spec`` and waits for multi-device placement (ROADMAP queue
-1 item 9).
+A copy of ``repro.core.balance``.  :func:`_active_params` and
+:func:`kv_bytes_per_seq` count a token's linear parameters and a
+sequence's KV bytes for every family (the serving telemetry's cost model
+reads them); :func:`plan` picks a KV placement policy and a sub-batch
+count for a decode shape on a mesh from a device's constants, through the
+same resolver the placed model uses.  A plan is the cost model's, not a
+measurement; its default device is the reference's ``TPU-V5E``, so that
+the serve CLI's ``balancer:`` line equals the reference's.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import RWKV6, ZAMBA2, ModelConfig
-from repro_torch.core.oi import BYTES_PER_EL
+import dataclasses
+
+from repro_torch.configs.base import RWKV6, ZAMBA2, ModelConfig, ShapeConfig
+from repro_torch.core.oi import BYTES_PER_EL, DEVICES, Device
+from repro_torch.core.placement import kv_rules, lanes
+from repro_torch.models.common import resolve_spec
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    kv_policy: str
+    sub_batches: int
+    t_linear: float          # s per decode step, compute side
+    t_attention: float       # s per decode step, HPU-layout side
+    t_boundary: float        # s, Q/KV boundary collective
+    bottleneck: str
+    kv_shards: int           # chips the cache actually spans
 
 
 def _active_params(cfg: ModelConfig) -> float:
@@ -63,3 +80,60 @@ def kv_bytes_per_seq(cfg: ModelConfig, seq: int) -> float:
         a = cfg.mla
         return cfg.n_layers * seq * (a.kv_lora_rank + a.qk_rope_head_dim) * BYTES_PER_EL
     return 2 * cfg.n_layers * seq * cfg.n_kv_heads * cfg.resolved_head_dim() * BYTES_PER_EL
+
+
+def plan(cfg: ModelConfig, shape: ShapeConfig, axes: dict[str, int],
+         dev: Device = DEVICES["TPU-V5E"]) -> Plan:
+    """Pick the KV policy and sub-batch count of a decode shape on a mesh
+    of ``axes``: the policy whose cache spans the most chips (ties go to
+    batch, then batch_seq, sequence, head: paper Fig. 4 prefers batch on
+    merge cost), two sub-batches when the smaller stage is over a fifth of
+    the larger."""
+    B, S = shape.global_batch, shape.seq_len
+    n_chips = lanes(axes)
+
+    def shards(policy: str) -> int:
+        """Chips the cache spans under ``policy``, by the resolver."""
+        rules = kv_rules(policy)
+        if cfg.mla is not None:          # the latent cache has no head axis
+            logical = ("kv_batch", "kv_seq", None)
+            dims = (B, S, cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim)
+        elif cfg.family == RWKV6:        # the state cache: (B, H, N, N)
+            logical = ("kv_batch", "state", None, None)
+            H = cfg.d_model // cfg.rwkv.head_dim
+            dims = (B, H, cfg.rwkv.head_dim, cfg.rwkv.head_dim)
+        else:
+            logical = ("kv_batch", "kv_seq", "kv_heads", "head_dim")
+            dims = (B, S, max(cfg.n_kv_heads, 1), cfg.resolved_head_dim())
+        spec = resolve_spec(logical, rules, axes, dims)
+        n = 1
+        for i in range(len(spec)):
+            for ax in spec.axes(i):
+                n *= axes[ax]
+        return n
+
+    candidates = {}
+    for policy in ("batch", "head", "sequence", "batch_seq"):
+        n = shards(policy)
+        candidates[policy] = (kv_bytes_per_seq(cfg, S) * B / (n * dev.bw), n)
+    order = {"batch": 0, "batch_seq": 1, "sequence": 2, "head": 3}
+    best = min(candidates, key=lambda p: (candidates[p][0], order[p]))
+    t_attn, n_shards = candidates[best]
+
+    t_linear = 2 * _active_params(cfg) * B / (n_chips * dev.flops)
+    t_linear = max(t_linear, _active_params(cfg) * BYTES_PER_EL / (n_chips * dev.bw))
+    # boundary: per-token q/k/v and output vectors over the links
+    Dh = cfg.resolved_head_dim()
+    bound = cfg.n_layers * B * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * Dh * BYTES_PER_EL
+    t_bound = bound / (n_chips * dev.net)
+
+    sub = 2 if min(t_linear, t_attn) > 0.2 * max(t_linear, t_attn) else 1
+    bottleneck = "attention" if t_attn >= t_linear else "linear"
+    return Plan(best, sub, t_linear, t_attn, t_bound, bottleneck, n_shards)
+
+
+def balancer_line(p: Plan) -> str:
+    """The serve CLI's ``balancer:`` line, the reference's format."""
+    return (f"balancer: policy={p.kv_policy} sub_batches={p.sub_batches} "
+            f"bottleneck={p.bottleneck} "
+            f"(t_att={p.t_attention*1e3:.2f}ms t_lin={p.t_linear*1e3:.2f}ms)")

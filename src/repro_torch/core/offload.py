@@ -1,30 +1,228 @@
 """Decode and prefill attention routed to the device that holds the data.
 
-Single-device counterpart of ``repro.core.offload`` (``decode_attention``,
+Counterpart of ``repro.core.offload`` (``decode_attention``,
 ``paged_decode_attention``, ``prefill_attention`` and
-``mla_decode_attention``).  On the TPU mesh
-that module split the KV cache into an "HPU layout"; on one GPU the
-cache is already where the attention runs, so what is left is the
-choice of implementation: the Hopper kernels for CUDA tensors, the
-model-level plain versions (``models/attention.py``, the reference
-engine's numerics) for CPU tensors.
+``mla_decode_attention``).  On one device the choice is only of the
+implementation: the Hopper kernels for CUDA tensors, the model-level
+plain versions (``models/attention.py``, the reference engine's
+numerics) for CPU tensors.
+
+On a mesh the reference splits the compute side and the KV cache
+differently (the paper's GPU/HPU split as a layout split): activations
+over ``pod``/``data`` by rows and ``model`` by heads, the cache as its
+policy says (``core.placement``), and GSPMD reshards the per-token q and
+the output at the boundary.  The port runs one process per rank and
+writes the boundary out (:class:`Placement`, :func:`placed_decode_attention`):
+a tensor moves between two layouts by gathering each dim this rank does
+not hold enough of over the axes it is split on, then slicing; the
+sequence policies run the kernel with its log-sum-exp over each rank's
+window and merge the gathered partials.  :class:`ShardedCache` is a
+cache of this rank's shards with the global extents they cut.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
+from repro_torch.core.placement import Env
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn
 
+Range = tuple[int, int]
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """One rank of ``mesh`` under ``env``: its part of every layout, and the
+    collectives between layouts.  ``specs`` is the model's resolved
+    parameter specs (the family reads its tensor-parallel axes there)."""
+    env: Env
+    mesh: object                     # launch.mesh.DeviceMesh
+    specs: dict
+
+    def part(self, axes: tuple[str, ...], n: int) -> Range:
+        """This rank's range of a dim of ``n`` split over ``axes``."""
+        k = self.mesh.size(axes)
+        i = self.mesh.index(axes)
+        return i * n // k, (i + 1) * n // k
+
+    def local_shape(self, spec, shape) -> tuple[int, ...]:
+        """The shape of this rank's shard of a whole ``shape`` under ``spec``."""
+        return tuple(hi - lo for lo, hi in (self.part(spec.axes(d), n)
+                                            for d, n in enumerate(shape)))
+
+    def take(self, x, spec):
+        """This rank's shard of a whole ``x`` (a tensor or an array) split
+        per dim as ``spec`` (a ``models.common.Spec``) says: views."""
+        for d in range(len(spec)):
+            lo, hi = self.part(spec.axes(d), x.shape[d])
+            x = x[(slice(None),) * d + (slice(lo, hi),)]
+        return x
+
+    def reduce(self, x: torch.Tensor, axes: tuple[str, ...]) -> torch.Tensor:
+        return collectives.all_reduce(x, self.mesh.group(axes))
+
+    def gather(self, x: torch.Tensor, dim: int, axes: tuple[str, ...]) -> torch.Tensor:
+        return collectives.all_gather(x, self.mesh.group(axes), dim)
+
+    def stack_all(self, xs: list[torch.Tensor], axes: tuple[str, ...]) -> list[torch.Tensor]:
+        """Every rank's ``xs`` stacked over ``axes``, each ``(n, *x.shape)``,
+        in one collective: flattened into one buffer of their common dtype
+        (a widening, exact both ways) and split again."""
+        group = self.mesh.group(axes)
+        if group is None:
+            return [x[None] for x in xs]
+        dt = functools.reduce(torch.promote_types, [x.dtype for x in xs])
+        flat = torch.cat([x.reshape(-1).to(dt) for x in xs])
+        stack = collectives.gather_stack(flat, group)
+        out, off = [], 0
+        for x in xs:
+            out.append(stack[:, off:off + x.numel()].reshape(-1, *x.shape).to(x.dtype))
+            off += x.numel()
+        return out
+
+    def reshard(self, x: torch.Tensor, src: list[tuple[str, ...]],
+                dst: list[tuple[tuple[str, ...], Range]], full: list[int]) -> torch.Tensor:
+        return self.reshard_all([x], src, [dst], [full])[0]
+
+    def reshard_all(self, xs: list[torch.Tensor], src: list[tuple[str, ...]],
+                    dsts: list[list[tuple[tuple[str, ...], Range]]],
+                    fulls: list[list[int]]) -> list[torch.Tensor]:
+        """Each ``x``, this rank's part of a tensor of shape ``full`` split
+        per dim over the axes ``src`` (the same for every x), moved to its
+        ``dst``: per dim the axes it is split over there (the same for
+        every x) and this rank's range (the part of those axes, or a range
+        inside it).  A dim is gathered over its ``src`` axes unless they
+        lead its ``dst`` axes (the new part then lies inside the one held):
+        a choice every rank of the group makes alike; the tensors are
+        gathered together, one collective a dim.  All gathers come before
+        any cut, since a cut dim would differ across the next gather's
+        group."""
+        have = [[self.part(a, n) for a, n in zip(src, full)] for full in fulls]
+        for d, (axes, _) in enumerate(dsts[0]):
+            if not self._leads(src[d], axes):
+                stacks = self.stack_all(xs, src[d])
+                xs = [torch.cat(st.unbind(0), dim=d) for st in stacks]
+                for h, full in zip(have, fulls):
+                    h[d] = (0, full[d])
+        out = []
+        for x, h, dst in zip(xs, have, dsts):
+            for d, (_, (lo, hi)) in enumerate(dst):
+                if (lo, hi) != h[d]:
+                    x = x.narrow(d, lo - h[d][0], hi - lo)
+            out.append(x)
+        return out
+
+    def _leads(self, a: tuple[str, ...], b: tuple[str, ...]) -> bool:
+        """Whether the live axes of ``a`` are a prefix of ``b``'s."""
+        a, b = self.mesh._live(a), self.mesh._live(b)
+        return b[:len(a)] == a
+
+    def split(self, axes: tuple[str, ...]) -> bool:
+        """Whether ``axes`` split a dim over more than one rank."""
+        return self.mesh.size(axes) > 1
+
+
+class ShardedCache(dict):
+    """This rank's shards of a dense cache (``k``/``v`` ``(L, b, s, h,
+    Dh)``, ``lengths`` ``(b,)``) of a global ``(batch, max_seq, n_kv)``:
+    rows ``rows`` split over ``row_axes``, positions ``seq`` over
+    ``seq_axes``, KV heads ``heads`` over ``head_axes``.  A slot's view
+    (:meth:`slot_view`) is a cache of one row, held by the rank that owns
+    it and empty elsewhere."""
+
+    def __init__(self, leaves: dict, *, batch: int, max_seq: int, n_kv: int, rows: Range,
+                 seq: Range, heads: Range, row_axes=(), seq_axes=(), head_axes=()):
+        super().__init__(leaves)
+        self.batch, self.max_seq, self.n_kv = batch, max_seq, n_kv
+        self.rows, self.seq, self.heads = rows, seq, heads
+        self.row_axes, self.seq_axes, self.head_axes = row_axes, seq_axes, head_axes
+
+    def local_row(self, row: int) -> int | None:
+        """The local index of global row ``row``, None when not held here."""
+        lo, hi = self.rows
+        return row - lo if lo <= row < hi else None
+
+    def slot_view(self, slot: int) -> "ShardedCache":
+        """Global row ``slot`` as a cache of one row, of views: writing into
+        it (a prefill) writes into this cache."""
+        i = self.local_row(slot)
+        n = 0 if i is None else 1
+        i = 0 if i is None else i
+        return ShardedCache({k: v.narrow(0 if k == "lengths" else 1, i, n)
+                             for k, v in self.items()},
+                            batch=1, max_seq=self.max_seq, n_kv=self.n_kv, rows=(0, n),
+                            seq=self.seq, heads=self.heads, seq_axes=self.seq_axes,
+                            head_axes=self.head_axes)
+
+
+def placed_decode_attention(place: Placement, cache: ShardedCache, layer: int,
+                            q: torch.Tensor, act: list[tuple[str, ...]],
+                            lengths: torch.Tensor) -> torch.Tensor:
+    """One decode step of attention in the cache's layout.
+
+    ``q`` is the query in the cache's layout (its rows, the query heads of
+    its KV heads: ``cache_layout``), ``lengths`` (its rows) counts the new
+    token; returns the output in the compute layout (rows over ``act[0]``,
+    heads over ``act[1]``).  The kernel runs on the local shard.  With the
+    positions split (the sequence and batch_seq policies) each rank
+    attends over its window ``[s0, s1)`` with the lengths clamped to it,
+    and the gathered ``(out, lse)`` partials are merged by log-sum-exp
+    (``ref.lse_merge``); a window a row has not reached is empty and
+    weighs 0.  On CUDA the window runs the decode kernel with its lse
+    output; on the CPU the plain version, whose windows first share their
+    maximum (one more all-reduce) so that it keeps the reference's
+    rounding of p."""
+    B, D = cache.batch, q.shape[2]
+    Hq = q.shape[1] * cache.n_kv // (cache.heads[1] - cache.heads[0])
+    k_l, v_l = cache["k"][layer], cache["v"][layer]
+    if not place.split(cache.seq_axes):
+        o = decode_attention(q, k_l, v_l, lengths)
+    else:
+        s0, s1 = cache.seq
+        window = (lengths - s0).clamp(0, s1 - s0)
+        if q.is_cuda:
+            o, lse = ops.decode_attention(q, k_l, v_l, window, return_lse=True)
+        else:
+            # the windows share their maximum, so that p rounds as in the
+            # reference's one softmax over the whole cache
+            m = attn.decode_scores(q, k_l, window).amax(dim=-1, keepdim=True)
+            m = collectives.all_reduce_max(m, place.mesh.group(cache.seq_axes))
+            o, lse = attn.decode_attention(q, k_l, v_l, window, m=m, return_lse=True)
+        os, lses = place.stack_all([o, lse], cache.seq_axes)
+        o = ref.lse_merge(list(zip(os.unbind(0), lses.unbind(0))))
+    dst = [(act[0], place.part(act[0], B)), (act[1], place.part(act[1], Hq)), ((), (0, D))]
+    return place.reshard(o, [cache.row_axes, cache.head_axes, ()], dst, [B, Hq, D])
+
+
+def cache_layout(cache: ShardedCache, n_heads: int, width: int) -> list:
+    """The ``dst`` of :meth:`Placement.reshard_all` for a ``(B, n_heads,
+    width)`` tensor into the cache's layout (a query's heads follow the KV
+    heads of their group)."""
+    g = n_heads // cache.n_kv
+    return [(cache.row_axes, cache.rows), (cache.head_axes,
+                                           (cache.heads[0] * g, cache.heads[1] * g)),
+            ((), (0, width))]
+
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     lengths: torch.Tensor, *, scale: float | None = None) -> torch.Tensor:
-    """q (B, Hq, D); caches (B, S, Hkv, D); lengths (B,) -> (B, Hq, D).
-    The kernel reads K and V in one dtype: a bf16 V beside an f32 K (the
-    dequantized ``kv_quant`` cache in float32 mode) is widened, exactly."""
+                     lengths: torch.Tensor, *, scale: float | None = None,
+                     return_lse: bool = False):
+    """q (B, Hq, D); caches (B, S, Hkv, D); lengths (B,) -> (B, Hq, D)
+    [, lse (B, Hkv, G) f32].  The kernel reads K and V in one dtype: a bf16
+    V beside an f32 K (the dequantized ``kv_quant`` cache in float32 mode)
+    is widened, exactly.  ``return_lse`` (a window of a cache split by
+    positions) takes the kernel's lse output on CUDA and its plain version
+    on the CPU."""
     if q.is_cuda:
         return ops.decode_attention(q, k_cache, v_cache.to(k_cache.dtype), lengths,
-                                    scale=scale)
+                                    scale=scale, return_lse=return_lse)
+    if return_lse:
+        return ref.naive_decode_attention(q, k_cache, v_cache, lengths, scale=scale,
+                                          return_lse=True)
     return attn.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
 
 

@@ -35,7 +35,13 @@
 //    (common.cuh, shared with the paged kernel) merges the n_split
 //    partials of each (b, h) and divides by max(l, 1e-30), so a row of
 //    length 0 gives 0.  Both merges are common.cuh's lse_combine.  With
-//    n_split = 1 the CTA writes the output itself.
+//    n_split = 1 the CTA writes the output itself;
+//  * on request the row's log-sum-exp, lse = M + log(max(L, 1e-30)) of
+//    the natural-log maximum M and the denominator L, goes to lse (B, Hkv,
+//    G) f32, written by the merge or, with n_split = 1, by the CTA: the
+//    sequence placement policies run the kernel over each rank's window of
+//    positions and merge the windows by it.  A row whose window is empty
+//    gives out 0 and lse <= -1e30 (weight 0 in that merge), never NaN.
 //
 // decode_split_mma_kernel (bf16 queries over a bf16 cache: every serving
 // path): the G heads are the rows of an mma.sync m16n8k16 tile (zero rows
@@ -99,9 +105,9 @@ template <typename TQ, typename TKV, int PW>
 __global__ void __launch_bounds__(THREADS)
 decode_split_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                         const TKV* __restrict__ v, const int* __restrict__ lengths,
-                        TQ* __restrict__ out, float* __restrict__ ws, int S, int Hkv, int G,
-                        int D, long long k_sb, long long k_ss, long long v_sb,
-                        long long v_ss, float scale, int split, int n_split) {
+                        TQ* __restrict__ out, float* __restrict__ lse, float* __restrict__ ws,
+                        int S, int Hkv, int G, int D, long long k_sb, long long k_ss,
+                        long long v_sb, long long v_ss, float scale, int split, int n_split) {
   constexpr int LPP = 32 / PW;               // lanes per position in the score pass
   constexpr int VN = Vec<TKV>::N;
   constexpr int T = WARPS * PW;              // positions per tile of the CTA
@@ -120,6 +126,7 @@ decode_split_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     for (int e = tid; e < GD; e += THREADS) {
       if (n_split == 1) {
         out[row * GD + e] = from_float<TQ>(0.f);
+        if (lse != nullptr && e < G) lse[row * G + e] = NEG_INF + logf(1e-30f);
       } else {
         ws_o[e] = 0.f;
         if (e < G) {
@@ -259,6 +266,7 @@ decode_split_fma_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     const float O = lse_combine(wm + g, wl + g, G, wo + e, GD, WARPS, M, L);
     if (n_split == 1) {
       out[row * GD + e] = from_float<TQ>(O / fmaxf(L, 1e-30f));
+      if (lse != nullptr && e - g * D == 0) lse[row * G + g] = M + logf(fmaxf(L, 1e-30f));
     } else {
       ws_o[e] = O;
       if (e - g * D == 0) {
@@ -286,9 +294,10 @@ __global__ void __launch_bounds__(THREADS)
 decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
-                        __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int S, int Hkv,
-                        int G, int D, long long k_sb, long long k_ss, long long v_sb,
-                        long long v_ss, float scale, int split, int n_split) {
+                        __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                        float* __restrict__ ws, int S, int Hkv, int G, int D, long long k_sb,
+                        long long k_ss, long long v_sb, long long v_ss, float scale, int split,
+                        int n_split) {
   using bf16 = __nv_bfloat16;
   constexpr int LD = DP + 8;
   constexpr int KSTEPS = DP / 16;
@@ -309,6 +318,7 @@ decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = tid; e < GD; e += THREADS) {
       if (n_split == 1) {
         out[row * GD + e] = __float2bfloat16(0.f);
+        if (lse != nullptr && e < G) lse[row * G + e] = NEG_INF + logf(1e-30f);
       } else {
         ws_o[e] = 0.f;
         if (e < G) {
@@ -412,6 +422,7 @@ decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const float O = lse_combine(wm + g, wl + g, MAX_G, wo0 + e, NK * LD, WARPS, M, L);
     if (n_split == 1) {
       out[row * GD + e] = __float2bfloat16(O / fmaxf(L, 1e-30f));
+      if (lse != nullptr && e - g * D == 0) lse[row * G + g] = M + logf(fmaxf(L, 1e-30f));
     } else {
       ws_o[e] = O;
       if (e - g * D == 0) {
@@ -424,9 +435,9 @@ decode_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <typename TQ, typename TKV, int PW>
 int launch_split(const void* q, const void* k, const void* v, const void* lengths,
-                 void* out, void* ws, int B, int S, int Hkv, int G, int D, long long k_sb,
-                 long long k_ss, long long v_sb, long long v_ss, float scale, int split,
-                 int n_split, cudaStream_t st) {
+                 void* out, float* lse, void* ws, int B, int S, int Hkv, int G, int D,
+                 long long k_sb, long long k_ss, long long v_sb, long long v_ss, float scale,
+                 int split, int n_split, cudaStream_t st) {
   const size_t smem = smem_bytes<TKV>(G, D, PW);
   static std::atomic<size_t> allowed{0};
   const cudaError_t err = allow_smem(
@@ -434,16 +445,16 @@ int launch_split(const void* q, const void* k, const void* v, const void* length
   if (err != cudaSuccess) return (int)err;
   decode_split_fma_kernel<TQ, TKV, PW><<<dim3(Hkv, B, n_split), THREADS, smem, st>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      static_cast<const int*>(lengths), static_cast<TQ*>(out), static_cast<float*>(ws), S,
-      Hkv, G, D, k_sb, k_ss, v_sb, v_ss, scale, split, n_split);
+      static_cast<const int*>(lengths), static_cast<TQ*>(out), lse, static_cast<float*>(ws),
+      S, Hkv, G, D, k_sb, k_ss, v_sb, v_ss, scale, split, n_split);
   return (int)cudaGetLastError();
 }
 
 template <int DP>
 int launch_mma(const void* q, const void* k, const void* v, const void* lengths, void* out,
-               void* ws, int B, int S, int Hkv, int G, int D, long long k_sb, long long k_ss,
-               long long v_sb, long long v_ss, float scale, int split, int n_split,
-               cudaStream_t st) {
+               float* lse, void* ws, int B, int S, int Hkv, int G, int D, long long k_sb,
+               long long k_ss, long long v_sb, long long v_ss, float scale, int split,
+               int n_split, cudaStream_t st) {
   const size_t smem = mma_smem_bytes(DP);
   static std::atomic<size_t> allowed{0};
   const cudaError_t err =
@@ -452,8 +463,8 @@ int launch_mma(const void* q, const void* k, const void* v, const void* lengths,
   decode_split_mma_kernel<DP><<<dim3(Hkv, B, n_split), THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), S, Hkv, G, D, k_sb, k_ss,
-      v_sb, v_ss, scale, split, n_split);
+      static_cast<__nv_bfloat16*>(out), lse, static_cast<float*>(ws), S, Hkv, G, D, k_sb,
+      k_ss, v_sb, v_ss, scale, split, n_split);
   return (int)cudaGetLastError();
 }
 
@@ -461,8 +472,8 @@ int launch_mma(const void* q, const void* k, const void* v, const void* lengths,
 // cores), then the merge of the partials when there are several spans.
 template <typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, const void* lengths, void* out,
-           void* ws, int B, int S, int Hkv, int G, int D, long long k_sb, long long k_ss,
-           long long v_sb, long long v_ss, float scale, int split, int n_split,
+           float* lse, void* ws, int B, int S, int Hkv, int G, int D, long long k_sb,
+           long long k_ss, long long v_sb, long long v_ss, float scale, int split, int n_split,
            cudaStream_t st) {
   if (D % Vec<TKV>::N || split < 1 || n_split < 1 || (n_split > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -470,20 +481,20 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
   if constexpr (std::is_same<TQ, __nv_bfloat16>::value &&
                 std::is_same<TKV, __nv_bfloat16>::value) {
 #define REPRO_MMA(DP)                                                                     \
-  launch_mma<DP>(q, k, v, lengths, out, ws, B, S, Hkv, G, D, k_sb, k_ss, v_sb, v_ss, scale, \
-                 split, n_split, st)
+  launch_mma<DP>(q, k, v, lengths, out, lse, ws, B, S, Hkv, G, D, k_sb, k_ss, v_sb, v_ss, \
+                 scale, split, n_split, st)
     err = D <= 32 ? REPRO_MMA(32) : D <= 64 ? REPRO_MMA(64) : REPRO_MMA(128);
 #undef REPRO_MMA
   } else {
     err = slab_positions<TKV>(D) == 32
-        ? launch_split<TQ, TKV, 32>(q, k, v, lengths, out, ws, B, S, Hkv, G, D, k_sb, k_ss,
-                                    v_sb, v_ss, scale, split, n_split, st)
-        : launch_split<TQ, TKV, 16>(q, k, v, lengths, out, ws, B, S, Hkv, G, D, k_sb, k_ss,
-                                    v_sb, v_ss, scale, split, n_split, st);
+        ? launch_split<TQ, TKV, 32>(q, k, v, lengths, out, lse, ws, B, S, Hkv, G, D, k_sb,
+                                    k_ss, v_sb, v_ss, scale, split, n_split, st)
+        : launch_split<TQ, TKV, 16>(q, k, v, lengths, out, lse, ws, B, S, Hkv, G, D, k_sb,
+                                    k_ss, v_sb, v_ss, scale, split, n_split, st);
   }
   if (err != (int)cudaSuccess || n_split == 1) return err;
   span_combine_kernel<TQ><<<dim3(Hkv, B), COMBINE_THREADS, 0, st>>>(
-      static_cast<const float*>(ws), static_cast<TQ*>(out), nullptr, Hkv, G, D, n_split);
+      static_cast<const float*>(ws), static_cast<TQ*>(out), lse, Hkv, G, D, n_split);
   return (int)cudaGetLastError();
 }
 
@@ -491,12 +502,14 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
 
 // q (B, Hkv*G, D) contiguous; k/v (B, S, Hkv, D) with unit stride in D and
 // stride D between heads, batch/sequence strides given in elements;
-// lengths (B,) int32; out (B, Hkv*G, D) contiguous, of q's type.  CTA z
-// of a row takes positions [z * split, (z + 1) * split); with n_split > 1,
-// ws holds B * Hkv * n_split * G * (D + 2) f32 and a second kernel merges
-// the partials.  Launches on `stream` and returns cudaGetLastError().
+// lengths (B,) int32; out (B, Hkv*G, D) contiguous, of q's type; lse (B,
+// Hkv, G) f32 or null (not written).  CTA z of a row takes positions
+// [z * split, (z + 1) * split); with n_split > 1, ws holds B * Hkv *
+// n_split * G * (D + 2) f32 and a second kernel merges the partials (and
+// writes lse).  Launches on `stream` and returns cudaGetLastError().
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
-                                       const void* lengths, void* out, void* ws, int B,
+                                       const void* lengths, void* out, void* lse, void* ws,
+                                       int B,
                                        int S, int Hkv, int G, int D, long long k_sb,
                                        long long k_ss, long long v_sb, long long v_ss,
                                        float scale, int split, int n_split, int q_dtype,
@@ -505,8 +518,8 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   if (B < 1 || Hkv < 1) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_LAUNCH(TQ, TKV)                                                              \
-  launch<TQ, TKV>(q, k, v, lengths, out, ws, B, S, Hkv, G, D, k_sb, k_ss, v_sb, v_ss, scale, \
-                  split, n_split, st)
+  launch<TQ, TKV>(q, k, v, lengths, out, static_cast<float*>(lse), ws, B, S, Hkv, G, D, k_sb, \
+                  k_ss, v_sb, v_ss, scale, split, n_split, st)
   if (q_dtype == BF16 && kv_dtype == BF16) return REPRO_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (q_dtype == F32 && kv_dtype == BF16) return REPRO_LAUNCH(float, __nv_bfloat16);
   if (q_dtype == F32 && kv_dtype == F32) return REPRO_LAUNCH(float, float);

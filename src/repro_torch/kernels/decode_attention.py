@@ -6,7 +6,9 @@ CUDA tensors and raises on anything it does not take; ``plain`` is the
 same function in PyTorch (``ref.naive_decode_attention``).  The kernel
 reads the cache in its model layout ``(B, S, Hkv, D)`` through strides —
 no transpose, no padding of S — and splits the sequence across CTAs
-(:func:`plan_split`), merging the partials by log-sum-exp.
+(:func:`plan_split`), merging the partials by log-sum-exp.  On request
+it also returns each row's log-sum-exp (``return_lse``): the sequence
+placement policies run it over each rank's window and merge by it.
 """
 from __future__ import annotations
 
@@ -43,8 +45,10 @@ def plan_split(S: int, rows: int, sms: int = H100_SMS) -> tuple[int, int]:
     return split, max(1, -(-S // split))
 
 
-def plain(q, k_cache, v_cache, lengths, *, scale: float | None = None):
-    return ref.naive_decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+def plain(q, k_cache, v_cache, lengths, *, scale: float | None = None,
+          return_lse: bool = False):
+    return ref.naive_decode_attention(q, k_cache, v_cache, lengths, scale=scale,
+                                      return_lse=return_lse)
 
 
 def _lib():
@@ -54,7 +58,7 @@ def _lib():
     fn = lib.decode_attention_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i64, i64, i64, i64,
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i64, i64, i64, i64,
                        ctypes.c_float, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
@@ -73,10 +77,13 @@ def _check_operand(name: str, x: torch.Tensor, D: int, vec: int) -> None:
         raise ValueError(f"{name}: needs 16-byte aligned rows for vector loads")
 
 
-def kernel(q, k_cache, v_cache, lengths, *, scale: float | None = None):
+def kernel(q, k_cache, v_cache, lengths, *, scale: float | None = None,
+           return_lse: bool = False):
     """q (B, Hq, D), k/v (B, S, Hkv, D), lengths (B,) -> (B, Hq, D) on the
-    GPU, in q's dtype.  Positions at or past ``min(lengths[b], S)`` are
-    masked.  q and the cache may differ in dtype (f32 activations over a
+    GPU, in q's dtype, and with ``return_lse`` lse (B, Hkv, G) f32, the
+    natural log-sum-exp of each row's scaled scores (a row with no
+    position gives out 0 and lse <= -1e30).  Positions at or past
+    ``min(lengths[b], S)`` are masked.  q and the cache may differ in dtype (f32 activations over a
     bf16 cache).  bf16 queries over a bf16 cache run on the tensor cores;
     the other pairs (float32 mode) on f32 FMA.
 
@@ -112,16 +119,19 @@ def kernel(q, k_cache, v_cache, lengths, *, scale: float | None = None):
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    lse = (torch.empty(B, Hkv, G, dtype=torch.float32, device=q.device)
+           if return_lse else None)
     split, n_split = plan_split(S, B * Hkv, sm_count(q.device))
     ws = (torch.empty(B * Hkv * n_split * G * (D + 2), dtype=torch.float32,
                       device=q.device) if n_split > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+                 lengths.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+                 None if ws is None else ws.data_ptr(),
                  B, S, Hkv, G, D, k_cache.stride(0), k_cache.stride(1), v_cache.stride(0),
                  v_cache.stride(1), scale, split, n_split, _DTYPES[q.dtype],
                  _DTYPES[k_cache.dtype], stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
-    COUNTER.count("unscaled", heads(Hkv, G, D))
-    return out
+    COUNTER.count("lse" if return_lse else "unscaled", heads(Hkv, G, D))
+    return (out, lse) if return_lse else out

@@ -90,10 +90,12 @@ def decode_attention(
     v_cache: torch.Tensor,  # (B, S, Hkv, D)
     lengths: torch.Tensor,  # (B,)
     scale: float | None = None,
-) -> torch.Tensor:
-    if _on_cpu(q, "decode_attention"):
-        return _decode.plain(q, k_cache, v_cache, lengths, scale=scale)
-    return _decode.kernel(q, k_cache, v_cache, lengths, scale=scale)
+    return_lse: bool = False,
+):
+    """``return_lse`` also returns the per-row log-sum-exp (B, Hkv, G) f32
+    (counted as the kernel's ``"lse"`` variant)."""
+    fn = _decode.plain if _on_cpu(q, "decode_attention") else _decode.kernel
+    return fn(q, k_cache, v_cache, lengths, scale=scale, return_lse=return_lse)
 
 
 def paged_decode_attention(

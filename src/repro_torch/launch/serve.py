@@ -70,10 +70,20 @@ Observability, with the reference's flags and defaults:
   ``--trace``, else off);
 * ``--dashboard N`` prints a terminal snapshot every N rounds.
 
-It prints the reference's ``workload:``, stats, ``spec:``, latency,
-``pool:``, ``kv tier:``, SLO and ``measured`` lines, and for a cluster its
-``cluster:``, ``disagg:`` and ``pool[r{i}]:`` lines; the balancer line
-comes with multi-device placement.
+It prints the reference's ``balancer:`` line (before the load),
+``workload:``, stats, ``spec:``, latency, ``pool:``, ``kv tier:``, SLO and
+``measured`` lines, and for a cluster its ``cluster:``, ``disagg:`` and
+``pool[r{i}]:`` lines.
+
+Under ``torchrun`` (``torchrun --nproc-per-node N -m
+repro_torch.launch.serve ...``) the world is a ``(data, model)`` mesh
+(``launch.mesh.make_host_mesh``) and the model is placed on it with the
+balancer's KV policy, as the reference builds its ``Env``: every rank
+runs the same schedule on its shards (dense cache, decode-only, eagerly:
+gloo collectives cannot be captured in a CUDA graph) and rank 0 reports.
+A paged, hybrid, speculative, tiered, clustered or sub-batched run, or
+a family other than the dense one, is refused on a world above 1: those
+wait for later slices.
 """
 from __future__ import annotations
 
@@ -84,8 +94,12 @@ import time
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import SHAPES
 from repro_torch.configs.reduced import reduce_config
+from repro_torch.core import balance
 from repro_torch.core.oi import DEVICES
+from repro_torch.core.placement import Env
+from repro_torch.launch.mesh import DeviceMesh, make_host_mesh, mesh_axes, rank_device, world
 from repro_torch.models.registry import Model, build_model
 from repro_torch.serving.cluster import ROUTE_POLICIES, Cluster, parse_roles
 from repro_torch.serving.engine import Engine, EngineStats
@@ -207,10 +221,33 @@ def make_sampler(args) -> tuple[str, SamplerConfig]:
                                top_k=args.top_k if mode == "top-k" else 0)
 
 
-def load_model(args) -> tuple[Model, dict]:
-    cfg = reduce_config(args.arch) if args.reduced else get_config(args.arch)
-    model = build_model(cfg, args.device)
+def load_config(args):
+    return reduce_config(args.arch) if args.reduced else get_config(args.arch)
+
+
+def load_model(args, env: Env | None = None, mesh: DeviceMesh | None = None
+               ) -> tuple[Model, dict]:
+    """The model of ``args`` and its random weights from ``--seed``; with
+    ``env`` on a mesh, placed, each rank keeping its shards."""
+    model = build_model(load_config(args), args.device, env, mesh)
     return model, model.init(args.seed)
+
+
+def place(args, cfg) -> tuple[DeviceMesh, Env, str]:
+    """The launcher's world as a mesh, the balancer's plan on it, and the
+    ``Env`` the reference builds from them (``axes`` empty on one rank):
+    ``(mesh, env, balancer line)``.  A world above 1 takes this rank's
+    device into ``args.device``; what placement does not serve yet is
+    refused where the model is built (the family, the int8 cache) and
+    where its engine is (the rest)."""
+    mesh = make_host_mesh(device=args.device)
+    axes = mesh_axes(mesh)
+    plan = balance.plan(cfg, SHAPES["decode_32k"], axes)
+    n = world()[1]
+    if n > 1:
+        args.device = str(rank_device(args.device))
+    return mesh, Env(axes=axes if n > 1 else {}, kv_policy=plan.kv_policy), \
+        balance.balancer_line(plan)
 
 
 @dataclasses.dataclass
@@ -440,9 +477,14 @@ def write_outputs(args, res: ServeResult) -> list[str]:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    model, params = load_model(args)
+    mesh, env, line = place(args, load_config(args))
+    rank0 = world()[0] == 0
+    if rank0:
+        print(line)
+    model, params = load_model(args, env, mesh)
     res = serve(args, model, params)
-    for line in report(args, res) + write_outputs(args, res):
+    lines = report(args, res) + write_outputs(args, res) if rank0 else []
+    for line in lines:
         print(line)
 
 

@@ -25,7 +25,7 @@ peak device memory.  Every family trains; seamless-m4t-medium's loss
 reads ``src_embeds``, which the synthetic batches lack, so it fails
 with the reference's KeyError and trains at model level
 (``training.trainer.make_train_step``).  ``--model-parallel`` above 1
-needs placement (queue 1 item 9).
+needs training placement (queue 1 item 9a).
 
 One difference from the reference: before it restarts, the supervisor
 waits for the checkpoint being written, so a failure right after a save
@@ -97,7 +97,7 @@ def run(args: argparse.Namespace, echo: bool = True) -> TrainResult:
     and times."""
     if args.model_parallel > 1:
         raise NotImplementedError("--model-parallel > 1 needs placement on a mesh "
-                                  "(ROADMAP queue 1 item 9)")
+                                  "(ROADMAP queue 1 item 9a)")
     lines: list[str] = []
 
     def say(line: str) -> None:

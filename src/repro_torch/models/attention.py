@@ -82,6 +82,20 @@ def chunked_attention(
     return out.reshape(B, Sq, Hq, Dv).to(q.dtype)
 
 
+def decode_scores(q: torch.Tensor, k_cache: torch.Tensor, lengths: torch.Tensor, *,
+                  scale: float | None = None) -> torch.Tensor:
+    """The scaled scores of one query token, f32 ``(B, Hkv, G, S)``,
+    ``-inf`` at or past ``lengths``: q·scale rounded to the working dtype
+    before the product, as the reference casts."""
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k_cache.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qf = (q.float() * scale).to(q.dtype).float().reshape(B, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float())
+    mask = (torch.arange(S, device=q.device)[None] < lengths[:, None])[:, None, None]
+    return s.masked_fill(~mask, float("-inf"))
+
+
 def decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -89,30 +103,38 @@ def decode_attention(
     lengths: torch.Tensor,
     *,
     scale: float | None = None,
-) -> torch.Tensor:
+    m: torch.Tensor | None = None,
+    return_lse: bool = False,
+):
     """One-token attention against a partially filled KV cache.
 
     q (B, Hq, D); caches (B, S, Hkv, D); lengths (B,).  The new token's
     K/V must already be in the cache at index ``lengths - 1``.  Mirrors
     the reference's casts: q·scale is rounded to the working dtype before
     the product, and p is cast to the cache dtype before P·V; both
-    products accumulate in f32."""
-    B, Hq, D = q.shape
-    _, S, Hkv, _ = k_cache.shape
+    products accumulate in f32.
+
+    ``m`` (B, Hkv, G, 1), when given, is the maximum the softmax
+    subtracts instead of the row's own: a window of a cache split by
+    positions passes the maximum over every window, so that p rounds as
+    in one softmax over the whole cache.  ``return_lse`` also returns the
+    window's log-sum-exp (B, Hkv, G) f32, <= -1e30 for a row with no
+    position, for the merge of the windows."""
+    B, Hq, _ = q.shape
     Dv = v_cache.shape[-1]
-    G = Hq // Hkv
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    qf = (q.float() * scale).to(q.dtype).float().reshape(B, Hkv, G, D)
-    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float())
-    mask = (torch.arange(S, device=q.device)[None] < lengths[:, None])[:, None, None]
-    s = s.masked_fill(~mask, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
+    s = decode_scores(q, k_cache, lengths, scale=scale)
+    mask = torch.isfinite(s)
+    if m is None:
+        m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m).masked_fill(~mask, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     pv = p.to(v_cache.dtype).float()
     o = torch.einsum("bhgk,bkhd->bhgd", pv, v_cache.float())
-    o = o / l.clamp_min(1e-30)
-    return o.reshape(B, Hq, Dv).to(q.dtype)
+    o = (o / l.clamp_min(1e-30)).reshape(B, Hq, Dv).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), -1e30)
+    return o, lse[..., 0]
 
 
 def mla_decode_attention(

@@ -6,7 +6,8 @@ The tests build weights with the JAX package, convert them with
 key for key.  numpy has no native bfloat16; arrays of the ``ml_dtypes``
 bfloat16 dtype that JAX hands out are widened to f32 (exact) and cast
 back, which is exact too.  :func:`state_from_numpy` carries a whole train
-state the same way.
+state the same way, and :func:`shards_from_numpy` a placed model's weights:
+each rank keeps only its shard of every (whole) array.
 """
 from __future__ import annotations
 
@@ -47,3 +48,18 @@ def state_from_numpy(tree: Pytree, device: str | torch.device = "cpu") -> Pytree
     if missing or {"m", "v", "step"} - set(tree["opt"]):
         raise KeyError(f"not a train state: keys {sorted(tree)}")
     return params_from_numpy(tree, device)
+
+
+def shards_from_numpy(tree: Pytree, model, dtype: torch.dtype | None = None) -> Pytree:
+    """Whole numpy weights -> this rank's shards for a placed ``model``
+    (``build_model(..., env, mesh)``), on its device: each array is cut
+    to the rank's part under ``model.param_specs()`` before it is copied,
+    so a rank holds only its slice."""
+    place, specs = model.placement, model.param_specs()
+
+    def go(t, sp):
+        if isinstance(t, dict):
+            return {k: go(v, sp[k]) for k, v in t.items()}
+        return _tensor(place.take(np.asarray(t), sp), model.device, dtype)
+
+    return go(tree, specs)

@@ -2,7 +2,9 @@
 
 Counterpart of ``repro.models.common``.  Parameters are nested dicts of
 tensors; every family defines its tree once as :class:`ParamDef` leaves
-and :func:`init_params` samples it.  Layouts follow the JAX package
+and :func:`init_params` samples it; :func:`resolve_spec` and
+:func:`resolve_param_spec` map a leaf's logical axes to the mesh axes it
+is split over (a :class:`Spec`).  Layouts follow the JAX package
 (weights ``(d_in, ..., d_out)``, activations ``(B, S, H, D)``) so the
 tests compare like with like.
 """
@@ -75,11 +77,12 @@ def _fill_normal(dst: torch.Tensor, std: float, generator: torch.Generator) -> N
 
 
 def init_params(tree: Pytree, generator: torch.Generator, dtype: torch.dtype,
-                device: torch.device) -> Pytree:
+                device: torch.device, take=None) -> Pytree:
     """Sample every ParamDef leaf from ``generator`` (a seeded
     ``torch.Generator`` on ``device``).  Same distributions as the
     reference; not the same numbers, since torch cannot reproduce
-    ``jax.random``."""
+    ``jax.random``.  ``take(path, leaf)``, when given, keeps a part of
+    each whole leaf (a rank's shard): every rank draws the same numbers."""
     out: dict = {}
     for path, defn in _leaves(tree):
         node = out
@@ -91,12 +94,129 @@ def init_params(tree: Pytree, generator: torch.Generator, dtype: torch.dtype,
         else:
             val = torch.empty(defn.shape, dtype=dtype, device=device)
             _fill_normal(val, _std(defn), generator)
-        node[path[-1]] = val
+        node[path[-1]] = val if take is None else take(path, val)
     return out
 
 
 def count_params(tree: Pytree) -> int:
     return sum(math.prod(d.shape) for _, d in _leaves(tree))
+
+
+def map_defs(fn, tree: Pytree) -> Pytree:
+    """``fn`` applied to every ParamDef leaf of ``tree``, the nesting kept."""
+    if isinstance(tree, ParamDef):
+        return fn(tree)
+    return {k: map_defs(fn, v) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# logical -> mesh spec resolution (``repro.models.common``'s resolver)
+# ---------------------------------------------------------------------------
+class Spec(tuple):
+    """The port's ``PartitionSpec``: one entry per leading dim, each None
+    (whole), a mesh-axis name, or a tuple of them (the dim split over their
+    product, the first axis major); trailing whole dims are dropped."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"Spec{tuple.__repr__(self)}"
+
+    def axes(self, dim: int) -> tuple[str, ...]:
+        """The mesh axes dim ``dim`` is split over (``()`` when whole)."""
+        part = self[dim] if dim < len(self) else None
+        if part is None:
+            return ()
+        return part if isinstance(part, tuple) else (part,)
+
+
+# default rules; core.placement builds policy-specific variants
+DEFAULT_RULES: dict[str, tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "vocab": ("model",),
+    "mlp": ("model",),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "experts": ("model",),
+    "kv_batch": ("pod", "data"),
+    "kv_seq": (),
+    "embed": (),
+    "head_dim": (),
+    "seq": (),
+    "layers": (),
+    "state": (),
+}
+
+
+def resolve_spec(logical: tuple[str | None, ...], rules: dict[str, tuple[str, ...]],
+                 mesh_axes: dict[str, int], shape: tuple[int, ...] | None = None) -> Spec:
+    """Map logical axes to a :class:`Spec`: each named axis takes the mesh
+    axes its rule lists that the mesh has, a mesh axis at most once over
+    all dims.  With ``shape``, an axis that would not divide its dim evenly
+    (with the axes kept before it) is dropped."""
+    parts: list[Any] = []
+    used: set[str] = set()
+    for i, name in enumerate(logical):
+        if name is None or name not in rules:
+            parts.append(None)
+            continue
+        axes = tuple(a for a in rules[name] if a in mesh_axes and a not in used)
+        if shape is not None:
+            kept, prod = [], 1
+            for a in axes:
+                if shape[i] > 0 and shape[i] % (prod * mesh_axes[a]) == 0:
+                    kept.append(a)
+                    prod *= mesh_axes[a]
+            axes = tuple(kept)
+        if not axes:
+            parts.append(None)
+            continue
+        used.update(axes)
+        parts.append(axes if len(axes) > 1 else axes[0])
+    while parts and parts[-1] is None:
+        parts.pop()
+    return Spec(*parts)
+
+
+def _spec_axes(spec: Spec) -> set[str]:
+    return {a for i in range(len(spec)) for a in spec.axes(i)}
+
+
+def resolve_param_spec(defn: ParamDef, rules: dict[str, tuple[str, ...]],
+                       mesh_axes: dict[str, int]) -> Spec:
+    """:func:`resolve_spec` with the reference's row-parallel fallback: a
+    weight of 2^20 elements or more that loses its ``model`` split to
+    divisibility is split over ``model`` on its first ``embed``, ``mlp``
+    or ``vocab`` dim that divides instead."""
+    spec = resolve_spec(defn.logical, rules, mesh_axes, defn.shape)
+    if "model" not in mesh_axes or math.prod(defn.shape) < (1 << 20):
+        return spec
+    if "model" in _spec_axes(spec):
+        return spec
+    parts = list(spec) + [None] * (len(defn.shape) - len(spec))
+    for i, name in enumerate(defn.logical):
+        if (name in ("embed", "mlp", "vocab") and parts[i] is None
+                and defn.shape[i] % mesh_axes["model"] == 0):
+            parts[i] = "model"
+            while parts and parts[-1] is None:
+                parts.pop()
+            return Spec(*parts)
+    return spec
+
+
+def specs_for(defs: Pytree, rules: dict[str, tuple[str, ...]], mesh_axes: dict[str, int],
+              params: bool = False) -> Pytree:
+    """The :class:`Spec` of every ParamDef leaf (``params``: with the
+    weights' fallback, :func:`resolve_param_spec`)."""
+    if params:
+        return map_defs(lambda d: resolve_param_spec(d, rules, mesh_axes), defs)
+    return map_defs(lambda d: resolve_spec(d.logical, rules, mesh_axes, d.shape), defs)
+
+
+def mesh_axis_sizes(mesh) -> dict[str, int]:
+    """``{axis name: size}`` of a mesh (``launch.mesh.DeviceMesh``)."""
+    return dict(zip(mesh.axis_names, mesh.shape))
 
 
 # ---------------------------------------------------------------------------

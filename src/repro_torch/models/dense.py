@@ -16,7 +16,9 @@ a stub frontend's ``embeds``, which take cache positions.  Layers are
 stacked on a leading dim as in the reference and iterated with a Python
 loop.  Attention goes through
 ``core.offload``: the Hopper kernels on the GPU, the plain versions on
-the CPU.
+the CPU.  On a mesh (a ``core.offload.Placement`` bound in by the
+registry) ``prefill``, ``decode_step`` and ``decode_sample_step`` run
+tensor parallel over a ``ShardedCache`` (the section at the end).
 
 The KV cache is updated **in place** (``k[l].index_put_``, slice
 copies), where the reference builds a new cache with ``.at[].set``; the
@@ -26,11 +28,13 @@ or skips on the host or with masks, never with a host sync.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
 
 from repro_torch.core import offload
+from repro_torch.core.offload import Placement, ShardedCache
 from repro_torch.kernels import ref
 from repro_torch.models import common as cm
 from repro_torch.models.common import ParamDef
@@ -93,11 +97,22 @@ def cache_defs(cfg, batch: int, max_seq: int) -> Pytree:
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device: torch.device | str = "cpu") -> Pytree:
+               device: torch.device | str = "cpu", *, place: Placement | None = None) -> Pytree:
     """Zeroed dense cache: ``k``/``v`` in ``dtype``, or with ``kv_quant``
     int8 with bf16 ``k_scale``/``v_scale`` (whatever ``dtype``, as in the
-    reference)."""
+    reference).  On a mesh (``place``) a :class:`ShardedCache` of this
+    rank's shards in the KV policy's layout, allocated at their shape."""
     defs = cache_defs(cfg, batch, max_seq)
+    if place is not None:
+        specs = {k: place.env.kv_spec(d.logical, d.shape) for k, d in defs.items()}
+        sp = specs["k"]
+        parts = [place.part(sp.axes(i), n) for i, n in enumerate(defs["k"].shape)]
+        return ShardedCache({k: torch.zeros(place.local_shape(specs[k], d.shape),
+                                            dtype=dtype if k != "lengths" else torch.int32,
+                                            device=device) for k, d in defs.items()},
+                            batch=batch, max_seq=max_seq, n_kv=cfg.n_kv_heads, rows=parts[1],
+                            seq=parts[2], heads=parts[3], row_axes=sp.axes(1),
+                            seq_axes=sp.axes(2), head_axes=sp.axes(3))
     if cfg.kv_quant:
         dt = {"k": torch.int8, "v": torch.int8, "k_scale": torch.bfloat16,
               "v_scale": torch.bfloat16}
@@ -318,15 +333,17 @@ def _embed(params, tokens: torch.Tensor, embeds: torch.Tensor | None):
     return x, torch.arange(S, device=x.device).expand(B, S)
 
 
-def _attn(cfg, p, x: torch.Tensor, positions: torch.Tensor):
+def _attn(cfg, p, x: torch.Tensor, positions: torch.Tensor, reduce=None):
     """The pre-norm causal attention sublayer of a whole sequence (prefill
-    and training): ``(x + attention, k, v)``."""
+    and training): ``(x + attention, k, v)``.  On a mesh ``reduce`` sums
+    the row-parallel output projection's partials over the heads' axes."""
     h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
     q = cm.rope(cm.linear(h, p["wq"]), positions, cfg.rope_theta)
     k = cm.rope(cm.linear(h, p["wk"]), positions, cfg.rope_theta)
     v = cm.linear(h, p["wv"])
     o = offload.prefill_attention(q, k, v)
-    return x + cm.linear(o, p["wo"], n_in=2), k, v
+    out = cm.linear(o, p["wo"], n_in=2)
+    return x + (out if reduce is None else reduce(out)), k, v
 
 
 def _block_train(cfg, p, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -362,7 +379,7 @@ def loss_fn(cfg, params, batch: dict) -> tuple[torch.Tensor, dict]:
 # prefill
 # ---------------------------------------------------------------------------
 def prefill(cfg, params, tokens: torch.Tensor, cache: Pytree,
-            embeds: torch.Tensor | None = None):
+            embeds: torch.Tensor | None = None, *, place: Placement | None = None):
     """Fill the cache with the S context tokens ``tokens (B, S)``; return
     last-position logits ``(B, V)`` and the cache.
 
@@ -372,7 +389,11 @@ def prefill(cfg, params, tokens: torch.Tensor, cache: Pytree,
     which may be a view of a larger cache (the engine passes one slot's
     stripe); ``lengths`` is set to S.  With ``kv_quant`` each layer
     attends over its unquantized K/V and writes them quantized, as the
-    reference does."""
+    reference does.  On a mesh (``place``): :func:`_placed_prefill`."""
+    if place is not None:
+        if embeds is not None:
+            raise NotImplementedError("placement: a frontend's embeds wait for a later slice")
+        return _placed_prefill(cfg, place, params, tokens, cache)
     x, positions = _embed(params, tokens, embeds)
     S = x.shape[1]
     for l in range(cfg.n_layers):
@@ -406,14 +427,20 @@ def _append(cache_l: torch.Tensor, new: torch.Tensor, bidx: torch.Tensor,
     cache_l.index_put_((bidx, pos), torch.where(keep, new.to(cache_l.dtype), old))
 
 
-def decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
+def decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor, *,
+                place: Placement | None = None):
     """One autoregressive step.  tokens (B,) -> logits (B, V), cache.
 
     Every slot advances, idle ones included, as in the reference: the
     new token's K/V land at ``lengths`` (skipped where ``lengths >=
     max_seq``) and ``lengths`` grows by one, in place.  With ``kv_quant``
     the new K/V are appended quantized with their scales, and each layer's
-    cache is dequantized for the decode kernel (:func:`_kv_dequantize`)."""
+    cache is dequantized for the decode kernel (:func:`_kv_dequantize`).
+    On a mesh (``place``) every rank returns the whole batch's logits:
+    :func:`_placed_decode`'s rows gathered."""
+    if place is not None:
+        logits, rows = _placed_decode(cfg, place, params, cache, tokens)
+        return place.gather(logits, 0, rows), cache
     lengths = cache["lengths"]
     S = cache["k"].shape[2]
     B = tokens.shape[0]
@@ -581,9 +608,17 @@ def prefill_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot, 
 
 def decode_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor,
                        generator: torch.Generator | None, eos_ids: torch.Tensor, *,
-                       sampler):
+                       sampler, place: Placement | None = None):
     """One decode step with sampling fused: (tokens', eos_hit, cache).
-    Only ``(B,)`` ids leave the device; nothing here waits on it."""
+    Only ``(B,)`` ids leave the device; nothing here waits on it.  On a
+    mesh each rank samples its rows and the ids are gathered, so every
+    rank holds the same ``(B,)``."""
+    if place is not None:
+        logits, rows = _placed_decode(cfg, place, params, cache, tokens)
+        B = tokens.shape[0]
+        lo, hi = place.part(rows, B)
+        tok = place.gather(sample_on_device(logits, generator, sampler, (lo, hi, B)), 0, rows)
+        return tok, tok == eos_ids, cache
     logits, cache = decode_step(cfg, params, cache, tokens)
     tok = sample_on_device(logits, generator, sampler)
     return tok, tok == eos_ids, cache
@@ -596,3 +631,151 @@ def paged_decode_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor,
     logits, cache = paged_decode_step(cfg, params, cache, tokens)
     tok = sample_on_device(logits, generator, sampler)
     return tok, tok == eos_ids, cache
+
+
+# ---------------------------------------------------------------------------
+# placement on a mesh (``core.offload.Placement``; serving on the dense
+# cache).  The compute side is tensor parallel on the weights' split:
+# wq / wk / wv and w_gate / w_up by columns, wo and w_down by rows with
+# one all-reduce after each, the embedding by vocabulary rows (a masked
+# lookup and an all-reduce) and the logits gathered over the vocabulary;
+# activations are split by rows over the batch axes.  The cache is a
+# ShardedCache in its policy's layout; K/V are written where it holds
+# them, and decode attention goes through offload.placed_decode_attention.
+# ---------------------------------------------------------------------------
+# the dim each block weight is split on
+_TP_DIMS = {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "w_gate": 2, "w_up": 2, "w_down": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    heads: tuple[str, ...]     # query and KV heads
+    mlp: tuple[str, ...]       # FFN hidden
+    vocab: tuple[str, ...]     # embedding / unembedding rows
+
+
+def tensor_parallel(specs: Pytree) -> TensorParallel:
+    """The axes the weights' specs split, when they are the layout above;
+    raises for another (the row-parallel fallback of a head count the
+    model axis does not divide, or FSDP's split of d_model)."""
+    blocks = specs["blocks"]
+    ok = all([i for i in range(len(sp)) if sp.axes(i)] in ([], [_TP_DIMS.get(n)])
+             for n, sp in blocks.items())
+    heads = {blocks[n].axes(_TP_DIMS[n]) for n in ("wq", "wk", "wv", "wo")}
+    mlp = {blocks[n].axes(_TP_DIMS[n]) for n in ("w_gate", "w_up", "w_down")}
+    tables = [specs[n] for n in ("embed", "unembed") if n in specs]
+    vocab = {t.axes(0) for t in tables}
+    if (not ok or len(heads) > 1 or len(mlp) > 1 or len(vocab) > 1
+            or any(t.axes(1) for t in tables) or specs["final_norm"].axes(0)):
+        raise NotImplementedError(
+            f"placement: the dense model runs column/row tensor parallel weights only; "
+            f"specs {specs}")
+    return TensorParallel(heads.pop(), mlp.pop(), vocab.pop())
+
+
+def _placed_embed(place: Placement, tp: TensorParallel, table: torch.Tensor,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding of ``tokens`` from this rank's vocabulary rows: 0 for
+    a token held elsewhere, then summed over the vocabulary's axes (one
+    term is not 0: exact)."""
+    if not place.split(tp.vocab):
+        return cm.embed_lookup(table, tokens)
+    n = table.shape[0]
+    v0, _ = place.part(tp.vocab, n * place.mesh.size(tp.vocab))
+    t = tokens.long() - v0
+    inside = ((t >= 0) & (t < n))[..., None]
+    x = torch.where(inside, table[t.clamp(0, n - 1)], torch.zeros((), dtype=table.dtype,
+                                                                   device=table.device))
+    return place.reduce(x, tp.vocab)
+
+
+def _placed_logits(cfg, place: Placement, tp: TensorParallel, params,
+                   x: torch.Tensor) -> torch.Tensor:
+    """x (b, D) -> logits (b, V) over the whole (padded) vocabulary, the
+    pad masked: this rank's columns gathered over the vocabulary's axes."""
+    logits = place.gather(x @ _unembed_table(params).t(), -1, tp.vocab)
+    if cfg.vocab < logits.shape[-1]:
+        logits[..., cfg.vocab:] = -1e30
+    return logits
+
+
+def _placed_ffn(cfg, place: Placement, tp: TensorParallel, p, x: torch.Tensor):
+    h = cm.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + place.reduce(cm.swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), tp.mlp)
+
+
+def _rows(place: Placement, n: int) -> tuple[str, ...]:
+    """The axes a batch of ``n`` rows is split over on the compute side."""
+    return place.env.act_spec(("batch",), (n,)).axes(0)
+
+
+def _placed_prefill(cfg, place: Placement, params, tokens: torch.Tensor,
+                    cache: ShardedCache):
+    """:func:`prefill` on a mesh: each rank runs the flash kernel over its
+    rows and heads, and writes the K/V of the positions ``[0, S)`` that
+    its shard of the cache holds (a slot's view: only on the rank that
+    owns the slot).  Every rank returns the whole batch's logits."""
+    tp = tensor_parallel(place.specs)
+    b, S = tokens.shape
+    rows = _rows(place, b)
+    a0, a1 = place.part(rows, b)
+    x = _placed_embed(place, tp, params["embed"], tokens[a0:a1])
+    positions = torch.arange(S, device=x.device).expand(a1 - a0, S)
+    s0, s1 = cache.seq
+    w0, w1 = min(s0, S), min(s1, S)            # this shard's positions of the prompt
+    full = [b, S, cache.n_kv, cache["k"].shape[-1]]
+    dst = [(cache.row_axes, cache.rows), ((), (w0, w1)), (cache.head_axes, cache.heads),
+           ((), (0, full[3]))]
+    for l in range(cfg.n_layers):
+        p = _layer(params, l)
+        x, k, v = _attn(cfg, p, x, positions, reduce=lambda y: place.reduce(y, tp.heads))
+        x = _placed_ffn(cfg, place, tp, p, x)
+        k, v = place.reshard_all([k, v], [rows, (), tp.heads, ()], [dst, dst], [full, full])
+        if w1 > w0:                            # then w0 == s0
+            cache["k"][l, :, :w1 - w0].copy_(k)
+            cache["v"][l, :, :w1 - w0].copy_(v)
+    x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = _placed_logits(cfg, place, tp, params, x[:, -1])
+    cache["lengths"].fill_(S)
+    return place.gather(logits, 0, rows), cache
+
+
+def _placed_decode(cfg, place: Placement, params, cache: ShardedCache, tokens: torch.Tensor):
+    """:func:`decode_step` on a mesh, up to the logits of this rank's rows:
+    ``(logits (b, V), the axes the rows are split over)``.  The new K/V
+    go to the cache's layout and land where a row's append position
+    falls in this shard's window (skipped at or past ``max_seq``)."""
+    tp = tensor_parallel(place.specs)
+    B = tokens.shape[0]
+    rows = _rows(place, B)
+    a0, a1 = place.part(rows, B)
+    lengths = cache["lengths"]
+    pos = place.reshard(lengths, [cache.row_axes], [(rows, (a0, a1))], [B]).long()
+    x = _placed_embed(place, tp, params["embed"], tokens[a0:a1])
+    s0, s1 = cache.seq
+    Dh = cache["k"].shape[-1]
+    Hq = cfg.n_heads
+    local = lengths.long() - s0
+    valid = (lengths < cache.max_seq) & (local >= 0) & (local < s1 - s0)
+    wpos = local.clamp(0, s1 - s0 - 1)
+    bidx = torch.arange(lengths.shape[0], device=x.device)
+    for l in range(cfg.n_layers):
+        p = _layer(params, l)
+        h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        q = cm.rope(cm.linear(h, p["wq"])[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+        k = cm.rope(cm.linear(h, p["wk"])[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+        v = cm.linear(h, p["wv"])
+        # q, k, v to the cache's layout in one collective a dim
+        q, k, v = place.reshard_all(
+            [q, k, v], [rows, tp.heads, ()],
+            [offload.cache_layout(cache, n, Dh) for n in (Hq, cache.n_kv, cache.n_kv)],
+            [[B, n, Dh] for n in (Hq, cache.n_kv, cache.n_kv)])
+        _append(cache["k"][l], k, bidx, wpos, valid)
+        _append(cache["v"][l], v, bidx, wpos, valid)
+        o = offload.placed_decode_attention(place, cache, l, q.contiguous(), [rows, tp.heads],
+                                            lengths + 1)
+        x = x + place.reduce(cm.linear(o, p["wo"], n_in=2), tp.heads)
+        x = _placed_ffn(cfg, place, tp, p, x)
+    x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    lengths.add_(1)
+    return _placed_logits(cfg, place, tp, params, x), rows

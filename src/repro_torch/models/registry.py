@@ -1,4 +1,4 @@
-"""Model API: ``build_model(cfg, device)`` -> :class:`Model`.
+"""Model API: ``build_model(cfg, device, env, mesh)`` -> :class:`Model`.
 
 Counterpart of ``repro.models.registry`` for all six families: dense,
 MoE, DeepSeek, RWKV6, Zamba2 and the encoder-decoder.  A Model binds a
@@ -7,6 +7,17 @@ config and a device to the family's step functions and its training
 are None.  The device
 is CUDA unless the caller asks for another (``device="cpu"``); with no
 GPU and no explicit device, :func:`build_model` raises.
+
+With an ``Env`` whose ``axes`` are not empty and the mesh of this rank
+(``launch.mesh.DeviceMesh``), the model is placed: ``param_specs`` and
+``cache_specs`` resolve the reference's rules, :meth:`Model.init` keeps
+this rank's shard of every weight, ``init_cache`` allocates a
+``core.offload.ShardedCache``, and the dense family's ``prefill``,
+``decode_step`` and ``decode_sample_step`` run tensor parallel on it.
+Placement serves the dense family on the dense cache; the other
+families, the paged pool, chunked prefill and verify wait for later
+slices (their steps are None on a placed model, and
+:func:`build_model` refuses another family).
 """
 from __future__ import annotations
 
@@ -17,6 +28,8 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import DEEPSEEK, DENSE, ENCDEC, MOE, RWKV6, ZAMBA2, ModelConfig
+from repro_torch.core.offload import Placement
+from repro_torch.core.placement import Env, kv_rules
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
 
@@ -61,11 +74,38 @@ class Model:
     #   paged_verify_step the same against the pool
     verify_step: Callable[..., tuple[torch.Tensor, Pytree]] | None = None
     paged_verify_step: Callable[..., tuple[torch.Tensor, Pytree]] | None = None
+    env: Env = dataclasses.field(default_factory=Env)
+    # this rank on the mesh, when ``env.axes`` is not empty
+    placement: Placement | None = None
 
     def init(self, seed: int = 0) -> Pytree:
-        """Random weights from a seeded generator on the model's device."""
+        """Random weights from a seeded generator on the model's device; on
+        a mesh every rank draws the whole of each leaf, the same numbers as
+        one device, and keeps its shard."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return cm.init_params(self.param_defs, gen, cm.param_dtype(self.cfg), self.device)
+        take = None
+        if self.placement is not None:
+            specs = self.param_specs()
+
+            def take(path, leaf):
+                spec = specs
+                for key in path:
+                    spec = spec[key]
+                return self.placement.take(leaf, spec).clone()
+        return cm.init_params(self.param_defs, gen, cm.param_dtype(self.cfg), self.device,
+                              take=take)
+
+    def param_specs(self) -> Pytree:
+        """Every weight's :class:`~repro_torch.models.common.Spec` on the
+        mesh (the reference's ``param_rules`` with the row-parallel
+        fallback)."""
+        return cm.specs_for(self.param_defs, self.env.param_rules(), self.env.axes,
+                            params=True)
+
+    def cache_specs(self, batch: int, max_seq: int) -> Pytree:
+        """Every dense cache leaf's Spec under the KV policy."""
+        return cm.specs_for(self.cache_defs(batch, max_seq), kv_rules(self.env.policy()),
+                            self.env.axes)
 
     def n_params(self) -> int:
         return cm.count_params(self.param_defs)
@@ -77,8 +117,10 @@ OPTIONAL_STEPS = ("decode_sample_step", "prefill_step", "prefill_sample_step",
                   "verify_step", "paged_verify_step")
 
 
-def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> Model:
+def build_model(cfg: ModelConfig, device: str | torch.device | None = None,
+                env: Env | None = None, mesh=None) -> Model:
     dev = resolve_device(device)
+    env = env or Env()
     if cfg.family == DENSE:
         from repro_torch.models import dense as fam
     elif cfg.family == MOE:
@@ -93,6 +135,9 @@ def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> M
         from repro_torch.models import encdec as fam
     else:
         raise ValueError(f"unknown family {cfg.family}")
+    defs = fam.param_defs(cfg)
+    if env.axes:
+        return _placed_model(cfg, dev, env, mesh, fam, defs)
     optional = {name: functools.partial(getattr(fam, name), cfg)
                 for name in OPTIONAL_STEPS if hasattr(fam, name)}
     if hasattr(fam, "init_paged_cache"):
@@ -100,11 +145,43 @@ def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> M
     return Model(
         cfg=cfg,
         device=dev,
-        param_defs=fam.param_defs(cfg),
+        param_defs=defs,
         prefill=functools.partial(fam.prefill, cfg),
         decode_step=functools.partial(fam.decode_step, cfg),
         cache_defs=functools.partial(fam.cache_defs, cfg),
         init_cache=functools.partial(fam.init_cache, cfg, device=dev),
         loss_fn=functools.partial(fam.loss_fn, cfg),
+        env=env,
         **optional,
     )
+
+
+def _placed_model(cfg: ModelConfig, dev: torch.device, env: Env, mesh, fam, defs) -> Model:
+    """The dense family on a mesh: its serving steps bound to this rank's
+    :class:`Placement` (training on a mesh waits for a later slice)."""
+    if cfg.family != DENSE or cfg.kv_quant:
+        what = "the int8 kv_quant cache" if cfg.family == DENSE else cfg.family
+        raise NotImplementedError(f"placement serves the dense family on its bf16/f32 cache "
+                                  f"only; {what} waits for a later slice")
+    if mesh is None or dict(zip(mesh.axis_names, mesh.shape)) != dict(env.axes):
+        raise ValueError(f"a placed model needs this rank's mesh of axes {env.axes}, got {mesh}")
+    specs = cm.specs_for(defs, env.param_rules(), env.axes, params=True)
+    fam.tensor_parallel(specs)                  # raises for a layout it does not run
+    place = Placement(env, mesh, specs)
+    return Model(
+        cfg=cfg,
+        device=dev,
+        param_defs=defs,
+        prefill=functools.partial(fam.prefill, cfg, place=place),
+        decode_step=functools.partial(fam.decode_step, cfg, place=place),
+        cache_defs=functools.partial(fam.cache_defs, cfg),
+        init_cache=functools.partial(fam.init_cache, cfg, device=dev, place=place),
+        loss_fn=_no_placed_training,
+        decode_sample_step=functools.partial(fam.decode_sample_step, cfg, place=place),
+        env=env,
+        placement=place,
+    )
+
+
+def _no_placed_training(*_args, **_kw):
+    raise NotImplementedError("training on a mesh waits for a later slice")

@@ -7,7 +7,9 @@ Counterpart of ``repro.serving.engine`` for ``cache_kind`` in {"dense",
 or without speculative decoding, traced and profiled or not, as a
 replica of a :class:`~repro_torch.serving.cluster.Cluster` (router hooks,
 KV block migration, refold moves) or alone, and on the dense
-decode-only schedule with sub-batch pipelining (``sub_batches``).  A
+decode-only schedule with sub-batch pipelining (``sub_batches``), and
+for a placed model (one rank of a mesh: ``Model.placement``) on the dense
+cache with the decode-only schedule, eagerly.  A
 family whose :class:`Model` lacks a step (the MoE family has no paged
 decode, chunked prefill, verify or fused sampled step) is refused the
 paths that need it with the reference's exceptions, and its decode is
@@ -323,6 +325,9 @@ class Engine:
         replica: int = 0,
         role: str = "mixed",
     ):
+        if model.placement is not None:
+            self._check_placed(cache_kind, schedule, spec_depth, sub_batches, graphs,
+                               replica, role)
         # speculation always runs on the dispatch-ahead machinery; sync mode
         # is that pipeline at depth zero (observe right after dispatch)
         if spec_depth < 0:
@@ -391,7 +396,8 @@ class Engine:
         self._gen_host = torch.Generator().manual_seed(seed)
         # one program per dispatch kind (serving/programs.py), captured as
         # a CUDA graph on a CUDA device unless graphs=False; eager on the CPU
-        self.graphs = self.device.type == "cuda" if graphs is None else graphs
+        self.graphs = (self.device.type == "cuda" and model.placement is None
+                       if graphs is None else graphs)
         if self.graphs and self.device.type != "cuda":
             raise ValueError(f"graphs=True needs a CUDA device, not {self.device}")
         self.programs: dict[str, Program] = {}
@@ -471,6 +477,24 @@ class Engine:
             return tok, tok == eos_ids, cache
 
         return sampled
+
+    @staticmethod
+    def _check_placed(cache_kind, schedule, spec_depth, sub_batches, graphs, replica,
+                      role) -> None:
+        """What a placed model (one rank of a mesh) serves: the dense cache
+        on the decode-only schedule, eagerly, as one engine; the rest (the
+        paged and tiered pools, hybrid, speculation, sub-batches, replicas
+        and roles) waits for later slices."""
+        if ((cache_kind, schedule, spec_depth, sub_batches, replica, role)
+                != ("dense", "decode-only", 0, 1, 0, "mixed")):
+            raise NotImplementedError(
+                "a placed model serves the dense cache on the decode-only schedule, as one "
+                "engine without speculation or sub-batches (got "
+                f"cache_kind={cache_kind!r}, schedule={schedule!r}, spec_depth={spec_depth}, "
+                f"sub_batches={sub_batches}, replica={replica}, role={role!r})")
+        if graphs:
+            raise ValueError("a placed model runs eagerly: CUDA graphs cannot capture its "
+                             "gloo collectives")
 
     @staticmethod
     def _check_spec(model, draft_model, draft_params, sub_batches, cache_kind, kv_dtype,

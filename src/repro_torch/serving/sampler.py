@@ -12,7 +12,10 @@ one semantics:
   independent implementation (``torch.multinomial`` over the softmax).
 
 Greedy is an argmax (first index on ties, like ``jnp.argmax``) and
-matches the reference token for token.  Random draws come from an
+matches the reference token for token.  On a mesh each rank samples its
+rows of the batch (``rows``) and draws the whole batch's random numbers,
+so every rank's generator advances alike and a row's draw does not
+depend on how the batch is split.  Random draws come from an
 explicit ``torch.Generator``; they cannot reproduce ``jax.random``'s
 stream, so temperature and top-k are compared by distribution.
 """
@@ -40,18 +43,27 @@ def _transformed(logits: torch.Tensor, cfg: SamplerConfig) -> torch.Tensor:
 
 
 def sample_on_device(logits: torch.Tensor, generator: torch.Generator | None,
-                     cfg: SamplerConfig) -> torch.Tensor:
-    """logits (B, V) -> tokens (B,) int32 on the logits' device."""
+                     cfg: SamplerConfig, rows: tuple[int, int, int] | None = None
+                     ) -> torch.Tensor:
+    """logits (B, V) -> tokens (B,) int32 on the logits' device.  ``rows``
+    ``(lo, hi, n)``: the logits are rows ``[lo, hi)`` of an ``n``-row
+    batch (a rank's share on a mesh)."""
     if cfg.temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     scaled = _transformed(logits, cfg)
-    return _categorical(scaled, generator)
+    return _categorical(scaled, generator, rows)
 
 
-def _categorical(logits: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+def _categorical(logits: torch.Tensor, generator: torch.Generator | None,
+                 rows: tuple[int, int, int] | None = None) -> torch.Tensor:
     """One draw per row of ``softmax(logits)`` by Gumbel-max, on the
-    logits' device with no host sync."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    logits' device with no host sync; with ``rows`` the draws of rows
+    ``[lo, hi)`` of an ``n``-row batch."""
+    if rows is None:
+        u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    else:
+        lo, hi, n = rows
+        u = torch.rand((n, logits.shape[-1]), generator=generator, device=logits.device)[lo:hi]
     gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
     return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
 

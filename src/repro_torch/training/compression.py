@@ -13,7 +13,7 @@ computes under ``jax.jit``, which is not the form its source reads as:
 
 ``torch.round`` rounds half to even like ``jnp.round``.  On one device
 the payload is decompressed at once (``compress_grads``); the byte saving
-is the wire's, once a data axis exists (ROADMAP queue 1 item 9).
+is the wire's, once a data axis exists (ROADMAP queue 1 item 9a).
 """
 from __future__ import annotations
 

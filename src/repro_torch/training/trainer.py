@@ -12,7 +12,7 @@ run_cfg)`` returns:
     (shapes and dtypes, nothing allocated): a checkpoint's restore template.
 
 The reference's fourth callable, ``state_specs``, places the state on a
-mesh and waits for placement (ROADMAP queue 1 item 9).
+mesh and waits for training placement (ROADMAP queue 1 item 9a).
 
 Gradients: ``torch.autograd.grad`` of the family's ``loss_fn`` with
 respect to the params (the model recomputes each layer's block in the

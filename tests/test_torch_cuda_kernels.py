@@ -106,6 +106,57 @@ def test_decode_kernel_matches_plain(cuda, case, dtype):
     np.testing.assert_allclose(_np(out), _np(exp), atol=TOL[dtype], rtol=TOL[dtype])
 
 
+# llama3.2-1b's serve shape, then its placed shards' heads (Hkv 4 on a
+# model axis of 2, Hkv 2 on one of 4), at a window of S/2 and S/4 of the
+# positions (the sequence policies' windows)
+DECODE_LSE_CASES = [(16, S, Hkv, 4, 64) for Hkv in (8, 4, 2) for S in (1024, 512, 256)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_LSE_CASES)
+def test_decode_kernel_lse_matches_plain(cuda, case, dtype):
+    """``return_lse``: out and the f32 lse (B, Hkv, G) equal the plain
+    version's at every split plan the shape takes; rows of length 0 (a
+    window the row has not reached) give out 0 and lse <= -1e30; the lse
+    launch counts as variant ``lse``."""
+    B, S, Hkv, G, D = case
+    rng = np.random.default_rng(S + Hkv)
+    dt = getattr(torch, dtype)
+    q = _randn(rng, (B, Hkv * G, D), cuda, dt)
+    k = _randn(rng, (B, S, Hkv, D), cuda, dt)
+    v = _randn(rng, (B, S, Hkv, D), cuda, dt)
+    lengths = torch.from_numpy(rng.integers(1, S + 1, size=B).astype(np.int32)).to(cuda)
+    lengths[:3] = torch.tensor([0, S + 9, 1], dtype=torch.int32)
+    before = ops.variant_counts()["decode_attention"].get("lse", 0)
+    out, lse = ops.decode_attention(q, k, v, lengths, return_lse=True)
+    torch.cuda.synchronize()
+    assert ops.variant_counts()["decode_attention"]["lse"] == before + 1
+    assert lse.shape == (B, Hkv, G) and lse.dtype == torch.float32
+    exp, exp_lse = ref.naive_decode_attention(q, k, v, lengths, return_lse=True)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=TOL[dtype], rtol=TOL[dtype])
+    np.testing.assert_allclose(_np(lse)[1:], _np(exp_lse)[1:], atol=1e-3, rtol=1e-4)
+    assert float(out[0].abs().max()) == 0.0 and float(lse[0].max()) <= -1e30
+    assert not out.isnan().any() and not lse.isnan().any()
+
+
+def test_decode_kernel_lse_windows_merge_to_the_whole_cache(cuda):
+    """The kernel over each quarter of llama's serve cache, merged by
+    ``ref.lse_merge``, equals the kernel over the whole cache."""
+    rng = np.random.default_rng(4)
+    B, S, Hkv, G, D = 16, 1024, 8, 4, 64
+    q = _randn(rng, (B, Hkv * G, D), cuda, torch.bfloat16)
+    k = _randn(rng, (B, S, Hkv, D), cuda, torch.bfloat16)
+    v = _randn(rng, (B, S, Hkv, D), cuda, torch.bfloat16)
+    lengths = torch.from_numpy(rng.integers(1, S + 1, size=B).astype(np.int32)).to(cuda)
+    parts = []
+    for s0 in range(0, S, S // 4):
+        win = (lengths - s0).clamp(0, S // 4)
+        parts.append(ops.decode_attention(q, k[:, s0:s0 + S // 4], v[:, s0:s0 + S // 4], win,
+                                          return_lse=True))
+    whole = ops.decode_attention(q, k, v, lengths)
+    np.testing.assert_allclose(_np(ref.lse_merge(parts)), _np(whole), atol=2e-2, rtol=2e-2)
+
+
 def test_decode_kernel_reads_strided_cache(cuda):
     """One layer of a stacked (L, B, S, Hkv, D) cache, and a zero length."""
     rng = np.random.default_rng(0)
