@@ -56,7 +56,11 @@
    against the plain version; the two halves of the cache lse-merged
    against the whole-cache kernel; SDPA, which gives no lse, as the
    yardstick), at the head policy's shard on two ranks (Hkv 4) and at the
-   sequence policy's window (512 positions, with lse).
+   sequence policy's window (512 positions, with lse).  Four rows of the
+   placed train paths (slice 18): the flash forward with its lse and the
+   backward at a rank's share of their 4 x 512 batch, model 2's heads
+   (B 4, S 512, Hq 16, Hkv 4, D 64: ``[train-lse-tp2]``, ``[tp2]``) and
+   data 2's rows (B 2, Hq 32, Hkv 8: ``[train-lse-dp2]``, ``[dp2]``).
 4. Serve phase: full-width llama3.2-1b with seeded random weights through
    ``repro_torch.launch.serve``, seventeen paths, every dispatch kind of each
    one captured CUDA graph (the engine's default on the card; the counts
@@ -129,7 +133,10 @@
    tokens must equal their non-speculative path's.  Paths a, b, c and e
    (the profiled ones) also run eagerly (``--graphs off``) in the same
    call: graph and eager greedy tokens must be identical; tok/s and wall
-   ms per engine step of both.
+   ms per engine step of both.  The eager and sync reruns of a, b, c, e
+   and m run llama3.2-1b cut to 2 of its 16 layers (``RERUN_LAYERS``,
+   views of the same weights), held to a graph run at that depth: an
+   eager step's host time grows with the layers (slice 18).
    Then the observatory: path b traced (``--trace`` to a file in the
    temporary directory, wall stamps on) and profiled (``--profile 8``:
    every eighth dispatch fenced on the card) against the same run
@@ -226,6 +233,28 @@
    attention, counted; ms per step, tokens/s, MFU, peak memory); and
    every family reduced in float32, card against CPU: loss and metrics,
    every gradient leaf, one ``train_step``.
+   Then the placed train phase (slice 18, ``placed_train_phase``): the
+   same work on one rank in this process first, then two ranks of this
+   script on the card over gloo (``--placed-train-worker``), llama3.2-1b
+   at full width from seed-0 weights and the train CLI's global batch of
+   4 x 512: placed-train-dp (data 2 x model 1, ZeRO-1 moments) and
+   placed-train-tp (data 1 x model 2) through the train CLI, 16 layers, 3
+   steps (finite losses, equal on both ranks, step 0's within 5e-2 of one
+   rank's; ``m`` and ``v`` per rank half of the whole on data 2; the flash
+   lse forward 2 L and the backward L times a step at the shard's heads;
+   ms per step and tok/s per rank); placed-train-fsdp (data 2,
+   ``Env.fsdp``, 4 layers, 2 steps: losses within 5e-2 of one rank's);
+   placed-train-f32 (both meshes, float32, 2 layers, 3 steps at the
+   reference's ``TrainConfig()``: step 0's loss and grad norm within
+   1e-4 relative of one rank's, every step's within 1e-2); a checkpoint
+   written on data 2 x model 1 (``--ckpt-every 2``, 2 layers) restored on
+   data 1 x model 2, whose step-2 loss is the unbroken run's within 5e-2;
+   GPipe over a ``stage`` axis of the two ranks (8 + 8 layers of the train
+   block, 4 microbatches of 1 x 512: forward and the stage's weight
+   gradients against ``sequential_reference`` over all 16 layers in each
+   process); ``int8_psum`` of llama's embedding leaf as int8 (128256 x
+   2048, a payload and a scale per rank) equal to its formula; each
+   part's wall.
 5. Profiles (torch.profiler) of steady async steps on paths a, b, c and
    e, with graphs (eagerly only moonshot's, to keep the script inside its
    time; the other families' and deepseek's with graphs), for where the
@@ -330,7 +359,8 @@ from repro_torch.kernels import prefill_attention as kpre  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.core.placement import Env  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh, mesh_axes  # noqa: E402
+from repro_torch.distributed import collectives  # noqa: E402
+from repro_torch.launch.mesh import DeviceMesh, make_host_mesh, mesh_axes, rank_device  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
@@ -351,6 +381,7 @@ from repro_torch.serving.telemetry import build_request_trees, validate_trace  #
 from repro_torch.serving.workload import build_workload  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, host_batch  # noqa: E402
 from repro_torch.training.optimizer import leaves, tree_map  # noqa: E402
+from repro_torch.training import pipeline_pp  # noqa: E402
 from repro_torch.training.trainer import make_train_step, to_device  # noqa: E402
 from repro_torch.configs.base import ParallelConfig, RunConfig, TrainConfig  # noqa: E402
 
@@ -419,6 +450,9 @@ DECODE_SHAPES = {"decode_attention": (16, 1024, 8, 4, 64),          # llama3.2-1
 # window row, whose lengths are rank 0's: LENGTHS clamped to its 512
 DECODE_LSE_ROWS = ("decode_attention[lse]", "decode_attention[shard-seq2]")
 LSE_DECODE_TOL = 1e-3
+# llama3.2-1b's eager and sync reruns (and the graph run they are held to)
+# run at this depth: an eager engine step's host time grows with the layers
+RERUN_LAYERS = 2
 # the placed paths: two ranks on the one card over gloo (NCCL refuses two
 # ranks on one device), each a process of this script (--placed-worker)
 PLACED_RANKS = 2
@@ -569,7 +603,11 @@ TRAIN_TAGS = {"train-moe": "moe", "train-zamba2": "zamba2", "train-seamless": "s
 # 8-warp route), zamba2's shared block (D 128) and seamless's decoder
 TRAIN_SHAPES = {None: (8, 1024, 32, 8, 64), "minicpm": (4, 1024, 36, 36, 64),
                 "moe": (4, 1024, 16, 16, 128), "zamba2": (4, 1024, 32, 32, 128),
-                "seamless": (4, 1024, 16, 16, 64)}
+                "seamless": (4, 1024, 16, 16, 64),
+                # a rank's share of the placed train paths' 4 x 512 batch:
+                # the heads of model 2, the rows of data 2 (slice 18)
+                "tp2": (4, 512, 16, 4, 64), "dp2": (2, 512, 32, 8, 64)}
+PT_TAGS = ("tp2", "dp2")
 TRAIN_F32_CASE = (1, 300, 4)      # (B, S, Hkv/G scale-down) of the f32 backward check
 LSE_TOL = 1e-4                    # f32 in both: the kernel's log2-domain sums vs logsumexp
 # each bf16 gradient's ||kernel - plain|| / ||plain||: bf16 rounding of P,
@@ -581,6 +619,33 @@ TRAIN_LOSS_TOL = 1e-5             # reduced float32 loss, card vs CPU (relative)
 # the random model attends almost uniformly; the CPU's own f32 gradients
 # of q and k sit ~1.5e-4 of their largest from a float64 run
 TRAIN_GRAD_TOL = 1e-3
+
+# the placed train paths (slice 18): two ranks of this script on the one
+# card over gloo (--placed-train-worker), llama3.2-1b at full width from
+# seeded random weights, the train CLI's global batch of 4 x 512
+PT_CONFIG = functools.partial(get_config, "llama3.2-1b")
+PT_FLAGS = ["--arch", "llama3.2-1b", "--batch", "4", "--seq", "512", "--ckpt-every", "0"]
+PT_BATCH, PT_SEQ = 4, 512
+PT_LAYERS, PT_STEPS = 16, 3             # placed-train-dp / -tp
+PT_FSDP_LAYERS, PT_FSDP_STEPS = 4, 2
+PT_F32_LAYERS = 2                       # placed-train-f32 and -restore
+PT_CKPT = 2                             # -restore: --ckpt-every, the step restored
+PT_TIMEOUT = 420
+# bf16 losses against one rank's (absolute): the two ranks' GEMMs see half
+# the rows or half the K dim and round elsewhere; test_sharded.py's bound
+# for GSPMD's own sharded run
+PT_LOSS_TOL = 5e-2
+# float32 losses and grad norms against one rank's, relative: step 0 is
+# rounding alone; later steps are one Adam update away, which moves every
+# element by ~lr x sign(g) whatever |g|, so an element whose gradient
+# changes sign between two summation orders moves 2 lr the other way, and
+# the random 2-layer model's grad norm is that sensitive to its params
+# (142.4 -> 149.8 from step 1 to 2 at lr 6e-6 on the H100: PERF.md)
+PT_F32_TOL, PT_F32_STEP_TOL = 1e-4, 1e-2
+# GPipe over two stages: 8 + 8 layers, 4 microbatches of 1 x PT_SEQ;
+# forward (of max(1, |ref|)) and gradients (in norm) against
+# sequential_reference: the same products on the same inputs
+PIPE_LAYERS, PIPE_MICRO, PIPE_TOL = 16, 4, 2e-2
 
 
 def _time_ms(fns, iters: int = 30) -> float:
@@ -1135,7 +1200,7 @@ def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[st
                 tiered: bool = False, base: PathRun | None = None,
                 draft=None, min_accept: float = 0.0, eager: bool = False,
                 open_loop: bool = False, preempt_ok: bool = False,
-                sync: bool = True) -> PathRun:
+                sync: bool = True, rerun_layers: int | None = None) -> PathRun:
     """One path through the serve entry point, every dispatch kind one
     CUDA graph: a short warm-up, the async
     run with every launch counter zeroed before it and read after it,
@@ -1159,7 +1224,11 @@ def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[st
     from the quantized pool is not bit-equal to one recomputed, and the
     modes' hits differ with their timing): such a path runs traced.
     ``preempt_ok``: a tiered path whose host tier fills may preempt.
-    ``sync=False`` skips the sync run (the async run's checks stay)."""
+    ``sync=False`` skips the sync run (the async run's checks stay).
+    ``rerun_layers``: the eager and sync reruns, and the graph run they
+    are held to, run the model cut to its first ``rerun_layers`` layers
+    (views of the same weights; the target as its own draft cut alike),
+    every check kept: an eager step's host time grows with the layers."""
     cfg = model.cfg
     t_phase = time.perf_counter()
     # traced for the prefill chunks' positions; the trace is not written
@@ -1219,6 +1288,18 @@ def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[st
             raise AssertionError(f"[{label}] speculative greedy tokens differ from the "
                                  "non-speculative run's")
 
+    # the reruns' model and the graph run they are held to
+    full = (res, reqs, st, shapes)
+    if rerun_layers is not None:
+        cut = rerun_layers
+        target = model
+        model, params = _cut_model(model, params, cut)
+        if draft is not None and draft[0] is target:
+            draft = (model, params)
+        ops.reset_launch_counts()
+        res = serve.serve(args, model, params, draft)
+        reqs, st, shapes = res.driver.submitted, res.stats, ops.shape_counts()
+        print(f"[{label}] reruns at {cut} of {cfg.n_layers} layers: graphs {_rate(res)}")
     if eager:
         eager_args = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--graphs", "off"])
         ops.reset_launch_counts()
@@ -1237,6 +1318,7 @@ def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[st
         wall = time.perf_counter() - t_phase
         print(f"[{label}] phase wall {wall:.1f}s (warm-up and async run"
               f"{', eager' if eager else ''}; no sync run)")
+        res, reqs, st, _ = full
         return PathRun(per_row, st, [r.out_tokens for r in reqs], wall, res)
     sync_args = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--async", "off"])
     sync = serve.serve(sync_args, model, params, draft)
@@ -1296,8 +1378,17 @@ def serve_phase(model, params, label: str, flags: list[str], want, rows: dict[st
                 and all(a.out_tokens[0] == b.out_tokens[0] for a, b in first)):
             raise AssertionError(f"[{label}] sync and async runs diverge")
     wall = time.perf_counter() - t_phase
-    print(f"[{label}] phase wall {wall:.1f}s (warm-up, async and sync runs)")
+    print(f"[{label}] phase wall {wall:.1f}s (warm-up, async and sync runs"
+          + (f"; reruns at {rerun_layers} layers)" if rerun_layers is not None else ")"))
+    res, reqs, st, _ = full
     return PathRun(per_row, st, [r.out_tokens for r in reqs], wall, res)
+
+
+def _cut_model(model, params, layers: int):
+    """``model`` and ``params`` cut to the first ``layers`` layers: a model
+    of that depth on the same device, and views of the same weights."""
+    cut = build_model(model.cfg.with_overrides(n_layers=layers), model.device)
+    return cut, {**params, "blocks": {k: v[:layers] for k, v in params["blocks"].items()}}
 
 
 def observatory_phase(model, params) -> None:
@@ -1587,11 +1678,12 @@ def placed_worker(out: Path) -> None:
     dist.destroy_process_group()
 
 
-def _spawn_ranks(out: Path) -> None:
-    """Start :data:`PLACED_RANKS` processes of this script as ``torchrun``
-    would (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, a rendezvous on a free
-    localhost port) and wait for them, killing every one of them on a
-    failure or at :data:`PLACED_TIMEOUT`."""
+def _spawn_ranks(out: Path, worker: str = "--placed-worker",
+                 timeout: float = PLACED_TIMEOUT) -> None:
+    """Start :data:`PLACED_RANKS` processes of this script (``worker``'s
+    role) as ``torchrun`` would (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
+    a rendezvous on a free localhost port) and wait for them, killing
+    every one of them on a failure or at ``timeout``."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -1603,10 +1695,10 @@ def _spawn_ranks(out: Path) -> None:
         for r in range(PLACED_RANKS):
             with open(logs[r], "w") as log:
                 procs.append(subprocess.Popen(
-                    [sys.executable, str(Path(__file__).resolve()), "--placed-worker", str(out)],
+                    [sys.executable, str(Path(__file__).resolve()), worker, str(out)],
                     env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=log,
                     stderr=subprocess.STDOUT))
-        deadline = time.monotonic() + PLACED_TIMEOUT
+        deadline = time.monotonic() + timeout
         while any(p.poll() is None for p in procs):
             if time.monotonic() > deadline or any(p.poll() for p in procs):
                 break
@@ -3884,7 +3976,8 @@ def train_reference_check(dev) -> None:
                        for a, b in zip(gg, gc_))
         run = RunConfig(model=cfg, parallel=ParallelConfig(),
                         train=TrainConfig(lr=3e-3, warmup_steps=2, total_steps=50))
-        (init_g, step_g, _), (_, step_c, _) = (make_train_step(m, run) for m in (gpu, cpu))
+        (init_g, step_g, _, _), (_, step_c, _, _) = (make_train_step(m, run)
+                                                     for m in (gpu, cpu))
         s_gpu = init_g(3)
         s_cpu = _cpu(s_gpu)
         _, m_g = step_g(s_gpu, batch)
@@ -3960,7 +4053,7 @@ def family_train_phase(dev) -> dict[str, PathRun]:
         model = build_model(cfg, dev)
         run = RunConfig(model=cfg, parallel=ParallelConfig(),
                         train=TrainConfig(lr=3e-3, warmup_steps=2, total_steps=n_steps))
-        init_state, train_step, _ = make_train_step(model, run)
+        init_state, train_step, _, _ = make_train_step(model, run)
         state = init_state(0)
         losses, step_s, norms = {}, {}, {}
         for i in range(n_steps):
@@ -4093,6 +4186,344 @@ def train_phase(dev, rows: dict[str, dict]) -> dict[str, PathRun]:
     return runs
 
 
+# ------------------------------------------------ placed training (slice 18)
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _pt_steps(cfg, dev, env: Env, mesh, steps: int) -> dict:
+    """``steps`` train steps of ``cfg`` from seeded random weights through
+    ``make_train_step`` at the reference's ``TrainConfig()`` (lr 3e-4 after
+    100 warmup steps: an Adam step moves each element by about lr x
+    sign(g), so at the CLI's lr a gradient element near 0 whose sign
+    differs between two summation orders moves the later steps' losses
+    and grad norms by more than the rounding itself), on ``mesh`` under
+    ``env`` (``Env()``: one rank), the CLI's global batches: losses, grad
+    norms, seconds per step and the bytes of this rank's ``m``."""
+    model = build_model(cfg, dev, env, mesh if env.axes else None)
+    run = RunConfig(model=cfg, parallel=ParallelConfig(), train=TrainConfig())
+    init_state, train_step, _, _ = make_train_step(model, run)
+    state = init_state(0)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=PT_SEQ, global_batch=PT_BATCH)
+    out = {"losses": [], "grad_norms": [], "step_s": []}
+    for step in range(steps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, host_batch(dc, step, 0, 1))
+        out["losses"].append(float(metrics["loss"]))
+        out["grad_norms"].append(float(metrics["grad_norm"]))
+        _sync(dev)
+        out["step_s"].append(time.perf_counter() - t0)
+    out["m_bytes"] = sum(t.numel() * t.element_size() for t in leaves(state["opt"]["m"]))
+    out["n_params"] = model.n_params()
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pt_counts() -> dict:
+    """The launch counters as JSON: kernel -> {"variant|heads": n}."""
+    return {k: {f"{v}|{h}": n for (v, h), n in d.items()}
+            for k, d in ops.shape_counts().items() if d}
+
+
+def _pt_cli(flags: list[str]) -> dict:
+    """One run of the train CLI on this rank's world, its launches counted
+    (zeroed before, read after)."""
+    args = train_cli.build_parser().parse_args(PT_FLAGS + flags)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_cli.run(args, echo=False)
+    wall = time.perf_counter() - t0
+    row = {"losses": [res.losses[s] for s in sorted(res.losses)],
+           "grad_norms": [res.grad_norms[s] for s in sorted(res.grad_norms)],
+           "step_s": [res.step_s[s] for s in sorted(res.step_s)], "wall_s": wall,
+           "lines": res.lines, "restarts": res.restarts, "mesh": res.mesh,
+           "launches": _pt_counts(), "n_params": res.n_params,
+           "m_bytes": sum(t.numel() * t.element_size() for t in leaves(res.state["opt"]["m"])),
+           "v_bytes": sum(t.numel() * t.element_size() for t in leaves(res.state["opt"]["v"]))}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _pt_pipeline(dev) -> dict:
+    """GPipe over a ``stage`` mesh of the two ranks: llama3.2-1b's train
+    block at full width, :data:`PIPE_LAYERS` layers split into two stages,
+    :data:`PIPE_MICRO` microbatches of 1 x :data:`PT_SEQ`; the output and
+    the gradient of ``mean(out ** 2)`` with respect to this stage's weights
+    against ``sequential_reference`` over every layer in this process."""
+    cfg = PT_CONFIG().with_overrides(n_layers=PIPE_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    blocks = cm.init_params(dense_mod.param_defs(cfg)["blocks"], gen, torch.bfloat16, dev)
+    x = torch.randn(PIPE_MICRO, 1, PT_SEQ, cfg.d_model, generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    positions = torch.arange(PT_SEQ, device=dev).expand(1, PT_SEQ)
+
+    def block_fn(p, h):
+        for layer in cm.unstack(p):
+            h = cm.remat(dense_mod._block_train, cfg, layer, h, positions)
+        return h
+
+    mesh = DeviceMesh({"stage": 2})
+    stage = mesh.index(("stage",))
+    split = pipeline_pp.split_stages(blocks, 2)
+    mine = {k: v[stage:stage + 1].clone().requires_grad_() for k, v in split.items()}
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = pipeline_pp.pipeline_forward(block_fn, mine, x, mesh)
+    grads = torch.autograd.grad(out.float().square().mean(), leaves(mine))
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    whole = {k: v.clone().requires_grad_() for k, v in split.items()}
+    ref = pipeline_pp.sequential_reference(block_fn, whole, x, 2)
+    ref_grads = torch.autograd.grad(ref.float().square().mean(), leaves(whole))
+    out, ref = out.detach(), ref.detach()
+    fwd_err = _max_err(out, ref) / max(1.0, float(ref.float().abs().max()))
+    grad_err = max(float((g.float() - r[stage:stage + 1].float()).norm()
+                         / r[stage:stage + 1].float().norm().clamp_min(1e-30))
+                   for g, r in zip(grads, ref_grads, strict=True))
+    exact = torch.equal(out, ref) and all(torch.equal(g, r[stage:stage + 1])
+                                          for g, r in zip(grads, ref_grads))
+    del blocks, split, mine, whole, out, ref, grads, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "fwd_err": fwd_err, "grad_rel_norm": grad_err, "exact": exact}
+
+
+def _pt_int8_psum(dev) -> dict:
+    """``int8_psum`` of llama's ``embed`` leaf as int8 (a payload and a
+    scale drawn per rank) over the world: against the formula from both
+    ranks' payloads (each rank redraws the other's), bit for bit."""
+    n, me = dist.get_world_size(), dist.get_rank()
+    V, D = PT_CONFIG().padded_vocab(), PT_CONFIG().d_model
+
+    def payload(r):
+        gen = torch.Generator(device=dev).manual_seed(100 + r)
+        q = torch.randint(-127, 128, (V, D), generator=gen, device=dev, dtype=torch.int8)
+        return q, torch.rand((), generator=gen, device=dev) + 0.01
+
+    q, scale = payload(me)
+    _sync(dev)
+    t0 = time.perf_counter()
+    got = collectives.int8_psum(q, scale, dist.group.WORLD)
+    _sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    parts = [payload(r) for r in range(n)]
+    total = functools.reduce(torch.add, [p.to(torch.int32) for p, _ in parts])
+    want = total.float() * torch.stack([s for _, s in parts]).max() / float(n)
+    return {"equal": torch.equal(got, want), "ms": ms, "shape": [V, D],
+            "bytes": q.numel() * q.element_size()}
+
+
+def placed_train_worker(out: Path, device: str | None = None) -> None:
+    """A rank of the placed train paths (``chip_smoke.py
+    --placed-train-worker DIR``, started by :func:`placed_train_phase` as
+    torchrun starts one) on ``device`` (default: this rank's card); writes
+    ``rank{r}.json``."""
+    got = {}
+    dev_flags = [] if device is None else ["--device", device]
+    # through the train CLI: it joins the launcher's world
+    got["placed-train-dp"] = _pt_cli(dev_flags + ["--layers", str(PT_LAYERS), "--steps",
+                                                  str(PT_STEPS), "--model-parallel", "1"])
+    got["placed-train-tp"] = _pt_cli(dev_flags + ["--layers", str(PT_LAYERS), "--steps",
+                                                  str(PT_STEPS), "--model-parallel", "2"])
+    rank = dist.get_rank()
+    dev = rank_device(device)
+    cfg = PT_CONFIG()
+    walls = got["walls"] = {}
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(1, device=dev)
+    ops.reset_launch_counts()
+    got["placed-train-fsdp"] = _pt_steps(cfg.with_overrides(n_layers=PT_FSDP_LAYERS), dev,
+                                         Env(axes=mesh_axes(mesh), fsdp=True), mesh,
+                                         PT_FSDP_STEPS)
+    got["placed-train-fsdp"]["launches"] = _pt_counts()
+    walls["fsdp"] = time.perf_counter() - t0
+    f32 = cfg.with_overrides(n_layers=PT_F32_LAYERS, dtype="float32")
+    for mp in (2, 1):
+        t0 = time.perf_counter()
+        mesh = make_host_mesh(mp, device=dev)
+        got[f"placed-train-f32-mp{mp}"] = _pt_steps(f32, dev, Env(axes=mesh_axes(mesh)), mesh,
+                                                    PT_STEPS)
+        walls[f"f32-mp{mp}"] = time.perf_counter() - t0
+    # a checkpoint written on data 2 x model 1 restored on data 1 x model 2
+    ck = out / "ckpt"
+    restore = dev_flags + ["--layers", str(PT_F32_LAYERS), "--steps", str(PT_STEPS),
+                           "--ckpt-every", str(PT_CKPT), "--ckpt-dir", str(ck)]
+    t0 = time.perf_counter()
+    got["placed-train-restore-dp"] = _pt_cli(restore + ["--model-parallel", "1"])
+    if rank == 0:
+        for d in ck.iterdir():
+            if d.name.startswith("step_") and int(d.name[5:]) != PT_CKPT:
+                shutil.rmtree(d)
+    dist.barrier()
+    got["placed-train-restore-tp"] = _pt_cli(restore + ["--model-parallel", "2"])
+    walls["restore"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got["pipeline"] = _pt_pipeline(dev)
+    walls["pipeline"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got["int8_psum"] = _pt_int8_psum(dev)
+    walls["int8_psum"] = time.perf_counter() - t0
+    got["backend"] = dist.get_backend()
+    (out / f"rank{rank}.json").write_text(json.dumps(got))
+    dist.destroy_process_group()
+
+
+def _pt_expected(label: str, row: dict, layers: int, steps: int, heads: str) -> dict:
+    """A train path's launches per rank (the lse forward twice a layer
+    under remat, the backward once), checked against the counters."""
+    want = {"prefill_attention": {f"lse|{heads}": 2 * layers * steps},
+            "flash_attention_bwd": {f"unscaled|{heads}": layers * steps}}
+    if row["launches"] != want:
+        raise AssertionError(f"[{label}] launches {row['launches']}, expected {want}")
+    return want
+
+
+def placed_train_phase(dev) -> dict[str, PathRun]:
+    """The placed train paths of llama3.2-1b at full width: two ranks of
+    this script on the one card over gloo (``--placed-train-worker``),
+    after one-rank runs of the same work in this process.
+
+    placed-train-dp (data 2 x model 1, ZeRO-1 moments) and placed-train-tp
+    (data 1 x model 2) through the train CLI: :data:`PT_LAYERS` layers,
+    :data:`PT_STEPS` steps of the CLI's global batch of 4 x 512; finite
+    losses, step 0's within :data:`PT_LOSS_TOL` of one rank's, every rank's
+    losses equal, ``m`` and ``v`` per rank half of the whole on data 2,
+    the flash lse forward and backward launched 2 L and L times a step at
+    the shard's heads.  placed-train-fsdp (data 2, ``Env.fsdp``) through
+    ``make_train_step`` at :data:`PT_FSDP_LAYERS` layers; placed-train-f32
+    (both meshes, float32, :data:`PT_F32_LAYERS` layers): losses and grad
+    norms within :data:`PT_F32_TOL` of one rank's; placed-train-restore: a
+    checkpoint written on data 2 x model 1 (every ``PT_CKPT`` steps)
+    restored on data 1 x model 2, whose step ``PT_CKPT`` loss is the
+    unbroken run's within :data:`PT_LOSS_TOL`; the GPipe pipeline over a
+    ``stage`` axis against ``sequential_reference``; ``int8_psum`` of
+    llama's ``embed`` leaf against its formula."""
+    t_phase = time.perf_counter()
+    freed_card(dev, "placed-train")
+    cfg = PT_CONFIG()
+    one = {}
+    t0 = time.perf_counter()
+    args = train_cli.build_parser().parse_args(
+        PT_FLAGS + ["--layers", str(PT_LAYERS), "--steps", "1"])
+    res = train_cli.run(args, echo=False)
+    one["bf16"] = res.losses[0]
+    del res
+    one["fsdp"] = _pt_steps(cfg.with_overrides(n_layers=PT_FSDP_LAYERS), dev, Env(), None,
+                            PT_FSDP_STEPS)
+    one["f32"] = _pt_steps(cfg.with_overrides(n_layers=PT_F32_LAYERS, dtype="float32"), dev,
+                           Env(), None, PT_STEPS)
+    print(f"[placed-train] one rank: step 0 loss {one['bf16']:.6f} at {PT_LAYERS} layers; "
+          f"fsdp's {PT_FSDP_LAYERS} layers {one['fsdp']['losses']}; float32 at "
+          f"{PT_F32_LAYERS} layers losses {one['f32']['losses']} grad norms "
+          f"{one['f32']['grad_norms']} ({time.perf_counter() - t0:.1f}s)")
+    freed_card(dev, "placed-train ranks")
+    out = Path(tempfile.mkdtemp(prefix="placed-train-"))
+    try:
+        t0 = time.perf_counter()
+        _spawn_ranks(out, "--placed-train-worker", PT_TIMEOUT)
+        ranks_s = time.perf_counter() - t0
+        got = [json.loads((out / f"rank{r}.json").read_text()) for r in range(PLACED_RANKS)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    g0 = got[0]
+    print(f"[placed-train] {PLACED_RANKS} ranks on one card, backend {g0['backend']}, "
+          f"{ranks_s:.1f}s from start to exit; walls (rank 0): dp "
+          f"{g0['placed-train-dp']['wall_s']:.1f}s, tp {g0['placed-train-tp']['wall_s']:.1f}s, "
+          + ", ".join(f"{k} {v:.1f}s" for k, v in g0["walls"].items()))
+    G, Dh = cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim()
+    heads = {1: kernel_heads(cfg.n_kv_heads, G, Dh), 2: kernel_heads(cfg.n_kv_heads // 2, G, Dh)}
+    rows = {1: ("prefill_attention[train-lse-dp2]", "flash_attention_bwd[dp2]"),
+            2: ("prefill_attention[train-lse-tp2]", "flash_attention_bwd[tp2]")}
+    runs = {}
+    tokens = PT_BATCH * PT_SEQ
+    for label, mp in (("placed-train-dp", 1), ("placed-train-tp", 2)):
+        r0 = g0[label]
+        if not all(g[label]["losses"] == r0["losses"] for g in got):
+            raise AssertionError(f"[{label}] the ranks' losses differ")
+        want = {}
+        for g in got:
+            want = _pt_expected(label, g[label], PT_LAYERS, PT_STEPS, heads[mp])
+        d = 2 // mp
+        whole = 4 * r0["n_params"]
+        err = abs(r0["losses"][0] - one["bf16"])
+        ms = 1e3 * statistics.mean(r0["step_s"][1:])
+        print(f"[{label}] {r0['lines'][0]}; losses {r0['losses']}, grad norms "
+              f"{[round(x, 4) for x in r0['grad_norms']]}; step 0 vs one rank {err:.3e} (tol "
+              f"{PT_LOSS_TOL}); m {r0['m_bytes'] / 1e9:.3f} GB and v {r0['v_bytes'] / 1e9:.3f} "
+              f"GB per rank of {whole / 1e9:.3f} GB whole; launches per rank {r0['launches']} "
+              f"(= 2 L and L a step); {ms:.1f} ms per step (steps 1-{PT_STEPS - 1}), "
+              f"{tokens / PLACED_RANKS / (ms / 1e3):.1f} tok/s per rank; wall {r0['wall_s']:.1f}s")
+        if not (all(math.isfinite(x) for x in r0["losses"]) and err <= PT_LOSS_TOL):
+            raise AssertionError(f"[{label}] losses {r0['losses']} against one rank's "
+                                 f"{one['bf16']}")
+        if d == 2 and not all(g[label]["m_bytes"] == g[label]["v_bytes"] == whole // 2
+                              for g in got):
+            raise AssertionError(f"[{label}] m / v per rank are not half of the whole")
+        runs[label] = PathRun({rows[mp][0]: want["prefill_attention"][f"lse|{heads[mp]}"],
+                               rows[mp][1]: want["flash_attention_bwd"][f"unscaled|{heads[mp]}"]},
+                              None, [], r0["wall_s"], None)
+    fs = g0["placed-train-fsdp"]
+    for g in got:
+        _pt_expected("placed-train-fsdp", g["placed-train-fsdp"], PT_FSDP_LAYERS, PT_FSDP_STEPS,
+                     heads[1])
+    err = max(abs(a - b) for a, b in zip(fs["losses"], one["fsdp"]["losses"]))
+    print(f"[placed-train-fsdp] data 2, Env.fsdp, {PT_FSDP_LAYERS} layers: losses "
+          f"{fs['losses']} vs one rank {one['fsdp']['losses']}: {err:.3e} (tol {PT_LOSS_TOL}); "
+          f"m {fs['m_bytes'] / 1e9:.3f} GB per rank; "
+          f"{1e3 * statistics.mean(fs['step_s'][1:]):.1f} ms per step")
+    if not err <= PT_LOSS_TOL:
+        raise AssertionError("[placed-train-fsdp] losses differ from one rank's")
+    runs["placed-train-fsdp"] = PathRun(
+        {rows[1][0]: 2 * PT_FSDP_LAYERS * PT_FSDP_STEPS,
+         rows[1][1]: PT_FSDP_LAYERS * PT_FSDP_STEPS}, None, [], sum(fs["step_s"]), None)
+    for mp in (2, 1):
+        r = g0[f"placed-train-f32-mp{mp}"]
+        errs = [max(abs(a - b) / abs(b) for a, b in pairs) for pairs in (
+            list(zip(r["losses"], one["f32"]["losses"])),
+            list(zip(r["grad_norms"], one["f32"]["grad_norms"])))]
+        first = [abs(r[k][0] - one["f32"][k][0]) / abs(one["f32"][k][0])
+                 for k in ("losses", "grad_norms")]
+        print(f"[placed-train-f32] data {2 // mp} x model {mp}: losses {r['losses']}, grad norms "
+              f"{r['grad_norms']}; relative to one rank at step 0: loss {first[0]:.3e}, grad "
+              f"norm {first[1]:.3e} (tol {PT_F32_TOL}); over the steps: {errs[0]:.3e}, "
+              f"{errs[1]:.3e} (tol {PT_F32_STEP_TOL}); "
+              f"{1e3 * statistics.mean(r['step_s'][1:]):.1f} ms per step")
+        if not (max(first) <= PT_F32_TOL and max(errs) <= PT_F32_STEP_TOL):
+            raise AssertionError("[placed-train-f32] losses or grad norms differ from one rank's")
+    a, b = g0["placed-train-restore-dp"], g0["placed-train-restore-tp"]
+    err = abs(b["losses"][0] - a["losses"][PT_CKPT])
+    done = next(line for line in a["lines"] if line.startswith("done"))
+    print(f"[placed-train-restore] saved on {a['mesh']} ({done}), restored on {b['mesh']} "
+          f"from step {PT_CKPT}, the later checkpoints removed; step {PT_CKPT} loss "
+          f"{b['losses'][0]:.6f} vs the unbroken run's {a['losses'][PT_CKPT]:.6f}: {err:.3e} "
+          f"(tol {PT_LOSS_TOL}); wall {g0['walls']['restore']:.1f}s")
+    if not (f"restored from step {PT_CKPT}" in b["lines"] and b["restarts"] == 0
+            and err <= PT_LOSS_TOL):
+        raise AssertionError("[placed-train-restore] the restored run differs")
+    for g in got:
+        p = g["pipeline"]
+        print(f"[pipeline] stage 2, {PIPE_LAYERS} layers, {PIPE_MICRO} microbatches of 1 x "
+              f"{PT_SEQ}: forward {p['fwd_err']:.3e} of max(1, |ref|), gradients "
+              f"{p['grad_rel_norm']:.3e} in norm (tol {PIPE_TOL}); bit-equal {p['exact']}; "
+              f"{p['wall_s'] * 1e3:.1f} ms forward + backward")
+        if not (p["fwd_err"] <= PIPE_TOL and p["grad_rel_norm"] <= PIPE_TOL):
+            raise AssertionError("[pipeline] the pipeline differs from sequential_reference")
+        q = g["int8_psum"]
+        print(f"[int8_psum] {q['shape']} int8 ({q['bytes'] / 1e6:.1f} MB a rank) over data 2: "
+              f"equal to the formula {q['equal']}; {q['ms']:.1f} ms (gloo: a ring of int8 sends "
+              "through pinned host memory)")
+        if not q["equal"]:
+            raise AssertionError("[int8_psum] differs from the formula")
+    print(f"[placed-train] phase wall {time.perf_counter() - t_phase:.1f}s")
+    return runs
+
+
 def ptxas_lines(name: str) -> list[str]:
     """One line per kernel of ``csrc/<name>.cu`` from its build log
     (``-Xptxas -v``): registers, shared memory, spills."""
@@ -4148,6 +4579,8 @@ def main() -> None:
               "decode_attention[shard-seq2]")]
     for tag in TRAIN_TAGS.values():
         rows += [train_lse_phase(dev, tag), train_bwd_phase(dev, tag)]
+    for tag in PT_TAGS:
+        rows += [train_lse_phase(dev, tag), train_bwd_phase(dev, tag)]
     for r in rows:
         dev_off = (f" (at a device q_offset {r['device_offset_ms']:.4f})"
                    if "device_offset_ms" in r else "")
@@ -4170,6 +4603,8 @@ def main() -> None:
     by_path: dict[str, PathRun] = {}
 
     def path(label, flags, want, **kw):
+        if kw.get("eager"):
+            kw["rerun_layers"] = RERUN_LAYERS
         by_path[label] = serve_phase(model, params, label, flags, want, by_name, **kw)
 
     def dense_want(st):
@@ -4322,6 +4757,7 @@ def main() -> None:
         by_path[tag] = recurrent_phase(dev, arch, by_name)
     by_path["seamless"] = seamless_phase(dev, by_name)
     by_path.update(train_phase(dev, by_name))
+    by_path.update(placed_train_phase(dev))
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4365,5 +4801,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--placed-worker"]:
         placed_worker(Path(sys.argv[2]))
+    elif sys.argv[1:2] == ["--placed-train-worker"]:
+        placed_train_worker(Path(sys.argv[2]))
     else:
         main()

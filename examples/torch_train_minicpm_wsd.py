@@ -57,7 +57,7 @@ def main(argv=None) -> dict:
         train=TrainConfig(lr=3e-3, schedule="wsd", warmup_steps=10 if cpu else 2,
                           total_steps=steps, stable_frac=0.8),
     )
-    init_state, train_step, state_shapes = make_train_step(model, run)
+    init_state, train_step, _, state_shapes = make_train_step(model, run)
     dc = DataConfig(vocab=cfg.vocab, seq_len=32 if cpu else 1024, global_batch=16 if cpu else 8)
     ck = Checkpointer(args.ckpt_dir, keep_n=2)
     crashed = {"done": False}

@@ -153,7 +153,7 @@ def main(argv=None) -> None:
                                             grad_compression=args.grad_compression),
                     train=TrainConfig(lr=args.lr, schedule=args.schedule,
                                       warmup_steps=max(steps // 20, 2), total_steps=steps))
-    init_state, train_step, _ = make_train_step(model, run)
+    init_state, train_step, _, _ = make_train_step(model, run)
     dc = DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch)
     state = init_state(args.seed)
     dev = model.device

@@ -22,8 +22,14 @@ either package restores in the other:
     and each member's bytes move in one read or write, where ``np.savez``
     and ``np.load`` take one thread and 256 KiB pieces.
 
-Restoring onto another mesh (the reference's ``shardings``) waits for
-training placement (ROADMAP queue 1 item 9a).
+A placed state (each rank holding its shards, ``place=(placement,
+specs)``: the rank's ``core.offload.Placement`` and the state's
+``state_specs()``) is saved in the same format: every leaf gathered whole
+over the axes that split it (every rank takes part), and only the
+world's rank 0 holds the copy and writes.  ``restore(..., place=...)``
+gives each rank its shards of the whole leaves under another placement's
+specs: the reference's restore with ``shardings``, so a restart may land
+on a mesh that differs from the one that saved.
 """
 from __future__ import annotations
 
@@ -40,6 +46,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import collectives
 
 Pytree = Any
 
@@ -64,13 +73,28 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _flatten(tree: Pytree, prefix: str = "") -> dict[str, np.ndarray]:
+def _flatten(tree: Pytree, prefix: str = "", place=None, specs=None,
+             keep: bool = True) -> dict[str, np.ndarray]:
+    """Every leaf as host numpy under its path; on a mesh (``place``, the
+    leaves' ``specs``) each leaf gathered whole first, and kept only where
+    ``keep`` (the other ranks take part in the gathers and hold nothing)."""
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):
-            out.update(_flatten(tree[k], f"{prefix}{k}{_SEP}"))
+            out.update(_flatten(tree[k], f"{prefix}{k}{_SEP}", place,
+                                None if specs is None else specs[k], keep))
         return out
-    return {prefix[:-1]: _host(tree)}
+    if place is not None:
+        tree = _gather_whole(place, specs, tree.detach())
+    return {prefix[:-1]: _host(tree)} if keep else {}
+
+
+def _gather_whole(place, spec, x: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of which ``x`` is this rank's shard under ``spec``."""
+    for d in range(len(spec)):
+        if place.split(spec.axes(d)):
+            x = collectives.all_gather(x, place.mesh.group(spec.axes(d)), d)
+    return x
 
 
 def _leaf(arr: np.ndarray, tmpl: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -88,13 +112,16 @@ def _leaf(arr: np.ndarray, tmpl: torch.Tensor, device: torch.device) -> torch.Te
 
 
 def _unflatten_into(template: Pytree, flat: dict[str, np.ndarray], device,
-                    prefix: str = "") -> Pytree:
+                    prefix: str = "", place=None, specs=None) -> Pytree:
     if isinstance(template, dict):
-        return {k: _unflatten_into(v, flat, device, f"{prefix}{k}{_SEP}")
+        return {k: _unflatten_into(v, flat, device, f"{prefix}{k}{_SEP}", place,
+                                   None if specs is None else specs[k])
                 for k, v in template.items()}
     dev = device if device is not None else (
         template.device if template.device.type != "meta" else torch.device("cpu"))
-    return _leaf(flat[prefix[:-1]], template, dev)
+    if place is None:
+        return _leaf(flat[prefix[:-1]], template, dev)
+    return place.take(_leaf(flat[prefix[:-1]], template, "cpu"), specs).contiguous().to(dev)
 
 
 def _npy_header(a: np.ndarray) -> bytes:
@@ -175,9 +202,20 @@ class Checkpointer:
         self._thread: threading.Thread | None = None
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, state: Pytree, meta: dict | None = None, blocking: bool = True):
+    def save(self, step: int, state: Pytree, meta: dict | None = None, blocking: bool = True,
+             place=None):
+        """Write ``state`` as step ``step``; with ``place=(placement,
+        specs)`` a placed state's whole leaves, gathered, by rank 0 alone
+        (every rank calls it)."""
         self.wait()
-        flat = _flatten(state)
+        if place is None:
+            flat = _flatten(state)
+        else:
+            placement, specs = place
+            writer = not dist.is_initialized() or dist.get_rank() == 0
+            flat = _flatten(state, place=placement, specs=specs, keep=writer)
+            if not writer:
+                return
         if blocking:
             self._write(step, flat, meta or {})
         else:
@@ -233,18 +271,21 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, template: Pytree, step: int | None = None,
-                device: str | torch.device | None = None) -> tuple[int, Pytree]:
+                device: str | torch.device | None = None, place=None) -> tuple[int, Pytree]:
         """Restore into the structure and dtypes of ``template`` (tensors,
         on the ``meta`` device too: ``make_train_step``'s
-        ``state_shapes()``), on ``device`` (default: each template leaf's
-        device, the CPU for a meta leaf)."""
+        ``state_shapes()``, the whole leaves), on ``device`` (default: each
+        template leaf's device, the CPU for a meta leaf).  With
+        ``place=(placement, specs)`` each leaf is this rank's shard under
+        its spec, whatever mesh wrote the checkpoint."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = os.path.join(self.dir, f"step_{step:010d}")
         flat = _read_npz(os.path.join(path, "arrays.npz"))
         dev = None if device is None else torch.device(device)
-        return step, _unflatten_into(template, flat, dev)
+        placement, specs = place if place is not None else (None, None)
+        return step, _unflatten_into(template, flat, dev, place=placement, specs=specs)
 
     def manifest(self, step: int) -> dict:
         with open(os.path.join(self.dir, f"step_{step:010d}", "manifest.json")) as f:

@@ -134,10 +134,10 @@ SHAPES: dict[str, ShapeConfig] = {
 
 
 # ---------------------------------------------------------------------------
-# run / parallelism config (the reference's, field for field; the port runs
-# on one device, so ``kv_policy``, ``offload``, ``sub_batches``,
-# ``sequence_parallel``, ``zero_stage`` and ``remat`` are carried but read
-# by nothing in training until its placement comes: ROADMAP queue 1 item 9a)
+# run / parallelism config (the reference's, field for field; training reads
+# ``zero_stage`` on a mesh, as the reference's trainer does, and carries
+# ``kv_policy``, ``offload``, ``sub_batches``, ``sequence_parallel`` and
+# ``remat`` unread, as the reference's trainer does too)
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class ParallelConfig:

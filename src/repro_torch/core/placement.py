@@ -83,11 +83,10 @@ def param_rules(sequence_parallel: bool = False, fsdp: bool = False) -> dict[str
 
 
 # the reference's Env fields the port does not run yet, at their defaults:
-# sub-batches under placement, sequence parallelism, ZeRO/FSDP, wide expert
+# sub-batches under placement, sequence parallelism, wide expert
 # parallelism, bf16 cross-shard combines, MoE all-to-all, Pallas switches
-NOT_PLACED_YET = {"sub_batches": 1, "sequence_parallel": False, "fsdp": False,
-                  "ep_wide": False, "bf16_combine": False, "moe_a2a": False,
-                  "use_pallas": False}
+NOT_PLACED_YET = {"sub_batches": 1, "sequence_parallel": False, "ep_wide": False,
+                  "bf16_combine": False, "moe_a2a": False, "use_pallas": False}
 
 
 @dataclass(frozen=True)
@@ -95,8 +94,10 @@ class Env:
     """What the model code needs to know of the runtime: the mesh's axis
     sizes (``{}``: one device, no collectives) and the policies.  The
     reference's fields and defaults; the port runs ``axes``, ``kv_policy``
-    and ``offload`` (serving on the dense cache), and an ``Env`` that sets
-    any other field off its default raises (:data:`NOT_PLACED_YET`)."""
+    and ``offload`` (serving on the dense cache) and ``fsdp`` (training's
+    ZeRO-3 split of every weight's d_model over the batch axes), and an
+    ``Env`` that sets any other field off its default raises
+    (:data:`NOT_PLACED_YET`)."""
     axes: dict[str, int] = field(default_factory=dict)
     kv_policy: str = "batch"
     offload: str = "hpu"        # "hpu" | "none"
@@ -112,7 +113,7 @@ class Env:
         off = [f for f, default in NOT_PLACED_YET.items() if getattr(self, f) != default]
         if off:
             raise NotImplementedError(f"Env: {', '.join(off)} waits for a later slice of "
-                                      "the placement (ROADMAP item 9a-b)")
+                                      "the placement (ROADMAP item 9b)")
 
     def act_rules(self) -> dict[str, tuple[str, ...]]:
         return activation_rules(self.sequence_parallel)

@@ -8,6 +8,9 @@
   python -m repro_torch.launch.train --arch llama3.2-1b --reduced --device cpu \\
       --steps 50 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt
 
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch llama3.2-1b \\
+      --model-parallel 2 --batch 4 --seq 512 --steps 3
+
 Counterpart of ``repro.launch.train``: config -> model -> train step ->
 synthetic data pipeline -> checkpointing -> straggler monitor ->
 supervisor (restart from the last checkpoint on a failure;
@@ -24,13 +27,25 @@ of GB is not written); it also prints tokens/s, ms per step and the
 peak device memory.  Every family trains; seamless-m4t-medium's loss
 reads ``src_embeds``, which the synthetic batches lack, so it fails
 with the reference's KeyError and trains at model level
-(``training.trainer.make_train_step``).  ``--model-parallel`` above 1
-needs training placement (queue 1 item 9a).
+(``training.trainer.make_train_step``).
+
+Under ``torchrun`` (or any launcher that sets ``WORLD_SIZE`` above 1)
+every rank joins the world and the world is a ``(data, model)`` mesh with
+``--model-parallel`` ranks on ``model`` (``launch.mesh.make_host_mesh``;
+gloo on the CPU or when ranks share a card, NCCL otherwise), and the
+model is placed on it (``Env(axes=...)``, as the reference does when its
+mesh has more than one device): tensor parallel over ``model``, the rows
+over ``data``, the AdamW moments sharded over ``data`` (ZeRO-1).  Every
+rank builds the global batch of each step and computes on its rows;
+rank 0 prints the lines, checkpoints hold the whole leaves (gathered,
+written by rank 0) and a restart restores each rank's shards, on any
+mesh.  Without a world it trains on one device, as before.
 
 One difference from the reference: before it restarts, the supervisor
 waits for the checkpoint being written, so a failure right after a save
 restarts from that save (the reference reads the directory while the
-save's thread may still be writing, and can restart from an older step).
+save's thread may still be writing, and can restart from an older step);
+on a mesh rank 0 reads the step and every rank restarts from it.
 """
 from __future__ import annotations
 
@@ -42,13 +57,17 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ParallelConfig, RunConfig, TrainConfig
 from repro_torch.configs.reduced import reduce_config
+from repro_torch.core.placement import Env
 from repro_torch.data.pipeline import DataConfig, host_batch
+from repro_torch.distributed.collectives import broadcast_object
 from repro_torch.distributed.fault_tolerance import StragglerMonitor, Supervisor
+from repro_torch.launch.mesh import make_host_mesh, mesh_axes, rank_device, world
 from repro_torch.models.registry import build_model
 from repro_torch.training.trainer import make_train_step
 
@@ -81,7 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 @dataclasses.dataclass
 class TrainResult:
-    state: dict                      # the final train state (on the device)
+    state: dict                      # the final train state (on the device; a rank's shards)
     losses: dict[int, float]         # step -> loss of every step run, the last run's
     grad_norms: dict[int, float]     # step -> global grad norm (before clipping)
     step_s: dict[int, float]         # step -> wall seconds (synchronised), the last run's
@@ -89,28 +108,33 @@ class TrainResult:
     checkpoints: list[int]
     n_params: int
     peak_bytes: int | None           # device peak (CUDA), None on the CPU
-    lines: list[str]                 # what was printed
+    lines: list[str]                 # what was printed (by rank 0)
+    mesh: dict[str, int]             # the mesh's axes
 
 
 def run(args: argparse.Namespace, echo: bool = True) -> TrainResult:
     """Train as ``args`` say and return the final state, per-step losses
-    and times."""
-    if args.model_parallel > 1:
-        raise NotImplementedError("--model-parallel > 1 needs placement on a mesh "
-                                  "(ROADMAP queue 1 item 9a)")
+    and times.  In a world of more than one rank, every rank calls it."""
+    mesh = make_host_mesh(args.model_parallel, device=args.device)
+    axes = mesh_axes(mesh)
+    rank, n_ranks = world()
+    device = str(rank_device(args.device)) if n_ranks > 1 else args.device
     lines: list[str] = []
 
     def say(line: str) -> None:
         lines.append(line)
-        if echo:
+        if echo and rank == 0:
             print(line, flush=True)
 
     cfg = reduce_config(args.arch) if args.reduced else get_config(args.arch)
     if args.layers is not None:
         cfg = cfg.with_overrides(n_layers=args.layers)
-    model = build_model(cfg, args.device)
+    if n_ranks > 1:
+        model = build_model(cfg, device, Env(axes=axes), mesh)
+    else:
+        model = build_model(cfg, device)
     dev = model.device
-    say(f"arch={cfg.name} params={model.n_params():,} mesh={{'data': 1, 'model': 1}}")
+    say(f"arch={cfg.name} params={model.n_params():,} mesh={axes}")
     run_cfg = RunConfig(
         model=cfg,
         parallel=ParallelConfig(grad_accum=args.grad_accum,
@@ -118,7 +142,8 @@ def run(args: argparse.Namespace, echo: bool = True) -> TrainResult:
         train=TrainConfig(lr=args.lr, schedule=args.schedule,
                           warmup_steps=max(args.steps // 20, 2), total_steps=args.steps),
     )
-    init_state, train_step, state_shapes = make_train_step(model, run_cfg)
+    init_state, train_step, state_specs, state_shapes = make_train_step(model, run_cfg)
+    placed = None if model.placement is None else (model.placement, state_specs())
     dc = DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch)
     ck = Checkpointer(args.ckpt_dir, keep_n=3)
     monitor = StragglerMonitor(n_workers=1)
@@ -137,7 +162,7 @@ def run(args: argparse.Namespace, echo: bool = True) -> TrainResult:
         if start_step == 0:
             state = init_state(args.seed)
         else:
-            _, state = ck.restore(state_shapes(), step=start_step, device=dev)
+            _, state = ck.restore(state_shapes(), step=start_step, device=dev, place=placed)
             say(f"restored from step {start_step}")
         for step in range(start_step, args.steps):
             if step == args.fail_at_step and not failed_once["done"]:
@@ -154,20 +179,22 @@ def run(args: argparse.Namespace, echo: bool = True) -> TrainResult:
             out["grad_norms"][step] = float(metrics["grad_norm"])
             if args.ckpt_every and ((step + 1) % args.ckpt_every == 0
                                     or step + 1 == args.steps):
-                ck.save(step + 1, state, blocking=False)
+                ck.save(step + 1, state, blocking=False, place=placed)
             if step % 10 == 0 or step + 1 == args.steps:
                 say(f"step {step:5d} loss {loss:.4f} lr {float(metrics['lr']):.2e} "
                     f"gnorm {out['grad_norms'][step]:.2f} {dt:.2f}s")
         ck.wait()
+        if n_ranks > 1:
+            dist.barrier()           # rank 0's last save has landed for every rank
         out["state"] = state
         return args.steps
 
     def latest_step():
         ck.wait()                    # a save in flight lands before the restart reads
-        return ck.latest_step()
+        return broadcast_object(ck.latest_step() if rank == 0 else None)
 
     sup = Supervisor(run_fn, latest_step, max_restarts=3)
-    sup.run(ck.latest_step() or 0)
+    sup.run(latest_step() or 0)
     say(f"done ({sup.restarts} restart(s)); checkpoints: {ck.all_steps()}")
     tokens = args.batch * args.seq
     steady = [s for st, s in sorted(out["step_s"].items())][1:] or list(out["step_s"].values())
@@ -183,7 +210,7 @@ def run(args: argparse.Namespace, echo: bool = True) -> TrainResult:
                        grad_norms=out["grad_norms"], step_s=out["step_s"],
                        restarts=sup.restarts, checkpoints=ck.all_steps(),
                        n_params=model.n_params(), peak_bytes=peak,
-                       lines=lines)
+                       lines=lines, mesh=axes)
 
 
 def main(argv=None):

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.distributed import collectives
+
 Pytree = Any
 
 
@@ -129,6 +131,20 @@ class Spec(tuple):
         if part is None:
             return ()
         return part if isinstance(part, tuple) else (part,)
+
+    def without(self, axes: tuple[str, ...]) -> "Spec":
+        """This spec with the mesh axes ``axes`` taken out of every dim."""
+        parts = []
+        for d in range(len(self)):
+            kept = tuple(a for a in self.axes(d) if a not in axes)
+            parts.append(None if not kept else kept[0] if len(kept) == 1 else kept)
+        while parts and parts[-1] is None:
+            parts.pop()
+        return Spec(*parts)
+
+    def split_axes(self) -> tuple[str, ...]:
+        """Every mesh axis this spec splits a dim over."""
+        return tuple(a for d in range(len(self)) for a in self.axes(d))
 
 
 # default rules; core.placement builds policy-specific variants
@@ -306,6 +322,40 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
         return nll.mean()
     mask = mask.to(logits32.dtype)
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                                 mask: torch.Tensor | None, v0: int, vocab_group,
+                                 rows_group) -> torch.Tensor:
+    """:func:`cross_entropy_loss` of logits split over the vocabulary and
+    rows split over the batch, as the reference computes it with its
+    logits kept split over ``vocab``: ``logits (b, S, v)`` are this
+    rank's columns ``[v0, v0 + v)`` of its rows, ``targets`` / ``mask``
+    its rows.  The detached maximum is reduced (MAX) over ``vocab_group``,
+    the sum of exponentials and the gold logit (taken by the same
+    iota-compare-select sum) are summed over it, and the masked sum is
+    divided by the global count (the mask summed over ``rows_group``);
+    the rows' partial losses are summed over ``rows_group``.  Every rank
+    returns the whole batch's loss; the sums' backwards are the identity
+    (``collectives.reduce_from``), so each rank's gradient is that of its
+    columns and rows."""
+    logits32 = logits.to(acc_dtype(logits))
+    m = logits32.amax(dim=-1, keepdim=True).detach().clone()
+    m = collectives.all_reduce_max(m, vocab_group)
+    sumexp = collectives.reduce_from(torch.exp(logits32 - m).sum(dim=-1), vocab_group)
+    logz = torch.log(sumexp) + m[..., 0]
+    iota = torch.arange(v0, v0 + logits.shape[-1], device=logits.device)
+    gold = collectives.reduce_from(
+        torch.where(iota == targets[..., None], logits32, 0.0).sum(dim=-1), vocab_group)
+    nll = logz - gold
+    if mask is None:
+        count = torch.tensor(float(nll.numel()), dtype=nll.dtype, device=nll.device)
+        total = nll.sum()
+    else:
+        mask = mask.to(logits32.dtype)
+        count, total = mask.sum(), (nll * mask).sum()
+    count = collectives.all_reduce(count, rows_group).clamp_min(1.0)
+    return collectives.reduce_from(total / count, rows_group)
 
 
 def unstack(tree: dict[str, torch.Tensor]) -> list[dict[str, torch.Tensor]]:

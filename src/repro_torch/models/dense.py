@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.core import offload
 from repro_torch.core.offload import Placement, ShardedCache
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ref
 from repro_torch.models import common as cm
 from repro_torch.models.common import ParamDef
@@ -333,17 +334,20 @@ def _embed(params, tokens: torch.Tensor, embeds: torch.Tensor | None):
     return x, torch.arange(S, device=x.device).expand(B, S)
 
 
-def _attn(cfg, p, x: torch.Tensor, positions: torch.Tensor, reduce=None):
+def _attn(cfg, p, x: torch.Tensor, positions: torch.Tensor, group=None):
     """The pre-norm causal attention sublayer of a whole sequence (prefill
-    and training): ``(x + attention, k, v)``.  On a mesh ``reduce`` sums
-    the row-parallel output projection's partials over the heads' axes."""
+    and training): ``(x + attention, k, v)``.  On a mesh ``group`` is the
+    heads' process group: the normed input enters the column-parallel
+    projections through ``copy_to`` and the row-parallel output
+    projection's partials are summed by ``reduce_from``."""
     h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if group is not None:
+        h = collectives.copy_to(h, group)
     q = cm.rope(cm.linear(h, p["wq"]), positions, cfg.rope_theta)
     k = cm.rope(cm.linear(h, p["wk"]), positions, cfg.rope_theta)
     v = cm.linear(h, p["wv"])
     o = offload.prefill_attention(q, k, v)
-    out = cm.linear(o, p["wo"], n_in=2)
-    return x + (out if reduce is None else reduce(out)), k, v
+    return x + collectives.reduce_from(cm.linear(o, p["wo"], n_in=2), group), k, v
 
 
 def _block_train(cfg, p, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -364,10 +368,14 @@ def hidden_states(cfg, params, tokens: torch.Tensor,
     return cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
-def loss_fn(cfg, params, batch: dict) -> tuple[torch.Tensor, dict]:
+def loss_fn(cfg, params, batch: dict, *, place: Placement | None = None
+            ) -> tuple[torch.Tensor, dict]:
     """Mean next-token CE of ``batch`` (``inputs``, ``targets``, optional
     ``mask`` and ``embeds``; the loss covers token positions only) ->
-    ``(loss, {"loss": loss})``."""
+    ``(loss, {"loss": loss})``.  On a mesh (``place``):
+    :func:`_placed_loss`."""
+    if place is not None:
+        return _placed_loss(cfg, place, params, batch)
     hid = hidden_states(cfg, params, batch["inputs"], batch.get("embeds"))
     n_front = 0 if "embeds" not in batch else batch["embeds"].shape[1]
     logits = cm.unembed(hid[:, n_front:], _unembed_table(params), cfg.vocab)
@@ -635,16 +643,23 @@ def paged_decode_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # placement on a mesh (``core.offload.Placement``; serving on the dense
-# cache).  The compute side is tensor parallel on the weights' split:
-# wq / wk / wv and w_gate / w_up by columns, wo and w_down by rows with
-# one all-reduce after each, the embedding by vocabulary rows (a masked
-# lookup and an all-reduce) and the logits gathered over the vocabulary;
-# activations are split by rows over the batch axes.  The cache is a
+# cache and training).  The compute side is tensor parallel on the
+# weights' split: wq / wk / wv and w_gate / w_up by columns, wo and w_down
+# by rows with one all-reduce after each, the embedding by vocabulary rows
+# (a masked lookup and an all-reduce) and the logits gathered over the
+# vocabulary (serving) or kept split into a vocabulary-parallel
+# cross-entropy (training); activations are split by rows over the batch
+# axes.  With ``Env.fsdp`` every weight's d_model dim is also split over
+# the batch axes and gathered before use (:func:`_whole`).  The cache is a
 # ShardedCache in its policy's layout; K/V are written where it holds
 # them, and decode attention goes through offload.placed_decode_attention.
+# Training writes every collective's transpose out
+# (``collectives.copy_to`` / ``reduce_from`` / ``gather_from``).
 # ---------------------------------------------------------------------------
 # the dim each block weight is split on
 _TP_DIMS = {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "w_gate": 2, "w_up": 2, "w_down": 1}
+# the mesh axes FSDP splits the weights' d_model over (the batch axes)
+BATCH_AXES = ("pod", "data")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -655,22 +670,50 @@ class TensorParallel:
 
 
 def tensor_parallel(specs: Pytree) -> TensorParallel:
-    """The axes the weights' specs split, when they are the layout above;
-    raises for another (the row-parallel fallback of a head count the
-    model axis does not divide, or FSDP's split of d_model)."""
-    blocks = specs["blocks"]
+    """The axes the weights' specs split, when they are the layout above
+    (FSDP's split of d_model over the batch axes aside, in a dim of its
+    own); raises for another (the row-parallel fallback of a head count
+    the model axis does not divide)."""
+    leaves = [*specs["blocks"].values()] + [sp for k, sp in specs.items() if k != "blocks"]
+    mixed = any(len(set(sp.axes(d)) & set(BATCH_AXES)) not in (0, len(sp.axes(d)))
+                for sp in leaves for d in range(len(sp)))
+    blocks = {n: sp.without(BATCH_AXES) for n, sp in specs["blocks"].items()}
     ok = all([i for i in range(len(sp)) if sp.axes(i)] in ([], [_TP_DIMS.get(n)])
              for n, sp in blocks.items())
     heads = {blocks[n].axes(_TP_DIMS[n]) for n in ("wq", "wk", "wv", "wo")}
     mlp = {blocks[n].axes(_TP_DIMS[n]) for n in ("w_gate", "w_up", "w_down")}
-    tables = [specs[n] for n in ("embed", "unembed") if n in specs]
+    tables = [specs[n].without(BATCH_AXES) for n in ("embed", "unembed") if n in specs]
     vocab = {t.axes(0) for t in tables}
-    if (not ok or len(heads) > 1 or len(mlp) > 1 or len(vocab) > 1
-            or any(t.axes(1) for t in tables) or specs["final_norm"].axes(0)):
+    if (mixed or not ok or len(heads) > 1 or len(mlp) > 1 or len(vocab) > 1
+            or any(t.axes(1) for t in tables)
+            or specs["final_norm"].without(BATCH_AXES).axes(0)):
         raise NotImplementedError(
             f"placement: the dense model runs column/row tensor parallel weights only; "
             f"specs {specs}")
     return TensorParallel(heads.pop(), mlp.pop(), vocab.pop())
+
+
+def _whole(place: Placement, spec, w: torch.Tensor, lead: int = 0) -> torch.Tensor:
+    """``w``, this rank's shard of a weight under ``spec``, with its FSDP
+    dims (split over the batch axes) gathered: the tensor-parallel shard
+    the computation uses.  ``lead`` counts the leading dims of ``spec``
+    that ``w`` lacks (1 for a layer's slice of a stacked weight).  Under
+    autograd the gradient is reduce-scattered back over those axes."""
+    for d in range(lead, len(spec)):
+        axes = tuple(a for a in spec.axes(d) if a in BATCH_AXES)
+        if place.split(axes):
+            w = collectives.gather_from(w, place.mesh.group(axes), d - lead)
+    return w
+
+
+def _placed_layer(place: Placement, params, l: int) -> dict[str, torch.Tensor]:
+    """Layer ``l``'s tensor-parallel weights (FSDP's split gathered)."""
+    return {k: _whole(place, place.specs["blocks"][k], v, 1)
+            for k, v in _layer(params, l).items()}
+
+
+def _placed_table(place: Placement, params, name: str) -> torch.Tensor:
+    return _whole(place, place.specs[name], params[name])
 
 
 def _placed_embed(place: Placement, tp: TensorParallel, table: torch.Tensor,
@@ -686,27 +729,96 @@ def _placed_embed(place: Placement, tp: TensorParallel, table: torch.Tensor,
     inside = ((t >= 0) & (t < n))[..., None]
     x = torch.where(inside, table[t.clamp(0, n - 1)], torch.zeros((), dtype=table.dtype,
                                                                    device=table.device))
-    return place.reduce(x, tp.vocab)
+    return collectives.reduce_from(x, place.mesh.group(tp.vocab))
 
 
-def _placed_logits(cfg, place: Placement, tp: TensorParallel, params,
+def _placed_unembed_table(place: Placement, params, table: torch.Tensor) -> torch.Tensor:
+    """The unembedding's rows of this rank: ``table`` (the embedding's,
+    gathered) when tied."""
+    return table if "unembed" not in params else _placed_table(place, params, "unembed")
+
+
+def _placed_logits(cfg, place: Placement, tp: TensorParallel, params, table: torch.Tensor,
                    x: torch.Tensor) -> torch.Tensor:
     """x (b, D) -> logits (b, V) over the whole (padded) vocabulary, the
-    pad masked: this rank's columns gathered over the vocabulary's axes."""
-    logits = place.gather(x @ _unembed_table(params).t(), -1, tp.vocab)
+    pad masked: this rank's columns gathered over the vocabulary's axes
+    (``table``: the embedding's rows of this rank, gathered)."""
+    logits = place.gather(x @ _placed_unembed_table(place, params, table).t(), -1, tp.vocab)
     if cfg.vocab < logits.shape[-1]:
         logits[..., cfg.vocab:] = -1e30
     return logits
 
 
 def _placed_ffn(cfg, place: Placement, tp: TensorParallel, p, x: torch.Tensor):
-    h = cm.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + place.reduce(cm.swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), tp.mlp)
+    """The FFN sublayer over this rank's columns of the FFN, entered by
+    ``copy_to`` and left by ``reduce_from`` over the FFN's axes."""
+    mlp = place.mesh.group(tp.mlp)
+    h = collectives.copy_to(cm.rmsnorm(x, p["ln2"], cfg.norm_eps), mlp)
+    return x + collectives.reduce_from(cm.swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), mlp)
 
 
 def _rows(place: Placement, n: int) -> tuple[str, ...]:
     """The axes a batch of ``n`` rows is split over on the compute side."""
     return place.env.act_spec(("batch",), (n,)).axes(0)
+
+
+def _placed_block_train(cfg, place: Placement, tp: TensorParallel, specs, p,
+                        x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """:func:`_block_train` of this rank's rows and heads: the weights'
+    FSDP split gathered, each tensor-parallel section entered by
+    ``copy_to`` (its backward sums the partial gradients over the section's
+    axes) and left by ``reduce_from``."""
+    p = {k: _whole(place, specs[k], v, 1) for k, v in p.items()}
+    x = _attn(cfg, p, x, positions, place.mesh.group(tp.heads))[0]
+    return _placed_ffn(cfg, place, tp, p, x)
+
+
+def _placed_loss(cfg, place: Placement, params, batch: dict) -> tuple[torch.Tensor, dict]:
+    """:func:`loss_fn` on a mesh, differentiable.  ``batch`` is the whole
+    (global) batch on every rank; each rank takes its rows (the batch
+    must divide over the batch axes: a rank holding rows that another
+    also holds would count their gradients twice), runs every layer
+    tensor parallel over its heads and FFN columns (each block recomputed
+    in the backward, the flash lse forward and backward kernels over the
+    rank's heads on CUDA), and the unembedding over its vocabulary rows
+    into :func:`common.vocab_parallel_cross_entropy`.  Every rank returns
+    the whole batch's loss; the gradients are this rank's shards', summed
+    over the model axis and, for FSDP's split, over the batch axes, and
+    partial over the batch axes a weight is not split over (the trainer
+    reduces them)."""
+    tp = tensor_parallel(place.specs)
+    tokens = batch["inputs"]
+    B = tokens.shape[0]
+    rows = _rows(place, B)
+    if place.mesh.size(rows) != place.mesh.size(BATCH_AXES):
+        raise ValueError(f"placement: a batch of {B} rows does not divide over the batch axes "
+                         f"of {place.mesh}")
+    a0, a1 = place.part(rows, B)
+    table = _placed_table(place, params, "embed")
+    x = _placed_embed(place, tp, table, tokens[a0:a1])
+    embeds = batch.get("embeds")
+    n_front = 0 if embeds is None else embeds.shape[1]
+    if embeds is not None:
+        x = torch.cat([embeds[a0:a1].to(x.dtype), x], dim=1)
+    b, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(b, S)
+    for p in cm.unstack(params["blocks"]):
+        x = cm.remat(_placed_block_train, cfg, place, tp, place.specs["blocks"], p, x,
+                     positions)
+    x = cm.rmsnorm(x, _placed_table(place, params, "final_norm"), cfg.norm_eps)
+    vocab = place.mesh.group(tp.vocab)
+    utable = _placed_unembed_table(place, params, table)
+    logits = collectives.copy_to(x[:, n_front:], vocab) @ utable.t()
+    n = utable.shape[0]
+    v0 = place.part(tp.vocab, n * place.mesh.size(tp.vocab))[0]
+    if cfg.vocab < v0 + n:
+        cols = torch.arange(v0, v0 + n, device=logits.device)
+        logits = logits.masked_fill(cols >= cfg.vocab, -1e30)
+    mask = batch.get("mask")
+    loss = cm.vocab_parallel_cross_entropy(logits, batch["targets"][a0:a1],
+                                           None if mask is None else mask[a0:a1], v0, vocab,
+                                           place.mesh.group(rows))
+    return loss, {"loss": loss}
 
 
 def _placed_prefill(cfg, place: Placement, params, tokens: torch.Tensor,
@@ -719,7 +831,8 @@ def _placed_prefill(cfg, place: Placement, params, tokens: torch.Tensor,
     b, S = tokens.shape
     rows = _rows(place, b)
     a0, a1 = place.part(rows, b)
-    x = _placed_embed(place, tp, params["embed"], tokens[a0:a1])
+    table = _placed_table(place, params, "embed")
+    x = _placed_embed(place, tp, table, tokens[a0:a1])
     positions = torch.arange(S, device=x.device).expand(a1 - a0, S)
     s0, s1 = cache.seq
     w0, w1 = min(s0, S), min(s1, S)            # this shard's positions of the prompt
@@ -727,15 +840,15 @@ def _placed_prefill(cfg, place: Placement, params, tokens: torch.Tensor,
     dst = [(cache.row_axes, cache.rows), ((), (w0, w1)), (cache.head_axes, cache.heads),
            ((), (0, full[3]))]
     for l in range(cfg.n_layers):
-        p = _layer(params, l)
-        x, k, v = _attn(cfg, p, x, positions, reduce=lambda y: place.reduce(y, tp.heads))
+        p = _placed_layer(place, params, l)
+        x, k, v = _attn(cfg, p, x, positions, place.mesh.group(tp.heads))
         x = _placed_ffn(cfg, place, tp, p, x)
         k, v = place.reshard_all([k, v], [rows, (), tp.heads, ()], [dst, dst], [full, full])
         if w1 > w0:                            # then w0 == s0
             cache["k"][l, :, :w1 - w0].copy_(k)
             cache["v"][l, :, :w1 - w0].copy_(v)
-    x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = _placed_logits(cfg, place, tp, params, x[:, -1])
+    x = cm.rmsnorm(x, _placed_table(place, params, "final_norm"), cfg.norm_eps)
+    logits = _placed_logits(cfg, place, tp, params, table, x[:, -1])
     cache["lengths"].fill_(S)
     return place.gather(logits, 0, rows), cache
 
@@ -751,7 +864,8 @@ def _placed_decode(cfg, place: Placement, params, cache: ShardedCache, tokens: t
     a0, a1 = place.part(rows, B)
     lengths = cache["lengths"]
     pos = place.reshard(lengths, [cache.row_axes], [(rows, (a0, a1))], [B]).long()
-    x = _placed_embed(place, tp, params["embed"], tokens[a0:a1])
+    table = _placed_table(place, params, "embed")
+    x = _placed_embed(place, tp, table, tokens[a0:a1])
     s0, s1 = cache.seq
     Dh = cache["k"].shape[-1]
     Hq = cfg.n_heads
@@ -760,7 +874,7 @@ def _placed_decode(cfg, place: Placement, params, cache: ShardedCache, tokens: t
     wpos = local.clamp(0, s1 - s0 - 1)
     bidx = torch.arange(lengths.shape[0], device=x.device)
     for l in range(cfg.n_layers):
-        p = _layer(params, l)
+        p = _placed_layer(place, params, l)
         h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
         q = cm.rope(cm.linear(h, p["wq"])[:, None], pos[:, None], cfg.rope_theta)[:, 0]
         k = cm.rope(cm.linear(h, p["wk"])[:, None], pos[:, None], cfg.rope_theta)[:, 0]
@@ -776,6 +890,6 @@ def _placed_decode(cfg, place: Placement, params, cache: ShardedCache, tokens: t
                                             lengths + 1)
         x = x + place.reduce(cm.linear(o, p["wo"], n_in=2), tp.heads)
         x = _placed_ffn(cfg, place, tp, p, x)
-    x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    x = cm.rmsnorm(x, _placed_table(place, params, "final_norm"), cfg.norm_eps)
     lengths.add_(1)
-    return _placed_logits(cfg, place, tp, params, x), rows
+    return _placed_logits(cfg, place, tp, params, table, x), rows

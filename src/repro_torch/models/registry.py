@@ -13,11 +13,12 @@ With an ``Env`` whose ``axes`` are not empty and the mesh of this rank
 ``cache_specs`` resolve the reference's rules, :meth:`Model.init` keeps
 this rank's shard of every weight, ``init_cache`` allocates a
 ``core.offload.ShardedCache``, and the dense family's ``prefill``,
-``decode_step`` and ``decode_sample_step`` run tensor parallel on it.
-Placement serves the dense family on the dense cache; the other
-families, the paged pool, chunked prefill and verify wait for later
-slices (their steps are None on a placed model, and
-:func:`build_model` refuses another family).
+``decode_step`` and ``decode_sample_step`` run tensor parallel on it, as
+its ``loss_fn`` does for training (``training.trainer`` reduces the
+gradients and shards the optimizer state).  Placement serves and trains
+the dense family on the dense cache; the other families, the paged pool,
+chunked prefill and verify wait for later slices (their steps are None
+on a placed model, and :func:`build_model` refuses another family).
 """
 from __future__ import annotations
 
@@ -157,8 +158,8 @@ def build_model(cfg: ModelConfig, device: str | torch.device | None = None,
 
 
 def _placed_model(cfg: ModelConfig, dev: torch.device, env: Env, mesh, fam, defs) -> Model:
-    """The dense family on a mesh: its serving steps bound to this rank's
-    :class:`Placement` (training on a mesh waits for a later slice)."""
+    """The dense family on a mesh: its serving steps and its training
+    ``loss_fn`` bound to this rank's :class:`Placement`."""
     if cfg.family != DENSE or cfg.kv_quant:
         what = "the int8 kv_quant cache" if cfg.family == DENSE else cfg.family
         raise NotImplementedError(f"placement serves the dense family on its bf16/f32 cache "
@@ -176,12 +177,8 @@ def _placed_model(cfg: ModelConfig, dev: torch.device, env: Env, mesh, fam, defs
         decode_step=functools.partial(fam.decode_step, cfg, place=place),
         cache_defs=functools.partial(fam.cache_defs, cfg),
         init_cache=functools.partial(fam.init_cache, cfg, device=dev, place=place),
-        loss_fn=_no_placed_training,
+        loss_fn=functools.partial(fam.loss_fn, cfg, place=place),
         decode_sample_step=functools.partial(fam.decode_sample_step, cfg, place=place),
         env=env,
         placement=place,
     )
-
-
-def _no_placed_training(*_args, **_kw):
-    raise NotImplementedError("training on a mesh waits for a later slice")

@@ -11,9 +11,13 @@ computes under ``jax.jit``, which is not the form its source reads as:
 * the new error ``g32 - q * scale`` compiles to one fused multiply-add,
   one rounding (``torch.addcmul``; two roundings differ in the last bit).
 
-``torch.round`` rounds half to even like ``jnp.round``.  On one device
-the payload is decompressed at once (``compress_grads``); the byte saving
-is the wire's, once a data axis exists (ROADMAP queue 1 item 9a).
+``torch.round`` rounds half to even like ``jnp.round``.  The payload is
+decompressed at once (``compress_grads``), as in the reference's train
+step; ``distributed.collectives.int8_psum`` is the compressed all-reduce
+whose wire bytes it stands for.  On a mesh each rank compresses its
+shard of a gradient (the trainer's ZeRO shard, with the error tree held
+as a shard too) and the scale's amax is the whole leaf's: reduced (MAX)
+over the leaf's split axes, as GSPMD reduces it.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.training.optimizer import tree_map
 
 Pytree = Any
@@ -33,9 +38,10 @@ def init_error(params: Pytree) -> Pytree:
                     params)
 
 
-def _one(g: torch.Tensor, e: torch.Tensor):
+def _one(g: torch.Tensor, e: torch.Tensor, group=None):
     g32 = g.float() + e
-    scale = torch.clamp(g32.abs().max(), min=1e-12) * (1.0 / INT8_MAX)
+    amax = collectives.all_reduce_max(g32.abs().max(), group)
+    scale = torch.clamp(amax, min=1e-12) * (1.0 / INT8_MAX)
     q = torch.clamp(torch.round(g32 / scale), -INT8_MAX, INT8_MAX).to(torch.int8)
     return q, scale, torch.addcmul(g32, q.float(), scale, value=-1.0)
 
@@ -56,16 +62,19 @@ def decompress(q: Pytree, scales: Pytree) -> Pytree:
     return tree_map(lambda qi, si: qi.float() * si, q, scales)
 
 
-def compress_grads(grads: Pytree, error: Pytree):
+def compress_grads(grads: Pytree, error: Pytree, groups: Pytree = None):
     """Round trip (the numerics of a compressed all-reduce) + new error:
     ``(decompress(*compress(...)[:2]), new error)``, one leaf at a time.
     The new error is written **in place** into ``error`` (returned), so a
-    full-width state holds one error tree, not two."""
+    full-width state holds one error tree, not two.  On a mesh ``groups``
+    (a tree like ``grads``) gives each shard's group of split axes."""
 
-    def one(g, e):
-        q, scale, new_e = _one(g, e)
+    def one(g, e, group=None):
+        q, scale, new_e = _one(g, e, group)
         e.copy_(new_e)
         return q.float() * scale
 
     with torch.no_grad():
-        return tree_map(one, grads, error), error
+        if groups is None:
+            return tree_map(one, grads, error), error
+        return tree_map(one, grads, error, groups), error

@@ -19,6 +19,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.distributed import collectives
 
 Pytree = Any
 
@@ -29,6 +30,13 @@ def leaves(tree: Pytree) -> list[torch.Tensor]:
     """Leaves in sorted-key order (``jax.tree.leaves``' order for dicts)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in leaves(tree[k])]
+    return [tree]
+
+
+def leaves_of(tree: Pytree, like: Pytree) -> list:
+    """The leaves of ``tree`` (any values) in ``like``'s sorted-key order."""
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in leaves_of(tree[k], like[k])]
     return [tree]
 
 
@@ -88,17 +96,32 @@ class AdamW:
                 "step": torch.zeros((), dtype=torch.int32, device=device)}
 
     @torch.no_grad()
-    def update(self, grads: Pytree, opt_state: Pytree, params: Pytree):
+    def update(self, grads: Pytree, opt_state: Pytree, params: Pytree, groups: Pytree = None):
         """-> (params, opt_state, {"lr", "grad_norm"}): params, ``m`` and
         ``v`` are the trees passed in, updated in place; the step is a new
-        tensor."""
+        tensor.  On a mesh the trees are this rank's shards and ``groups``
+        (a tree like them) gives each leaf's process group of the axes
+        that split it (None: whole): the clip's sum of squares of a leaf
+        is summed over its group, so a split leaf counts every shard once
+        and a replicated leaf counts once."""
         tc = self.tc
         step = opt_state["step"] + 1
         stepf = step.float()
         lr = make_schedule(tc)(stepf)
 
         # global-norm clip in f32: per-leaf sums added in leaf order
-        gsq = sum(g.float().square().sum() for g in leaves(grads))
+        sqs = [g.float().square().sum() for g in leaves(grads)]
+        if groups is not None:
+            # one all-reduce per group, of its leaves' sums stacked
+            by_group: dict[int, tuple[object, list[int]]] = {}
+            for i, grp in enumerate(leaves_of(groups, grads)):
+                if grp is not None:
+                    by_group.setdefault(id(grp), (grp, []))[1].append(i)
+            for grp, idx in by_group.values():
+                summed = collectives.all_reduce(torch.stack([sqs[i] for i in idx]), grp)
+                for j, i in enumerate(idx):
+                    sqs[i] = summed[j]
+        gsq = sum(sqs)
         gnorm = torch.sqrt(gsq)
         scale = torch.clamp(tc.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
 

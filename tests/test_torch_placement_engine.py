@@ -64,8 +64,9 @@ def test_placed_engine_matches_reference(world, mp, policy, mode):
 
 
 def test_gather_from_all_reduce_equals_all_gather(world):
-    """gloo's route for CUDA tensors, a gather built from all_reduce, gives
-    what its all_gather gives, bit for bit (bf16)."""
+    """gloo's route for CUDA tensors, once a gather built from all_reduce
+    and now the ring of sends and receives (``collectives._ring_gather``),
+    gives what its all_gather gives, bit for bit (bf16)."""
     _, outs = world
     for o in outs:
         np.testing.assert_array_equal(o["by_sum"], o["native"])

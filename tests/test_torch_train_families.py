@@ -174,7 +174,7 @@ def test_trajectory_from_a_carried_state_matches_reference(arch):
         train=JTrainConfig(lr=3e-3, warmup_steps=2, total_steps=50)))
     jstate = jinit(jax.random.key(0))
     model = build_model(reduce_config(arch).with_overrides(dtype="float32"), "cpu")
-    _, step, _ = make_train_step(model, RunConfig(
+    _, step, _, _ = make_train_step(model, RunConfig(
         model=model.cfg, parallel=ParallelConfig(),
         train=TrainConfig(lr=3e-3, warmup_steps=2, total_steps=50)))
     state = state_from_numpy(_tree_np(jstate))
@@ -229,7 +229,7 @@ def test_train_state_checkpoint_round_trip_is_bit_equal(arch, tmp_path):
     deepseek's MTP subtree and zamba2's shared block included."""
     cfg = reduce_config(arch)
     model = build_model(cfg, "cpu")
-    init_state, train_step, state_shapes = make_train_step(model, RunConfig(
+    init_state, train_step, _, state_shapes = make_train_step(model, RunConfig(
         model=cfg, parallel=ParallelConfig(), train=TrainConfig()))
     state, _ = train_step(init_state(0), _batch(cfg))
     ck = Checkpointer(str(tmp_path))
@@ -253,7 +253,7 @@ def test_every_arch_takes_a_train_step(arch):
     share)."""
     cfg = reduce_config(arch)
     model = build_model(cfg, "cpu")
-    init_state, train_step, _ = make_train_step(model, RunConfig(
+    init_state, train_step, _, _ = make_train_step(model, RunConfig(
         model=cfg, parallel=ParallelConfig(), train=TrainConfig(lr=1e-2, warmup_steps=1)))
     state = init_state(0)
     before = [p.clone() for p in leaves(state["params"])]

@@ -379,7 +379,7 @@ def test_full_depth_at_attention_width_matches_reference_in_float64(monkeypatch)
     del req, loss
     run = RunConfig(model=model.cfg, parallel=ParallelConfig(), train=TrainConfig(
         lr=3e-3, warmup_steps=2, total_steps=50))
-    _, step, _ = make_train_step(model, run)
+    _, step, _, _ = make_train_step(model, run)
     losses = []
     for i in range(n_steps):
         state, m = step(state, host_batch(DataConfig(vocab=512, seq_len=32, global_batch=1),
@@ -428,7 +428,7 @@ def test_trajectory_from_a_carried_state_matches_reference(pkw):
                       train=JTrainConfig(lr=3e-3, warmup_steps=2, total_steps=50))
     jinit, jstep, _, _ = jmake_train_step(jmodel, jrun)
     jstate = jinit(jax.random.key(0))
-    _, _, (_, step, _) = _setup(dtype="float32", **pkw)
+    _, _, (_, step, _, _) = _setup(dtype="float32", **pkw)
     state = state_from_numpy(_tree_np(jstate))
     assert set(state) == set(jstate) and state["opt"]["step"].dtype == torch.int32
     jstep = jax.jit(jstep)
@@ -443,7 +443,7 @@ def test_trajectory_from_a_carried_state_matches_reference(pkw):
 
 
 def test_loss_decreases():
-    cfg, model, (init_state, train_step, _) = _setup()
+    cfg, model, (init_state, train_step, _, _) = _setup()
     state = init_state(0)
     dc = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8)
     losses = []
@@ -456,8 +456,8 @@ def test_loss_decreases():
 def test_grad_accum_matches_full_batch():
     """accum=2 over the same tokens must match accum=1 closely (bf16
     params; accumulation reorders the reductions)."""
-    cfg, _, (init1, step1, _) = _setup(grad_accum=1)
-    _, _, (init2, step2, _) = _setup(grad_accum=2)
+    cfg, _, (init1, step1, _, _) = _setup(grad_accum=1)
+    _, _, (init2, step2, _, _) = _setup(grad_accum=2)
     b = host_batch(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8), 0, 0, 1)
     s1, _ = step1(init1(0), b)
     s2, _ = step2(init2(0), b)
@@ -469,7 +469,7 @@ def test_grad_accum_matches_full_batch():
 def test_resume_is_bit_exact(tmp_path):
     """Four steps straight equal two steps, a checkpoint, a restore into
     the template and two more, bit for bit (params, moments, step, err)."""
-    cfg, _, (init_state, train_step, state_shapes) = _setup(grad_compression="int8")
+    cfg, _, (init_state, train_step, _, state_shapes) = _setup(grad_compression="int8")
     dc = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4)
     straight = init_state(0)
     for i in range(4):
@@ -510,8 +510,15 @@ def test_train_cli_restarts_once_with_the_reference_done_line(tmp_path, capsys):
     assert [l for l in res.lines if l.startswith("done")] == [ref_lines[-1]]
 
 
-def test_train_cli_refuses_model_parallel():
-    args = train_cli.build_parser().parse_args(["--reduced", "--device", "cpu",
-                                                "--model-parallel", "2"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        train_cli.run(args)
+def test_train_cli_refuses_model_parallel(tmp_path):
+    """The CLI no longer refuses ``--model-parallel``: on one process (no
+    world) a ``model`` axis of 2 does not divide the one rank, so it
+    trains on one rank, as the reference does on one device (its
+    ``make_host_mesh`` falls back to a model axis of 1), and prints the
+    one-device mesh; a world of ranks runs it placed
+    (tests/test_torch_train_cli_placed.py)."""
+    res = train_cli.run(train_cli.build_parser().parse_args(
+        ["--reduced", "--steps", "2", "--model-parallel", "2", "--device", "cpu",
+         "--ckpt-dir", str(tmp_path)]))
+    assert res.mesh == {"data": 1, "model": 1} and sorted(res.losses) == [0, 1]
+    assert res.lines[0].endswith(" mesh={'data': 1, 'model': 1}")

@@ -63,6 +63,18 @@ def flat(tree, prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
+def unflat(flat_dict: dict) -> dict:
+    """The inverse of :func:`flat`."""
+    tree = {}
+    for key, a in flat_dict.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = a
+    return tree
+
+
 def _model(task, policy, dtype):
     import torch
 
@@ -75,15 +87,80 @@ def _model(task, policy, dtype):
     mesh = make_host_mesh(task["model_parallel"])
     cfg = reduce_config("llama3.2-1b", vocab=task["vocab"]).with_overrides(dtype=dtype)
     model = build_model(cfg, "cpu", Env(axes=mesh_axes(mesh), kv_policy=policy), mesh)
-    weights = dict(np.load(Path(task["out"]) / f"params_{dtype}.npz"))
-    tree = {}
-    for key, a in weights.items():
-        node = tree
-        *path, leaf = key.split("/")
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = a
+    tree = unflat(dict(np.load(Path(task["out"]) / f"params_{dtype}.npz")))
     return model, shards_from_numpy(tree, model, getattr(torch, dtype))
+
+
+def train_task(task) -> dict:
+    """The placed train step per case (a ``(data, model)`` mesh on the
+    world's first ranks, ``Env.fsdp``, the run's accumulation and
+    compression) and dtype, from the reference's weights over the task's
+    batches (``batches.npz``): each step's loss (also as its bits) and
+    grad norm, the whole params after the steps (gathered from the
+    shards), the bytes of this rank's ``m`` and ``params`` shards; for the
+    FSDP case also the placed prefill's logits (serving gathers the
+    weights' d_model split too)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpointer import _gather_whole
+    from repro_torch.configs.base import ParallelConfig, RunConfig, TrainConfig
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.core.placement import Env
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models.bridge import shards_from_numpy
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.trainer import make_train_step
+
+    out = {}
+    raw = dict(np.load(Path(task["out"]) / "batches.npz"))
+    batches = [{k: raw[f"{i}/{k}"] for k in ("inputs", "targets", "mask")}
+               for i in range(task["steps"])]
+    for case in task["cases"]:
+        shape = case["mesh"]
+        mesh = DeviceMesh(shape, list(range(shape["data"] * shape["model"])))
+        if mesh.coords is None:
+            continue
+        for dtype in task["dtypes"]:
+            cfg = reduce_config("llama3.2-1b", vocab=task["vocab"]).with_overrides(dtype=dtype)
+            model = build_model(cfg, "cpu", Env(axes=shape, fsdp=case["fsdp"]), mesh)
+            run = RunConfig(model=cfg, parallel=ParallelConfig(
+                grad_accum=case["grad_accum"], grad_compression=case["compression"]),
+                train=TrainConfig(**task["train"]))
+            init_state, train_step, state_specs, _ = make_train_step(model, run)
+            state = init_state(0)
+            weights = unflat(dict(np.load(Path(task["out"]) / f"params_{dtype}.npz")))
+            for p, w in zip(leaves(state["params"]),
+                            leaves(shards_from_numpy(weights, model, getattr(torch, dtype))),
+                            strict=True):
+                p.copy_(w)
+            key = f"{case['name']}/{dtype}"
+            if case["fsdp"] and dtype == "float32":
+                toks = torch.from_numpy(batches[0]["inputs"])
+                logits, _ = model.prefill(state["params"], toks, model.init_cache(*toks.shape))
+                out[f"{key}/prefill"] = logits.float().numpy()
+            losses, norms = [], []
+            for b in batches:
+                state, metrics = train_step(state, b)
+                losses.append(float(metrics["loss"]))
+                norms.append(float(metrics["grad_norm"]))
+            out[f"{key}/loss"] = np.asarray(losses)
+            out[f"{key}/loss_bits"] = np.asarray(losses).view(np.int64)
+            out[f"{key}/grad_norm"] = np.asarray(norms)
+            out[f"{key}/m_bytes"] = np.asarray(sum(t.numel() * t.element_size()
+                                                   for t in leaves(state["opt"]["m"])))
+            out[f"{key}/param_bytes"] = np.asarray(sum(t.numel() * t.element_size()
+                                                       for t in leaves(state["params"])))
+            specs = state_specs()["params"]
+            for path, p in flat(state["params"]):
+                spec = specs
+                for k in path.split("/"):
+                    spec = spec[k]
+                whole = _gather_whole(model.placement, spec, p)
+                if dist.get_rank() == 0:
+                    out[f"{key}/params/{path}"] = whole.float().numpy()
+    return out
 
 
 def model_task(task) -> dict:
@@ -110,8 +187,8 @@ def model_task(task) -> dict:
 def engine_task(task) -> dict:
     """The float32 engine over the task's prompts, per mesh (its ``model``
     axis size), policy and mode: every request's tokens and step stamps,
-    and the EngineStats.  Also a gather built from ``all_reduce`` (gloo's
-    route for CUDA tensors) against gloo's own ``all_gather``."""
+    and the EngineStats.  Also the ring gather of sends and receives
+    (gloo's route for CUDA tensors) against gloo's own ``all_gather``."""
     import dataclasses
 
     import torch
@@ -121,7 +198,7 @@ def engine_task(task) -> dict:
     from repro_torch.serving.engine import Engine, Request
 
     x = torch.arange(6, dtype=torch.bfloat16).reshape(2, 3) - 10 * dist.get_rank()
-    out = {"by_sum": collectives._stack_by_sum(x, dist.group.WORLD).float().numpy(),
+    out = {"by_sum": collectives._ring_gather(x, dist.group.WORLD).float().numpy(),
            "native": collectives.gather_stack(x, dist.group.WORLD).float().numpy()}
     for mp in task["model_parallel"]:
         for policy in task["policies"]:
@@ -144,6 +221,86 @@ def engine_task(task) -> dict:
     return out
 
 
+def pipeline_task(task) -> dict:
+    """``pipeline_forward`` over a ``stage`` mesh of the whole world on the
+    reference's toy (``pipe.npz``: stacked ``w`` (L, D, D) and ``x``
+    (n_micro, B, S, D); a stage applies ``tanh(h @ w_l)`` for each of its
+    layers): the output and the gradient of ``sum(out ** 2)`` with
+    respect to this stage's weights; the differentiable reduce-scatter and
+    all-gather with their backwards; then ``int8_psum`` of a payload and a
+    scale that differ per rank (seeded by the rank)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.training.pipeline_pp import pipeline_forward, split_stages
+
+    n, rank = dist.get_world_size(), dist.get_rank()
+    data = dict(np.load(Path(task["out"]) / "pipe.npz"))
+    mesh = DeviceMesh({"stage": n})
+    stage = mesh.index(("stage",))
+    w = split_stages({"w": torch.from_numpy(data["w"])}, n)["w"][stage:stage + 1]
+    w = w.clone().requires_grad_()
+
+    def block_fn(p, h):
+        for wl in p["w"]:
+            h = torch.tanh(h @ wl)
+        return h
+
+    out = pipeline_forward(block_fn, {"w": w}, torch.from_numpy(data["x"]), mesh)
+    (g,) = torch.autograd.grad((out ** 2).sum(), [w])
+    # a reduce-scatter and its all-gather backward, an all-gather and its
+    # reduce-scatter backward (rank r's input: r + 1 times a ramp)
+    x = (torch.arange(n * 6, dtype=torch.float64).reshape(n * 2, 3) * (rank + 1)
+         ).requires_grad_()
+    scattered = collectives.scatter_to(x, dist.group.WORLD, 0)
+    (g_scatter,) = torch.autograd.grad((scattered * (rank + 1)).sum(), [x])
+    part = x[2 * rank:2 * rank + 2].detach().clone().requires_grad_()
+    gathered = collectives.gather_from(part, dist.group.WORLD, 0)
+    (g_gather,) = torch.autograd.grad((gathered * (rank + 1)).sum(), [part])
+    rng = np.random.default_rng(rank)
+    q = torch.from_numpy(rng.integers(-127, 128, task["psum_shape"]).astype(np.int8))
+    scale = torch.tensor(float(rng.uniform(0.01, 1.0)), dtype=torch.float32)
+    return {"out": out.detach().numpy(), "grad": g.numpy(), "q": q.numpy(),
+            "scattered": scattered.detach().numpy(), "g_scatter": g_scatter.numpy(),
+            "gathered": gathered.detach().numpy(), "g_gather": g_gather.numpy(),
+            "scale": scale.numpy(), "psum": collectives.int8_psum(q, scale, dist.group.WORLD).numpy()}
+
+
+def train_cli_task(task) -> dict:
+    """The train CLI on this world (``--reduced --device cpu``, float32
+    weights): its lines and losses under each of ``task["runs"]`` (a name,
+    CLI flags and the step checkpoints to keep before it: ``{dir: [steps]}``
+    prunes the directory ``dir`` down to those steps, a restart on another
+    mesh from a checkpoint of the first)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.launch import train as train_cli
+
+    train_cli.reduce_config = lambda arch: reduce_config(arch).with_overrides(dtype="float32")
+    out = {}
+    root = Path(task["out"])
+    for name, flags, keep in task["runs"]:
+        for d, steps in keep.items():
+            if int(os.environ["RANK"]) == 0:
+                for sub in (root / d).iterdir():
+                    if sub.name.startswith("step_") and int(sub.name[5:]) not in steps:
+                        shutil.rmtree(sub)
+            dist.barrier()
+        args = train_cli.build_parser().parse_args(
+            ["--reduced", "--device", "cpu"] + [f.replace("{out}", str(root)) for f in flags])
+        res = train_cli.run(args, echo=False)
+        out[f"{name}/lines"] = np.asarray(json.dumps(res.lines))
+        out[f"{name}/losses"] = np.asarray([res.losses[s] for s in sorted(res.losses)])
+        out[f"{name}/steps"] = np.asarray(sorted(res.losses))
+        out[f"{name}/restarts"] = np.asarray(res.restarts)
+    return out
+
+
 def main(path: str) -> None:
     import torch
     import torch.distributed as dist
@@ -154,7 +311,8 @@ def main(path: str) -> None:
     dist.init_process_group("gloo", store=dist.FileStore(task["store"], n), rank=rank,
                             world_size=n, timeout=datetime.timedelta(seconds=WORLD_TIMEOUT))
     try:
-        out = {"model": model_task, "engine": engine_task}[task["kind"]](task)
+        out = {"model": model_task, "engine": engine_task, "train": train_task,
+               "pipeline": pipeline_task, "train_cli": train_cli_task}[task["kind"]](task)
         np.savez(Path(task["out"]) / f"rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
