@@ -17,7 +17,7 @@
    card could take.  Every prefill case also runs with ``q_offset`` as a
    ``(1,)`` int32 device tensor (what a captured graph passes), which must
    give the int form's bits; the chunk rows are timed in that form too.
-   Forty-one rows: decode (split across CTAs, partials
+   Fifty-six rows: decode (split across CTAs, partials
    merged by a second kernel); prefill unscaled at a whole prompt and at
    the hybrid chunk shape (32 queries at q_offset 192 against the
    1024-position staging stripe, after the chunk edge cases), int8 and
@@ -122,7 +122,23 @@
       wo and w_down as two ranks do (``tp_rounding``), the distance to a's
       own step printed; their agreement with a printed; every rank's tokens,
       ``EngineStats`` and launches (per layer of each step, at the shard's
-      heads) equal.
+      heads) equal.  Since slice 19 the same two ranks then serve the
+      paged pool on the hybrid schedule, rag's 16 requests under block
+      pressure (``--blocks 130``: the block axis splits, and the run
+      holds more blocks than a lane's 65, so both lanes hold blocks;
+      prefix hits and preemptions must occur): placed-paged-dp (the
+      serve CLI's placement, data 2) and placed-paged-seq (model 2, the
+      sequence policy, an fp8 pool); every plain attention refused; each
+      rank's ``EngineStats``, ``PoolStats`` and ``pool:`` line equal, and
+      equal to a one-rank run at the same flags; the paged kernel with
+      its lse once per layer of each decode step on a lane's shard and the
+      flash kernel once per layer of each chunk at the rank's heads; a
+      teacher-forced paged step in float32 at 2 layers, every block copied
+      on write to another lane and read back, within PLACED_PAGED_TOL of
+      one rank's, every block read back equal to what was written; tok/s
+      per rank and collectives a decode step printed.  The kernel phase's lane rows hold two lanes'
+      lse-merged partials to the whole-pool kernel, for the block and the
+      position cut, bf16 and fp8.
    Paths a-k, m and n run async (dispatch-ahead) and then sync; the greedy tokens must
    be identical, each kernel row must have launched once per layer of
    every prefill, chunk and decode step of its path (twice per layer of a
@@ -136,7 +152,9 @@
    ms per engine step of both.  The eager and sync reruns of a, b, c, e
    and m run llama3.2-1b cut to 2 of its 16 layers (``RERUN_LAYERS``,
    views of the same weights), held to a graph run at that depth: an
-   eager step's host time grows with the layers (slice 18).
+   eager step's host time grows with the layers (slice 18); since slice
+   19 every other path's sync rerun too, to pay for the placed paged
+   paths.
    Then the observatory: path b traced (``--trace`` to a file in the
    temporary directory, wall stamps on) and profiled (``--profile 8``:
    every eighth dispatch fenced on the card) against the same run
@@ -215,12 +233,13 @@
    width and depth through ``repro_torch.launch.train`` (20 steps of 8 x
    1024 tokens; launches exactly 2 L forward with lse (remat) and L
    backward a step; losses and grad norms finite; ms per step, tokens/s,
-   MFU against 6 N T + attention, peak memory), the same run failing at
-   step 12 with a checkpoint every 10 (one restart from step 10: final
-   params, m, v and step bit-equal to the uninterrupted run's, losses of
-   steps 10-19 equal), the same at full width cut to 2 layers
-   (``--layers 2``; the loss must fall: at full depth the reference's init makes grad norms ~1e11
-   and 20 steps do not move it), minicpm-2b at full width and depth
+   MFU against 6 N T + attention, peak memory), the same at full width
+   cut to 2 layers (``--layers 2``; the loss must fall: at full depth the
+   reference's init makes grad norms ~1e11 and 20 steps do not move it),
+   that run failing at step 12 with a checkpoint every 10 (one restart
+   from step 10: final params, m, v and step bit-equal to the
+   uninterrupted run's, losses of steps 10-19 equal), minicpm-2b at full
+   width and depth
    through ``examples/torch_train_minicpm_wsd.py`` (WSD, grad_accum 2,
    int8 compression, 4 steps); then (``family_train_phase``, each on a
    freed card, no checkpoint written) moonshot-v1-16b-a3b at 4 layers,
@@ -451,13 +470,38 @@ DECODE_SHAPES = {"decode_attention": (16, 1024, 8, 4, 64),          # llama3.2-1
 DECODE_LSE_ROWS = ("decode_attention[lse]", "decode_attention[shard-seq2]")
 LSE_DECODE_TOL = 1e-3
 # llama3.2-1b's eager and sync reruns (and the graph run they are held to)
-# run at this depth: an eager engine step's host time grows with the layers
+# run at this depth: an eager engine step's host time grows with the layers.
+# Every llama path's sync rerun since slice 19 (the eager paths' since
+# slice 18), to pay for the placed paged paths
 RERUN_LAYERS = 2
 # the placed paths: two ranks on the one card over gloo (NCCL refuses two
 # ranks on one device), each a process of this script (--placed-worker)
 PLACED_RANKS = 2
 PLACED_FLAGS = ["--requests", "16", "--graphs", "off"]
 PLACED_TIMEOUT = 420
+# the placed paged paths (slice 19): the paged pool on two lanes, the hybrid
+# schedule, rag's 16 requests (shared documents: prefix hits, each a block
+# gathered back from the lane that holds it) under block pressure (a pool
+# of 129 usable blocks against the ~186 the run would hold: preemptions and
+# re-prefills).  An even block count, so that the block axis splits (385
+# would leave each lane the whole pool: resolve_spec drops a split that
+# does not divide), and one whose lanes hold fewer blocks than the run's
+# peak: then some of the blocks in use lie on each lane, whatever ids the
+# free list hands out.  scripts/torch_step_clock.py --cache paged
+# --schedule hybrid --requests 16 --workload rag --blocks 130: 129 engine
+# steps, 735 prefix hits, 7 preemptions, peak 129 blocks.  No workload of
+# the serve CLI shares a partial block, so copy-on-write runs in
+# teacher_forced_paged instead.
+PLACED_PAGED_BLOCKS = 130
+PLACED_PAGED_FLAGS = RAG_FLAGS + ["--blocks", str(PLACED_PAGED_BLOCKS)]
+# label -> (mesh (data, model), KV policy, kv dtype, the paged kernel's row)
+PLACED_PAGED = {"placed-paged-dp": ((2, 1), "batch", "bf16",
+                                    "paged_decode_attention[lane-block2]"),
+                "placed-paged-seq": ((1, 2), "sequence", "fp8",
+                                     "paged_decode_attention[lane-block2,fp8]")}
+# the teacher-forced paged step's pool: room for the 16 rag prompts' blocks
+# (37 each at most) and their copies, an even count
+PLACED_TEACHER_BLOCKS = 1186
 # a teacher-forced decode step, 2 ranks (tensor parallel) vs 1.  In float32
 # at full width cut to 2 layers, within PLACED_LOGIT_TOL of one rank: the
 # random model amplifies any rounding difference about tenfold every 2
@@ -468,6 +512,13 @@ PLACED_TIMEOUT = 420
 PLACED_LOGIT_TOL = 0.1
 PLACED_CHECK_LAYERS = 2
 PLACED_TP_ROUNDING_TOL = 0.0
+# the teacher-forced paged step in float32 at PLACED_CHECK_LAYERS, two ranks
+# vs one: placed-paged-dp (the bf16-named pool: f32 in float32 mode) differs
+# from one rank only by the lanes' lse merge (6.39e-05 over 8 random-workload
+# prompts on the H100); placed-paged-seq adds the tensor-parallel rounding
+# of K/V that its fp8 pool can move by a quantum (1.09e-02), held to
+# PLACED_LOGIT_TOL as the dense cache's tensor-parallel paths are
+PLACED_PAGED_TOL = {"placed-paged-dp": 1e-3, "placed-paged-seq": PLACED_LOGIT_TOL}
 # the serve CLI's balancer line for llama3.2-1b on a world of 1 and of 2
 # (data 2): tests/test_torch_placement.py pins the same strings
 BALANCER = {1: "balancer: policy=batch sub_batches=1 bottleneck=attention "
@@ -482,7 +533,8 @@ HEADS = {"moe": (16, 16, 128),            # moonshot-v1-16b-a3b
          "yi": (56, 8, 128),              # yi-34b: G 7
          "internvl": (64, 8, 128),        # internvl2-76b's backbone: G 8, the kernels' MAX_G
          "zamba2": (32, 32, 128),         # zamba2-1.2b's shared block: 2 * 2048 / 32 wide
-         "seamless": (16, 16, 64)}        # seamless-m4t-medium's decoder self-attention
+         "seamless": (16, 16, 64),        # seamless-m4t-medium's decoder self-attention
+         "tp2": (16, 4, 64)}              # llama3.2-1b on one of two tensor-parallel ranks
 # the MoE path: moonshot-v1-16b-a3b at full width on the dense cache
 MOE_FLAGS = ["--arch", "moonshot-v1-16b-a3b"]
 MOE_PARAMS = 4872112128
@@ -569,8 +621,10 @@ SEAMLESS = "seamless-m4t-medium"
 SEAMLESS_PARAMS = 977860608
 SEAMLESS_ROWS, SEAMLESS_PROMPT, SEAMLESS_STEPS = 16, 32, 64
 # training: llama3.2-1b at full width and depth through the train CLI, 20
-# steps of 8 x 1024 tokens, then the same with a failure at step 12 and a
-# checkpoint every 10 (one restart, from step 10); minicpm-2b at full width
+# steps of 8 x 1024 tokens, then at 2 layers, then that with a failure at
+# step 12 and a checkpoint every 10 (one restart, from step 10; at 2 layers
+# since slice 19: the full depth's two saves and restore of its 12.4 GB
+# state took ~43 s of the script's 1200); minicpm-2b at full width
 # through the port of examples/train_minicpm_wsd.py (WSD, grad_accum 2,
 # int8 compression, 8 x 1024 tokens: microbatches of 4 rows)
 TRAIN_FLAGS = ["--arch", "llama3.2-1b", "--batch", "8", "--seq", "1024", "--steps", "20",
@@ -1136,6 +1190,112 @@ def paged_phase(dev, kv: str | None = None, bs: int = 16, tag: str | None = None
     }
 
 
+# the two lanes of each cut of the placed pool: (physical blocks, positions
+# in a block) of lane 0 and lane 1, of a pool of N blocks of 16
+LANE_CUTS = {"block2": lambda N: [((0, N // 2), (0, 16)), ((N // 2, N), (0, 16))],
+             "pos2": lambda N: [((0, N), (0, 8)), ((0, N), (8, 16))]}
+
+
+def lane_phase(dev, kv: str | None, cut: str) -> dict:
+    """The paged kernel with its lse over one lane's shard of llama3.2-1b's
+    serve-shape pool (:func:`paged_phase`'s lengths and scrambled tables,
+    1026 blocks): ``cut`` "block2", the placed-paged paths' cut (lane 0
+    holds blocks 0-512, each row's table compacted by
+    ``offload.lane_tables``), or "pos2", the sequence policy's at a block
+    count that does not split (positions 0-7 of every block of 16).  The
+    two lanes' partials, lse-merged, against the whole-pool kernel, and
+    each lane's out and lse against the plain version, within BF16_TOL (an
+    empty window's lse <= -1e30 in both).  The row times lane 0's call
+    (library: its blocks gathered, then SDPA, no lse)."""
+    Hq, Hkv, D, bs, B, MB = 32, 8, 64, 16, 16, 64
+    G, N = Hq // Hkv, 16 * 64 + 2
+    name = _row_name("paged_decode_attention", ",".join(x for x in (f"lane-{cut}", kv) if x))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    perm = torch.randperm(N - 1, generator=torch.Generator().manual_seed(5)) + 1
+    tables = torch.zeros(B, MB, dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(LENGTHS):
+        k = min(-(-n // bs), MB)
+        tables[b, :k] = perm[used:used + k]
+        used += k
+    tables = tables.to(dev)
+    lanes = [(blocks, pos, *offload.lane_tables(tables, lengths, bs, N, blocks, pos))
+             for blocks, pos in LANE_CUTS[cut](N)]
+    elem = 2 if kv is None else 1
+    n_copies = max(1, math.ceil(2 * L2_BYTES / (2 * N * Hkv * bs * D * elem)))
+    sets = []
+    for _ in range(n_copies):
+        q = torch.randn(B, Hq, D, generator=gen, device=dev).bfloat16()
+        (kp, ks), (vp, vs) = (_quantize(torch.randn(N, Hkv, bs, D, generator=gen, device=dev),
+                                        kv) for _ in range(2))
+        shards = [tuple(None if x is None else x[b0:b1, :, p0:p1].contiguous()
+                        for x in (kp, vp, ks, vs))
+                  for (b0, b1), (p0, p1), _, _ in lanes]
+        sets.append((q, kp, vp, ks, vs, shards))
+
+    def lane(fn, q, shard, lane_i, **kw):
+        kp, vp, ks, vs = shard
+        t, n = lanes[lane_i][2:]
+        return fn(q, kp, vp, t, n, k_scale=ks, v_scale=vs, **kw)
+
+    q, kp, vp, ks, vs, shards = sets[0]
+    whole = ops.paged_decode_attention(q, kp, vp, tables, lengths, k_scale=ks, v_scale=vs)
+    parts = [lane(ops.paged_decode_attention, q, shards[i], i, return_lse=True)
+             for i in range(2)]
+    merge_err = _max_err(ref.lse_merge(parts), whole)
+    err = 0.0
+    for i, (o, lse) in enumerate(parts):
+        o_exp, lse_exp = lane(kpaged.plain, q, shards[i], i, return_lse=True)
+        live = lse_exp > -1e29
+        if not bool((lse[~live] <= -1e29).all()):
+            raise AssertionError(f"{name}: lane {i}'s empty windows have a finite lse")
+        err = max(err, _max_err(o, o_exp), _max_err(lse[live], lse_exp[live]))
+    torch.cuda.synchronize()
+    print(f"kernel {name}: lanes' lengths {lanes[0][3].tolist()} / {lanes[1][3].tolist()}; "
+          f"two lanes lse-merged vs the whole-pool kernel: max err {merge_err:.2e}, each lane "
+          f"vs plain {err:.2e} (tol {BF16_TOL})")
+    if not (merge_err <= BF16_TOL and err <= BF16_TOL):
+        raise AssertionError(f"{name}: merged {merge_err}, lane vs plain {err}")
+    t0, n0 = lanes[0][2:]
+    bl = LANE_CUTS[cut](N)[0][1][1] - LANE_CUTS[cut](N)[0][1][0]
+    S = MB * bl
+    mask = (torch.arange(S, device=dev)[None] < n0[:, None])[:, None, None, :]
+
+    def library(q, kp, vp, ks, vs, shards):
+        kp, vp, ks, vs = shards[0]
+        k, v = ref.gather_paged_cache(kp, t0), ref.gather_paged_cache(vp, t0)
+        if kv is not None:
+            k = ref.kv_dequantize(k, ref.gather_paged_scales(ks, t0))
+            v = ref.kv_dequantize(v, ref.gather_paged_scales(vs, t0))
+        return F.scaled_dot_product_attention(
+            q.view(B, Hq, 1, D), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)
+
+    live = int(n0.clamp(max=S).sum())
+    nbytes = (2 * live * Hkv * D * elem + (0 if kv is None else 2 * live * Hkv * 4)
+              + 2 * q.numel() * 2 + B * 4 + t0.numel() * 4 + B * Hkv * G * 4)
+    flops = 4 * live * Hkv * G * D
+    bound_ms, bound_by = _bound(nbytes, flops, PEAK_BF16_FLOPS if kv is None
+                                else PEAK_8BIT_OPS)
+    return {
+        "name": name, "kernel": "paged_decode_attention", "variant": kv or "unscaled",
+        "heads": kernel_heads(Hkv, G, D, bl), "route": "cuda", "source": kpaged.SOURCE,
+        "replaces": kpaged.REPLACES, "max_abs_err": max(err, merge_err), "tol": BF16_TOL,
+        "merged_lanes_err": merge_err,
+        **_times([lambda s=s: lane(ops.paged_decode_attention, s[0], s[5][0], 0,
+                                   return_lse=True) for s in sets],
+                 [lambda s=s: lane(kpaged.plain, s[0], s[5][0], 0, return_lse=True)
+                  for s in sets],
+                 [lambda s=s: library(*s) for s in sets]),
+        "library": "ref.gather_paged_cache (k, v; + gather_paged_scales, kv_dequantize) of "
+                   "the lane's blocks + scaled_dot_product_attention (no lse)",
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+        "shape": f"lane 0 of {cut}: B={B} Hkv={Hkv} G={G} D={D} block={bl} of 16 MB={MB} "
+                 f"blocks {lanes[0][0]} of N={N} q bf16, pool {kv or 'bf16'} live={live}",
+    }
+
+
 # ------------------------------------------------------------ serve phase
 def load_cut(args):
     """``serve.load_model(args)`` at ``SERVE_LAYERS``' depth for ``--arch``
@@ -1599,14 +1759,60 @@ def tp_rounding(cfg, n: int = PLACED_RANKS):
         cm.linear = plain
 
 
+@contextlib.contextmanager
+def counting_collectives():
+    """While open, count the collectives the placed model calls
+    (``distributed.collectives``' all-reduces and gathers over a group of
+    more than one rank), by name."""
+    counts = collections.Counter()
+    saved = {n: getattr(collectives, n) for n in ("all_reduce", "all_reduce_max",
+                                                  "gather_stack")}
+
+    def counted(n, f):
+        def call(x, group, *a, **kw):
+            counts[n] += group is not None
+            return f(x, group, *a, **kw)
+        return call
+
+    for n, f in saved.items():
+        setattr(collectives, n, counted(n, f))
+    try:
+        yield counts
+    finally:
+        for n, f in saved.items():
+            setattr(collectives, n, f)
+
+
+@contextlib.contextmanager
+def forbid_plain_serving():
+    """While open, every plain attention a serving step could route to
+    raises: a placed path on the card must run the kernels only."""
+    def refuse(*a, **kw):
+        raise AssertionError("a plain attention ran on the card's placed serve path")
+
+    names = [(attn_mod, "chunked_attention"), (attn_mod, "decode_attention"),
+             (ref, "paged_decode_attention"), (ref, "naive_decode_attention"),
+             (kpaged, "plain"), (kpre, "plain"), (kdec, "plain")]
+    saved = [getattr(m, n) for m, n in names]
+    for m, n in names:
+        setattr(m, n, refuse)
+    try:
+        yield
+    finally:
+        for (m, n), f in zip(names, saved):
+            setattr(m, n, f)
+
+
 def _placed_run(args, env, mesh, label: str, out: Path, warm_up: bool = False,
                 teacher: bool = False) -> dict:
     """One placed path on this rank, through the serve entry points: the
     load (each rank keeps its shards: checked by their bytes), a warm-up
     (the process's first path: cuBLAS handles, the allocator), then the
-    run with every launch counter zeroed before it and read after it;
-    rank 0 keeps the run's prompts and, with ``teacher``, the served
-    model's teacher-forced step over them (``{label}-bfloat16.pt``)."""
+    run with every launch counter zeroed before it and read after it and
+    every plain attention refused (:func:`forbid_plain_serving`), and one
+    more decode step of the served model on its cache with its collectives
+    counted; rank 0 keeps the run's prompts and, with ``teacher``, the
+    served model's teacher-forced step over them (``{label}-bfloat16.pt``)."""
     t0 = time.perf_counter()
     model, params = serve.load_model(args, env, mesh)
     torch.cuda.synchronize()
@@ -1622,19 +1828,29 @@ def _placed_run(args, env, mesh, label: str, out: Path, warm_up: bool = False,
         warm.device = args.device
         serve.serve(warm, model, params)
     ops.reset_launch_counts()
-    res = serve.serve(args, model, params)
+    with forbid_plain_serving():
+        res = serve.serve(args, model, params)
     shapes = {k: {f"{v}|{h}": n for (v, h), n in d.items()}
               for k, d in ops.shape_counts().items() if d}
     reqs = res.driver.submitted
+    paged = args.cache == "paged"
+    feed = torch.zeros(args.slots, dtype=torch.int32, device=model.device)
+    with counting_collectives() as step_collectives:
+        (model.paged_decode_step if paged else model.decode_step)(params, res.engine.cache, feed)
     row = {"load_s": load_s, "param_bytes": held, "shard_bytes": want,
            "full_bytes": model.n_params() * 2, "wall_s": res.wall_s,
            "graphs": res.engine.graphs, "stats": dataclasses.asdict(res.stats),
            "tokens": [r.out_tokens for r in reqs], "launches": shapes,
-           "lines": serve.report(args, res), "axes": dict(env.axes), "policy": env.kv_policy}
+           "lines": serve.report(args, res), "axes": dict(env.axes), "policy": env.kv_policy,
+           "step_collectives": dict(step_collectives),
+           "pool": dataclasses.asdict(res.engine.pool.stats) if paged else None,
+           "pool_shard_bytes": (sum(t.numel() * t.element_size()
+                                    for t in res.engine.cache.values()) if paged else None)}
     prompts = [np.asarray(r.prompt) for r in reqs]
     logits = teacher_forced(model, params, prompts) if teacher else None
     if dist.get_rank() == 0:
-        torch.save(prompts, out / "prompts.pt")
+        (out / "prompts").mkdir(exist_ok=True)
+        torch.save(prompts, out / "prompts" / f"{label}.pt")
         if teacher:
             torch.save(logits.cpu(), out / f"{label}-bfloat16.pt")
     del model, params, res
@@ -1643,17 +1859,105 @@ def _placed_run(args, env, mesh, label: str, out: Path, warm_up: bool = False,
     return row
 
 
+def teacher_forced_paged(model, params, prompts, kv: str,
+                         n_blocks: int = PLACED_TEACHER_BLOCKS) -> tuple[torch.Tensor, float]:
+    """:func:`teacher_forced` through the paged pool: each prompt prefilled
+    as decode-only admission does (a staging cache, its blocks handed to
+    the pool by ``write_prompt_block``) at physical blocks scattered over
+    the pool by a seeded permutation (so that a row's blocks lie on every
+    lane), each block copied on write (``copy_block``) to another scattered
+    block, which the row's table names, and read back from there into a
+    second staging cache as a prefix hit does (``read_block``); then one
+    paged decode step over the copies, each row fed its prompt's last
+    token.  Staging and a bf16 pool in the model's dtype.  Returns the
+    step's logits and the largest difference between a block read back
+    and what was written (through the pool's quantization): 0 when the
+    copies and reads move every byte."""
+    bs, mb = 16, 64
+    dt = cm.param_dtype(model.cfg)
+    quant = None if kv == "bf16" else kv
+    cache = model.init_paged_cache(len(prompts), n_blocks, bs, mb, dtype=dt, kv_dtype=kv)
+    perm = (torch.randperm(n_blocks - 1, generator=torch.Generator().manual_seed(9)) + 1).tolist()
+    used, err = 0, 0.0
+    for i, p in enumerate(prompts):
+        n = len(p)
+        nb = -(-(n + 1) // bs)                  # the prompt's blocks and the fed token's
+        sub, back = (model.init_cache(1, nb * bs, dtype=dt, staging=True) for _ in range(2))
+        model.prefill(params, torch.as_tensor(p, dtype=torch.int64, device=model.device)[None],
+                      sub)
+        ids, copies = perm[used:used + nb], perm[used + nb:used + 2 * nb]
+        used += 2 * nb
+        w = -(-n // bs)
+        for j in range(w):
+            pdev.write_prompt_block(cache, sub, ids[j], j * bs)
+            pdev.copy_block(cache, ids[j], copies[j])
+            pdev.read_block(back, cache, copies[j], j * bs)
+        for key in ("k", "v"):
+            x = sub[key][:, 0, :w * bs]
+            if quant:
+                x = ref.kv_dequantize(*ref.kv_quantize(x, quant), dt)
+            err = max(err, float((back[key][:, 0, :w * bs] - x).abs().max()))
+        row = np.zeros(mb, np.int32)
+        row[:nb] = copies
+        pdev.sync_slot(cache, i, row, n)
+    feed = torch.tensor([int(p[-1]) for p in prompts], dtype=torch.int32, device=model.device)
+    return model.paged_decode_step(params, cache, feed)[0].float(), err
+
+
+def placed_paged_worker(out: Path, got: dict) -> None:
+    """placed-paged-dp through the serve CLI's own placement (the world as
+    a (data 2, model 1) mesh, the balancer's policy: the pool's blocks over
+    ``data``), then placed-paged-seq on a (data 1, model 2) mesh (the
+    sequence policy: the blocks over ``model``, an fp8 pool); then each
+    one's teacher-forced paged step in float32 at PLACED_CHECK_LAYERS
+    (``{label}-float32.pt``; its blocks copied and read back across the
+    lanes: ``read_err``), on one set of f32 shards."""
+    runs = {}
+    for label, ((d, m), policy, kv, _) in PLACED_PAGED.items():
+        args = serve.build_parser().parse_args(
+            SERVE_FLAGS + PLACED_FLAGS + PLACED_PAGED_FLAGS + ["--kv-dtype", kv])
+        args.device = None               # the serve CLI's default: this rank's card
+        if m == 1:
+            mesh, env, _ = serve.place(args, serve.load_config(args))
+        else:
+            args.device = str(rank_device(None))
+            mesh = make_host_mesh(m, device=args.device)
+            env = Env(axes=mesh_axes(mesh), kv_policy=policy)
+        got[label] = _placed_run(args, env, mesh, label, out)
+        runs[label] = (args, mesh, env, kv)
+    prompts = torch.load(out / "prompts" / "placed-paged-dp.pt", weights_only=False)
+    for label, (args, mesh, env, kv) in runs.items():
+        cfg = serve.load_config(args).with_overrides(dtype="float32",
+                                                     n_layers=PLACED_CHECK_LAYERS)
+        model = build_model(cfg, args.device, env, mesh)
+        logits, got[label]["read_err"] = teacher_forced_paged(model, model.init(args.seed),
+                                                              prompts, kv)
+        if dist.get_rank() == 0:
+            torch.save(logits.cpu(), out / f"{label}-float32.pt")
+        del model
+
+
 def placed_worker(out: Path) -> None:
     """A rank of the placed paths (``chip_smoke.py --placed-worker DIR``,
     started by :func:`placed_phase` as torchrun starts one): placed-dp
     through the serve CLI's own placement (the launcher's world as a
     (data 2, model 1) mesh, the balancer's policy), then placed-head and
-    placed-seq on a (data 1, model 2) mesh; writes ``rank{r}.json``."""
+    placed-seq on a (data 1, model 2) mesh, then the paged pool's paths
+    (:func:`placed_paged_worker`); writes ``rank{r}.json``."""
     args = serve.build_parser().parse_args(SERVE_FLAGS + PLACED_FLAGS)
     args.device = None                   # the serve CLI's default: this rank's card
     mesh, env, line = serve.place(args, serve.load_config(args))
     rank = dist.get_rank()
     got = {"balancer": line, "backend": dist.get_backend(), "device": args.device}
+    _placed_dense_worker(args, mesh, env, out, got)
+    placed_paged_worker(out, got)
+    (out / f"rank{rank}.json").write_text(json.dumps(got))
+    dist.destroy_process_group()
+
+
+def _placed_dense_worker(args, mesh, env, out: Path, got: dict) -> None:
+    """The dense cache's placed paths (slice 17) on this rank."""
+    rank = dist.get_rank()
     got["placed-dp"] = _placed_run(args, env, mesh, "placed-dp", out, warm_up=True)
     mesh = make_host_mesh(2, device=args.device)
     envs = {"placed-head": Env(axes=mesh_axes(mesh), kv_policy="head"),
@@ -1663,7 +1967,7 @@ def placed_worker(out: Path) -> None:
     # the teacher-forced step in float32 (f32 weights, activations and
     # cache) at PLACED_CHECK_LAYERS: both policies on one set of f32 shards
     # (the weights' split does not depend on the KV policy)
-    prompts = torch.load(out / "prompts.pt", weights_only=False)
+    prompts = torch.load(out / "prompts" / "placed-dp.pt", weights_only=False)
     cfg = serve.load_config(args).with_overrides(dtype="float32",
                                                  n_layers=PLACED_CHECK_LAYERS)
     params = None
@@ -1674,8 +1978,6 @@ def placed_worker(out: Path) -> None:
         if rank == 0:
             torch.save(logits.cpu(), out / f"{label}-float32.pt")
     del model, params
-    (out / f"rank{rank}.json").write_text(json.dumps(got))
-    dist.destroy_process_group()
 
 
 def _spawn_ranks(out: Path, worker: str = "--placed-worker",
@@ -1718,38 +2020,53 @@ def _spawn_ranks(out: Path, worker: str = "--placed-worker",
 def placed_phase(model, params, by_path: dict[str, PathRun]) -> dict[str, PathRun]:
     """The placed paths of llama3.2-1b at full width: two ranks over gloo on
     the one card, eagerly (gloo collectives cannot be captured in a CUDA
-    graph), the first 16 requests of the serve workload.  placed-dp (mesh
-    data 2, the batch policy: each rank decodes 8 rows) must give
-    dense-8's tokens exactly; placed-head and placed-seq (mesh model 2:
-    the tensor-parallel model, the KV heads or the positions split) must
-    give a teacher-forced decode step's logits in float32 (an f32 cache
-    too) at PLACED_CHECK_LAYERS within PLACED_LOGIT_TOL of the one-rank
-    model's (at full depth the random model turns any rounding difference
-    into whole logits: ``scripts/torch_placed_depth.py``) and in bf16 at
-    full depth those of the one-rank model rounding as two ranks do
-    (:func:`placed_logit_check`); their token agreement with dense is
-    printed.  Every rank
-    holds the same tokens and ``EngineStats``; each kernel launched once
-    per layer of every prefill and decode step at its shard's heads."""
+    graph), every plain attention refused: the first 16 requests of the
+    serve workload on the dense cache (:func:`_placed_dense_checks`:
+    placed-dp, placed-head and placed-seq), then rag's 16 on the paged
+    pool with the hybrid schedule (:func:`_placed_paged_checks`:
+    placed-paged-dp and placed-paged-seq), held to one-rank runs at the
+    same flags, made here first.  Every rank holds the same tokens and
+    ``EngineStats``; each kernel launched once per layer of every prefill
+    (chunk) and decode step at its shard's heads."""
     t0 = time.perf_counter()
-    cfg, L = model.cfg, model.cfg.n_layers
+    cfg = model.cfg
     line = serve.place(serve.build_parser().parse_args(SERVE_FLAGS + PLACED_FLAGS), cfg)[2]
     print(f"[placed] one rank: {line}")
     if line != BALANCER[1]:
         raise AssertionError(f"[placed] balancer line {line!r} != {BALANCER[1]!r}")
+    one = placed_paged_baselines(model, params)
     out = Path(tempfile.mkdtemp(prefix="placed-"))
     try:
         _spawn_ranks(out)
         got = [json.loads((out / f"rank{r}.json").read_text()) for r in range(PLACED_RANKS)]
-        logits = {(lb, dt): torch.load(out / f"{lb}-{dt}.pt")
-                  for lb in ("placed-head", "placed-seq") for dt in ("float32", "bfloat16")}
-        prompts = torch.load(out / "prompts.pt", weights_only=False)
+        logits = {tuple(f.stem.rsplit("-", 1)): torch.load(f) for f in out.glob("*-*.pt")}
+        prompts = {f.stem: torch.load(f, weights_only=False)
+                   for f in (out / "prompts").glob("*.pt")}
     finally:
         shutil.rmtree(out, ignore_errors=True)
     g0 = got[0]
     print(f"[placed] {PLACED_RANKS} ranks on one card, backend {g0['backend']}: {g0['balancer']}")
     if g0["backend"] != "gloo" or g0["balancer"] != BALANCER[2]:
         raise AssertionError(f"[placed] backend {g0['backend']}, line {g0['balancer']!r}")
+    runs = _placed_dense_checks(model, params, by_path, got, logits, prompts["placed-dp"])
+    runs.update(_placed_paged_checks(model, got, logits, prompts["placed-paged-dp"], one))
+    print(f"[placed] phase wall {time.perf_counter() - t0:.1f}s")
+    return runs
+
+
+def _placed_dense_checks(model, params, by_path: dict[str, PathRun], got: list[dict],
+                         logits: dict, prompts) -> dict[str, PathRun]:
+    """placed-dp (mesh data 2, the batch policy: each rank decodes 8 rows)
+    must give dense-8's tokens exactly; placed-head and placed-seq (mesh
+    model 2: the tensor-parallel model, the KV heads or the positions
+    split) must give a teacher-forced decode step's logits in float32 (an
+    f32 cache too) at PLACED_CHECK_LAYERS within PLACED_LOGIT_TOL of the
+    one-rank model's (at full depth the random model turns any rounding
+    difference into whole logits: ``scripts/torch_placed_depth.py``) and
+    in bf16 at full depth those of the one-rank model rounding as two
+    ranks do (:func:`placed_logit_check`); their token agreement with
+    dense is printed."""
+    L = model.cfg.n_layers
     # per path: the decode kernel's variant and KV heads per rank, its row
     # (the prefill runs at the compute side's heads: 8 on data 2, 4 on model 2)
     paths = {"placed-dp": ("unscaled", 8, 8, "decode_attention"),
@@ -1794,7 +2111,116 @@ def placed_phase(model, params, by_path: dict[str, PathRun]) -> dict[str, PathRu
         for r, toks in zip(sub, runs[label].tokens):
             r.out_tokens = toks
         agreement(label, sub, first16["dense"], floor=False)
-    print(f"[placed] phase wall {time.perf_counter() - t0:.1f}s")
+    return runs
+
+
+def placed_paged_baselines(model, params) -> dict[str, dict]:
+    """One-rank runs at each placed paged path's flags, with graphs (the
+    step clock does not depend on them): the EngineStats, PoolStats and
+    tokens the two ranks are held to."""
+    one = {}
+    for label, (_, _, kv, _) in PLACED_PAGED.items():
+        args = serve.build_parser().parse_args(
+            SERVE_FLAGS + PLACED_FLAGS + PLACED_PAGED_FLAGS + ["--kv-dtype", kv, "--graphs", "on"])
+        res = serve.serve(args, model, params)
+        one[label] = {"stats": dataclasses.asdict(res.stats),
+                      "pool": dataclasses.asdict(res.engine.pool.stats),
+                      "tokens": [r.out_tokens for r in res.driver.submitted],
+                      "kv_bytes": res.engine.kv_bytes(), "rate": _rate(res)}
+        print(f"[{label}] one rank, graphs: {one[label]['rate']}; pool: {res.engine.pool.stats}")
+        del res
+    return one
+
+
+def _placed_paged_checks(model, got: list[dict], logits: dict, prompts,
+                         one: dict[str, dict]) -> dict[str, PathRun]:
+    """placed-paged-dp (data 2, the batch policy: the pool's blocks over
+    ``data``) and placed-paged-seq (model 2, the sequence policy: the blocks
+    over ``model``, tensor parallel, an fp8 pool): every rank's
+    EngineStats, PoolStats, ``pool:`` line and tokens equal, and the stats
+    equal the one-rank run's; the paged kernel with its lse launched once
+    per layer of every decode step on each lane's shard (all 8 KV heads)
+    and the flash kernel once per layer of every chunk at the rank's
+    heads; each lane holds half the pool; prefix hits and preemptions
+    occurred; a teacher-forced paged step (:func:`teacher_forced_paged`:
+    every block copied on write and read back across the lanes) in
+    float32 at PLACED_CHECK_LAYERS within PLACED_PAGED_TOL of one rank's,
+    every block read back equal to what was written.  Prints tok/s per
+    rank, collectives per decode step and the token agreement with one
+    rank."""
+    L = model.cfg.n_layers
+    runs = {}
+    for label, ((_, m), _, kv, row) in PLACED_PAGED.items():
+        rs = [g[label] for g in got]
+        r0, base = rs[0], one[label]
+        st = EngineStats(**r0["stats"])
+        for line in r0["lines"]:
+            print(f"[{label}] {line}")
+        chunk_row = "prefill_attention[chunk]" if m == 1 else "prefill_attention[tp2-chunk]"
+        want = {"paged_decode_attention": {
+                    f"{'unscaled' if kv == 'bf16' else kv}|{kernel_heads(8, 4, 64, 16)}":
+                    st.decode_steps * L},
+                "prefill_attention": {f"unscaled|{kernel_heads(8 // m, 4, 64)}":
+                                      st.prefill_chunks * L}}
+        n_coll = sum(r0["step_collectives"].values())
+        print(f"[{label}] mesh {r0['axes']} policy {r0['policy']} pool {kv}; load "
+              f"{r0['load_s']:.1f}s, {r0['param_bytes'] / 1e9:.3f} GB of weights and "
+              f"{r0['pool_shard_bytes'] / 1e9:.4f} GB of the {base['kv_bytes'] / 1e9:.4f} GB "
+              f"pool per rank; launches per rank {r0['launches']} expected {want}; wall "
+              f"{r0['wall_s']:.2f}s -> {st.generated / r0['wall_s']:.1f} tok/s per rank "
+              f"(one rank with graphs: {base['rate']}); collectives per decode step {n_coll} "
+              f"{r0['step_collectives']}")
+        pool_lines = {next(x for x in r["lines"] if x.startswith("pool:")) for r in rs}
+        for r in rs:
+            if not (r["param_bytes"] == r["shard_bytes"] and r["launches"] == want
+                    and r["stats"] == r0["stats"] and r["pool"] == r0["pool"]
+                    and r["tokens"] == r0["tokens"] and not r["graphs"]):
+                raise AssertionError(f"[{label}] a rank's load, launches, stats or tokens differ")
+        lane = PLACED_PAGED_BLOCKS // 2
+        if (len(pool_lines) != 1 or not 2 * r0["pool_shard_bytes"] < base["kv_bytes"] + 2**20
+                or not r0["pool"]["peak_in_use"] > lane - 1
+                or not r0["pool"]["hash_hits"] > 0 or not r0["pool"]["preemptions"] > 0):
+            raise AssertionError(f"[{label}] pool lines {pool_lines}, a rank holds "
+                                 f"{r0['pool_shard_bytes']} of {base['kv_bytes']} bytes, "
+                                 f"peak {r0['pool']['peak_in_use']} blocks in use of a lane's "
+                                 f"{lane}, {r0['pool']['hash_hits']} prefix hits, "
+                                 f"{r0['pool']['preemptions']} preemptions")
+        steps = ("engine_steps", "decode_steps", "prefill_chunks", "prefills", "preemptions")
+        clock = {k: (r0["stats"][k], base["stats"][k]) for k in steps}
+        pool = {k: (r0["pool"][k], base["pool"][k]) for k in ("hash_hits", "cow_copies",
+                                                                "preemptions", "allocs")}
+        print(f"[{label}] two ranks vs one rank: {clock}; pool {pool}")
+        if r0["stats"] != base["stats"] or r0["pool"] != base["pool"]:
+            raise AssertionError(f"[{label}] EngineStats or PoolStats differ from one rank's: "
+                                 f"{r0['stats']} {r0['pool']} vs {base['stats']} {base['pool']}")
+        pairs = list(zip(r0["tokens"], base["tokens"], strict=True))
+        share = (sum(x == y for a, b in pairs for x, y in zip(a, b, strict=True))
+                 / sum(len(a) for a, _ in pairs))
+        print(f"[{label}] vs one rank: {sum(a == b for a, b in pairs)}/{len(pairs)} requests "
+              f"token-identical, {share:.1%} of tokens")
+        runs[label] = PathRun({row: st.decode_steps * L, chunk_row: st.prefill_chunks * L}, st,
+                              r0["tokens"], r0["wall_s"], None)
+    f32 = build_model(model.cfg.with_overrides(dtype="float32", n_layers=PLACED_CHECK_LAYERS),
+                      model.device)
+    f32_params = f32.init(0)
+    for label, (_, _, kv, _) in PLACED_PAGED.items():
+        ref_logits, one_read = teacher_forced_paged(f32, f32_params, prompts, kv)
+        reads = [g[label]["read_err"] for g in got]
+        got_logits = logits[(label, "float32")]
+        err = _max_err(got_logits, ref_logits.cpu())
+        same = int((got_logits.argmax(-1) == ref_logits.cpu().argmax(-1)).sum())
+        tol = PLACED_PAGED_TOL[label]
+        print(f"[{label}] teacher-forced paged decode step in float32 at {PLACED_CHECK_LAYERS} "
+              f"layers ({kv} pool, every block copied on write and read back) vs one rank: "
+              f"logits max err {err:.2e} (tol {tol}), argmax equal {same}/{len(prompts)}; "
+              f"blocks read back vs written: max err per rank {reads}, one rank {one_read}")
+        if not err <= tol:
+            raise AssertionError(f"[{label}] float32 logits {err} from one rank's")
+        if any(reads) or one_read:
+            raise AssertionError(f"[{label}] a block read back differs from what was written")
+    del f32, f32_params
+    gc.collect()
+    torch.cuda.empty_cache()
     return runs
 
 
@@ -4086,9 +4512,9 @@ def _load_example(name: str):
 def train_phase(dev, rows: dict[str, dict]) -> dict[str, PathRun]:
     """Training on a card freed of the serving phases: llama3.2-1b at full
     width and depth through the train CLI (20 steps; launches 2 L per step
-    forward, L backward; falling loss), the same run failing at step 12
-    (one restart from the step-10 checkpoint, the final params, m and v
-    bit-equal to the uninterrupted run's), minicpm-2b at full width through
+    forward, L backward), then cut to 2 layers (a falling loss), that run
+    again failing at step 12 (one restart from the step-10 checkpoint, the
+    final params, m and v bit-equal to the uninterrupted run's), minicpm-2b at full width through
     the example's port (WSD, grad_accum 2, int8), every plain attention
     refused meanwhile; then the reduced float32 card-vs-CPU checks."""
     t_phase = time.perf_counter()
@@ -4111,44 +4537,18 @@ def train_phase(dev, rows: dict[str, dict]) -> dict[str, PathRun]:
                                       rep, [], wall, None)
         print(f"[train-llama] wall {wall:.1f}s (init, {TRAIN_STEPS} steps, the step-20 "
               "checkpoint)")
-        straight, straight_losses = res.state, res.losses
         shutil.rmtree(f"{tmp}/straight")
         del res
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        res = train_cli.run(train_cli.build_parser().parse_args(
-            TRAIN_FLAGS + TRAIN_RESUME_FLAGS + ["--ckpt-dir", f"{tmp}/resume"]))
-        wall = time.perf_counter() - t0
-        n_steps = TRAIN_FAIL + TRAIN_STEPS - TRAIN_CKPT
-        _train_counts("train-llama-resume", 2 * L * n_steps, L * n_steps, heads)
-        if res.restarts != 1 or f"restored from step {TRAIN_CKPT}" not in res.lines:
-            raise AssertionError(f"[train-llama-resume] {res.restarts} restarts: {res.lines}")
-        pairs = list(zip(leaves(straight["params"]) + leaves(straight["opt"]),
-                         leaves(res.state["params"]) + leaves(res.state["opt"]), strict=True))
-        same = sum(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
-        equal_losses = all(res.losses[s] == straight_losses[s]
-                           for s in range(TRAIN_CKPT, TRAIN_STEPS))
-        print(f"[train-llama-resume] failed at step {TRAIN_FAIL}, restarted once from step "
-              f"{TRAIN_CKPT}; final params, m, v and step bit-equal to the uninterrupted run: "
-              f"{same}/{len(pairs)} leaves; losses of steps {TRAIN_CKPT}-{TRAIN_STEPS - 1} "
-              f"equal: {equal_losses}; wall {wall:.1f}s ({n_steps} steps, 2 checkpoint saves, "
-              "1 restore)")
-        if same != len(pairs) or not equal_losses:
-            raise AssertionError("[train-llama-resume] the resumed state differs from the "
-                                 "uninterrupted run's")
-        runs["train-llama-resume"] = PathRun(
-            {"prefill_attention[train-lse]": 2 * L * n_steps, "flash_attention_bwd": L * n_steps},
-            None, [], wall, None)
-        del res, straight, pairs
         # the reference's init at full depth: grad norms ~1e11 (measured), so
         # global clipping leaves the unembedding and later layers updates
         # below Adam's eps, and 20 steps do not move the loss (PERF.md); at
         # full width cut to 2 layers (grad norm ~1e2) the loss must fall
         freed_card(dev, "train-llama-2l")
+        two = ["--layers", "2"]
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         res = train_cli.run(train_cli.build_parser().parse_args(
-            TRAIN_FLAGS + ["--layers", "2", "--ckpt-dir", f"{tmp}/two"]))
+            TRAIN_FLAGS + two + ["--ckpt-dir", f"{tmp}/two"]))
         wall = time.perf_counter() - t0
         _train_counts("train-llama-2l", 2 * 2 * TRAIN_STEPS, 2 * TRAIN_STEPS, heads)
         rep = _train_report("train-llama-2l", cfg.with_overrides(n_layers=2),
@@ -4158,7 +4558,35 @@ def train_phase(dev, rows: dict[str, dict]) -> dict[str, PathRun]:
                                           "flash_attention_bwd": 2 * TRAIN_STEPS},
                                          rep, [], wall, None)
         print(f"[train-llama-2l] wall {wall:.1f}s")
+        straight, straight_losses = res.state, res.losses
+        shutil.rmtree(f"{tmp}/two")
         del res
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train_cli.run(train_cli.build_parser().parse_args(
+            TRAIN_FLAGS + two + TRAIN_RESUME_FLAGS + ["--ckpt-dir", f"{tmp}/resume"]))
+        wall = time.perf_counter() - t0
+        n_steps = TRAIN_FAIL + TRAIN_STEPS - TRAIN_CKPT
+        _train_counts("train-llama-resume", 2 * 2 * n_steps, 2 * n_steps, heads)
+        if res.restarts != 1 or f"restored from step {TRAIN_CKPT}" not in res.lines:
+            raise AssertionError(f"[train-llama-resume] {res.restarts} restarts: {res.lines}")
+        pairs = list(zip(leaves(straight["params"]) + leaves(straight["opt"]),
+                         leaves(res.state["params"]) + leaves(res.state["opt"]), strict=True))
+        same = sum(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
+        equal_losses = all(res.losses[s] == straight_losses[s]
+                           for s in range(TRAIN_CKPT, TRAIN_STEPS))
+        print(f"[train-llama-resume] at 2 layers: failed at step {TRAIN_FAIL}, restarted once "
+              f"from step {TRAIN_CKPT}; final params, m, v and step bit-equal to the "
+              f"uninterrupted run: {same}/{len(pairs)} leaves; losses of steps "
+              f"{TRAIN_CKPT}-{TRAIN_STEPS - 1} equal: {equal_losses}; wall {wall:.1f}s "
+              f"({n_steps} steps, 2 checkpoint saves, 1 restore)")
+        if same != len(pairs) or not equal_losses:
+            raise AssertionError("[train-llama-resume] the resumed state differs from the "
+                                 "uninterrupted run's")
+        runs["train-llama-resume"] = PathRun(
+            {"prefill_attention[train-lse]": 2 * 2 * n_steps, "flash_attention_bwd": 2 * n_steps},
+            None, [], wall, None)
+        del res, straight, pairs
         freed_card(dev, "train-minicpm")
         example = _load_example("torch_train_minicpm_wsd")
         ops.reset_launch_counts()
@@ -4577,6 +5005,10 @@ def main() -> None:
     rows += [decode_phase(dev, name) for name in
              ("decode_attention[lse]", "decode_attention[shard-head2]",
               "decode_attention[shard-seq2]")]
+    # the placed paged paths (slice 19): a lane's shard of the pool, and the
+    # chunk at a tensor-parallel rank's heads
+    rows += [lane_phase(dev, kv, cut) for cut in LANE_CUTS for kv in (None, "fp8")]
+    rows.append(prefill_chunk_phase(dev, "tp2"))
     for tag in TRAIN_TAGS.values():
         rows += [train_lse_phase(dev, tag), train_bwd_phase(dev, tag)]
     for tag in PT_TAGS:
@@ -4603,7 +5035,7 @@ def main() -> None:
     by_path: dict[str, PathRun] = {}
 
     def path(label, flags, want, **kw):
-        if kw.get("eager"):
+        if kw.get("eager") or kw.get("sync", True):
             kw["rerun_layers"] = RERUN_LAYERS
         by_path[label] = serve_phase(model, params, label, flags, want, by_name, **kw)
 
@@ -4784,10 +5216,12 @@ def main() -> None:
         # (a --block-size the serve paths do not pass; block128_check runs
         # it at reduced size)
         # and the lse decode at the serve shape (the placed-seq path
-        # launches it at each rank's window, counted in [shard-seq2])
+        # launches it at each rank's window, counted in [shard-seq2]); the
+        # position cut of the placed pool (the placed-paged paths' 258
+        # blocks split the block axis; 385 would cut the positions)
         r["on_main_path"] = not ((r["kernel"] == "prefill_attention"
                                   and r["variant"] not in ("unscaled", "lse"))
-                                 or "bs128" in r["name"]
+                                 or "bs128" in r["name"] or "lane-pos2" in r["name"]
                                  or r["name"] == "decode_attention[lse]")
         if r["on_main_path"] and not r["launches"]:
             raise AssertionError(f"{r['name']} never launched on the main paths")

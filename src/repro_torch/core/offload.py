@@ -18,6 +18,15 @@ not hold enough of over the axes it is split on, then slicing; the
 sequence policies run the kernel with its log-sum-exp over each rank's
 window and merge the gathered partials.  :class:`ShardedCache` is a
 cache of this rank's shards with the global extents they cut.
+
+The paged pool (:class:`ShardedPool`) is cut by its ``kv_blocks`` rule:
+the physical block axis replaces the batch axis as the unit the HPU lanes
+split, and a block belongs to exactly one lane.  A row's blocks may lie
+on any lane, so every lane of a block or position cut takes every row's
+query (the per-token Q/K/V descriptors are the boundary traffic), runs
+the paged kernel over its part of each row through a table of its own
+(:func:`lane_tables`, built on the device), and the lanes' partials are
+merged by log-sum-exp (:func:`placed_paged_decode_attention`).
 """
 from __future__ import annotations
 
@@ -146,6 +155,18 @@ class ShardedCache(dict):
         lo, hi = self.rows
         return row - lo if lo <= row < hi else None
 
+    def put_length(self, slot: torch.Tensor, value: torch.Tensor) -> None:
+        """``lengths[slot] = value`` for a ``(1,)`` device ``slot`` (a
+        global row), on the rank that holds it, with no host sync."""
+        lengths = self["lengths"]
+        r0, r1 = self.rows
+        if r1 == r0:
+            return
+        row = slot.long().reshape(1) - r0
+        held = (row >= 0) & (row < r1 - r0)
+        row = row.clamp(0, r1 - r0 - 1)
+        lengths.index_put_((row,), torch.where(held, value.to(lengths.dtype), lengths[row]))
+
     def slot_view(self, slot: int) -> "ShardedCache":
         """Global row ``slot`` as a cache of one row, of views: writing into
         it (a prefill) writes into this cache."""
@@ -196,6 +217,146 @@ def placed_decode_attention(place: Placement, cache: ShardedCache, layer: int,
         o = ref.lse_merge(list(zip(os.unbind(0), lses.unbind(0))))
     dst = [(act[0], place.part(act[0], B)), (act[1], place.part(act[1], Hq)), ((), (0, D))]
     return place.reshard(o, [cache.row_axes, cache.head_axes, ()], dst, [B, Hq, D])
+
+
+class ShardedPool(dict):
+    """This rank's shards of a paged pool (``k``/``v`` ``(L, n, h, p, Dh)``
+    and an fp8/int8 pool's ``k_scale``/``v_scale`` ``(L, n, h, p)``) of a
+    global ``(n_blocks, n_kv, block_size)``, as the ``kv_blocks`` placement
+    cuts it: physical blocks ``blocks`` split over ``block_axes``, KV heads
+    ``heads`` over ``head_axes``, the positions inside every block ``pos``
+    over ``pos_axes``.  ``block_tables`` and ``lengths`` are whole on every
+    rank: a row's blocks may lie on any lane, so every lane reads every
+    row's table (a few KB).  ``nbytes`` is the whole pool's size, what one
+    device would hold."""
+
+    def __init__(self, leaves: dict, *, place: Placement, n_blocks: int, n_kv: int,
+                 block_size: int, blocks: Range, heads: Range, pos: Range, block_axes=(),
+                 head_axes=(), pos_axes=(), nbytes: int = 0):
+        super().__init__(leaves)
+        self.place = place
+        self.n_blocks, self.n_kv, self.block_size = n_blocks, n_kv, block_size
+        self.blocks, self.heads, self.pos = blocks, heads, pos
+        self.block_axes, self.head_axes, self.pos_axes = block_axes, head_axes, pos_axes
+        self.nbytes = nbytes
+
+    @property
+    def merge_axes(self) -> tuple[str, ...]:
+        """The axes whose lanes hold disjoint parts of a row's positions
+        (the block and the position cuts), in mesh order: the partials of
+        a row are merged over them."""
+        cut = set(self.block_axes) | set(self.pos_axes)
+        return tuple(a for a in self.place.mesh.axis_names if a in cut)
+
+    def local_block(self, phys: int) -> int | None:
+        """The local index of physical block ``phys``, None when another
+        lane holds it."""
+        b0, b1 = self.blocks
+        return phys - b0 if b0 <= phys < b1 else None
+
+    def owner(self, phys: int) -> int:
+        """The index, over ``block_axes``, of the lane holding ``phys``
+        (the split divides the block count)."""
+        return phys // (self.blocks[1] - self.blocks[0])
+
+    def lane_tables(self, tables: torch.Tensor, lengths: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """:func:`lane_tables` of this lane."""
+        return lane_tables(tables, lengths, self.block_size, self.n_blocks, self.blocks,
+                           self.pos)
+
+
+def lane_tables(tables: torch.Tensor, lengths: torch.Tensor, block_size: int, n_blocks: int,
+                blocks: Range, pos: Range) -> tuple[torch.Tensor, torch.Tensor]:
+    """A lane's view of every row, on the device with no host sync: ``(tables
+    (B, MB) int32 of local block ids, lengths (B,))`` for the paged kernel
+    over the shard of physical blocks ``blocks`` and positions ``pos`` of
+    every block.  ``lengths`` counts the positions a row attends (the
+    kernel reads ``min(lengths, MB * block_size)``).  Block cut: a row's
+    live blocks held here, in logical order (a stable sort puts them
+    first), so the partial last block, if held, stays last; position cut
+    ``[p0, p1)``: every block contributes ``p1 - p0`` positions, the last
+    one those of its tail past ``p0``.  A lane that holds nothing of a row
+    gives it length 0: an empty window, which weighs 0 in the merge."""
+    bs, MB = block_size, tables.shape[1]
+    (b0, b1), (p0, p1) = blocks, pos
+    bl = p1 - p0
+    n_live = ((lengths.long() + bs - 1) // bs).clamp(max=MB)                  # (B,)
+    tail = (lengths.long() - (n_live - 1) * bs).clamp(0, bs)                  # last block's
+    held = torch.arange(MB, device=tables.device)[None] < n_live[:, None]
+    if (b0, b1) != (0, n_blocks):
+        held = held & (tables >= b0) & (tables < b1)
+        order = torch.argsort((~held).to(torch.int8), dim=1, stable=True)
+        tables = (tables.gather(1, order) - b0).clamp(0, b1 - b0 - 1).to(torch.int32)
+    last = held.gather(1, (n_live - 1).clamp(min=0)[:, None])[:, 0] & (n_live > 0)
+    local = (held.sum(dim=1) - last.long()) * bl + torch.where(last, (tail - p0).clamp(0, bl), 0)
+    return tables.contiguous(), local.to(torch.int32)
+
+
+def placed_paged_decode_attention(pool: ShardedPool, layer: int, q: torch.Tensor,
+                                  act: list[tuple[str, ...]], tables: torch.Tensor,
+                                  lengths: torch.Tensor) -> torch.Tensor:
+    """One decode step of attention over the paged pool in its placement.
+
+    ``q`` holds every row (a row's blocks may lie on any lane) and the
+    query heads of this rank's KV heads (:func:`pool_layout`);
+    ``tables``/``lengths`` are :meth:`ShardedPool.lane_tables`' (the
+    length counts the new token); returns the output in the compute
+    layout (rows over ``act[0]``, heads over ``act[1]``).  A pool cut only
+    by heads runs the one-device path on the shard.  A pool cut by blocks
+    or by positions runs the paged kernel with its log-sum-exp over this
+    lane's part of every row, and the partials gathered over the cut axes
+    are merged by log-sum-exp (``ref.lse_merge``); on the CPU the plain
+    version, whose lanes first share each row's score maximum (one more
+    all-reduce) so that p rounds as in the reference's one softmax."""
+    place = pool.place
+    B, D = q.shape[0], q.shape[2]
+    Hq = q.shape[1] * pool.n_kv // (pool.heads[1] - pool.heads[0])
+    k_l, v_l = pool["k"][layer], pool["v"][layer]
+    ks_l = vs_l = None
+    if "k_scale" in pool:
+        ks_l, vs_l = pool["k_scale"][layer], pool["v_scale"][layer]
+    merge = pool.merge_axes
+    if not place.split(merge):
+        o = paged_decode_attention(q, k_l, v_l, tables, lengths, k_scale=ks_l, v_scale=vs_l)
+    else:
+        if q.is_cuda:
+            o, lse = ops.paged_decode_attention(q, k_l, v_l, tables, lengths, k_scale=ks_l,
+                                                v_scale=vs_l, return_lse=True)
+        else:
+            o, lse = _lane_attention_plain(place.mesh.group(merge), q, k_l, v_l, ks_l, vs_l,
+                                           tables, lengths)
+        os, lses = place.stack_all([o, lse], merge)
+        o = ref.lse_merge(list(zip(os.unbind(0), lses.unbind(0))))
+    dst = [(act[0], place.part(act[0], B)), (act[1], place.part(act[1], Hq)), ((), (0, D))]
+    return place.reshard(o, [(), pool.head_axes, ()], dst, [B, Hq, D])
+
+
+def _lane_attention_plain(group, q, k_l, v_l, ks_l, vs_l, tables, lengths):
+    """A lane's ``(out, lse)`` on the CPU, the windows sharing each row's
+    maximum over ``group``: the one-device path's numerics (the model-level
+    decode attention for a bf16/f32 pool, the kernel-level oracle for an
+    fp8/int8 one) over the lane's blocks gathered in table order."""
+    k = ref.gather_paged_cache(k_l, tables)
+    v = ref.gather_paged_cache(v_l, tables)
+    if ks_l is None:
+        m = attn.decode_scores(q, k, lengths).amax(dim=-1, keepdim=True)
+        m = collectives.all_reduce_max(m, group)
+        return attn.decode_attention(q, k, v, lengths, m=m, return_lse=True)
+    k = k.float() * ref.gather_paged_scales(ks_l, tables)[..., None]
+    v = v.float() * ref.gather_paged_scales(vs_l, tables)[..., None]
+    return ref.naive_decode_attention(
+        q, k, v, lengths, return_lse=True,
+        shared_max=lambda m: collectives.all_reduce_max(m, group))
+
+
+def pool_layout(pool: ShardedPool, n_heads: int, width: int, batch: int) -> list:
+    """The ``dst`` of :meth:`Placement.reshard_all` for a ``(batch,
+    n_heads, width)`` tensor into the pool's layout: every row, the heads
+    of this rank's KV heads."""
+    g = n_heads // pool.n_kv
+    return [((), (0, batch)), (pool.head_axes, (pool.heads[0] * g, pool.heads[1] * g)),
+            ((), (0, width))]
 
 
 def cache_layout(cache: ShardedCache, n_heads: int, width: int) -> list:

@@ -94,8 +94,9 @@ class Env:
     """What the model code needs to know of the runtime: the mesh's axis
     sizes (``{}``: one device, no collectives) and the policies.  The
     reference's fields and defaults; the port runs ``axes``, ``kv_policy``
-    and ``offload`` (serving on the dense cache) and ``fsdp`` (training's
-    ZeRO-3 split of every weight's d_model over the batch axes), and an
+    and ``offload`` (serving on the dense cache and the paged pool) and
+    ``fsdp`` (training's ZeRO-3 split of every weight's d_model over the
+    batch axes), and an
     ``Env`` that sets any other field off its default raises
     (:data:`NOT_PLACED_YET`)."""
     axes: dict[str, int] = field(default_factory=dict)

@@ -146,13 +146,18 @@ def naive_decode_attention(
     scale: float | None = None,
     starts: torch.Tensor | None = None,
     return_lse: bool = False,
+    shared_max=None,
 ):
     """q (B,Hq,D), caches (B,S,Hkv,D), lengths (B,) -> (B,Hq,D).
 
     Positions at or past ``lengths[b]`` are masked, and below
     ``starts[b]`` when given (a hot attention window); ``return_lse``
     also returns the per-row log-sum-exp ``(B, Hkv, G)`` f32.  A row with
-    no valid position yields output 0 and lse <= -1e30 (never NaN)."""
+    no valid position yields output 0 and lse <= -1e30 (never NaN).
+    ``shared_max`` maps the rows' score maxima ``(B, Hkv, G, 1)`` to the
+    maxima the softmax subtracts: a window of a pool split across ranks
+    takes the maximum over every window (an all-reduce), so that p is
+    what one softmax over the whole row gives."""
     B, Hq, D = q.shape
     _, S, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -166,12 +171,17 @@ def naive_decode_attention(
     mask = valid[:, None, None]                                          # (B,1,1,S)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
+    if shared_max is not None:
+        m = shared_max(m)
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float()) / l.clamp_min(1e-30)
     out = o.reshape(B, Hq, v_cache.shape[-1]).to(q.dtype)
     if return_lse:
-        return out, (m + torch.log(l.clamp_min(1e-30)))[..., 0]
+        lse = m + torch.log(l.clamp_min(1e-30))
+        if shared_max is not None:
+            lse = torch.where(l > 0, lse, NEG_INF)
+        return out, lse[..., 0]
     return out
 
 

@@ -79,11 +79,13 @@ Under ``torchrun`` (``torchrun --nproc-per-node N -m
 repro_torch.launch.serve ...``) the world is a ``(data, model)`` mesh
 (``launch.mesh.make_host_mesh``) and the model is placed on it with the
 balancer's KV policy, as the reference builds its ``Env``: every rank
-runs the same schedule on its shards (dense cache, decode-only, eagerly:
-gloo collectives cannot be captured in a CUDA graph) and rank 0 reports.
-A paged, hybrid, speculative, tiered, clustered or sub-batched run, or
-a family other than the dense one, is refused on a world above 1: those
-wait for later slices.
+runs the same schedule on its shards (the dense cache or the paged pool
+in bf16, fp8 or int8, on either schedule, eagerly: gloo collectives
+cannot be captured in a CUDA graph), rank 0 reports, and every rank
+prints its ``pool:`` line (the same on every rank: the whole pool's
+bookkeeping and bytes).  A speculative, host-tiered, clustered or
+sub-batched run, or a family other than the dense one, is refused on a
+world above 1: those wait for later slices.
 """
 from __future__ import annotations
 
@@ -483,7 +485,11 @@ def main(argv=None):
         print(line)
     model, params = load_model(args, env, mesh)
     res = serve(args, model, params)
-    lines = report(args, res) + write_outputs(args, res) if rank0 else []
+    lines = report(args, res)
+    # every rank holds the whole pool's bookkeeping: each prints its pool:
+    # line, the same on every rank
+    lines = lines + write_outputs(args, res) if rank0 else [
+        line for line in lines if line.startswith("pool:")]
     for line in lines:
         print(line)
 

@@ -17,8 +17,10 @@ stacked on a leading dim as in the reference and iterated with a Python
 loop.  Attention goes through
 ``core.offload``: the Hopper kernels on the GPU, the plain versions on
 the CPU.  On a mesh (a ``core.offload.Placement`` bound in by the
-registry) ``prefill``, ``decode_step`` and ``decode_sample_step`` run
-tensor parallel over a ``ShardedCache`` (the section at the end).
+registry) ``prefill``, ``decode_step``, ``decode_sample_step``, the
+chunked ``prefill_step`` / ``prefill_sample_step`` and the paged pool's
+steps run tensor parallel over a ``ShardedCache`` or a ``ShardedPool``
+(the section at the end).
 
 The KV cache is updated **in place** (``k[l].index_put_``, slice
 copies), where the reference builds a new cache with ``.at[].set``; the
@@ -29,12 +31,13 @@ or skips on the host or with masks, never with a host sync.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 
 from repro_torch.core import offload
-from repro_torch.core.offload import Placement, ShardedCache
+from repro_torch.core.offload import Placement, ShardedCache, ShardedPool
 from repro_torch.distributed import collectives
 from repro_torch.kernels import ref
 from repro_torch.models import common as cm
@@ -98,12 +101,28 @@ def cache_defs(cfg, batch: int, max_seq: int) -> Pytree:
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device: torch.device | str = "cpu", *, place: Placement | None = None) -> Pytree:
+               device: torch.device | str = "cpu", *, place: Placement | None = None,
+               staging: bool = False) -> Pytree:
     """Zeroed dense cache: ``k``/``v`` in ``dtype``, or with ``kv_quant``
     int8 with bf16 ``k_scale``/``v_scale`` (whatever ``dtype``, as in the
     reference).  On a mesh (``place``) a :class:`ShardedCache` of this
-    rank's shards in the KV policy's layout, allocated at their shape."""
+    rank's shards in the KV policy's layout, allocated at their shape; with
+    ``staging`` (the paged engine's staging lanes and its decode-only
+    admission's prompt cache) in the compute layout instead: every row and
+    position, the KV heads of this rank's tensor-parallel heads, so that a
+    chunk writes and reads it with no collective and a finished block
+    leaves it for the pool (``serving.paged.device.write_prompt_block``).
+    One device has one layout: ``staging`` changes nothing there."""
     defs = cache_defs(cfg, batch, max_seq)
+    if place is not None and staging:
+        tp = tensor_parallel(place.specs)
+        h0, h1 = place.part(tp.heads, cfg.n_kv_heads)
+        shape = (cfg.n_layers, batch, max_seq, h1 - h0, cfg.resolved_head_dim())
+        return ShardedCache({"k": torch.zeros(shape, dtype=dtype, device=device),
+                             "v": torch.zeros(shape, dtype=dtype, device=device),
+                             "lengths": torch.zeros(batch, dtype=torch.int32, device=device)},
+                            batch=batch, max_seq=max_seq, n_kv=cfg.n_kv_heads, rows=(0, batch),
+                            seq=(0, max_seq), heads=(h0, h1), head_axes=tp.heads)
     if place is not None:
         specs = {k: place.env.kv_spec(d.logical, d.shape) for k, d in defs.items()}
         sp = specs["k"]
@@ -221,7 +240,15 @@ def _kv_dtype_name(dtype: torch.dtype) -> str | None:
 
 def init_paged_cache(cfg, n_slots: int, n_blocks: int, block_size: int,
                      max_blocks: int, dtype=torch.bfloat16, kv_dtype: str = "bf16",
-                     host_blocks: int = 0, device: torch.device | str = "cpu") -> Pytree:
+                     host_blocks: int = 0, device: torch.device | str = "cpu", *,
+                     place: Placement | None = None) -> Pytree:
+    """Zeroed paged pool of :func:`paged_cache_defs`.  On a mesh
+    (``place``) a :class:`ShardedPool` of this rank's shards of ``k``,
+    ``v`` and the scale pools, at the shapes the KV policy's specs give
+    (``Model.paged_cache_specs``), with ``block_tables`` and ``lengths``
+    whole on every rank (a few KB; every lane reads every row's table):
+    a layout choice, which changes no result.  The host tier waits for a
+    later slice there."""
     if cfg.kv_quant and kv_dtype == "bf16":
         kv_dtype = "int8"           # cfg-level quant maps onto the int8 tier
     defs = paged_cache_defs(cfg, n_slots, n_blocks, block_size, max_blocks,
@@ -230,11 +257,27 @@ def init_paged_cache(cfg, n_slots: int, n_blocks: int, block_size: int,
     dt = {"k": pool_dt, "v": pool_dt, "host_k": pool_dt, "host_v": pool_dt,
           "k_scale": torch.float32, "v_scale": torch.float32,
           "host_k_scale": torch.float32, "host_v_scale": torch.float32}
-    return {k: torch.zeros(d.shape, dtype=dt.get(k, torch.int32), device=device)
-            for k, d in defs.items()}
+    if place is None:
+        return {k: torch.zeros(d.shape, dtype=dt.get(k, torch.int32), device=device)
+                for k, d in defs.items()}
+    if host_blocks:
+        raise NotImplementedError("placement: the host KV tier waits for a later slice")
+    specs = {k: place.env.kv_spec(d.logical, d.shape) for k, d in defs.items()}
+    sp = specs["k"]
+    pool = {"k", "v", "k_scale", "v_scale"}
+    leaves = {k: torch.zeros(place.local_shape(specs[k], d.shape) if k in pool else d.shape,
+                             dtype=dt.get(k, torch.int32), device=device)
+              for k, d in defs.items()}
+    nbytes = sum(math.prod(d.shape) * leaves[k].element_size() for k, d in defs.items())
+    return ShardedPool(leaves, place=place, n_blocks=n_blocks, n_kv=cfg.n_kv_heads,
+                       block_size=block_size, blocks=place.part(sp.axes(1), n_blocks),
+                       heads=place.part(sp.axes(2), cfg.n_kv_heads),
+                       pos=place.part(sp.axes(3), block_size), block_axes=sp.axes(1),
+                       head_axes=sp.axes(2), pos_axes=sp.axes(3), nbytes=nbytes)
 
 
-def paged_decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
+def paged_decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor, *,
+                      place: Placement | None = None):
     """One autoregressive step against the paged pool: ``decode_step``'s
     math, with the new K/V scattered to ``(tables[b, len // bs], len %
     bs)`` and attention reading each row's blocks through its table.
@@ -255,7 +298,11 @@ def paged_decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
     through the paged kernel on the GPU (the kernel-level oracle on the
     CPU) — and merges the two by log-sum-exp, so a spilled sequence
     keeps decoding without a re-prefill.  A slot with nothing spilled has
-    an empty cold window, whose merge weight is 0."""
+    an empty cold window, whose merge weight is 0.  On a mesh (``place``)
+    every rank returns the whole batch's logits: :func:`_placed_paged`."""
+    if place is not None:
+        logits, rows = _placed_paged(cfg, place, params, cache, tokens)
+        return place.gather(logits, 0, rows), cache
     return _paged_pass(cfg, params, cache, tokens, past_table_to_null=False)
 
 
@@ -497,7 +544,8 @@ def _device_scalar(x, device: torch.device) -> torch.Tensor:
     return torch.tensor([x], dtype=torch.int32).to(device)
 
 
-def prefill_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot, q_offset, n_valid):
+def prefill_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot, q_offset, n_valid,
+                 *, place: Placement | None = None):
     """One chunk of one slot's prompt against the live cache.
 
     ``tokens`` (1, C) is the chunk, padded; ``slot``, ``q_offset`` and
@@ -518,9 +566,12 @@ def prefill_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot, q_offse
     ``[q_offset, q_offset + C)`` is rewritten with its own value.  A
     clamped index instead would repeat positions, and CUDA leaves the
     winner of repeated ``index_put_`` positions undefined, so a clamped
-    pad write could race with the valid write at ``S - 1``."""
+    pad write could race with the valid write at ``S - 1``.  On a mesh
+    (``place``): :func:`_placed_prefill_step`."""
     if cfg.kv_quant:
         raise NotImplementedError("chunked prefill does not support kv_quant yet")
+    if place is not None:
+        return _placed_prefill_step(cfg, place, params, cache, tokens, slot, q_offset, n_valid)
     C = tokens.shape[1]
     S = cache["k"].shape[2]
     if C > S:
@@ -606,11 +657,14 @@ def paged_verify_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
 
 
 def prefill_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot, q_offset,
-                        n_valid, generator: torch.Generator | None, *, sampler):
+                        n_valid, generator: torch.Generator | None, *, sampler,
+                        place: Placement | None = None):
     """Chunked prefill with the first generated token sampled on the
     device: (token (1,), cache).  Only a prompt's final chunk's token is
-    used."""
-    logits, cache = prefill_step(cfg, params, cache, tokens, slot, q_offset, n_valid)
+    used.  On a mesh every rank holds the whole logits and draws the same
+    token from its generator, seeded alike."""
+    logits, cache = prefill_step(cfg, params, cache, tokens, slot, q_offset, n_valid,
+                                 place=place)
     return sample_on_device(logits, generator, sampler), cache
 
 
@@ -623,9 +677,7 @@ def decode_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor,
     rank holds the same ``(B,)``."""
     if place is not None:
         logits, rows = _placed_decode(cfg, place, params, cache, tokens)
-        B = tokens.shape[0]
-        lo, hi = place.part(rows, B)
-        tok = place.gather(sample_on_device(logits, generator, sampler, (lo, hi, B)), 0, rows)
+        tok = _placed_sample(place, logits, rows, tokens.shape[0], generator, sampler)
         return tok, tok == eos_ids, cache
     logits, cache = decode_step(cfg, params, cache, tokens)
     tok = sample_on_device(logits, generator, sampler)
@@ -634,8 +686,12 @@ def decode_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor,
 
 def paged_decode_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor,
                              generator: torch.Generator | None, eos_ids: torch.Tensor, *,
-                             sampler):
+                             sampler, place: Placement | None = None):
     """Paged-pool analogue of :func:`decode_sample_step`."""
+    if place is not None:
+        logits, rows = _placed_paged(cfg, place, params, cache, tokens)
+        tok = _placed_sample(place, logits, rows, tokens.shape[0], generator, sampler)
+        return tok, tok == eos_ids, cache
     logits, cache = paged_decode_step(cfg, params, cache, tokens)
     tok = sample_on_device(logits, generator, sampler)
     return tok, tok == eos_ids, cache
@@ -643,8 +699,8 @@ def paged_decode_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # placement on a mesh (``core.offload.Placement``; serving on the dense
-# cache and training).  The compute side is tensor parallel on the
-# weights' split: wq / wk / wv and w_gate / w_up by columns, wo and w_down
+# cache and the paged pool, and training).  The compute side is tensor
+# parallel on the weights' split: wq / wk / wv and w_gate / w_up by columns, wo and w_down
 # by rows with one all-reduce after each, the embedding by vocabulary rows
 # (a masked lookup and an all-reduce) and the logits gathered over the
 # vocabulary (serving) or kept split into a vocabulary-parallel
@@ -653,6 +709,8 @@ def paged_decode_sample_step(cfg, params, cache: Pytree, tokens: torch.Tensor,
 # the batch axes and gathered before use (:func:`_whole`).  The cache is a
 # ShardedCache in its policy's layout; K/V are written where it holds
 # them, and decode attention goes through offload.placed_decode_attention.
+# The paged pool is a ShardedPool (blocks, KV heads or the positions in a
+# block over its lanes), read through offload.placed_paged_decode_attention.
 # Training writes every collective's transpose out
 # (``collectives.copy_to`` / ``reduce_from`` / ``gather_from``).
 # ---------------------------------------------------------------------------
@@ -853,43 +911,203 @@ def _placed_prefill(cfg, place: Placement, params, tokens: torch.Tensor,
     return place.gather(logits, 0, rows), cache
 
 
-def _placed_decode(cfg, place: Placement, params, cache: ShardedCache, tokens: torch.Tensor):
-    """:func:`decode_step` on a mesh, up to the logits of this rank's rows:
-    ``(logits (b, V), the axes the rows are split over)``.  The new K/V
-    go to the cache's layout and land where a row's append position
-    falls in this shard's window (skipped at or past ``max_seq``)."""
+def _placed_decode_layers(cfg, place: Placement, params, tokens: torch.Tensor,
+                          rows: tuple[str, ...], pos: torch.Tensor, layout, write, attend):
+    """The layers of a decode step on a mesh, over this rank's rows
+    (``rows``, at positions ``pos``) and tensor-parallel heads, up to their
+    logits (b, V).  The cache decides the rest: ``layout(n)`` is its
+    layout of ``n`` heads, which q, k and v go to in one collective a dim;
+    ``write(l, k, v)`` stores layer ``l``'s new K/V there and
+    ``attend(l, q, compute)`` returns the attention in the compute layout
+    ``compute``."""
     tp = tensor_parallel(place.specs)
     B = tokens.shape[0]
-    rows = _rows(place, B)
     a0, a1 = place.part(rows, B)
-    lengths = cache["lengths"]
-    pos = place.reshard(lengths, [cache.row_axes], [(rows, (a0, a1))], [B]).long()
     table = _placed_table(place, params, "embed")
     x = _placed_embed(place, tp, table, tokens[a0:a1])
-    s0, s1 = cache.seq
-    Dh = cache["k"].shape[-1]
-    Hq = cfg.n_heads
-    local = lengths.long() - s0
-    valid = (lengths < cache.max_seq) & (local >= 0) & (local < s1 - s0)
-    wpos = local.clamp(0, s1 - s0 - 1)
-    bidx = torch.arange(lengths.shape[0], device=x.device)
+    Dh, Hq, n_kv = cfg.resolved_head_dim(), cfg.n_heads, cfg.n_kv_heads
     for l in range(cfg.n_layers):
         p = _placed_layer(place, params, l)
         h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
         q = cm.rope(cm.linear(h, p["wq"])[:, None], pos[:, None], cfg.rope_theta)[:, 0]
         k = cm.rope(cm.linear(h, p["wk"])[:, None], pos[:, None], cfg.rope_theta)[:, 0]
         v = cm.linear(h, p["wv"])
-        # q, k, v to the cache's layout in one collective a dim
-        q, k, v = place.reshard_all(
-            [q, k, v], [rows, tp.heads, ()],
-            [offload.cache_layout(cache, n, Dh) for n in (Hq, cache.n_kv, cache.n_kv)],
-            [[B, n, Dh] for n in (Hq, cache.n_kv, cache.n_kv)])
-        _append(cache["k"][l], k, bidx, wpos, valid)
-        _append(cache["v"][l], v, bidx, wpos, valid)
-        o = offload.placed_decode_attention(place, cache, l, q.contiguous(), [rows, tp.heads],
-                                            lengths + 1)
+        q, k, v = place.reshard_all([q, k, v], [rows, tp.heads, ()],
+                                    [layout(n) for n in (Hq, n_kv, n_kv)],
+                                    [[B, n, Dh] for n in (Hq, n_kv, n_kv)])
+        write(l, k, v)
+        o = attend(l, q.contiguous(), [rows, tp.heads])
         x = x + place.reduce(cm.linear(o, p["wo"], n_in=2), tp.heads)
         x = _placed_ffn(cfg, place, tp, p, x)
     x = cm.rmsnorm(x, _placed_table(place, params, "final_norm"), cfg.norm_eps)
+    return _placed_logits(cfg, place, tp, params, table, x)
+
+
+def _placed_decode(cfg, place: Placement, params, cache: ShardedCache, tokens: torch.Tensor):
+    """:func:`decode_step` on a mesh, up to the logits of this rank's rows:
+    ``(logits (b, V), the axes the rows are split over)``.  The new K/V
+    go to the cache's layout and land where a row's append position
+    falls in this shard's window (skipped at or past ``max_seq``)."""
+    B = tokens.shape[0]
+    rows = _rows(place, B)
+    lengths = cache["lengths"]
+    pos = place.reshard(lengths, [cache.row_axes], [(rows, place.part(rows, B))], [B]).long()
+    s0, s1 = cache.seq
+    local = lengths.long() - s0
+    valid = (lengths < cache.max_seq) & (local >= 0) & (local < s1 - s0)
+    wpos = local.clamp(0, s1 - s0 - 1)
+    bidx = torch.arange(lengths.shape[0], device=lengths.device)
+    Dh = cache["k"].shape[-1]
+
+    def write(l, k, v):
+        _append(cache["k"][l], k, bidx, wpos, valid)
+        _append(cache["v"][l], v, bidx, wpos, valid)
+
+    logits = _placed_decode_layers(
+        cfg, place, params, tokens, rows, pos, lambda n: offload.cache_layout(cache, n, Dh),
+        write, lambda l, q, compute: offload.placed_decode_attention(place, cache, l, q, compute,
+                                                                     lengths + 1))
     lengths.add_(1)
-    return _placed_logits(cfg, place, tp, params, table, x), rows
+    return logits, rows
+
+
+def _placed_sample(place: Placement, logits: torch.Tensor, rows: tuple[str, ...], B: int,
+                   generator: torch.Generator | None, sampler) -> torch.Tensor:
+    """Each rank samples its rows' logits (the draws of those rows of the
+    whole batch's) and the ids are gathered: every rank holds the same
+    ``(B,)``."""
+    lo, hi = place.part(rows, B)
+    return place.gather(sample_on_device(logits, generator, sampler, (lo, hi, B)), 0, rows)
+
+
+def _placed_prefill_step(cfg, place: Placement, params, cache: ShardedCache,
+                         tokens: torch.Tensor, slot, q_offset, n_valid):
+    """:func:`prefill_step` on a mesh.  Every rank runs the chunk (one row,
+    which the compute side does not split) over its heads.  The chunk's
+    K/V go to the cache's layout and land where this shard holds the
+    slot's row and the positions (a window of distinct local positions, as
+    on one device); the attention reads the slot's stripe in the compute
+    layout: the row from the rank that holds it (a sum over the row axes,
+    zeros elsewhere), gathered over the positions' and heads' axes as
+    their split asks.  The paged engine's staging cache is in the compute
+    layout (``init_cache(..., staging=True)``): there both moves are
+    nothing.  Every rank returns the whole logits."""
+    tp = tensor_parallel(place.specs)
+    C, S = tokens.shape[1], cache.max_seq
+    if C > S:
+        raise ValueError(f"prefill_step: a chunk of {C} does not fit a stripe of {S}")
+    dev = tokens.device
+    slot, q_offset, n_valid = (_device_scalar(a, dev) for a in (slot, q_offset, n_valid))
+    table = _placed_table(place, params, "embed")
+    x = _placed_embed(place, tp, table, tokens)                       # (1, C, D)
+    positions = (q_offset + torch.arange(C, device=dev))[None]
+    (r0, r1), (s0, s1) = cache.rows, cache.seq
+    n = s1 - s0
+    cl = min(C, n)
+    win = (q_offset - s0).clamp(0, n - cl) + torch.arange(cl, device=dev)   # local positions
+    src = win + s0 - q_offset                                         # their chunk rows
+    row = slot.long() - r0
+    held = (row >= 0) & (row < r1 - r0)
+    keep = ((src < 0) | (src >= C) | ~held)[:, None, None]
+    src = src.clamp(0, C - 1)
+    row = row.clamp(0, max(r1 - r0 - 1, 0))
+    rows_i, win = row.expand(cl), win.long()
+    Dh, n_kv = cache["k"].shape[-1], cache.n_kv
+    dst = [((), (0, 1)), ((), (0, C)), (cache.head_axes, cache.heads), ((), (0, Dh))]
+    stripe = [((), (0, 1)), ((), (0, S)), (tp.heads, place.part(tp.heads, n_kv)), ((), (0, Dh))]
+    for l in range(cfg.n_layers):
+        p = _placed_layer(place, params, l)
+        h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        q = cm.rope(cm.linear(h, p["wq"]), positions, cfg.rope_theta)
+        k = cm.rope(cm.linear(h, p["wk"]), positions, cfg.rope_theta)
+        v = cm.linear(h, p["wv"])
+        k, v = place.reshard_all([k, v], [(), (), tp.heads, ()], [dst, dst],
+                                 [[1, C, n_kv, Dh]] * 2)
+        kv = []
+        for pool, new in ((cache["k"][l], k), (cache["v"][l], v)):
+            if r1 > r0 and cl > 0:
+                pool.index_put_((rows_i, win), torch.where(keep, pool[rows_i, win],
+                                                           new[0, src].to(pool.dtype)))
+            part = pool.index_select(0, row) if r1 > r0 else pool.new_zeros(1, *pool.shape[1:])
+            if place.split(cache.row_axes):
+                part = place.reduce(torch.where(held.view(1, 1, 1, 1), part,
+                                                torch.zeros_like(part)),
+                                    cache.row_axes)
+            kv.append(part)
+        ks, vs = place.reshard_all(kv, [(), cache.seq_axes, cache.head_axes, ()],
+                                   [stripe, stripe], [[1, S, n_kv, Dh]] * 2)
+        o = offload.prefill_attention(q, ks, vs, q_offset=q_offset)
+        x = x + place.reduce(cm.linear(o, p["wo"], n_in=2), tp.heads)
+        x = _placed_ffn(cfg, place, tp, p, x)
+    x = cm.rmsnorm(x, _placed_table(place, params, "final_norm"), cfg.norm_eps)
+    last = x.index_select(1, (n_valid - 1).long())[:, 0]              # (1, D)
+    cache.put_length(slot, q_offset + n_valid)
+    return _placed_logits(cfg, place, tp, params, table, last), cache
+
+
+def _lane_writes(valid: torch.Tensor, *index: torch.Tensor):
+    """The places and the source rows of a scatter of one value per row,
+    where only the rows ``valid`` write (their place lies on this lane).
+    A row that does not write must not race one that does (CUDA leaves the
+    winner of repeated places undefined), so it takes the place and the
+    value of the first row that writes, and that write happens twice,
+    alike; when no row writes, each rewrites what its own place holds.
+    No host sync.  Returns ``(index..., source rows, whether the source
+    writes)``."""
+    first = valid.to(torch.int32).argmax()
+    own = valid | ~valid.any()
+    src = torch.where(own, torch.arange(valid.shape[0], device=valid.device), first)
+    return (*(torch.where(own, i, i[first]) for i in index), src, valid[src])
+
+
+def _pool_put(pool: torch.Tensor, places, new: torch.Tensor) -> None:
+    """``pool[phys, :, off] = new[src]`` where the source writes, else what
+    is there (:func:`_lane_writes`' ``places``), as bytes."""
+    phys, off, src, writes = places
+    view = ref.byte_view(pool)
+    old = view[phys, :, off]
+    new = ref.byte_view(new.to(pool.dtype))[src]
+    view[phys, :, off] = torch.where(writes.view(-1, *(1,) * (new.dim() - 1)), new, old)
+
+
+def _placed_paged(cfg, place: Placement, params, cache: ShardedPool, tokens: torch.Tensor):
+    """:func:`paged_decode_step` on a mesh, up to the logits of this rank's
+    rows: ``(logits (b, V), the axes the rows are split over)``.  q, k and
+    v go to the pool's layout (every row, this rank's KV heads); the new
+    K/V (quantized with their scales for an fp8/int8 pool: per (head,
+    position) vector over head_dim, which no policy splits, so the scales
+    are one device's) land only where this lane holds the append block
+    and the offset in it (:func:`_lane_writes`); the attention runs on
+    this lane's part of every row through its table
+    (:meth:`ShardedPool.lane_tables`, built once a step on the device) and
+    :func:`offload.placed_paged_decode_attention` merges the lanes."""
+    B = tokens.shape[0]
+    rows = _rows(place, B)
+    a0, a1 = place.part(rows, B)
+    lengths, tables = cache["lengths"], cache["block_tables"]
+    bs, MB = cache.block_size, tables.shape[1]
+    quant = _kv_dtype_name(cache["k"].dtype)
+    pos = lengths.long()
+    phys = tables[torch.arange(B, device=pos.device), (pos // bs).clamp(max=MB - 1)].long()
+    off = pos % bs
+    (b0, b1), (p0, p1) = cache.blocks, cache.pos
+    valid = (phys >= b0) & (phys < b1) & (off >= p0) & (off < p1)
+    places = _lane_writes(valid, (phys - b0).clamp(0, b1 - b0 - 1),
+                          (off - p0).clamp(0, p1 - p0 - 1))
+    lane_tables, lane_lengths = cache.lane_tables(tables, lengths + 1)
+    Dh = cache["k"].shape[-1]
+
+    def write(l, k, v):
+        for name, new in (("k", k), ("v", v)):
+            if quant:
+                new, sc = ref.kv_quantize(new, quant)
+                _pool_put(cache[f"{name}_scale"][l], places, sc)
+            _pool_put(cache[name][l], places, new)
+
+    logits = _placed_decode_layers(
+        cfg, place, params, tokens, rows, pos[a0:a1],
+        lambda n: offload.pool_layout(cache, n, Dh, B), write,
+        lambda l, q, compute: offload.placed_paged_decode_attention(cache, l, q, compute,
+                                                                    lane_tables, lane_lengths))
+    lengths.add_(1)
+    return logits, rows

@@ -10,15 +10,17 @@ GPU and no explicit device, :func:`build_model` raises.
 
 With an ``Env`` whose ``axes`` are not empty and the mesh of this rank
 (``launch.mesh.DeviceMesh``), the model is placed: ``param_specs`` and
-``cache_specs`` resolve the reference's rules, :meth:`Model.init` keeps
-this rank's shard of every weight, ``init_cache`` allocates a
-``core.offload.ShardedCache``, and the dense family's ``prefill``,
-``decode_step`` and ``decode_sample_step`` run tensor parallel on it, as
-its ``loss_fn`` does for training (``training.trainer`` reduces the
-gradients and shards the optimizer state).  Placement serves and trains
-the dense family on the dense cache; the other families, the paged pool,
-chunked prefill and verify wait for later slices (their steps are None
-on a placed model, and :func:`build_model` refuses another family).
+``cache_specs`` / ``paged_cache_specs`` resolve the reference's rules,
+:meth:`Model.init` keeps this rank's shard of every weight,
+``init_cache`` allocates a ``core.offload.ShardedCache`` and
+``init_paged_cache`` a ``core.offload.ShardedPool``, and the dense
+family's ``prefill``, ``decode_step``, ``decode_sample_step``, chunked
+``prefill_step`` / ``prefill_sample_step`` and ``paged_decode_step`` /
+``paged_decode_sample_step`` run tensor parallel on them, as its
+``loss_fn`` does for training (``training.trainer`` reduces the
+gradients and shards the optimizer state).  The other families and
+verify wait for later slices (verify is None on a placed model, and
+:func:`build_model` refuses another family).
 """
 from __future__ import annotations
 
@@ -108,6 +110,18 @@ class Model:
         return cm.specs_for(self.cache_defs(batch, max_seq), kv_rules(self.env.policy()),
                             self.env.axes)
 
+    def paged_cache_specs(self, n_slots: int, n_blocks: int, block_size: int,
+                          max_blocks: int, **kw) -> Pytree:
+        """Every paged pool leaf's Spec under the KV policy: the block axis
+        split across the HPU lanes by the ``kv_blocks`` rule.  ``kw``
+        (``kv_dtype``, ``host_blocks``) passes through to
+        ``paged_cache_defs``."""
+        if self.paged_cache_defs is None:
+            raise ValueError(f"{self.cfg.family} has no paged cache")
+        return cm.specs_for(self.paged_cache_defs(n_slots, n_blocks, block_size, max_blocks,
+                                                  **kw),
+                            kv_rules(self.env.policy()), self.env.axes)
+
     def n_params(self) -> int:
         return cm.count_params(self.param_defs)
 
@@ -158,8 +172,9 @@ def build_model(cfg: ModelConfig, device: str | torch.device | None = None,
 
 
 def _placed_model(cfg: ModelConfig, dev: torch.device, env: Env, mesh, fam, defs) -> Model:
-    """The dense family on a mesh: its serving steps and its training
-    ``loss_fn`` bound to this rank's :class:`Placement`."""
+    """The dense family on a mesh: its serving steps (dense cache and
+    paged pool, whole and chunked prefill) and its training ``loss_fn``
+    bound to this rank's :class:`Placement`."""
     if cfg.family != DENSE or cfg.kv_quant:
         what = "the int8 kv_quant cache" if cfg.family == DENSE else cfg.family
         raise NotImplementedError(f"placement serves the dense family on its bf16/f32 cache "
@@ -179,6 +194,13 @@ def _placed_model(cfg: ModelConfig, dev: torch.device, env: Env, mesh, fam, defs
         init_cache=functools.partial(fam.init_cache, cfg, device=dev, place=place),
         loss_fn=functools.partial(fam.loss_fn, cfg, place=place),
         decode_sample_step=functools.partial(fam.decode_sample_step, cfg, place=place),
+        prefill_step=functools.partial(fam.prefill_step, cfg, place=place),
+        prefill_sample_step=functools.partial(fam.prefill_sample_step, cfg, place=place),
+        paged_cache_defs=functools.partial(fam.paged_cache_defs, cfg),
+        init_paged_cache=functools.partial(fam.init_paged_cache, cfg, device=dev, place=place),
+        paged_decode_step=functools.partial(fam.paged_decode_step, cfg, place=place),
+        paged_decode_sample_step=functools.partial(fam.paged_decode_sample_step, cfg,
+                                                   place=place),
         env=env,
         placement=place,
     )

@@ -9,7 +9,9 @@ replica of a :class:`~repro_torch.serving.cluster.Cluster` (router hooks,
 KV block migration, refold moves) or alone, and on the dense
 decode-only schedule with sub-batch pipelining (``sub_batches``), and
 for a placed model (one rank of a mesh: ``Model.placement``) on the dense
-cache with the decode-only schedule, eagerly.  A
+cache or the paged pool (bf16, fp8 or int8, no host tier) on either
+schedule, eagerly (the staging cache is then in the compute layout:
+``init_cache(..., staging=True)``).  A
 family whose :class:`Model` lacks a step (the MoE family has no paged
 decode, chunked prefill, verify or fused sampled step) is refused the
 paths that need it with the reference's exceptions, and its decode is
@@ -326,8 +328,7 @@ class Engine:
         role: str = "mixed",
     ):
         if model.placement is not None:
-            self._check_placed(cache_kind, schedule, spec_depth, sub_batches, graphs,
-                               replica, role)
+            self._check_placed(host_blocks, spec_depth, sub_batches, graphs, replica, role)
         # speculation always runs on the dispatch-ahead machinery; sync mode
         # is that pipeline at depth zero (observe right after dispatch)
         if spec_depth < 0:
@@ -458,7 +459,8 @@ class Engine:
             if cache_kind == "paged":
                 # persistent two-lane staging cache: chunks accumulate here
                 # and completed blocks flush into the pool
-                self.staging = model.init_cache(2, self.max_blocks * block_size)
+                self.staging = model.init_cache(2, self.max_blocks * block_size,
+                                                staging=True)
         if spec_depth:
             # the draft's cache is always dense (the draft is small), its
             # lengths mirroring the target's committed lengths slot for slot
@@ -479,19 +481,21 @@ class Engine:
         return sampled
 
     @staticmethod
-    def _check_placed(cache_kind, schedule, spec_depth, sub_batches, graphs, replica,
-                      role) -> None:
+    def _check_placed(host_blocks, spec_depth, sub_batches, graphs, replica, role) -> None:
         """What a placed model (one rank of a mesh) serves: the dense cache
-        on the decode-only schedule, eagerly, as one engine; the rest (the
-        paged and tiered pools, hybrid, speculation, sub-batches, replicas
-        and roles) waits for later slices."""
-        if ((cache_kind, schedule, spec_depth, sub_batches, replica, role)
-                != ("dense", "decode-only", 0, 1, 0, "mixed")):
-            raise NotImplementedError(
-                "a placed model serves the dense cache on the decode-only schedule, as one "
-                "engine without speculation or sub-batches (got "
-                f"cache_kind={cache_kind!r}, schedule={schedule!r}, spec_depth={spec_depth}, "
-                f"sub_batches={sub_batches}, replica={replica}, role={role!r})")
+        and the paged pool (bf16, fp8 or int8) on either schedule, eagerly,
+        as one engine; every rank runs the same host schedule.  The host
+        tier, speculation, sub-batches, replicas and roles wait for later
+        slices, and CUDA graphs cannot capture gloo's collectives."""
+        refused = {"host_blocks": (host_blocks, 0, "the host KV tier"),
+                   "spec_depth": (spec_depth, 0, "speculative decoding"),
+                   "sub_batches": (sub_batches, 1, "sub-batch pipelining"),
+                   "replica": (replica, 0, "a replica of a cluster"),
+                   "role": (role, "mixed", "a disaggregated role")}
+        for name, (got, default, what) in refused.items():
+            if got != default:
+                raise NotImplementedError(f"a placed model does not serve {what} yet "
+                                          f"(got {name}={got!r}): it waits for a later slice")
         if graphs:
             raise ValueError("a placed model runs eagerly: CUDA graphs cannot capture its "
                              "gloo collectives")
@@ -1117,7 +1121,7 @@ class Engine:
             # prefill's own block writes go out
             self._apply_pool_directives()
             pad = -(-len(full) // bs) * bs
-            sub_cache = self.model.init_cache(1, pad)
+            sub_cache = self.model.init_cache(1, pad, staging=True)
             logits, _ = self.model.prefill(
                 self.params, paged_dev.to_device(full.astype(np.int64)[None], self.device),
                 sub_cache)
@@ -1492,9 +1496,8 @@ class Engine:
         ``scalars``: each chunk's device ``(slot, lane, start, n_valid,
         last)``."""
         if self.cache_kind == "dense":
-            lengths = self.cache["lengths"]
             for sc in scalars:
-                lengths.index_put_((sc[0:1].long(),), sc[2:3] + sc[3:4])
+                kv_cache.set_length(self.cache, sc[0:1], sc[2:3] + sc[3:4])
 
     def _exec(self, active: list[int], chunks) -> tuple[tuple[torch.Tensor, ...], _Dispatch]:
         """One dispatch of the decode batch ``active`` and the prefill

@@ -1,16 +1,17 @@
 """Slot-level KV cache management for continuous batching.
 
 Counterpart of ``repro.serving.kv_cache`` (``insert``, ``export_slot``,
-``reset_slot``, ``kv_bytes``).  Cache leaves carry the batch dim at axis 1 (stacked
-layers at axis 0), ``lengths`` at axis 0.  Updates are in place.  A placed
-model's :class:`~repro_torch.core.offload.ShardedCache` holds this rank's
-rows only: a slot's view and reset act on the rank that holds the slot.
+``reset_slot``, ``kv_bytes``), and :func:`set_length`.  Cache leaves carry
+the batch dim at axis 1 (stacked layers at axis 0), ``lengths`` at axis 0.
+Updates are in place.  A placed model's
+:class:`~repro_torch.core.offload.ShardedCache` holds this rank's rows
+only: a slot's view, reset and length act on the rank that holds the slot.
 """
 from __future__ import annotations
 
 from typing import Any
 
-from repro_torch.core.offload import ShardedCache
+from repro_torch.core.offload import ShardedCache, ShardedPool
 
 Pytree = Any
 
@@ -55,7 +56,21 @@ def reset_slot(cache: Pytree, slot: int) -> Pytree:
     return cache
 
 
+def set_length(cache: Pytree, slot, value) -> Pytree:
+    """``lengths[slot] = value``, ``slot`` and ``value`` ``(1,)`` device
+    tensors, with no host sync (on a placed cache, by the rank that holds
+    the slot)."""
+    if isinstance(cache, ShardedCache):
+        cache.put_length(slot, value)
+    else:
+        cache["lengths"].index_put_((slot.long(),), value)
+    return cache
+
+
 def kv_bytes(cache: Pytree) -> int:
+    """The cache's bytes; a placed pool's whole, what one device holds."""
+    if isinstance(cache, ShardedPool):
+        return cache.nbytes
     return sum(v.numel() * v.element_size() for v in cache.values())
 
 

@@ -32,6 +32,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.offload import ShardedPool
 from repro_torch.kernels import ref
 
 Pytree = Any
@@ -71,9 +72,27 @@ def _copy(dst: torch.Tensor, src: torch.Tensor) -> None:
 
 def copy_block(cache: Pytree, src: int, dst: int) -> Pytree:
     """COW: duplicate physical block ``src`` into ``dst`` (k and v, and
-    their scale blocks when the pool is quantized)."""
-    for key in _pool_keys(cache):
-        _copy(cache[key][:, dst], cache[key][:, src])
+    their scale blocks when the pool is quantized).  On a placed pool each
+    lane copies its heads and positions of the block; when another lane
+    holds ``src``, its shard comes over the block axes (every rank of the
+    group takes part; one collective)."""
+    keys = _pool_keys(cache)
+    if not isinstance(cache, ShardedPool):
+        for key in keys:
+            _copy(cache[key][:, dst], cache[key][:, src])
+        return cache
+    i_src, i_dst = cache.local_block(src), cache.local_block(dst)
+    if cache.owner(src) == cache.owner(dst):
+        if i_src is not None:
+            for key in keys:
+                _copy(cache[key][:, i_dst], cache[key][:, i_src])
+        return cache
+    blocks = [ref.byte_view(cache[key][:, i_src] if i_src is not None else
+                            torch.zeros_like(cache[key][:, 0])) for key in keys]
+    stacks = cache.place.stack_all(blocks, cache.block_axes)
+    if i_dst is not None:
+        for key, st in zip(keys, stacks):
+            ref.byte_view(cache[key][:, i_dst]).copy_(st[cache.owner(src)])
     return cache
 
 
@@ -83,18 +102,34 @@ def _span(S: int, start: int, bs: int) -> int:
     return min(max(start, 0), S - bs)
 
 
+def _block_size(cache: Pytree) -> int:
+    return cache.block_size if isinstance(cache, ShardedPool) else cache["k"].shape[3]
+
+
 def write_prompt_block(cache: Pytree, sub_cache: Pytree, phys: int, start: int,
                        lane: int = 0) -> Pytree:
     """Copy staging positions ``[start, start+block_size)`` of ``lane``
     into pool block ``phys``, transposed to heads-major; an fp8/int8 pool
     quantizes each (head, position) vector on the way in and takes its
-    scales into the scale pool."""
-    bs = cache["k"].shape[3]
+    scales into the scale pool.  On a mesh this is the paper's hand-off of
+    a finished block from the compute side to the HPU lanes: the staging
+    cache holds this rank's tensor-parallel heads, the block moves to the
+    pool's layout (gathered over the heads' axes where the pool splits its
+    heads otherwise) and the lane that holds ``phys`` keeps its heads and
+    positions of it."""
+    bs = _block_size(cache)
     quant = _quant(cache)
+    blks = []
     for key in ("k", "v"):
         sub = sub_cache[key]
         s0 = _span(sub.shape[2], start, bs)
-        blk = sub[:, lane, s0:s0 + bs].transpose(1, 2)        # (L, Hkv, bs, Dh)
+        blks.append(sub[:, lane, s0:s0 + bs].transpose(1, 2))  # (L, Hkv, bs, Dh)
+    if isinstance(cache, ShardedPool):
+        blks = _to_lanes(cache, sub_cache, blks)
+        phys = cache.local_block(phys)
+        if phys is None:
+            return cache
+    for key, blk in zip(("k", "v"), blks):
         if quant:
             payload, scale = ref.kv_quantize(blk, quant)
             _copy(cache[key][:, phys], payload)
@@ -109,17 +144,53 @@ def read_block(sub_cache: Pytree, cache: Pytree, phys: int, start: int,
     """Inverse of :func:`write_prompt_block`: hydrate staging ``lane`` at
     ``[start, start+block_size)`` from pool block ``phys`` (a prefix-cache
     hit), so chunked-prefill attention sees the shared prefix's K/V; an
-    fp8/int8 block is dequantized into the staging dtype."""
-    bs = cache["k"].shape[3]
+    fp8/int8 block is dequantized into the staging dtype.  On a mesh the
+    block's shards are gathered back from the lanes (:func:`_from_lanes`)."""
+    bs = _block_size(cache)
     quant = _quant(cache)
+    i = cache.local_block(phys) if isinstance(cache, ShardedPool) else phys
+    blks = []
     for key in ("k", "v"):
+        dt = sub_cache[key].dtype
+        if i is None:
+            blk = torch.zeros(cache[key][:, 0].shape, dtype=dt, device=cache[key].device)
+        elif quant:
+            blk = ref.kv_dequantize(cache[key][:, i], cache[f"{key}_scale"][:, i], dt)
+        else:
+            blk = cache[key][:, i].to(dt)                       # (L, Hkv, bs, Dh)
+        blks.append(blk)
+    if isinstance(cache, ShardedPool):
+        blks = _from_lanes(cache, sub_cache, phys, blks)
+    for key, blk in zip(("k", "v"), blks):
         sub = sub_cache[key]
         s0 = _span(sub.shape[2], start, bs)
-        blk = cache[key][:, phys]                               # (L, Hkv, bs, Dh)
-        if quant:
-            blk = ref.kv_dequantize(blk, cache[f"{key}_scale"][:, phys], sub.dtype)
         sub[:, lane, s0:s0 + bs].copy_(blk.transpose(1, 2))
     return sub_cache
+
+
+def _to_lanes(pool: ShardedPool, staging, blks: list[torch.Tensor]) -> list[torch.Tensor]:
+    """K and V of one block ``(L, h, bs, Dh)`` from the staging cache's
+    heads to this lane's heads and positions of the pool."""
+    L, _, bs, Dh = blks[0].shape
+    dst = [((), (0, L)), (pool.head_axes, pool.heads), (pool.pos_axes, pool.pos), ((), (0, Dh))]
+    return pool.place.reshard_all(blks, [(), staging.head_axes, (), ()], [dst, dst],
+                                  [[L, pool.n_kv, bs, Dh]] * 2)
+
+
+def _from_lanes(pool: ShardedPool, staging, phys: int,
+                blks: list[torch.Tensor]) -> list[torch.Tensor]:
+    """K and V of block ``phys`` as this lane holds them (or zeros, where
+    another lane holds the block) back to every position and the staging
+    cache's heads: taken from the holder over the block axes, then
+    gathered over the heads' and positions' axes."""
+    place = pool.place
+    if place.split(pool.block_axes):
+        blks = [st[pool.owner(phys)] for st in place.stack_all(blks, pool.block_axes)]
+    L, _, _, Dh = blks[0].shape
+    dst = [((), (0, L)), (staging.head_axes, staging.heads), ((), (0, pool.block_size)),
+           ((), (0, Dh))]
+    return place.reshard_all(blks, [(), pool.head_axes, pool.pos_axes, ()], [dst, dst],
+                             [[L, pool.n_kv, pool.block_size, Dh]] * 2)
 
 
 def spill_block(cache: Pytree, dev: int, host: int) -> Pytree:

@@ -220,30 +220,35 @@ def test_placed_model_on_one_rank_equals_the_model(policy):
 
 def test_placed_engine_refusals():
     """What a placed engine does not serve yet is refused with a clear
-    error: the paged pool, the hybrid schedule, speculation, sub-batches,
-    replicas and roles, CUDA graphs; the serve CLI's runs of them on a
-    placed model meet the same errors, and a family other than the dense
-    one, or the int8 cache, is refused when the model is built."""
+    error naming it: the host tier, speculation, sub-batches, replicas and
+    roles, CUDA graphs; the serve CLI's runs of them on a placed model
+    meet the same errors, and a family other than the dense one, or the
+    int8 cache, is refused when the model is built.  The paged pool and
+    the hybrid schedule are served (``test_torch_placement_paged.py``)."""
     model = _one_rank()
     params = model.init(0)
-    for kw in (dict(cache_kind="paged"), dict(schedule="hybrid"), dict(sub_batches=2),
-               dict(spec_depth=1, draft_model=model, draft_params=params),
-               dict(replica=1), dict(role="prefill")):
-        with pytest.raises(NotImplementedError, match="placed model"):
+    for kw, what in ((dict(cache_kind="paged", host_blocks=4), "host KV tier"),
+                     (dict(sub_batches=2), "sub-batch"),
+                     (dict(spec_depth=1, draft_model=model, draft_params=params),
+                      "speculative"),
+                     (dict(replica=1), "replica"), (dict(role="prefill"), "role")):
+        with pytest.raises(NotImplementedError, match=f"placed model does not serve.*{what}"):
             Engine(model, params, n_slots=2, max_seq=16, **kw)
     with pytest.raises(ValueError, match="eagerly"):
         Engine(model, params, n_slots=2, max_seq=16, graphs=True)
-    eng = Engine(model, params, n_slots=2, max_seq=16)
-    reqs = [Request(uid=i, prompt=np.arange(1, 4 + i, dtype=np.int32), max_new_tokens=3)
-            for i in range(3)]
-    for r in reqs:
-        eng.submit(r)
-    assert eng.run().generated == 9 and not eng.graphs
-    for flags, what in ((["--cache", "paged"], "cache_kind='paged'"),
-                        (["--cache", "paged", "--schedule", "hybrid"], "cache_kind='paged'"),
-                        (["--schedule", "hybrid"], "schedule='hybrid'"),
+    for kw in ({}, dict(cache_kind="paged", block_size=4, schedule="hybrid", prefill_chunk=4)):
+        eng = Engine(model, params, n_slots=2, max_seq=16, **kw)
+        reqs = [Request(uid=i, prompt=np.arange(1, 4 + i, dtype=np.int32), max_new_tokens=3)
+                for i in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        assert eng.run().generated == 9 and not eng.graphs
+    for flags, what in ((["--cache", "paged", "--host-blocks", "4"], "host_blocks=4"),
+                        (["--cache", "paged", "--schedule", "hybrid", "--kv-dtype", "fp8",
+                          "--host-blocks", "4"], "host_blocks=4"),
                         (["--spec-depth", "2"], "spec_depth=2"),
-                        (["--cache", "paged", "--host-blocks", "4"], "cache_kind='paged'"),
+                        (["--cache", "paged", "--schedule", "hybrid", "--spec-depth", "2"],
+                         "spec_depth=2"),
                         (["--replicas", "2"], "replica=1"),
                         (["--replicas", "2", "--role-map", "1p+1d"], "role='prefill'"),
                         (["--sub-batches", "2"], "sub_batches=2")):

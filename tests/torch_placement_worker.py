@@ -221,6 +221,126 @@ def engine_task(task) -> dict:
     return out
 
 
+def _fill_pool(model, cache, data: dict, specs: dict) -> None:
+    """Write the whole pool leaves of ``data`` (fp8 payloads as bytes) into
+    this rank's shards of ``cache`` (``block_tables`` and ``lengths``
+    whole)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    for key, leaf in cache.items():
+        whole = torch.from_numpy(data[key])
+        if leaf.dtype == torch.float8_e4m3fn:
+            whole = whole.view(torch.float8_e4m3fn)
+        if key in ("k", "v", "k_scale", "v_scale"):
+            whole = model.placement.take(whole, specs[key])
+        ref.byte_view(leaf).copy_(ref.byte_view(whole.to(leaf.dtype)))
+
+
+def paged_model_task(task) -> dict:
+    """One placed ``paged_decode_step`` per dtype, pool dtype, block count
+    and policy over the pool of ``pool_{dtype}_{kv}_{blocks}.npz`` (the
+    test's, with scattered tables and partial blocks): the whole batch's
+    logits and the shapes of this rank's pool leaves."""
+    import torch
+
+    out = {}
+    feed = torch.from_numpy(np.asarray(task["feed"], np.int32))
+    for dtype in task["dtypes"]:
+        for policy in task["policies"]:
+            model, params = _model(task, policy, dtype)
+            for kv in task["kv_dtypes"]:
+                for nb in task["blocks"]:
+                    key = f"{dtype}/{kv}/{nb}/{policy}"
+                    data = dict(np.load(Path(task["out"]) / f"pool_{dtype}_{kv}_{nb}.npz"))
+                    shape = (feed.shape[0], nb, task["block_size"], task["max_blocks"])
+                    cache = model.init_paged_cache(*shape, kv_dtype=kv)
+                    _fill_pool(model, cache, data, model.paged_cache_specs(*shape, kv_dtype=kv))
+                    logits, _ = model.paged_decode_step(params, cache, feed)
+                    out[f"{key}/logits"] = logits.float().numpy()
+                    if dtype == "float32":
+                        out.update(_block_moves(model, cache, data, key, task["block_size"]))
+                    for leaf in ("k", "k_scale", "block_tables"):
+                        if leaf in cache:
+                            out[f"{key}/shape/{leaf}"] = np.asarray(cache[leaf].shape)
+                    out[f"{key}/lengths"] = cache["lengths"].numpy()
+    return out
+
+
+def _block_moves(model, cache, data: dict, key: str, bs: int) -> dict:
+    """Row 0's first block copied (copy-on-write) into the last block the
+    tables leave free, that block read back into a staging cache
+    (positions ``[0, bs)``), written from there into the next free block
+    and read back again (``[bs, 2 bs)``): the staging cache's K of this
+    rank's heads, and the blocks moved."""
+    import torch
+
+    from repro_torch.serving.paged import device as pdev
+
+    free = sorted(set(range(1, cache.n_blocks)) - set(data["block_tables"].ravel().tolist()))
+    src, dst, fresh = int(data["block_tables"][0, 0]), free[-1], free[-2]
+    staging = model.init_cache(1, 2 * bs, dtype=torch.float32, staging=True)
+    pdev.copy_block(cache, src, dst)
+    pdev.read_block(staging, cache, dst, 0)
+    pdev.write_prompt_block(cache, staging, fresh, 0)
+    pdev.read_block(staging, cache, fresh, bs)
+    return {f"{key}/staged": staging["k"][:, 0].numpy(), f"{key}/heads": np.asarray(staging.heads),
+            f"{key}/moved": np.asarray([src, dst, fresh])}
+
+
+def paged_engine_task(task) -> dict:
+    """The float32 engine over the task's prompts per case (a name, the
+    ``model`` axis size, the policies and the Engine's keywords) and mode:
+    every request's tokens and step stamps, the EngineStats and the
+    PoolStats; then the serve CLI's lines under each ``cli`` flag list."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import Engine, Request
+
+    # the ring all-reduce (gloo's route for CUDA tensors) against gloo's own
+    x = (torch.arange(7, dtype=torch.float32) / 3 + dist.get_rank()).bfloat16()
+    out = {"ring_sum": collectives._ring_all_reduce(x, dist.group.WORLD).float().numpy(),
+           "gloo_sum": collectives.all_reduce(x.clone(), dist.group.WORLD).float().numpy()}
+    for name, mp, policies, kw in task["cases"]:
+        for policy in policies:
+            model, params = _model(dict(task, model_parallel=mp), policy, "float32")
+            for async_mode in (False, True):
+                eng = Engine(model, params, n_slots=task["slots"], max_seq=task["max_seq"],
+                             async_mode=async_mode, **kw)
+                reqs = [Request(uid=i, prompt=np.asarray(p, np.int32),
+                                max_new_tokens=task["max_new"])
+                        for i, p in enumerate(task["prompts"])]
+                for r in reqs:
+                    eng.submit(r)
+                stats = eng.run()
+                key = f"{name}/{policy}/{'async' if async_mode else 'sync'}"
+                for r in reqs:
+                    out[f"{key}/tokens{r.uid}"] = np.asarray(r.out_tokens)
+                    out[f"{key}/stamps{r.uid}"] = np.asarray(
+                        [r.submit_step, r.admit_step, r.first_token_step, r.finish_step])
+                out[f"{key}/stats"] = np.asarray(json.dumps(dataclasses.asdict(stats)))
+                if kw.get("cache_kind") == "paged":
+                    out[f"{key}/pool"] = np.asarray(json.dumps(dataclasses.asdict(
+                        eng.pool.stats)))
+                    out[f"{key}/kv_bytes"] = np.asarray(eng.kv_bytes())
+    serve.reduce_config = lambda arch: reduce_config(arch).with_overrides(dtype="float32")
+    for i, flags in enumerate(task["cli"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--reduced", "--device", "cpu", *flags])
+        out[f"cli{i}"] = np.asarray(json.dumps(buf.getvalue().splitlines()))
+    return out
+
+
 def pipeline_task(task) -> dict:
     """``pipeline_forward`` over a ``stage`` mesh of the whole world on the
     reference's toy (``pipe.npz``: stacked ``w`` (L, D, D) and ``x``
@@ -312,6 +432,7 @@ def main(path: str) -> None:
                             world_size=n, timeout=datetime.timedelta(seconds=WORLD_TIMEOUT))
     try:
         out = {"model": model_task, "engine": engine_task, "train": train_task,
+               "paged_model": paged_model_task, "paged_engine": paged_engine_task,
                "pipeline": pipeline_task, "train_cli": train_cli_task}[task["kind"]](task)
         np.savez(Path(task["out"]) / f"rank{rank}.npz", **out)
     finally:
