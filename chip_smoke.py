@@ -138,7 +138,31 @@
       one rank's, every block read back equal to what was written; tok/s
       per rank and collectives a decode step printed.  The kernel phase's lane rows hold two lanes'
       lse-merged partials to the whole-pool kernel, for the block and the
-      position cut, bf16 and fp8.
+      position cut, bf16 and fp8.  Since slice 20 the same two ranks then
+      serve what one rank serves beside: placed-tiered-dp (data 2, an fp8
+      pool of ``PLACED_TIERED_BLOCKS`` and a host tier of 512 blocks on the
+      hybrid schedule, a's first 16 requests: the host tier whole on each
+      rank) and placed-tiered-seq (model 2, the sequence policy, an int8
+      pool: the host tier's positions split), each spilling and not
+      preempting, its ``EngineStats`` and ``PoolStats`` equal on both
+      ranks and to one rank's, the paged kernel twice per layer of each
+      decode step (the hot window on the lane's shard, the cold one on the
+      rank's share of the host tier), every spilled block's host copy
+      equal byte for byte to the device block read before the spill, both
+      gathered from the ranks' raw shards (``checked_spills``), and a
+      teacher-forced tiered step in float32 at 2 layers: the two ranks'
+      pool within one code step of one rank's, and their logits within
+      PLACED_TIERED_TOL of one rank's attending over the same pool bytes;
+      placed-spec (data 2, ``--spec-depth 2``, the draft placed on the same
+      mesh): placed-dp's tokens exactly; placed-sub-batches (data 2,
+      ``--sub-batches 2``): one rank's ``--sub-batches 2`` stats, a float32
+      step within 1e-3 of one rank's, its token agreement with placed-dp
+      and its ms per engine step against placed-dp's printed; and the int8
+      dense cache at model level (float32, 2 layers) on data 2 and model
+      2 against one rank, each data-2 rank's int8 payload and scales equal
+      byte for byte to one rank's rows.  Every path's seconds are printed
+      (``[placed] seconds per path``), and the script's phases' at the end
+      (``phase seconds:``).
    Paths a-k, m and n run async (dispatch-ahead) and then sync; the greedy tokens must
    be identical, each kernel row must have launched once per layer of
    every prefill, chunk and decode step of its path (twice per layer of a
@@ -244,7 +268,7 @@
    int8 compression, 4 steps); then (``family_train_phase``, each on a
    freed card, no checkpoint written) moonshot-v1-16b-a3b at 4 layers,
    deepseek-v3-671b at its 3 dense layers and the MTP block, rwkv6-7b at 4
-   layers and zamba2-1.2b at 12 layers through the train CLI, and
+   layers and zamba2-1.2b at 6 layers (one shared block) through the train CLI, and
    seamless-m4t-medium at model level through ``make_train_step`` (each:
    losses finite, whether they fall printed; launches per step as
    ``train_launches`` says; the plain ``chunked_attention`` calls the
@@ -257,8 +281,8 @@
    script on the card over gloo (``--placed-train-worker``), llama3.2-1b
    at full width from seed-0 weights and the train CLI's global batch of
    4 x 512: placed-train-dp (data 2 x model 1, ZeRO-1 moments) and
-   placed-train-tp (data 1 x model 2) through the train CLI, 16 layers, 3
-   steps (finite losses, equal on both ranks, step 0's within 5e-2 of one
+   placed-train-tp (data 1 x model 2) through the train CLI, 8 of the 16
+   layers, 3 steps (finite losses, equal on both ranks, step 0's within 5e-2 of one
    rank's; ``m`` and ``v`` per rank half of the whole on data 2; the flash
    lse forward 2 L and the backward L times a step at the shard's heads;
    ms per step and tok/s per rank); placed-train-fsdp (data 2,
@@ -369,6 +393,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.reduced import reduce_config  # noqa: E402
 from repro_torch.core import balance, offload  # noqa: E402
+from repro_torch.core import pipeline as sub_batching  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import heads as kernel_heads  # noqa: E402
 from repro_torch.kernels import decode_attention as kdec  # noqa: E402
@@ -417,7 +442,9 @@ SERVE_FLAGS = ["--arch", "llama3.2-1b", "--requests", "64", "--slots", "16",
                "--workload-seed", "0", "--seed", "0", "--device", "cuda"]
 PAGED_FLAGS = ["--cache", "paged", "--schedule", "hybrid", "--blocks", "385"]
 # 128 usable blocks against the ~185 the paged-hybrid run holds at its peak
-TIER = ["--host-blocks", "512", "--blocks", "129"]
+# the host tier's blocks on the tiered paths (the null block aside)
+HOST_BLOCKS = 512
+TIER = ["--host-blocks", str(HOST_BLOCKS), "--blocks", "129"]
 TIERED_FLAGS = ["--cache", "paged", "--schedule", "hybrid", "--kv-dtype", "fp8", *TIER]
 TIERED_INT8_FLAGS = ["--cache", "paged", "--schedule", "decode-only", "--kv-dtype", "int8",
                      *TIER]
@@ -519,6 +546,54 @@ PLACED_TP_ROUNDING_TOL = 0.0
 # of K/V that its fp8 pool can move by a quantum (1.09e-02), held to
 # PLACED_LOGIT_TOL as the dense cache's tensor-parallel paths are
 PLACED_PAGED_TOL = {"placed-paged-dp": 1e-3, "placed-paged-seq": PLACED_LOGIT_TOL}
+# the served depth of the placed paths other than placed-dp and the paths
+# held to it (placed-spec, placed-sub-batches): llama3.2-1b at full width cut
+# to 2 of its 16 layers (slice 20, to pay for its paths: a placed step's
+# time is gloo's collectives, about four a layer), each held to one rank at
+# the same depth from the same seed (placed_one_rank)
+PLACED_LAYERS = 2
+# the placed tiered paths (slice 20): the host tier across the lanes, random's
+# first 16 requests (PLACED_FLAGS) on the hybrid schedule.  An even block
+# count (the block axis splits over 2 lanes), small enough that one rank
+# spills and does not preempt, with a peak above half of it (blocks in use
+# on both lanes): scripts/torch_step_clock.py --requests 16 --cache paged
+# --schedule hybrid --kv-dtype fp8 --host-blocks 512 --blocks 192: 242 engine
+# steps, 228 decode steps, 191 chunks, 352 spills (each finished prefix's
+# blocks at free time), no preemption, a peak of 182 blocks.  Served at
+# PLACED_LAYERS
+PLACED_TIERED_BLOCKS = 192
+PLACED_TIERED_FLAGS = ["--cache", "paged", "--schedule", "hybrid", "--host-blocks",
+                       str(HOST_BLOCKS), "--blocks", str(PLACED_TIERED_BLOCKS)]
+# label -> (mesh (data, model), KV policy, kv dtype, the hot window's row, the
+# cold window's): data 2 holds the host tier whole on each rank, model 2 (the
+# sequence policy) splits the positions of every host block
+PLACED_TIERED = {"placed-tiered-dp": ((2, 1), "batch", "fp8",
+                                      "paged_decode_attention[lane-block2,fp8]",
+                                      "paged_decode_attention[host-whole,fp8]"),
+                 "placed-tiered-seq": ((1, 2), "sequence", "int8",
+                                       "paged_decode_attention[lane-block2,int8]",
+                                       "paged_decode_attention[host-pos2,int8]")}
+# the teacher-forced tiered step in float32 at PLACED_CHECK_LAYERS, two ranks
+# vs one: label -> (tolerance of the logits against one rank's own step, None
+# for printed only; tolerance against one rank attending over the two ranks'
+# pool bytes).  The pools differ where rounding moves a K/V value across a
+# code boundary: on data 2 only the lanes' lse merge rounds otherwise (the
+# raw step 3.52e-4 on the H100 at 700 W); on model 2 the tensor-parallel
+# wo / w_down sums move layer 1's K/V too, and an int8 V code moved by one
+# step (amax / 127) next to a heavily attended position moves the logits by
+# up to 0.217 on the same card, so the step is held over the same pool
+# bytes, where only the rounding of the step itself is left, and the pools
+# to one code step (_code_excess; PLACED_SCALE_TOL for their scales)
+PLACED_TIERED_TOL = {"placed-tiered-dp": (1e-3, 1e-3), "placed-tiered-seq": (None, 1e-2)}
+PLACED_SCALE_TOL = 1e-3
+PLACED_CODE_SLACK = 1e-4
+PLACED_SPEC_FLAGS = ["--spec-depth", str(SPEC_DEPTH)]
+# the sub-batches' teacher-forced step in float32 at PLACED_CHECK_LAYERS
+PLACED_SUB_TOL = 1e-3
+# the int8 dense cache at model level (float32, PLACED_CHECK_LAYERS): label ->
+# (mesh, KV policy, tolerance against one rank)
+PLACED_KVQ = {"placed-kvq-dp": ((2, 1), "batch", 1e-3),
+              "placed-kvq-seq": ((1, 2), "sequence", PLACED_LOGIT_TOL)}
 # the serve CLI's balancer line for llama3.2-1b on a world of 1 and of 2
 # (data 2): tests/test_torch_placement.py pins the same strings
 BALANCER = {1: "balancer: policy=batch sub_batches=1 bottleneck=attention "
@@ -635,7 +710,9 @@ MINICPM_TRAIN_STEPS = 4
 # the other families' train paths at full width, each on a card freed of
 # the one before: moonshot-v1-16b-a3b cut to 4 layers (1 dense + 3 MoE),
 # deepseek-v3-671b to its 3 dense layers and the MTP block (one MoE layer
-# alone is 11.3e9 parameters), rwkv6-7b to 4 layers, zamba2-1.2b to 12; no
+# alone is 11.3e9 parameters), rwkv6-7b to 4 layers, zamba2-1.2b to 6 (12
+# until slice 20, whose placed paths it pays for: 6 is the least depth that
+# holds a shared attention block, whose kernels the path must launch); no
 # checkpoint is written (--ckpt-every 0)
 FAMILY_TRAIN = {
     "train-moe": ["--arch", "moonshot-v1-16b-a3b", "--layers", "4", "--batch", "4",
@@ -644,7 +721,7 @@ FAMILY_TRAIN = {
                        "--seq", "1024", "--steps", "3"],
     "train-rwkv6": ["--arch", "rwkv6-7b", "--layers", "4", "--batch", "4", "--seq", "1024",
                     "--steps", "3"],
-    "train-zamba2": ["--arch", "zamba2-1.2b", "--layers", "12", "--batch", "4", "--seq", "1024",
+    "train-zamba2": ["--arch", "zamba2-1.2b", "--layers", "6", "--batch", "4", "--seq", "1024",
                      "--steps", "3"],
 }
 # seamless-m4t-medium at full depth, at model level (the synthetic batches
@@ -680,7 +757,7 @@ TRAIN_GRAD_TOL = 1e-3
 PT_CONFIG = functools.partial(get_config, "llama3.2-1b")
 PT_FLAGS = ["--arch", "llama3.2-1b", "--batch", "4", "--seq", "512", "--ckpt-every", "0"]
 PT_BATCH, PT_SEQ = 4, 512
-PT_LAYERS, PT_STEPS = 16, 3             # placed-train-dp / -tp
+PT_LAYERS, PT_STEPS = 8, 3              # placed-train-dp / -tp: 8 of 16 layers, for time
 PT_FSDP_LAYERS, PT_FSDP_STEPS = 4, 2
 PT_F32_LAYERS = 2                       # placed-train-f32 and -restore
 PT_CKPT = 2                             # -restore: --ckpt-every, the step restored
@@ -1193,35 +1270,44 @@ def paged_phase(dev, kv: str | None = None, bs: int = 16, tag: str | None = None
 # the two lanes of each cut of the placed pool: (physical blocks, positions
 # in a block) of lane 0 and lane 1, of a pool of N blocks of 16
 LANE_CUTS = {"block2": lambda N: [((0, N // 2), (0, 16)), ((N // 2, N), (0, 16))],
-             "pos2": lambda N: [((0, N), (0, 8)), ((0, N), (8, 16))]}
+             "pos2": lambda N: [((0, N), (0, 8)), ((0, N), (8, 16))],
+             "whole": lambda N: [((0, N), (0, 16))]}
 
 
-def lane_phase(dev, kv: str | None, cut: str) -> dict:
+def lane_phase(dev, kv: str | None, cut: str, host: bool = False) -> dict:
     """The paged kernel with its lse over one lane's shard of llama3.2-1b's
     serve-shape pool (:func:`paged_phase`'s lengths and scrambled tables,
     1026 blocks): ``cut`` "block2", the placed-paged paths' cut (lane 0
     holds blocks 0-512, each row's table compacted by
     ``offload.lane_tables``), or "pos2", the sequence policy's at a block
-    count that does not split (positions 0-7 of every block of 16).  The
-    two lanes' partials, lse-merged, against the whole-pool kernel, and
-    each lane's out and lse against the plain version, within BF16_TOL (an
-    empty window's lse <= -1e30 in both).  The row times lane 0's call
-    (library: its blocks gathered, then SDPA, no lse)."""
+    count that does not split (positions 0-7 of every block of 16).  With
+    ``host`` the pool is the host tier of the placed tiered paths (513
+    blocks) and each row's window its cold prefix, the whole blocks below
+    half its length: ``cut`` "whole" (the batch policy: every rank holds
+    the host tier) or "pos2" (the sequence policy: the positions of every
+    host block over the lanes).  The lanes' partials, lse-merged, against
+    the whole-pool kernel, and each lane's out and lse against the plain
+    version, within BF16_TOL (an empty window's lse <= -1e30 in both).
+    The row times lane 0's call (library: its blocks gathered, then SDPA,
+    no lse)."""
     Hq, Hkv, D, bs, B, MB = 32, 8, 64, 16, 16, 64
-    G, N = Hq // Hkv, 16 * 64 + 2
-    name = _row_name("paged_decode_attention", ",".join(x for x in (f"lane-{cut}", kv) if x))
+    G, N = Hq // Hkv, (HOST_BLOCKS + 1 if host else 16 * 64 + 2)
+    name = _row_name("paged_decode_attention",
+                     ",".join(x for x in (f"{'host' if host else 'lane'}-{cut}", kv) if x))
     gen = torch.Generator(device=dev).manual_seed(5)
-    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    lens = [n // 2 // bs * bs for n in LENGTHS] if host else LENGTHS
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     perm = torch.randperm(N - 1, generator=torch.Generator().manual_seed(5)) + 1
     tables = torch.zeros(B, MB, dtype=torch.int32)
     used = 0
-    for b, n in enumerate(LENGTHS):
+    for b, n in enumerate(lens):
         k = min(-(-n // bs), MB)
         tables[b, :k] = perm[used:used + k]
         used += k
     tables = tables.to(dev)
     lanes = [(blocks, pos, *offload.lane_tables(tables, lengths, bs, N, blocks, pos))
              for blocks, pos in LANE_CUTS[cut](N)]
+    n_lanes = len(lanes)
     elem = 2 if kv is None else 1
     n_copies = max(1, math.ceil(2 * L2_BYTES / (2 * N * Hkv * bs * D * elem)))
     sets = []
@@ -1242,7 +1328,7 @@ def lane_phase(dev, kv: str | None, cut: str) -> dict:
     q, kp, vp, ks, vs, shards = sets[0]
     whole = ops.paged_decode_attention(q, kp, vp, tables, lengths, k_scale=ks, v_scale=vs)
     parts = [lane(ops.paged_decode_attention, q, shards[i], i, return_lse=True)
-             for i in range(2)]
+             for i in range(n_lanes)]
     merge_err = _max_err(ref.lse_merge(parts), whole)
     err = 0.0
     for i, (o, lse) in enumerate(parts):
@@ -1252,9 +1338,9 @@ def lane_phase(dev, kv: str | None, cut: str) -> dict:
             raise AssertionError(f"{name}: lane {i}'s empty windows have a finite lse")
         err = max(err, _max_err(o, o_exp), _max_err(lse[live], lse_exp[live]))
     torch.cuda.synchronize()
-    print(f"kernel {name}: lanes' lengths {lanes[0][3].tolist()} / {lanes[1][3].tolist()}; "
-          f"two lanes lse-merged vs the whole-pool kernel: max err {merge_err:.2e}, each lane "
-          f"vs plain {err:.2e} (tol {BF16_TOL})")
+    print(f"kernel {name}: lanes' lengths {' / '.join(str(x[3].tolist()) for x in lanes)}; "
+          f"{n_lanes} lane(s) lse-merged vs the whole-pool kernel: max err {merge_err:.2e}, "
+          f"each lane vs plain {err:.2e} (tol {BF16_TOL})")
     if not (merge_err <= BF16_TOL and err <= BF16_TOL):
         raise AssertionError(f"{name}: merged {merge_err}, lane vs plain {err}")
     t0, n0 = lanes[0][2:]
@@ -1291,8 +1377,9 @@ def lane_phase(dev, kv: str | None, cut: str) -> dict:
         "library": "ref.gather_paged_cache (k, v; + gather_paged_scales, kv_dequantize) of "
                    "the lane's blocks + scaled_dot_product_attention (no lse)",
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-        "shape": f"lane 0 of {cut}: B={B} Hkv={Hkv} G={G} D={D} block={bl} of 16 MB={MB} "
-                 f"blocks {lanes[0][0]} of N={N} q bf16, pool {kv or 'bf16'} live={live}",
+        "shape": f"lane 0 of {cut}{' (host tier, cold windows)' if host else ''}: B={B} "
+                 f"Hkv={Hkv} G={G} D={D} block={bl} of 16 MB={MB} blocks {lanes[0][0]} of "
+                 f"N={N} q bf16, pool {kv or 'bf16'} live={live}",
     }
 
 
@@ -1717,20 +1804,23 @@ def cluster_phase(model, params, label: str, flags: list[str], want, rows: dict[
 
 
 # ----------------------------------------------------- placed paths (slice 17)
-def teacher_forced(model, params, prompts) -> torch.Tensor:
+def teacher_forced(model, params, prompts, n_sub: int = 1, keep_cache: bool = False):
     """One decode step's logits (B, V) f32 after each prompt is prefilled
     into its slot of a fresh cache as the engine admits it (a slot's
     view), each row fed its prompt's last token: fixed inputs, so a placed
     model and the one-rank model can be held to each other.  The cache is
     in the model's dtype: a float32 model's is f32 too, since one bf16 ulp
     anywhere in the cache moves every argmax of the random model at full
-    depth (``kvq_sensitivity``)."""
+    depth (``kvq_sensitivity``); a ``kv_quant`` model's is int8.  ``n_sub``
+    runs the step as that many sub-batches (``core.pipeline``, in order);
+    ``keep_cache`` also returns the cache."""
     cache = model.init_cache(len(prompts), 1024, dtype=cm.param_dtype(model.cfg))
     for i, p in enumerate(prompts):
         model.prefill(params, torch.as_tensor(p, dtype=torch.int64, device=model.device)[None],
                       kv_cache.slot_view(cache, i))
     feed = torch.tensor([int(p[-1]) for p in prompts], dtype=torch.int32, device=model.device)
-    return model.decode_step(params, cache, feed)[0].float()
+    logits = sub_batching.pipelined_step(model.decode_step, n_sub)(params, cache, feed)[0]
+    return (logits.float(), cache) if keep_cache else logits.float()
 
 
 @contextlib.contextmanager
@@ -1804,7 +1894,7 @@ def forbid_plain_serving():
 
 
 def _placed_run(args, env, mesh, label: str, out: Path, warm_up: bool = False,
-                teacher: bool = False) -> dict:
+                teacher: bool = False, layers: int | None = None) -> dict:
     """One placed path on this rank, through the serve entry points: the
     load (each rank keeps its shards: checked by their bytes), a warm-up
     (the process's first path: cuBLAS handles, the allocator), then the
@@ -1812,9 +1902,16 @@ def _placed_run(args, env, mesh, label: str, out: Path, warm_up: bool = False,
     every plain attention refused (:func:`forbid_plain_serving`), and one
     more decode step of the served model on its cache with its collectives
     counted; rank 0 keeps the run's prompts and, with ``teacher``, the
-    served model's teacher-forced step over them (``{label}-bfloat16.pt``)."""
+    served model's teacher-forced step over them (``{label}-bfloat16.pt``).
+    ``layers`` cuts the served model to that depth (the same seeded weights
+    for the layers kept)."""
     t0 = time.perf_counter()
-    model, params = serve.load_model(args, env, mesh)
+    if layers is None:
+        model, params = serve.load_model(args, env, mesh)
+    else:
+        model = build_model(serve.load_config(args).with_overrides(n_layers=layers),
+                            args.device, env, mesh)
+        params = model.init(args.seed)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     specs = model.param_specs()
@@ -1859,49 +1956,325 @@ def _placed_run(args, env, mesh, label: str, out: Path, warm_up: bool = False,
     return row
 
 
+def _staged_prompts(model, params, cache, prompts, per_row: int):
+    """Each prompt prefilled as decode-only admission does: a staging
+    cache, its blocks handed to the pool by ``write_prompt_block`` at
+    physical blocks scattered over the pool by a seeded permutation (so
+    that a row's blocks lie on every lane).  Yields, prompt by prompt,
+    ``(row, prompt length, its blocks (the prompt's and the fed
+    token's), per_row x that many scattered ids, the first ones written,
+    and the staging cache)``."""
+    bs = pdev._block_size(cache)
+    dt = cm.param_dtype(model.cfg)
+    n_blocks = cache.n_blocks if isinstance(cache, offload.ShardedPool) else cache["k"].shape[1]
+    perm = (torch.randperm(n_blocks - 1, generator=torch.Generator().manual_seed(9)) + 1).tolist()
+    used = 0
+    for i, p in enumerate(prompts):
+        n = len(p)
+        nb = -(-(n + 1) // bs)
+        sub = model.init_cache(1, nb * bs, dtype=dt, staging=True)
+        model.prefill(params, torch.as_tensor(p, dtype=torch.int64, device=model.device)[None],
+                      sub)
+        ids = perm[used:used + per_row * nb]
+        used += per_row * nb
+        for j in range(-(-n // bs)):
+            pdev.write_prompt_block(cache, sub, ids[j], j * bs)
+        yield i, n, nb, ids, sub
+
+
 def teacher_forced_paged(model, params, prompts, kv: str,
                          n_blocks: int = PLACED_TEACHER_BLOCKS) -> tuple[torch.Tensor, float]:
-    """:func:`teacher_forced` through the paged pool: each prompt prefilled
-    as decode-only admission does (a staging cache, its blocks handed to
-    the pool by ``write_prompt_block``) at physical blocks scattered over
-    the pool by a seeded permutation (so that a row's blocks lie on every
-    lane), each block copied on write (``copy_block``) to another scattered
-    block, which the row's table names, and read back from there into a
-    second staging cache as a prefix hit does (``read_block``); then one
-    paged decode step over the copies, each row fed its prompt's last
-    token.  Staging and a bf16 pool in the model's dtype.  Returns the
-    step's logits and the largest difference between a block read back
-    and what was written (through the pool's quantization): 0 when the
-    copies and reads move every byte."""
+    """:func:`teacher_forced` through the paged pool: the prompts staged
+    (:func:`_staged_prompts`), each block copied on write
+    (``copy_block``) to another scattered block, which the row's table
+    names, and read back from there into a second staging cache as a
+    prefix hit does (``read_block``); then one paged decode step over the
+    copies, each row fed its prompt's last token.  Staging and a bf16 pool
+    in the model's dtype.  Returns the step's logits and the largest
+    difference between a block read back and what was written (through
+    the pool's quantization): 0 when the copies and reads move every
+    byte."""
     bs, mb = 16, 64
     dt = cm.param_dtype(model.cfg)
     quant = None if kv == "bf16" else kv
     cache = model.init_paged_cache(len(prompts), n_blocks, bs, mb, dtype=dt, kv_dtype=kv)
-    perm = (torch.randperm(n_blocks - 1, generator=torch.Generator().manual_seed(9)) + 1).tolist()
-    used, err = 0, 0.0
-    for i, p in enumerate(prompts):
-        n = len(p)
-        nb = -(-(n + 1) // bs)                  # the prompt's blocks and the fed token's
-        sub, back = (model.init_cache(1, nb * bs, dtype=dt, staging=True) for _ in range(2))
-        model.prefill(params, torch.as_tensor(p, dtype=torch.int64, device=model.device)[None],
-                      sub)
-        ids, copies = perm[used:used + nb], perm[used + nb:used + 2 * nb]
-        used += 2 * nb
+    err = 0.0
+    for i, n, nb, ids, sub in _staged_prompts(model, params, cache, prompts, 2):
+        back = model.init_cache(1, nb * bs, dtype=dt, staging=True)
         w = -(-n // bs)
         for j in range(w):
-            pdev.write_prompt_block(cache, sub, ids[j], j * bs)
-            pdev.copy_block(cache, ids[j], copies[j])
-            pdev.read_block(back, cache, copies[j], j * bs)
+            pdev.copy_block(cache, ids[j], ids[nb + j])
+            pdev.read_block(back, cache, ids[nb + j], j * bs)
         for key in ("k", "v"):
             x = sub[key][:, 0, :w * bs]
             if quant:
                 x = ref.kv_dequantize(*ref.kv_quantize(x, quant), dt)
             err = max(err, float((back[key][:, 0, :w * bs] - x).abs().max()))
         row = np.zeros(mb, np.int32)
-        row[:nb] = copies
+        row[:nb] = ids[nb:]
         pdev.sync_slot(cache, i, row, n)
     feed = torch.tensor([int(p[-1]) for p in prompts], dtype=torch.int32, device=model.device)
     return model.paged_decode_step(params, cache, feed)[0].float(), err
+
+
+def _held_piece(cache, idx: int, host: bool = False) -> tuple | None:
+    """This rank's raw shard of device block ``idx`` (of host-tier block
+    ``idx``: ``host``) as the rank holds it, copied: ``(heads, positions,
+    leaves as bytes)``, None where another lane holds the block.  Read
+    from the pool's leaves directly, by the ranges the rank holds (none of
+    the pool's own moves)."""
+    keys, pre = pdev._pool_keys(cache), "host_" if host else ""
+    k = cache[pre + "k"]
+    if not isinstance(cache, offload.ShardedPool):
+        heads, pos, (b0, b1) = (0, k.shape[2]), (0, k.shape[3]), (0, k.shape[1])
+    else:
+        heads, pos = cache.heads, cache.host_pos if host else cache.pos
+        b0, b1 = (0, k.shape[1]) if host else cache.blocks
+    if not b0 <= idx < b1:
+        return None
+    return heads, pos, [ref.byte_view(cache[pre + key][:, idx - b0]).clone() for key in keys]
+
+
+def _assembled(pieces: list[tuple], n_kv: int, bs: int) -> tuple[list[torch.Tensor], bool]:
+    """A block whole from its ranks' ``pieces`` (:func:`_held_piece`), and
+    whether they cover every (head, position) of it."""
+    covered = torch.zeros(n_kv, bs, dtype=torch.bool)
+    whole = [torch.zeros((x.shape[0], n_kv, bs, *x.shape[3:]), dtype=x.dtype)
+             for x in pieces[0][2]]
+    for (h0, h1), (p0, p1), leaves in pieces:
+        covered[h0:h1, p0:p1] = True
+        for w, x in zip(whole, leaves):
+            w[:, h0:h1, p0:p1] = x
+    return whole, bool(covered.all())
+
+
+def _spill_differs(n_kv: int, bs: int, dev: list[tuple], host: list[tuple]) -> bool:
+    """Whether a spill's host-tier pieces ``host`` (read after it) differ
+    in any byte from the device block whose pieces ``dev`` were read
+    before it, or leave some of the block out: every rank's piece is held
+    to the device block's same heads and positions."""
+    whole, full = _assembled(dev, n_kv, bs)
+    return not (full and _assembled(host, n_kv, bs)[1] and all(
+        torch.equal(w[:, h0:h1, p0:p1], x)
+        for (h0, h1), (p0, p1), leaves in host for w, x in zip(whole, leaves)))
+
+
+@contextlib.contextmanager
+def checked_spills():
+    """While open, every spill (``serving.paged.device.spill_block``, as the
+    engine applies a spill directive) keeps this rank's raw shard of the
+    device block from before it and of the host-tier block after it
+    (:func:`_held_piece`); on closing, every rank's shards are gathered in
+    one plain ``all_gather_object`` (on a placed pool) and each host copy
+    is held to its device block (:func:`_spill_differs`): the counts of
+    spills and of blocks whose host copy differs in any byte."""
+    saved = pdev.spill_block
+    counts = {"spills": 0, "differ": 0}
+    taken, dims = [], {}
+
+    def spill(cache, dev, host):
+        before = _held_piece(cache, dev)
+        saved(cache, dev, host)
+        taken.append((before, _held_piece(cache, host, host=True)))
+        k = cache["k"]
+        dims["shape"] = ((cache.n_kv, cache.block_size)
+                         if isinstance(cache, offload.ShardedPool) else tuple(k.shape[2:4]))
+        dims["placed"] = isinstance(cache, offload.ShardedPool)
+        return cache
+
+    pdev.spill_block = spill
+    try:
+        yield counts
+    finally:
+        pdev.spill_block = saved
+    mine = [[None if x is None else (x[0], x[1], [t.cpu() for t in x[2]]) for x in pair]
+            for pair in taken]
+    ranks = [mine]
+    if dims.get("placed"):
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, mine)
+    for i in range(len(taken)):
+        dev, host = ([r[i][j] for r in ranks if r[i][j] is not None] for j in (0, 1))
+        counts["differ"] += _spill_differs(*dims["shape"], dev, host)
+    counts["spills"] = len(taken)
+
+
+def pool_whole(cache) -> dict[str, torch.Tensor] | None:
+    """Every leaf of a placed pool and of its host tier whole, on rank 0
+    (None on the others): each rank's shards, raw, through a plain
+    ``all_gather_object``, put in place by the blocks, heads and positions
+    the rank holds."""
+    keys = pdev._pool_keys(cache)
+    mine = {}
+    for key in keys:
+        mine[key] = (cache.blocks, cache.pos, ref.byte_view(cache[key]).cpu())
+        mine["host_" + key] = ((0, cache.n_host), cache.host_pos,
+                               ref.byte_view(cache["host_" + key]).cpu())
+    shards = [None] * dist.get_world_size()
+    dist.all_gather_object(shards, (cache.heads, mine))
+    if dist.get_rank():
+        return None
+    whole = {}
+    for key, (_, _, x) in mine.items():
+        n = cache.n_blocks if key in keys else cache.n_host
+        whole[key] = torch.zeros((x.shape[0], n, cache.n_kv, cache.block_size, *x.shape[4:]),
+                                 dtype=x.dtype)
+    for (h0, h1), leaves in shards:
+        for key, ((b0, b1), (p0, p1), x) in leaves.items():
+            whole[key][:, b0:b1, h0:h1, p0:p1] = x
+    return whole
+
+
+@contextlib.contextmanager
+def attending_over(cache, whole: dict[str, torch.Tensor]):
+    """While open, every paged attention call of a one-rank step over
+    ``cache`` reads ``whole``'s bytes (:func:`pool_whole` of a placed run
+    of the same step, or some of its leaves): each pool layer it is given
+    is overwritten by that layer of ``whole`` just before the call, after the step's own append,
+    so the step attends over the placed run's K/V and scales exactly."""
+    plain = offload.paged_decode_attention
+    keys = pdev._pool_keys(cache)
+    layers = {cache[key][l].data_ptr(): (key, l) for key in keys + tuple(f"host_{k}" for k in keys)
+              for l in range(cache[key].shape[0])}
+
+    def attend(q, k_pool, v_pool, *a, **kw):
+        for x in (k_pool, v_pool, kw.get("k_scale"), kw.get("v_scale")):
+            if x is not None:
+                key, l = layers[x.data_ptr()]
+                if key in whole:
+                    ref.byte_view(x).copy_(whole[key][l])
+        return plain(q, k_pool, v_pool, *a, **kw)
+
+    offload.paged_decode_attention = attend
+    try:
+        yield
+    finally:
+        offload.paged_decode_attention = plain
+
+
+def teacher_forced_tiered(model, params, prompts, kv: str, n_blocks: int = PLACED_TEACHER_BLOCKS,
+                          over: dict[str, torch.Tensor] | None = None):
+    """:func:`teacher_forced` through the tiered pool: the prompts staged
+    (:func:`_staged_prompts`), then the first half of each one's full
+    blocks spilled (:func:`checked_spills`) to host-tier blocks scattered
+    by a seeded permutation, their table columns set to the null block
+    and the cold length to their positions, as a spill leaves a row; then
+    one paged decode step (the hot and the cold windows merged), each row
+    fed its prompt's last token; with ``over`` (one rank) the step attends
+    over those pool bytes (:func:`attending_over`).  Returns the step's
+    logits, the count of spilled blocks whose host copy differs from the
+    device block in any byte, and the pool."""
+    bs, mb = 16, 64
+    dt = cm.param_dtype(model.cfg)
+    cache = model.init_paged_cache(len(prompts), n_blocks, bs, mb, dtype=dt, kv_dtype=kv,
+                                   host_blocks=HOST_BLOCKS)
+    hperm = (torch.randperm(HOST_BLOCKS, generator=torch.Generator().manual_seed(10))
+             + 1).tolist()
+    hused = 0
+    with checked_spills() as spills:
+        for i, n, nb, ids, _ in _staged_prompts(model, params, cache, prompts, 1):
+            row, host_row = np.zeros(mb, np.int32), np.zeros(mb, np.int32)
+            row[:nb] = ids
+            n_cold = n // bs // 2
+            for j in range(n_cold):
+                pdev.spill_block(cache, ids[j], hperm[hused])
+                row[j], host_row[j] = 0, hperm[hused]
+                hused += 1
+            pdev.sync_slot(cache, i, row, n)
+            pdev.sync_host_slot(cache, i, host_row, n_cold * bs)
+    feed = torch.tensor([int(p[-1]) for p in prompts], dtype=torch.int32, device=model.device)
+    over = None if over is None else {k: v.to(model.device) for k, v in over.items()}
+    with attending_over(cache, over) if over else contextlib.nullcontext():
+        logits = model.paged_decode_step(params, cache, feed)[0].float()
+    return logits, spills["differ"], cache
+
+
+def placed_slice20_worker(out: Path, got: dict) -> None:
+    """The slice-20 paths on this rank, after the paged ones: placed-tiered-dp
+    (data 2, the serve CLI's placement: the pool's blocks over ``data``, an
+    fp8 pool, the host tier whole on each rank) and placed-tiered-seq
+    (model 2, the sequence policy: the blocks over ``model``, an int8
+    pool, the host tier's positions split), every spill read back whole
+    (:func:`checked_spills`); placed-spec (data 2, the dense cache, the
+    draft placed on the same mesh) and placed-sub-batches (data 2, two
+    sub-batches); then in float32 at PLACED_CHECK_LAYERS the tiered
+    paths' teacher-forced step (:func:`teacher_forced_tiered`), the
+    sub-batches' and the int8 dense cache's on data 2 and model 2
+    (``{label}-float32.pt``; the data-2 ranks' int8 payload and scales
+    beside them).  ``got["phase_s"]`` takes each path's seconds."""
+    rank = dist.get_rank()
+    phase_s = got.setdefault("phase_s", {})
+    runs = {}
+    for label, ((d, m), policy, kv, _, _) in PLACED_TIERED.items():
+        t0 = time.perf_counter()
+        args = serve.build_parser().parse_args(
+            SERVE_FLAGS + PLACED_FLAGS + PLACED_TIERED_FLAGS + ["--kv-dtype", kv])
+        mesh, env = _placed_mesh(args, m, policy)
+        with checked_spills() as spills:
+            got[label] = _placed_run(args, env, mesh, label, out, layers=PLACED_LAYERS)
+        got[label]["spill_check"] = dict(spills)
+        runs[label] = (args, mesh, env, kv)
+        phase_s[label] = time.perf_counter() - t0
+    for label, flags in (("placed-spec", PLACED_SPEC_FLAGS),
+                         ("placed-sub-batches", SUB_BATCH_FLAGS)):
+        t0 = time.perf_counter()
+        args = serve.build_parser().parse_args(SERVE_FLAGS + PLACED_FLAGS + flags)
+        mesh, env = _placed_mesh(args, 1, None)
+        got[label] = _placed_run(args, env, mesh, label, out)
+        phase_s[label] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prompts = torch.load(out / "prompts" / "placed-tiered-dp.pt", weights_only=False)
+    base = serve.load_config(args).with_overrides(dtype="float32", n_layers=PLACED_CHECK_LAYERS)
+    for label, (args, mesh, env, kv) in runs.items():
+        model = build_model(base, args.device, env, mesh)
+        params = model.init(args.seed)
+        got[label]["teacher_differ"] = 0
+        for name, pool_kv in _tiered_steps(label, kv):
+            logits, differ, cache = teacher_forced_tiered(model, params, prompts, pool_kv)
+            got[label]["teacher_differ"] += differ
+            whole = pool_whole(cache)
+            if rank == 0:
+                torch.save(logits.cpu(), out / f"{name}-float32.pt")
+                torch.save(whole, out / f"{name}-pool.pt")
+            del cache, whole
+        del model, params
+    mesh, env = _placed_mesh(args, 1, None)
+    model = build_model(base, args.device, env, mesh)
+    logits = teacher_forced(model, model.init(args.seed), prompts, n_sub=2)
+    if rank == 0:
+        torch.save(logits.cpu(), out / "placed-sub-batches-float32.pt")
+    for label, ((d, m), policy, _) in PLACED_KVQ.items():
+        mesh, env = _placed_mesh(args, m, policy)
+        model = build_model(base.with_overrides(kv_quant=True), args.device, env, mesh)
+        logits, cache = teacher_forced(model, model.init(args.seed), prompts, keep_cache=True)
+        if rank == 0:
+            torch.save(logits.cpu(), out / f"{label}-float32.pt")
+        if m == 1:
+            torch.save({"rows": cache.rows, **{k: v.cpu() for k, v in cache.items()}},
+                       out / f"{label}-cache-rank{rank}.pt")
+        del model, cache
+    phase_s["placed-f32-checks"] = time.perf_counter() - t0
+
+
+def _tiered_steps(label: str, kv: str) -> list[tuple[str, str]]:
+    """The teacher-forced tiered steps of a placed-tiered path, ``(name,
+    pool dtype)``: its own pool's, and on an int8 pool the same mesh's
+    with an fp8 pool beside it."""
+    return [(label, kv)] + ([(f"{label}-fp8", "fp8")] if kv == "int8" else [])
+
+
+def _placed_mesh(args, model_parallel: int, policy: str | None):
+    """The mesh and Env of a placed path on this rank: with ``model_parallel``
+    1 the serve CLI's own placement (the world as a (data 2, model 1) mesh,
+    the balancer's policy: ``policy`` None), else a (data 1, model 2) mesh
+    under ``policy``.  Sets ``args.device`` to this rank's card."""
+    args.device = None                   # the serve CLI's default: this rank's card
+    if model_parallel == 1 and policy in (None, "batch"):
+        mesh, env, _ = serve.place(args, serve.load_config(args))
+        return mesh, env
+    args.device = str(rank_device(None))
+    mesh = make_host_mesh(model_parallel, device=args.device)
+    return mesh, Env(axes=mesh_axes(mesh), kv_policy=policy)
 
 
 def placed_paged_worker(out: Path, got: dict) -> None:
@@ -1916,14 +2289,8 @@ def placed_paged_worker(out: Path, got: dict) -> None:
     for label, ((d, m), policy, kv, _) in PLACED_PAGED.items():
         args = serve.build_parser().parse_args(
             SERVE_FLAGS + PLACED_FLAGS + PLACED_PAGED_FLAGS + ["--kv-dtype", kv])
-        args.device = None               # the serve CLI's default: this rank's card
-        if m == 1:
-            mesh, env, _ = serve.place(args, serve.load_config(args))
-        else:
-            args.device = str(rank_device(None))
-            mesh = make_host_mesh(m, device=args.device)
-            env = Env(axes=mesh_axes(mesh), kv_policy=policy)
-        got[label] = _placed_run(args, env, mesh, label, out)
+        mesh, env = _placed_mesh(args, m, policy)
+        got[label] = _placed_run(args, env, mesh, label, out, layers=PLACED_LAYERS)
         runs[label] = (args, mesh, env, kv)
     prompts = torch.load(out / "prompts" / "placed-paged-dp.pt", weights_only=False)
     for label, (args, mesh, env, kv) in runs.items():
@@ -1949,8 +2316,14 @@ def placed_worker(out: Path) -> None:
     mesh, env, line = serve.place(args, serve.load_config(args))
     rank = dist.get_rank()
     got = {"balancer": line, "backend": dist.get_backend(), "device": args.device}
+    t0 = time.perf_counter()
     _placed_dense_worker(args, mesh, env, out, got)
+    t1 = time.perf_counter()
     placed_paged_worker(out, got)
+    t2 = time.perf_counter()
+    placed_slice20_worker(out, got)
+    got["phase_s"].update({"placed-dense (dp, head, seq)": t1 - t0,
+                           "placed-paged (dp, seq)": t2 - t1})
     (out / f"rank{rank}.json").write_text(json.dumps(got))
     dist.destroy_process_group()
 
@@ -1963,7 +2336,8 @@ def _placed_dense_worker(args, mesh, env, out: Path, got: dict) -> None:
     envs = {"placed-head": Env(axes=mesh_axes(mesh), kv_policy="head"),
             "placed-seq": Env(axes=mesh_axes(mesh), kv_policy="sequence")}
     for label, env in envs.items():
-        got[label] = _placed_run(args, env, mesh, label, out, teacher=True)
+        got[label] = _placed_run(args, env, mesh, label, out, teacher=True,
+                                 layers=PLACED_LAYERS)
     # the teacher-forced step in float32 (f32 weights, activations and
     # cache) at PLACED_CHECK_LAYERS: both policies on one set of f32 shards
     # (the weights' split does not depend on the KV policy)
@@ -2039,7 +2413,11 @@ def placed_phase(model, params, by_path: dict[str, PathRun]) -> dict[str, PathRu
     try:
         _spawn_ranks(out)
         got = [json.loads((out / f"rank{r}.json").read_text()) for r in range(PLACED_RANKS)]
-        logits = {tuple(f.stem.rsplit("-", 1)): torch.load(f) for f in out.glob("*-*.pt")}
+        logits = {tuple(f.stem.rsplit("-", 1)): torch.load(f) for f in out.glob("*-*.pt")
+                  if "-cache-" not in f.stem and not f.stem.endswith("-pool")}
+        pools = {f.stem.removesuffix("-pool"): torch.load(f) for f in out.glob("*-pool.pt")}
+        kvq_caches = [torch.load(out / f"placed-kvq-dp-cache-rank{r}.pt")
+                      for r in range(PLACED_RANKS)]
         prompts = {f.stem: torch.load(f, weights_only=False)
                    for f in (out / "prompts").glob("*.pt")}
     finally:
@@ -2048,14 +2426,18 @@ def placed_phase(model, params, by_path: dict[str, PathRun]) -> dict[str, PathRu
     print(f"[placed] {PLACED_RANKS} ranks on one card, backend {g0['backend']}: {g0['balancer']}")
     if g0["backend"] != "gloo" or g0["balancer"] != BALANCER[2]:
         raise AssertionError(f"[placed] backend {g0['backend']}, line {g0['balancer']!r}")
-    runs = _placed_dense_checks(model, params, by_path, got, logits, prompts["placed-dp"])
+    print("[placed] seconds per path on the ranks (rank 0): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in g0["phase_s"].items()))
+    runs = _placed_dense_checks(model, params, by_path, got, logits, prompts["placed-dp"], one)
     runs.update(_placed_paged_checks(model, got, logits, prompts["placed-paged-dp"], one))
+    runs.update(_placed_slice20_checks(model, got, logits, pools, prompts["placed-tiered-dp"],
+                                       one, runs["placed-dp"], kvq_caches))
     print(f"[placed] phase wall {time.perf_counter() - t0:.1f}s")
     return runs
 
 
 def _placed_dense_checks(model, params, by_path: dict[str, PathRun], got: list[dict],
-                         logits: dict, prompts) -> dict[str, PathRun]:
+                         logits: dict, prompts, one: dict[str, dict]) -> dict[str, PathRun]:
     """placed-dp (mesh data 2, the batch policy: each rank decodes 8 rows)
     must give dense-8's tokens exactly; placed-head and placed-seq (mesh
     model 2: the tensor-parallel model, the KV heads or the positions
@@ -2065,15 +2447,16 @@ def _placed_dense_checks(model, params, by_path: dict[str, PathRun], got: list[d
     difference into whole logits: ``scripts/torch_placed_depth.py``) and
     in bf16 at full depth those of the one-rank model rounding as two
     ranks do (:func:`placed_logit_check`); their token agreement with
-    dense is printed."""
-    L = model.cfg.n_layers
+    one rank at their depth (``one["placed-dense"]``) is printed."""
     # per path: the decode kernel's variant and KV heads per rank, its row
-    # (the prefill runs at the compute side's heads: 8 on data 2, 4 on model 2)
-    paths = {"placed-dp": ("unscaled", 8, 8, "decode_attention"),
-             "placed-head": ("unscaled", 4, 4, "decode_attention[shard-head2]"),
-             "placed-seq": ("lse", 8, 4, "decode_attention[shard-seq2]")}
+    # (the prefill runs at the compute side's heads: 8 on data 2, 4 on model
+    # 2), the served depth (placed-head and -seq at PLACED_LAYERS since slice
+    # 20, held to one rank at that depth: placed_one_rank)
+    paths = {"placed-dp": ("unscaled", 8, 8, "decode_attention", model.cfg.n_layers),
+             "placed-head": ("unscaled", 4, 4, "decode_attention[shard-head2]", PLACED_LAYERS),
+             "placed-seq": ("lse", 8, 4, "decode_attention[shard-seq2]", PLACED_LAYERS)}
     runs = {}
-    for label, (variant, hkv, hkv_pre, row) in paths.items():
+    for label, (variant, hkv, hkv_pre, row, L) in paths.items():
         rs = [g[label] for g in got]
         r0 = rs[0]
         st = EngineStats(**r0["stats"])
@@ -2101,33 +2484,56 @@ def _placed_dense_checks(model, params, by_path: dict[str, PathRun], got: list[d
     if not all(runs[p].stats == runs["placed-dp"].stats for p in runs):
         raise AssertionError("[placed] the paths' EngineStats differ: placement changed the clock")
     sub = [Request(uid=i, prompt=p, max_new_tokens=64) for i, p in enumerate(prompts)]
-    first16 = {p: by_path[p]._replace(tokens=by_path[p].tokens[:len(sub)])
-               for p in ("dense-8", "dense")}
+    dense8 = by_path["dense-8"]._replace(tokens=by_path["dense-8"].tokens[:len(sub)])
     for r, toks in zip(sub, runs["placed-dp"].tokens):
         r.out_tokens = toks
-    agreement("placed-dp", sub, first16["dense-8"], exact=True)
-    placed_logit_check(model, params, logits, prompts)
+    agreement("placed-dp", sub, dense8, exact=True)
+    placed_logit_check(*placed_one_rank(model), logits, prompts)
+    base = one["placed-dense"]["tokens"]
     for label in ("placed-head", "placed-seq"):
-        for r, toks in zip(sub, runs[label].tokens):
-            r.out_tokens = toks
-        agreement(label, sub, first16["dense"], floor=False)
+        pairs = list(zip(runs[label].tokens, base, strict=True))
+        share = (sum(x == y for a, b in pairs for x, y in zip(a, b, strict=True))
+                 / sum(len(a) for a, _ in pairs))
+        print(f"[{label}] vs one rank at {PLACED_LAYERS} layers: "
+              f"{sum(a == b for a, b in pairs)}/{len(pairs)} requests token-identical, "
+              f"{share:.1%} of tokens")
     return runs
 
 
+def placed_one_rank(model):
+    """One rank's ``model`` at the placed paths' served depth
+    (PLACED_LAYERS) and its weights, drawn from the serve CLI's seed as the
+    ranks draw theirs (a cut depth draws other numbers than a view of the
+    whole model's layers would hold)."""
+    args = serve.build_parser().parse_args(SERVE_FLAGS)
+    cut = build_model(model.cfg.with_overrides(n_layers=PLACED_LAYERS), model.device)
+    return cut, cut.init(args.seed)
+
+
 def placed_paged_baselines(model, params) -> dict[str, dict]:
-    """One-rank runs at each placed paged path's flags, with graphs (the
-    step clock does not depend on them): the EngineStats, PoolStats and
-    tokens the two ranks are held to."""
+    """One-rank runs at each placed paged, tiered and sub-batched path's
+    flags and served depth, with graphs (the step clock does not depend on
+    them): the EngineStats, PoolStats and tokens the two ranks are held
+    to."""
     one = {}
-    for label, (_, _, kv, _) in PLACED_PAGED.items():
-        args = serve.build_parser().parse_args(
-            SERVE_FLAGS + PLACED_FLAGS + PLACED_PAGED_FLAGS + ["--kv-dtype", kv, "--graphs", "on"])
-        res = serve.serve(args, model, params)
+    flags = {label: PLACED_PAGED_FLAGS + ["--kv-dtype", kv]
+             for label, (_, _, kv, _) in PLACED_PAGED.items()}
+    flags.update({label: PLACED_TIERED_FLAGS + ["--kv-dtype", kv]
+                  for label, (_, _, kv, _, _) in PLACED_TIERED.items()})
+    flags["placed-sub-batches"] = SUB_BATCH_FLAGS
+    flags["placed-dense"] = []                  # placed-head / -seq's depth
+    cut = placed_one_rank(model)
+    for label, extra in flags.items():
+        args = serve.build_parser().parse_args(SERVE_FLAGS + PLACED_FLAGS + extra
+                                               + ["--graphs", "on"])
+        res = serve.serve(args, *(cut if label != "placed-sub-batches" else (model, params)))
+        paged = args.cache == "paged"
         one[label] = {"stats": dataclasses.asdict(res.stats),
-                      "pool": dataclasses.asdict(res.engine.pool.stats),
+                      "pool": dataclasses.asdict(res.engine.pool.stats) if paged else None,
                       "tokens": [r.out_tokens for r in res.driver.submitted],
                       "kv_bytes": res.engine.kv_bytes(), "rate": _rate(res)}
-        print(f"[{label}] one rank, graphs: {one[label]['rate']}; pool: {res.engine.pool.stats}")
+        print(f"[{label}] one rank, graphs: {one[label]['rate']}"
+              + (f"; pool: {res.engine.pool.stats}" if paged else ""))
         del res
     return one
 
@@ -2147,8 +2553,8 @@ def _placed_paged_checks(model, got: list[dict], logits: dict, prompts,
     float32 at PLACED_CHECK_LAYERS within PLACED_PAGED_TOL of one rank's,
     every block read back equal to what was written.  Prints tok/s per
     rank, collectives per decode step and the token agreement with one
-    rank."""
-    L = model.cfg.n_layers
+    rank.  Served at PLACED_LAYERS, as the one-rank runs are."""
+    L = PLACED_LAYERS
     runs = {}
     for label, ((_, m), _, kv, row) in PLACED_PAGED.items():
         rs = [g[label] for g in got]
@@ -2222,6 +2628,240 @@ def _placed_paged_checks(model, got: list[dict], logits: dict, prompts,
     gc.collect()
     torch.cuda.empty_cache()
     return runs
+
+
+def _placed_expected(label: str, r0: dict, want: dict, base: dict | None = None) -> None:
+    """Print a placed path's lines, load, launches and rate; raise unless
+    both ranks' loads, launches (``want``), stats, pool stats and tokens
+    are equal, and, with ``base`` (a one-rank run's), unless the stats and
+    pool stats equal that run's."""
+    st = EngineStats(**r0["stats"])
+    for line in r0["lines"]:
+        print(f"[{label}] {line}")
+    n_coll = sum(r0["step_collectives"].values())
+    print(f"[{label}] mesh {r0['axes']} policy {r0['policy']}; load {r0['load_s']:.1f}s, "
+          f"{r0['param_bytes'] / 1e9:.3f} GB of weights per rank; launches per rank "
+          f"{r0['launches']} expected {want}; wall {r0['wall_s']:.2f}s -> "
+          f"{st.generated / r0['wall_s']:.1f} tok/s per rank, "
+          f"{r0['wall_s'] * 1e3 / st.engine_steps:.1f} ms per engine step"
+          + (f" (one rank with graphs: {base['rate']})" if base else "")
+          + f"; collectives per decode step {n_coll} {r0['step_collectives']}")
+    if base is not None:
+        steps = ("engine_steps", "decode_steps", "prefill_chunks", "prefills", "preemptions",
+                 "spills", "rehydrations")
+        print(f"[{label}] two ranks vs one rank: "
+              f"{ {k: (r0['stats'][k], base['stats'][k]) for k in steps} }")
+        if r0["stats"] != base["stats"] or r0["pool"] != base["pool"]:
+            raise AssertionError(f"[{label}] EngineStats or PoolStats differ from one rank's: "
+                                 f"{r0['stats']} {r0['pool']} vs {base['stats']} {base['pool']}")
+
+
+def _placed_slice20_checks(model, got: list[dict], logits: dict, pools: dict, prompts,
+                           one: dict[str, dict], dp: PathRun,
+                           kvq_caches: list[dict]) -> dict[str, PathRun]:
+    """The slice-20 paths against one rank and each other.  placed-tiered-dp
+    / -seq: spills and no preemption, every rank's stats, pool stats and
+    tokens equal and equal to one rank's run, the paged kernel twice a layer
+    of every decode step (the hot window on the lane's shard, the cold one
+    on the rank's share of the host tier), every spilled block's host copy
+    byte-equal to the device block, and the teacher-forced tiered step in
+    float32: the pools' codes within one step of one rank's and their
+    scales within PLACED_SCALE_TOL, the logits within PLACED_TIERED_TOL's
+    pair of one rank's (None: printed only) and of one rank's attending
+    over the two ranks' pool bytes.  placed-spec: placed-dp's tokens
+    exactly (each rank decodes the same 8 rows in the same per-position
+    passes), the target's and the draft's kernels once a layer per pass.
+    placed-sub-batches: one rank's ``--sub-batches 2`` stats, the decode
+    kernel twice a layer per step, the float32 step within PLACED_SUB_TOL;
+    its tokens against placed-dp's and its ms per engine step against
+    placed-dp's printed.  The int8 dense cache: the float32 step on data 2
+    and model 2 within PLACED_KVQ's tolerances, the data-2 ranks' payload
+    and scales byte-equal to one rank's rows."""
+    L, k = model.cfg.n_layers, SPEC_DEPTH
+    runs = {}
+    for label, ((_, m), _, kv, hot_row, cold_row) in PLACED_TIERED.items():
+        Lt = PLACED_LAYERS
+        rs = [g[label] for g in got]
+        r0, base = rs[0], one[label]
+        st = EngineStats(**r0["stats"])
+        cold_bs = 16 if m == 1 else 8
+        heads, cold_heads = kernel_heads(8, 4, 64, 16), kernel_heads(8, 4, 64, cold_bs)
+        dec = {f"{kv}|{heads}": st.decode_steps * Lt}
+        dec[f"{kv}|{cold_heads}"] = dec.get(f"{kv}|{cold_heads}", 0) + st.decode_steps * Lt
+        want = {"paged_decode_attention": dec,
+                "prefill_attention": {f"unscaled|{kernel_heads(8 // m, 4, 64)}":
+                                      st.prefill_chunks * Lt}}
+        _placed_expected(label, r0, want, base)
+        checks, teacher = [r["spill_check"] for r in rs], [r["teacher_differ"] for r in rs]
+        print(f"[{label}] spills read back whole from the host tier vs the device block, per "
+              f"rank: {checks}; teacher-forced spills differing {teacher}")
+        for r in rs:
+            if not (r["param_bytes"] == r["shard_bytes"] and r["launches"] == want
+                    and r["stats"] == r0["stats"] and r["pool"] == r0["pool"]
+                    and r["tokens"] == r0["tokens"] and not r["graphs"]):
+                raise AssertionError(f"[{label}] a rank's load, launches, stats or tokens differ")
+            sc = r["spill_check"]
+            if not (sc["spills"] == st.spills > 0 and sc["differ"] == 0
+                    and r["teacher_differ"] == 0):
+                raise AssertionError(f"[{label}] spills {sc}, teacher {r['teacher_differ']}")
+        if st.preemptions or not r0["pool"]["peak_in_use"] > PLACED_TIERED_BLOCKS // 2:
+            raise AssertionError(f"[{label}] {st.preemptions} preemptions, peak "
+                                 f"{r0['pool']['peak_in_use']} blocks")
+        runs[label] = PathRun({hot_row: st.decode_steps * Lt, cold_row: st.decode_steps * Lt,
+                               "prefill_attention[chunk]" if m == 1
+                               else "prefill_attention[tp2-chunk]": st.prefill_chunks * Lt},
+                              st, r0["tokens"], r0["wall_s"], None)
+    f32 = build_model(model.cfg.with_overrides(dtype="float32", n_layers=PLACED_CHECK_LAYERS),
+                      model.device)
+    f32_params = f32.init(0)
+    for label, (_, _, kv, _, _) in PLACED_TIERED.items():
+        raw_tol, tol = PLACED_TIERED_TOL[label]
+        for name, pool_kv in _tiered_steps(label, kv):
+            one_logits, differ, cache = teacher_forced_tiered(f32, f32_params, prompts, pool_kv)
+            if differ:
+                raise AssertionError(f"[{name}] one rank's spills differ in {differ} blocks")
+            got_logits, whole = logits[(name, "float32")], pools[name]
+            excess, n_diff, n_codes, scale_err = _pool_distance(whole, cache)
+            del cache
+            over = teacher_forced_tiered(f32, f32_params, prompts, pool_kv, over=whole)[0]
+            raw = _max_err(got_logits, one_logits.cpu())
+            same = int((got_logits.argmax(-1) == one_logits.cpu().argmax(-1)).sum())
+            print(f"[{name}] teacher-forced tiered step ({pool_kv} pool, half of each prompt's "
+                  f"full blocks spilled) in float32 at {PLACED_CHECK_LAYERS} layers vs one rank: "
+                  f"logits max err {raw:.2e} (tol {raw_tol}), argmax equal {same}/{len(prompts)}; "
+                  f"the pools: {n_diff} of {n_codes} K/V codes differ, by at most {excess:.3f} "
+                  f"of a code step (tol 1), scales by {scale_err:.2e} relative (tol "
+                  f"{PLACED_SCALE_TOL})")
+            _f32_check(name, "the same step with one rank attending over the two ranks' pool "
+                       "bytes", got_logits, over, tol)
+            if raw_tol is not None and not raw <= raw_tol:
+                raise AssertionError(f"[{name}] float32 logits {raw} from one rank's")
+            if not (excess <= 1 and scale_err <= PLACED_SCALE_TOL):
+                raise AssertionError(f"[{name}] the pools differ: codes by {excess} steps, "
+                                     f"scales by {scale_err} relative")
+    # speculation: placed-dp's tokens, the draft's kernels at its heads
+    r0 = got[0]["placed-spec"]
+    st = EngineStats(**r0["stats"])
+    Ld = serve.load_draft(serve.build_parser().parse_args(SERVE_FLAGS), model)[0].cfg.n_layers
+    chunks = st.draft_steps - (k + 1) * st.spec_steps
+    want = {"decode_attention": {f"unscaled|{kernel_heads(8, 4, 64)}": st.spec_steps * (k + 1) * L,
+                                 f"unscaled|{kernel_heads(2, 2, 16)}":
+                                     st.spec_steps * (k + 1) * Ld},
+            "prefill_attention": {f"unscaled|{kernel_heads(8, 4, 64)}": st.prefills * L,
+                                  f"unscaled|{kernel_heads(2, 2, 16)}": chunks * Ld}}
+    _placed_expected("placed-spec", r0, want)
+    for g in got:
+        r = g["placed-spec"]
+        if not (r["launches"] == want and r["stats"] == r0["stats"]
+                and r["tokens"] == r0["tokens"]):
+            raise AssertionError("[placed-spec] a rank's launches, stats or tokens differ")
+    same = sum(a == b for a, b in zip(r0["tokens"], dp.tokens, strict=True))
+    print(f"[placed-spec] vs placed-dp: {same}/{len(dp.tokens)} requests token-identical; "
+          f"acceptance {st.acceptance_rate:.3f}")
+    if r0["tokens"] != dp.tokens:
+        raise AssertionError("[placed-spec] tokens differ from placed-dp's")
+    runs["placed-spec"] = PathRun({"decode_attention": st.spec_steps * (k + 1) * L,
+                                   "decode_attention[draft]": st.spec_steps * (k + 1) * Ld,
+                                   "prefill_attention": st.prefills * L,
+                                   "prefill_attention[draft-chunk]": chunks * Ld},
+                                  st, r0["tokens"], r0["wall_s"], None)
+    # sub-batches: one rank's clock, the decode kernel twice a layer a step
+    r0, base = got[0]["placed-sub-batches"], one["placed-sub-batches"]
+    st = EngineStats(**r0["stats"])
+    want = {"decode_attention": {f"unscaled|{kernel_heads(8, 4, 64)}": 2 * st.decode_steps * L},
+            "prefill_attention": {f"unscaled|{kernel_heads(8, 4, 64)}": st.prefills * L}}
+    _placed_expected("placed-sub-batches", r0, want, base)
+    for g in got:
+        r = g["placed-sub-batches"]
+        if not (r["launches"] == want and r["stats"] == r0["stats"]
+                and r["tokens"] == r0["tokens"]):
+            raise AssertionError("[placed-sub-batches] a rank's launches, stats or tokens differ")
+    pairs = list(zip(r0["tokens"], dp.tokens, strict=True))
+    share = (sum(x == y for a, b in pairs for x, y in zip(a, b, strict=True))
+             / sum(len(a) for a, _ in pairs))
+    print(f"[placed-sub-batches] vs placed-dp: {sum(a == b for a, b in pairs)}/{len(pairs)} "
+          f"requests token-identical, {share:.1%} of tokens; ms per engine step on the mesh: "
+          f"--sub-batches 2 {r0['wall_s'] * 1e3 / st.engine_steps:.1f}, --sub-batches 1 "
+          f"(placed-dp) {dp.wall_s * 1e3 / dp.stats.engine_steps:.1f}")
+    runs["placed-sub-batches"] = PathRun({"decode_attention": 2 * st.decode_steps * L,
+                                          "prefill_attention": st.prefills * L},
+                                         st, r0["tokens"], r0["wall_s"], None)
+    _f32_check("placed-sub-batches", "teacher-forced step as two sub-batches",
+               logits[("placed-sub-batches", "float32")],
+               teacher_forced(f32, f32_params, prompts, n_sub=2), PLACED_SUB_TOL)
+    del f32
+    # the int8 dense cache: one rank's model of the same weights
+    q32 = build_model(model.cfg.with_overrides(dtype="float32", n_layers=PLACED_CHECK_LAYERS,
+                                               kv_quant=True), model.device)
+    half = len(prompts) // PLACED_RANKS
+    for label, (_, _, tol) in PLACED_KVQ.items():
+        one_logits = teacher_forced(q32, f32_params, prompts)
+        _f32_check(label, "teacher-forced step on the int8 dense cache",
+                   logits[(label, "float32")], one_logits, tol)
+    # each data-2 rank's rows against one rank's step over the same 8 rows
+    # (the decode GEMMs then have the rows' shape on both sides)
+    differ = []
+    for r, cache in enumerate(kvq_caches):
+        lo, hi = cache["rows"]
+        _, one_cache = teacher_forced(q32, f32_params, prompts[lo:hi], keep_cache=True)
+        differ.append([name for name in ("k", "v", "k_scale", "v_scale")
+                       if not torch.equal(cache[name], one_cache[name].cpu())])
+        if (hi - lo) != half:
+            raise AssertionError(f"[placed-kvq-dp] rank {r} holds rows {lo}-{hi}")
+    print(f"[placed-kvq-dp] each rank's int8 payload and bf16 scales vs one rank's same rows: "
+          f"leaves differing per rank {differ}")
+    if any(differ):
+        raise AssertionError("[placed-kvq-dp] a rank's int8 cache differs from one rank's rows")
+    del q32, f32_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _code_excess(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """How far two int8 / fp8-e4m3 payloads (``p = x / scale``; fp8 as its
+    bytes) lie apart, code by code: ``|pa - pb|`` over one code step at
+    the larger of the two plus PLACED_CODE_SLACK of the format's largest
+    code (the rounding of the value before it is quantized), so that 1
+    is a value moved to a neighbouring code.  fp8's step shrinks towards
+    0 (2^-9 below 2^-6), where the same rounding moves a value by several."""
+    if a.dtype == torch.int8:
+        pa, pb, qmax, step = a.float(), b.float(), 127.0, 1.0
+    else:
+        pa, pb = (x.view(torch.float8_e4m3fn).float() for x in (a, b))
+        qmax = 448.0
+        m = torch.maximum(pa.abs(), pb.abs()).clamp_min(2.0 ** -6)
+        step = torch.exp2(torch.floor(torch.log2(m)) - 3)
+    return (pa - pb).abs() / (step + PLACED_CODE_SLACK * qmax)
+
+
+def _pool_distance(whole: dict[str, torch.Tensor], cache) -> tuple[float, int, int, float]:
+    """How far a placed run's pool (:func:`pool_whole`) lies from one
+    rank's ``cache`` of the same step: the largest :func:`_code_excess`
+    of a K/V code, the counts of codes that differ and of all codes, and
+    the largest relative difference of a scale."""
+    excess, n_diff, n_codes, scale_err = 0.0, 0, 0, 0.0
+    for key, a in whole.items():
+        b = ref.byte_view(cache[key]).cpu()
+        if key.endswith("_scale"):
+            d = (a - b).abs() / torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+            scale_err = max(scale_err, float(d.max()))
+            continue
+        excess = max(excess, float(_code_excess(a, b).max()))
+        n_diff, n_codes = n_diff + int((a != b).sum()), n_codes + a.numel()
+    return excess, n_diff, n_codes, scale_err
+
+
+def _f32_check(label: str, what: str, got: torch.Tensor, want: torch.Tensor,
+               tol: float) -> None:
+    """A placed float32 step's logits against one rank's, within ``tol``."""
+    want = want.cpu()
+    err = _max_err(got, want)
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    print(f"[{label}] {what} in float32 at {PLACED_CHECK_LAYERS} layers vs one rank: logits "
+          f"max err {err:.2e} (tol {tol}), argmax equal {same}/{len(got)}")
+    if not err <= tol:
+        raise AssertionError(f"[{label}] float32 logits {err} from one rank's")
 
 
 def placed_logit_check(model, params, logits: dict, prompts) -> None:
@@ -4979,12 +5619,22 @@ def main() -> None:
           f"cuda {torch.version.cuda}")
     print(smi)
     t0 = time.perf_counter()
+    walls: dict[str, float] = {}
+    mark = [t0]
+
+    def lap(name: str) -> None:
+        """Record the seconds since the last lap as phase ``name``'s."""
+        now = time.perf_counter()
+        walls[name] = now - mark[0]
+        mark[0] = now
+
     built = _build.build_all()
     print(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f}s "
           f"(nvcc in parallel) -> {_build.build_dir()}")
     for name in _build.sources():
         for line in ptxas_lines(name):
             print(line)
+    lap("build")
 
     rows = [decode_phase(dev), prefill_phase(dev), prefill_chunk_phase(dev),
             prefill_phase(dev, "int8"), prefill_phase(dev, "fp8"), prefill_f32_phase(dev),
@@ -5007,8 +5657,12 @@ def main() -> None:
               "decode_attention[shard-seq2]")]
     # the placed paged paths (slice 19): a lane's shard of the pool, and the
     # chunk at a tensor-parallel rank's heads
-    rows += [lane_phase(dev, kv, cut) for cut in LANE_CUTS for kv in (None, "fp8")]
+    rows += [lane_phase(dev, kv, cut) for cut in ("block2", "pos2") for kv in (None, "fp8")]
     rows.append(prefill_chunk_phase(dev, "tp2"))
+    # the placed tiered paths (slice 20): the int8 pool's lane, and the cold
+    # window on a rank's share of the host tier (whole, or its positions)
+    rows += [lane_phase(dev, "int8", "block2"), lane_phase(dev, "fp8", "whole", host=True),
+             lane_phase(dev, "int8", "pos2", host=True)]
     for tag in TRAIN_TAGS.values():
         rows += [train_lse_phase(dev, tag), train_bwd_phase(dev, tag)]
     for tag in PT_TAGS:
@@ -5023,6 +5677,7 @@ def main() -> None:
               f"{r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}) at {r['shape']}")
     by_name = {r["name"]: r for r in rows}
+    lap("kernel rows")
     freed_card(dev, "llama3.2-1b")
     model, params = load_model()
     L, k = model.cfg.n_layers, SPEC_DEPTH
@@ -5105,6 +5760,7 @@ def main() -> None:
         raise AssertionError("[rag] no prefix hit on the shared documents")
     if by_path["agentic"].res.driver.resubmits != 32:
         raise AssertionError("[agentic] 16 sessions x 3 turns should resubmit 32 times")
+    lap("llama paths (load, dense .. agentic)")
     # the cluster tier: two replicas on the one card, sharing the weights;
     # each path's tokens held to its single-engine path's by the token floor
     for label, flags, want, base, kw in (
@@ -5119,6 +5775,7 @@ def main() -> None:
                                                           "cluster-round-robin")}
     print(f"[cluster] router prefix hit rate: prefix_affinity {hit['cluster-affinity']:.4f}, "
           f"round_robin {hit['cluster-round-robin']:.4f}")
+    lap("cluster paths")
     # sub-batch pipelining: two sub-batches of 8 rows, each on its own
     # stream inside the decode graph: the dense decode kernel twice a layer
     path("sub-batches", SUB_BATCH_FLAGS, lambda st: {
@@ -5134,7 +5791,9 @@ def main() -> None:
     agreement("sub-batches", sub, by_path["dense-8"], exact=True)
     agreement("sub-batches", sub, by_path["dense"], floor=False)
     sub_batch_phase(model, params)
+    lap("sub-batches, dense-8")
     by_path.update(placed_phase(model, params, by_path))
+    lap("placed")
     # the dense cache's int8 kv_quant form, on llama's weights (the same
     # parameters): the prefill attends over unquantized K/V, so every first
     # token must be the dense path's; the later ones are printed beside
@@ -5168,7 +5827,9 @@ def main() -> None:
           "decode step")
     del kvq, dense, c
     profile_phase(model_q, params, "dense-kvq", [], warm_steps=4, drain=False)
+    lap("dense-kvq")
     observatory_phase(model, params)
+    lap("observatory")
     print("phase walls: " + ", ".join(f"{p} {r.wall_s:.1f}s" for p, r in by_path.items()))
     # with graphs only: llama's eager profiles are left out to keep the
     # script inside its time (moonshot's stays)
@@ -5177,19 +5838,27 @@ def main() -> None:
     # 60 steps in, the profile's 32 requests have filled the pool and begun to spill
     profile_phase(model, params, "paged-tiered", TIERED_FLAGS, warm_steps=60)
     profile_phase(model, params, "dense-spec", SPEC_FLAGS, warm_steps=4)
+    lap("llama profiles")
     # free llama's weights and every engine (caches, graph pools): each
     # family below loads on a card freed of the one before (freed_card)
     del model, model_q, params, run, sub
     by_path = {p: r._replace(res=None) for p, r in by_path.items()}
     for arch in WIDE_TAGS:
         by_path.update(family_phase(dev, arch, by_name))
+        lap(arch)
     by_path["moe"] = moe_phase(dev, by_name)
+    lap("moe")
     deepseek_phase(dev)
+    lap("deepseek")
     for arch, tag in RECURRENT_TAGS.items():
         by_path[tag] = recurrent_phase(dev, arch, by_name)
+        lap(tag)
     by_path["seamless"] = seamless_phase(dev, by_name)
+    lap("seamless")
     by_path.update(train_phase(dev, by_name))
+    lap("train (llama, minicpm, the families)")
     by_path.update(placed_train_phase(dev))
+    lap("placed-train")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5206,6 +5875,7 @@ def main() -> None:
     wide_reference_check(dev)
     deepseek_reference_check(dev)
     print(f"reduced checks: {time.perf_counter() - t0:.1f}s")
+    lap("reduced checks")
     for r in rows:
         r["launches_by_path"] = {p: run.launches.get(r["name"], 0)
                                  for p, run in by_path.items()}
@@ -5225,6 +5895,8 @@ def main() -> None:
                                  or r["name"] == "decode_attention[lse]")
         if r["on_main_path"] and not r["launches"]:
             raise AssertionError(f"{r['name']} never launched on the main paths")
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f"; total {sum(walls.values()):.1f}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,10 @@ on any lane, so every lane of a block or position cut takes every row's
 query (the per-token Q/K/V descriptors are the boundary traffic), runs
 the paged kernel over its part of each row through a table of its own
 (:func:`lane_tables`, built on the device), and the lanes' partials are
-merged by log-sum-exp (:func:`placed_paged_decode_attention`).
+merged by log-sum-exp (:func:`placed_paged_decode_attention`).  The host
+tier's block axis is never split: each rank attends the cold window on
+its share of every host block, and the hot and cold windows' partials of
+every rank merge in one log-sum-exp merge (:func:`_merge_windows`).
 """
 from __future__ import annotations
 
@@ -155,6 +158,51 @@ class ShardedCache(dict):
         lo, hi = self.rows
         return row - lo if lo <= row < hi else None
 
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole ``(batch, ...)`` tensor (a view)."""
+        return x[self.rows[0]:self.rows[1]]
+
+    def _view(self, leaves: dict, batch: int, rows: Range) -> "ShardedCache":
+        return ShardedCache(leaves, batch=batch, max_seq=self.max_seq, n_kv=self.n_kv,
+                            rows=rows, seq=self.seq, heads=self.heads, row_axes=self.row_axes,
+                            seq_axes=self.seq_axes, head_axes=self.head_axes)
+
+    def split(self, n_sub: int) -> list["ShardedCache"]:
+        """``n_sub`` sub-batch caches of views, each of ``batch // n_sub``
+        rows: sub-batch ``i`` holds the ``i``-th of ``n_sub`` equal parts of
+        every lane's rows (:meth:`sub_rows`), so that it spans every lane as
+        the whole batch does and each view is cut as a cache of its size
+        would be (a write into a view is a write into this cache).  Where the
+        rows are not split this is the reference's split into ranges of
+        global rows."""
+        b = self.rows[1] - self.rows[0]
+        if self.batch % n_sub or b % n_sub:
+            raise ValueError(f"array split does not result in an equal division: {b} rows of "
+                             f"{self.batch} on this rank into {n_sub} sub-batches")
+        s, lane = b // n_sub, self.rows[0] // b
+        return [self._view({k: v.narrow(0 if k == "lengths" else 1, i * s, s)
+                            for k, v in self.items()},
+                           self.batch // n_sub, (lane * s, (lane + 1) * s))
+                for i in range(n_sub)]
+
+    def sub_rows(self, n_sub: int, i: int) -> list[int]:
+        """The global rows of :meth:`split`'s sub-batch ``i``, in its order:
+        the ``i``-th part of each lane's rows, lane after lane."""
+        b = self.rows[1] - self.rows[0]
+        s = b // n_sub
+        return [j * b + i * s + t for j in range(self.batch // b) for t in range(s)]
+
+    @staticmethod
+    def merge(subs: list["ShardedCache"]) -> "ShardedCache":
+        """The inverse of :meth:`split`: each leaf's local parts concatenated
+        (a copy)."""
+        first = subs[0]
+        b = (first.rows[1] - first.rows[0]) * len(subs)
+        lane = first.rows[0] // max(first.rows[1] - first.rows[0], 1)
+        leaves = {k: torch.cat([c[k] for c in subs], dim=0 if k == "lengths" else 1)
+                  for k in first}
+        return first._view(leaves, first.batch * len(subs), (lane * b, (lane + 1) * b))
+
     def put_length(self, slot: torch.Tensor, value: torch.Tensor) -> None:
         """``lengths[slot] = value`` for a ``(1,)`` device ``slot`` (a
         global row), on the rank that holds it, with no host sync."""
@@ -182,7 +230,7 @@ class ShardedCache(dict):
 
 def placed_decode_attention(place: Placement, cache: ShardedCache, layer: int,
                             q: torch.Tensor, act: list[tuple[str, ...]],
-                            lengths: torch.Tensor) -> torch.Tensor:
+                            lengths: torch.Tensor, kv=None) -> torch.Tensor:
     """One decode step of attention in the cache's layout.
 
     ``q`` is the query in the cache's layout (its rows, the query heads of
@@ -196,17 +244,18 @@ def placed_decode_attention(place: Placement, cache: ShardedCache, layer: int,
     weighs 0.  On CUDA the window runs the decode kernel with its lse
     output; on the CPU the plain version, whose windows first share their
     maximum (one more all-reduce) so that it keeps the reference's
-    rounding of p."""
+    rounding of p.  ``kv``, when given, is the layer's ``(K, V)`` shard to
+    read in place of the cache's (the ``kv_quant`` cache dequantized)."""
     B, D = cache.batch, q.shape[2]
     Hq = q.shape[1] * cache.n_kv // (cache.heads[1] - cache.heads[0])
-    k_l, v_l = cache["k"][layer], cache["v"][layer]
+    k_l, v_l = kv if kv is not None else (cache["k"][layer], cache["v"][layer])
     if not place.split(cache.seq_axes):
         o = decode_attention(q, k_l, v_l, lengths)
     else:
         s0, s1 = cache.seq
         window = (lengths - s0).clamp(0, s1 - s0)
         if q.is_cuda:
-            o, lse = ops.decode_attention(q, k_l, v_l, window, return_lse=True)
+            o, lse = ops.decode_attention(q, k_l, v_l.to(k_l.dtype), window, return_lse=True)
         else:
             # the windows share their maximum, so that p rounds as in the
             # reference's one softmax over the whole cache
@@ -228,17 +277,29 @@ class ShardedPool(dict):
     over ``pos_axes``.  ``block_tables`` and ``lengths`` are whole on every
     rank: a row's blocks may lie on any lane, so every lane reads every
     row's table (a few KB).  ``nbytes`` is the whole pool's size, what one
-    device would hold."""
+    device would hold (the host tier's leaves included, as the reference's
+    ``kv_bytes`` counts them).
+
+    The host tier (``host_k``/``host_v`` ``(L, n_host, h, p, Dh)``, their
+    scale pools, ``host_tables`` and ``cold_lengths`` whole) takes the
+    reference's logical axes ``("layers", None, "kv_heads", "kv_seq",
+    "head_dim")``: its block axis is never split, so every rank holds every
+    host block, cut by KV heads ``host_heads`` over ``host_head_axes`` (the
+    device pool's heads: the same rule on the same count) and by the
+    positions in a block ``host_pos`` over ``host_pos_axes``."""
 
     def __init__(self, leaves: dict, *, place: Placement, n_blocks: int, n_kv: int,
                  block_size: int, blocks: Range, heads: Range, pos: Range, block_axes=(),
-                 head_axes=(), pos_axes=(), nbytes: int = 0):
+                 head_axes=(), pos_axes=(), nbytes: int = 0, host_pos: Range | None = None,
+                 host_pos_axes=()):
         super().__init__(leaves)
         self.place = place
         self.n_blocks, self.n_kv, self.block_size = n_blocks, n_kv, block_size
         self.blocks, self.heads, self.pos = blocks, heads, pos
         self.block_axes, self.head_axes, self.pos_axes = block_axes, head_axes, pos_axes
         self.nbytes = nbytes
+        self.host_pos = (0, block_size) if host_pos is None else host_pos
+        self.host_pos_axes = host_pos_axes
 
     @property
     def merge_axes(self) -> tuple[str, ...]:
@@ -259,15 +320,36 @@ class ShardedPool(dict):
         (the split divides the block count)."""
         return phys // (self.blocks[1] - self.blocks[0])
 
-    def lane_tables(self, tables: torch.Tensor, lengths: torch.Tensor
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """:func:`lane_tables` of this lane."""
+    @property
+    def host_merge_axes(self) -> tuple[str, ...]:
+        """The axes whose ranks hold disjoint positions of the host tier's
+        blocks: the cold window's partials are merged over them."""
+        return self.place.mesh._live(self.host_pos_axes)
+
+    @property
+    def n_host(self) -> int:
+        """Host-tier blocks, its null block 0 included (0 without a tier)."""
+        return self["host_k"].shape[1] if "host_k" in self else 0
+
+    def lane_tables(self, tables: torch.Tensor, lengths: torch.Tensor,
+                    starts: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """:func:`lane_tables` of this lane over the device pool; ``starts``
+        (the cold lengths) opens each row's hot window there."""
         return lane_tables(tables, lengths, self.block_size, self.n_blocks, self.blocks,
-                           self.pos)
+                           self.pos, starts)
+
+    def host_lane_tables(self, tables: torch.Tensor, lengths: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+        """:func:`lane_tables` of this rank's share of the host tier (every
+        block, its positions ``host_pos``): the cold window ``[0,
+        lengths)``."""
+        return lane_tables(tables, lengths, self.block_size, self.n_host, (0, self.n_host),
+                           self.host_pos)
 
 
 def lane_tables(tables: torch.Tensor, lengths: torch.Tensor, block_size: int, n_blocks: int,
-                blocks: Range, pos: Range) -> tuple[torch.Tensor, torch.Tensor]:
+                blocks: Range, pos: Range, starts: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """A lane's view of every row, on the device with no host sync: ``(tables
     (B, MB) int32 of local block ids, lengths (B,))`` for the paged kernel
     over the shard of physical blocks ``blocks`` and positions ``pos`` of
@@ -276,15 +358,22 @@ def lane_tables(tables: torch.Tensor, lengths: torch.Tensor, block_size: int, n_
     live blocks held here, in logical order (a stable sort puts them
     first), so the partial last block, if held, stays last; position cut
     ``[p0, p1)``: every block contributes ``p1 - p0`` positions, the last
-    one those of its tail past ``p0``.  A lane that holds nothing of a row
-    gives it length 0: an empty window, which weighs 0 in the merge."""
+    one those of its tail past ``p0``.  ``starts`` (whole blocks: the host
+    tier's cold prefix, whose table columns name the null block) drops
+    each row's blocks below it the same way, so the window is ``[starts,
+    lengths)`` with no ``starts`` for the kernel.  A lane that holds nothing
+    of a row gives it length 0: an empty window, which weighs 0 in the
+    merge."""
     bs, MB = block_size, tables.shape[1]
     (b0, b1), (p0, p1) = blocks, pos
     bl = p1 - p0
     n_live = ((lengths.long() + bs - 1) // bs).clamp(max=MB)                  # (B,)
     tail = (lengths.long() - (n_live - 1) * bs).clamp(0, bs)                  # last block's
-    held = torch.arange(MB, device=tables.device)[None] < n_live[:, None]
-    if (b0, b1) != (0, n_blocks):
+    col = torch.arange(MB, device=tables.device)[None]
+    held = col < n_live[:, None]
+    if starts is not None:
+        held = held & (col >= (starts.long() // bs)[:, None])
+    if (b0, b1) != (0, n_blocks) or starts is not None:
         held = held & (tables >= b0) & (tables < b1)
         order = torch.argsort((~held).to(torch.int8), dim=1, stable=True)
         tables = (tables.gather(1, order) - b0).clamp(0, b1 - b0 - 1).to(torch.int32)
@@ -295,7 +384,7 @@ def lane_tables(tables: torch.Tensor, lengths: torch.Tensor, block_size: int, n_
 
 def placed_paged_decode_attention(pool: ShardedPool, layer: int, q: torch.Tensor,
                                   act: list[tuple[str, ...]], tables: torch.Tensor,
-                                  lengths: torch.Tensor) -> torch.Tensor:
+                                  lengths: torch.Tensor, cold=None) -> torch.Tensor:
     """One decode step of attention over the paged pool in its placement.
 
     ``q`` holds every row (a row's blocks may lie on any lane) and the
@@ -308,46 +397,100 @@ def placed_paged_decode_attention(pool: ShardedPool, layer: int, q: torch.Tensor
     lane's part of every row, and the partials gathered over the cut axes
     are merged by log-sum-exp (``ref.lse_merge``); on the CPU the plain
     version, whose lanes first share each row's score maximum (one more
-    all-reduce) so that p rounds as in the reference's one softmax."""
+    all-reduce) so that p rounds as in the reference's one softmax.
+
+    With the host tier, ``cold`` is :meth:`ShardedPool.host_lane_tables`'
+    ``(tables, lengths)`` and ``tables``/``lengths`` the hot window's (from
+    the cold length on): each rank attends the hot window on its lane of
+    the device pool and the cold window on its share of the host tier,
+    each with its lse (on the CPU the reference's kernel-level oracle, each
+    window's maximum shared over the ranks that split it), and every
+    partial merges in one lse merge (:func:`_merge_windows`), as one rank
+    merges its hot and cold windows.  A window that the merge's axes do
+    not all split (the cold one under the batch policy: every rank holds
+    the whole host tier) is attended on each rank for its part of the
+    rows over the other axes only, the rest given length 0, so that each
+    row's window is computed once across the mesh."""
     place = pool.place
     B, D = q.shape[0], q.shape[2]
     Hq = q.shape[1] * pool.n_kv // (pool.heads[1] - pool.heads[0])
-    k_l, v_l = pool["k"][layer], pool["v"][layer]
-    ks_l = vs_l = None
-    if "k_scale" in pool:
-        ks_l, vs_l = pool["k_scale"][layer], pool["v_scale"][layer]
     merge = pool.merge_axes
-    if not place.split(merge):
-        o = paged_decode_attention(q, k_l, v_l, tables, lengths, k_scale=ks_l, v_scale=vs_l)
+    hot = _pool_layer(pool, "", layer)
+    if cold is None and not place.split(merge):
+        o = paged_decode_attention(q, *hot[:2], tables, lengths, k_scale=hot[2],
+                                   v_scale=hot[3])
     else:
-        if q.is_cuda:
-            o, lse = ops.paged_decode_attention(q, k_l, v_l, tables, lengths, k_scale=ks_l,
-                                                v_scale=vs_l, return_lse=True)
-        else:
-            o, lse = _lane_attention_plain(place.mesh.group(merge), q, k_l, v_l, ks_l, vs_l,
-                                           tables, lengths)
-        os, lses = place.stack_all([o, lse], merge)
-        o = ref.lse_merge(list(zip(os.unbind(0), lses.unbind(0))))
+        oracle = cold is not None
+        windows = [(merge, hot, tables, lengths)]
+        if cold is not None:
+            windows.append((pool.host_merge_axes, _pool_layer(pool, "host_", layer), *cold))
+        cut = set().union(*(set(w[0]) for w in windows))
+        union = tuple(a for a in place.mesh.axis_names if a in cut)
+        parts = []
+        for axes, kv, tbl, lens in windows:
+            rest = tuple(a for a in union if a not in axes)
+            if place.split(rest):
+                r0, r1 = place.part(rest, B)
+                rows = torch.arange(B, device=lens.device)
+                lens = torch.where((rows >= r0) & (rows < r1), lens, 0).to(lens.dtype)
+            parts.append(_window(place, axes, q, kv, tbl, lens, oracle))
+        o = _merge_windows(place, parts, union)
     dst = [(act[0], place.part(act[0], B)), (act[1], place.part(act[1], Hq)), ((), (0, D))]
     return place.reshard(o, [(), pool.head_axes, ()], dst, [B, Hq, D])
 
 
-def _lane_attention_plain(group, q, k_l, v_l, ks_l, vs_l, tables, lengths):
+def _pool_layer(pool: ShardedPool, prefix: str, layer: int) -> tuple:
+    """``(k, v, k_scale, v_scale)`` of ``layer`` in the device pool
+    (``prefix`` "") or the host tier ("host_"); the scales None for a
+    bf16/f32 pool."""
+    ks = pool.get(f"{prefix}k_scale")
+    vs = pool.get(f"{prefix}v_scale")
+    return (pool[f"{prefix}k"][layer], pool[f"{prefix}v"][layer],
+            None if ks is None else ks[layer], None if vs is None else vs[layer])
+
+
+def _window(place: Placement, axes: tuple[str, ...], q: torch.Tensor, kv: tuple,
+            tables: torch.Tensor, lengths: torch.Tensor, oracle: bool):
+    """This rank's ``(out, lse)`` of one window of every row: the paged
+    kernel on CUDA; on the CPU the plain version, its maximum shared over
+    ``axes`` where they split the window (``oracle``: the kernel-level
+    oracle's numerics, as one rank's tiered attention has them)."""
+    k_l, v_l, ks_l, vs_l = kv
+    if q.is_cuda:
+        return ops.paged_decode_attention(q, k_l, v_l, tables, lengths, k_scale=ks_l,
+                                          v_scale=vs_l, return_lse=True)
+    group = place.mesh.group(axes) if place.split(axes) else None
+    return _lane_attention_plain(group, q, k_l, v_l, ks_l, vs_l, tables, lengths, oracle)
+
+
+def _merge_windows(place: Placement, parts: list, axes: tuple[str, ...]) -> torch.Tensor:
+    """One lse merge of every rank's window partials ``(out, lse)``,
+    gathered over ``axes`` in one collective: each row's part of each
+    window is computed on one rank of them (the others give it length 0,
+    an empty window whose weight is 0)."""
+    stacks = place.stack_all([x for part in parts for x in part], axes)
+    return ref.lse_merge([(o, lse) for os, lses in zip(stacks[::2], stacks[1::2])
+                          for o, lse in zip(os.unbind(0), lses.unbind(0))])
+
+
+def _lane_attention_plain(group, q, k_l, v_l, ks_l, vs_l, tables, lengths, oracle=False):
     """A lane's ``(out, lse)`` on the CPU, the windows sharing each row's
-    maximum over ``group``: the one-device path's numerics (the model-level
-    decode attention for a bf16/f32 pool, the kernel-level oracle for an
-    fp8/int8 one) over the lane's blocks gathered in table order."""
+    maximum over ``group`` (None: a window no rank splits): the one-device
+    path's numerics (the model-level decode attention for a bf16/f32 pool,
+    the kernel-level oracle for an fp8/int8 one or with ``oracle``) over
+    the lane's blocks gathered in table order."""
     k = ref.gather_paged_cache(k_l, tables)
     v = ref.gather_paged_cache(v_l, tables)
-    if ks_l is None:
+    if ks_l is None and not oracle:
         m = attn.decode_scores(q, k, lengths).amax(dim=-1, keepdim=True)
         m = collectives.all_reduce_max(m, group)
         return attn.decode_attention(q, k, v, lengths, m=m, return_lse=True)
-    k = k.float() * ref.gather_paged_scales(ks_l, tables)[..., None]
-    v = v.float() * ref.gather_paged_scales(vs_l, tables)[..., None]
-    return ref.naive_decode_attention(
-        q, k, v, lengths, return_lse=True,
-        shared_max=lambda m: collectives.all_reduce_max(m, group))
+    k, v = k.float(), v.float()
+    if ks_l is not None:
+        k = k * ref.gather_paged_scales(ks_l, tables)[..., None]
+        v = v * ref.gather_paged_scales(vs_l, tables)[..., None]
+    shared = None if group is None else (lambda m: collectives.all_reduce_max(m, group))
+    return ref.naive_decode_attention(q, k, v, lengths, return_lse=True, shared_max=shared)
 
 
 def pool_layout(pool: ShardedPool, n_heads: int, width: int, batch: int) -> list:

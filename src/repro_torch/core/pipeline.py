@@ -16,6 +16,17 @@ The step writes the cache in place: each sub-batch decodes against
 views), so no sub-batch copies the cache and nothing is merged back.
 :func:`tree_split`, :func:`tree_concat` and :func:`merge_cache` keep the
 reference's functional forms for trees of tensors.
+
+A placed model's cache (``core.offload.ShardedCache``: this rank's rows
+only) splits into sub-batches that each take an equal part of every
+lane's rows (``ShardedCache.split``), where the reference's ranges of
+global rows would put a whole sub-batch on one lane under the batch
+policy: each view is then cut as a cache of its size, the placed step
+runs on it unchanged, and its rows' tokens and logits are gathered and
+put back in the batch's order.  Every row's arithmetic is the same, so
+tokens and stats are the reference's.  Placed steps hold gloo
+collectives, which run eagerly, so the sub-batches run in order on the
+rank's current stream.
 """
 from __future__ import annotations
 
@@ -23,6 +34,8 @@ from collections.abc import Callable, Sequence
 from typing import Any
 
 import torch
+
+from repro_torch.core.offload import ShardedCache
 
 Pytree = Any
 
@@ -69,7 +82,9 @@ def default_batch_axes(cache: Pytree) -> dict[str, int]:
 def split_cache(cache: Pytree, n_sub: int, batch_axes: dict[str, int]) -> list[Pytree]:
     """Split a cache dict on each leaf's batch axis (leaf name -> axis,
     default 1) into ``n_sub`` caches of views: a write into a part is a
-    write into ``cache``."""
+    write into ``cache``.  A placed cache splits by ``ShardedCache.split``."""
+    if isinstance(cache, ShardedCache):
+        return cache.split(n_sub)
     subs: list[dict] = [{} for _ in range(n_sub)]
     for k, v in cache.items():
         for i, part in enumerate(_split(v, n_sub, batch_axes.get(k, 1))):
@@ -80,7 +95,9 @@ def split_cache(cache: Pytree, n_sub: int, batch_axes: dict[str, int]) -> list[P
 def merge_cache(subs: list[Pytree], batch_axes: dict[str, int]) -> Pytree:
     """The reference's functional merge: each leaf's parts concatenated on
     its batch axis (a copy; :func:`pipelined_step` needs none, its parts
-    are views)."""
+    are views).  Placed parts merge by ``ShardedCache.merge``."""
+    if isinstance(subs[0], ShardedCache):
+        return ShardedCache.merge(subs)
     return {k: torch.cat([s[k] for s in subs], dim=batch_axes.get(k, 1)) for k in subs[0]}
 
 
@@ -111,15 +128,22 @@ def pipelined_step(
     CUDA tensors, sub-batch *i* is launched on ``streams[i]``, forked from
     the current stream and joined back into it before the logits are
     concatenated; otherwise the sub-batches run in order on the current
-    stream."""
+    stream.  Over a placed cache each sub-batch's tokens are its rows of
+    ``tokens`` (``ShardedCache.sub_rows``) and the logits go back to the
+    batch's row order."""
     if n_sub <= 1:
         return decode_fn
     if streams is not None and len(streams) != n_sub:
         raise ValueError(f"{len(streams)} streams for {n_sub} sub-batches")
 
     def step(params, cache, tokens):
-        axes = default_batch_axes(cache)
-        cache_subs = split_cache(cache, n_sub, axes)
+        cache_subs = split_cache(cache, n_sub, default_batch_axes(cache))
+        if isinstance(cache, ShardedCache):
+            rows = [torch.tensor(cache.sub_rows(n_sub, i), device=tokens.device)
+                    for i in range(n_sub)]
+            logits = torch.cat([decode_fn(params, c, tokens[r])[0]
+                                for c, r in zip(cache_subs, rows)], 0)
+            return logits.index_copy(0, torch.cat(rows), logits), cache
         token_subs = _split(tokens, n_sub, 0)
         if streams is None or not tokens.is_cuda:
             outs = [decode_fn(params, c, t)[0] for c, t in zip(cache_subs, token_subs)]

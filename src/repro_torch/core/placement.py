@@ -82,11 +82,15 @@ def param_rules(sequence_parallel: bool = False, fsdp: bool = False) -> dict[str
     return rules
 
 
-# the reference's Env fields the port does not run yet, at their defaults:
-# sub-batches under placement, sequence parallelism, wide expert
-# parallelism, bf16 cross-shard combines, MoE all-to-all, Pallas switches
-NOT_PLACED_YET = {"sub_batches": 1, "sequence_parallel": False, "ep_wide": False,
-                  "bf16_combine": False, "moe_a2a": False, "use_pallas": False}
+# the reference's Env fields the port does not run yet, at their defaults,
+# each with the part of ROADMAP item 9b (or 9c) it waits for
+NOT_PLACED_YET = {
+    "sequence_parallel": (False, "item 9b: the families' training and sequence parallelism"),
+    "ep_wide": (False, "item 9b: the other families serving on a mesh (MoE ep_wide)"),
+    "bf16_combine": (False, "item 9b: the other families serving on a mesh (MLA bf16_combine)"),
+    "moe_a2a": (False, "item 9b: the other families serving on a mesh (MoE moe_a2a)"),
+    "use_pallas": (False, "item 9c: the dry run (the port's kernels are its CUDA ones)"),
+}
 
 
 @dataclass(frozen=True)
@@ -94,11 +98,12 @@ class Env:
     """What the model code needs to know of the runtime: the mesh's axis
     sizes (``{}``: one device, no collectives) and the policies.  The
     reference's fields and defaults; the port runs ``axes``, ``kv_policy``
-    and ``offload`` (serving on the dense cache and the paged pool) and
+    and ``offload`` (serving on the dense cache and the paged pool),
+    ``sub_batches`` (the dry run's record of the engine's sub-batches: the
+    engine takes its own ``sub_batches``, which a placed engine runs) and
     ``fsdp`` (training's ZeRO-3 split of every weight's d_model over the
-    batch axes), and an
-    ``Env`` that sets any other field off its default raises
-    (:data:`NOT_PLACED_YET`)."""
+    batch axes), and an ``Env`` that sets any other field off its default
+    raises (:data:`NOT_PLACED_YET`)."""
     axes: dict[str, int] = field(default_factory=dict)
     kv_policy: str = "batch"
     offload: str = "hpu"        # "hpu" | "none"
@@ -111,10 +116,10 @@ class Env:
     use_pallas: bool = False
 
     def __post_init__(self):
-        off = [f for f, default in NOT_PLACED_YET.items() if getattr(self, f) != default]
+        off = [f"{f} waits for {why}" for f, (default, why) in NOT_PLACED_YET.items()
+               if getattr(self, f) != default]
         if off:
-            raise NotImplementedError(f"Env: {', '.join(off)} waits for a later slice of "
-                                      "the placement (ROADMAP item 9b)")
+            raise NotImplementedError(f"Env: {'; '.join(off)} (a later slice of the placement)")
 
     def act_rules(self) -> dict[str, tuple[str, ...]]:
         return activation_rules(self.sequence_parallel)

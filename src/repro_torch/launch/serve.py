@@ -79,12 +79,14 @@ Under ``torchrun`` (``torchrun --nproc-per-node N -m
 repro_torch.launch.serve ...``) the world is a ``(data, model)`` mesh
 (``launch.mesh.make_host_mesh``) and the model is placed on it with the
 balancer's KV policy, as the reference builds its ``Env``: every rank
-runs the same schedule on its shards (the dense cache or the paged pool
-in bf16, fp8 or int8, on either schedule, eagerly: gloo collectives
-cannot be captured in a CUDA graph), rank 0 reports, and every rank
-prints its ``pool:`` line (the same on every rank: the whole pool's
-bookkeeping and bytes).  A speculative, host-tiered, clustered or
-sub-batched run, or a family other than the dense one, is refused on a
+runs the same schedule on its shards (the dense cache, also ``kv_quant``,
+or the paged pool in bf16, fp8 or int8 with ``--host-blocks``, on either
+schedule, ``--spec-depth`` with the draft placed on the same mesh,
+``--sub-batches``; eagerly: gloo collectives cannot be captured in a
+CUDA graph), rank 0 reports, and every rank prints its ``pool:``, ``kv
+tier:`` and ``spec:`` lines (the same on every rank: the whole pool's
+bookkeeping and bytes, the host schedule, the accept decisions).  A
+clustered run, or a family other than the dense one, is refused on a
 world above 1: those wait for later slices.
 """
 from __future__ import annotations
@@ -281,9 +283,11 @@ class ServeResult:
 def load_draft(args, model: Model) -> tuple[Model, dict]:
     """The draft of ``--spec-depth``: ``--draft`` (default ``--arch``) at
     reduced size with the target's vocab, on the target's device, weights
-    from seed 1."""
+    from seed 1; on a mesh placed as the target is, with its ``Env`` (the
+    reference builds the draft with the target's)."""
+    mesh = model.placement.mesh if model.placement is not None else None
     draft = build_model(reduce_config(args.draft or args.arch, vocab=model.cfg.vocab),
-                        model.device)
+                        model.device, model.env, mesh)
     return draft, draft.init(1)
 
 
@@ -477,6 +481,10 @@ def write_outputs(args, res: ServeResult) -> list[str]:
     return lines
 
 
+# the lines every rank of a placed run prints (rank 0 prints all)
+RANK_LINES = ("pool:", "kv tier:", "spec:")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     mesh, env, line = place(args, load_config(args))
@@ -486,10 +494,11 @@ def main(argv=None):
     model, params = load_model(args, env, mesh)
     res = serve(args, model, params)
     lines = report(args, res)
-    # every rank holds the whole pool's bookkeeping: each prints its pool:
-    # line, the same on every rank
+    # every rank holds the whole pool's bookkeeping and runs the same host
+    # schedule: each prints its pool:, kv tier: and spec: lines, the same
+    # on every rank
     lines = lines + write_outputs(args, res) if rank0 else [
-        line for line in lines if line.startswith("pool:")]
+        line for line in lines if line.startswith(RANK_LINES)]
     for line in lines:
         print(line)
 

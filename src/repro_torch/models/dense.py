@@ -17,10 +17,11 @@ stacked on a leading dim as in the reference and iterated with a Python
 loop.  Attention goes through
 ``core.offload``: the Hopper kernels on the GPU, the plain versions on
 the CPU.  On a mesh (a ``core.offload.Placement`` bound in by the
-registry) ``prefill``, ``decode_step``, ``decode_sample_step``, the
-chunked ``prefill_step`` / ``prefill_sample_step`` and the paged pool's
-steps run tensor parallel over a ``ShardedCache`` or a ``ShardedPool``
-(the section at the end).
+registry) ``prefill`` (with ``embeds``), ``decode_step``,
+``decode_sample_step``, the chunked ``prefill_step`` /
+``prefill_sample_step``, the paged pool's steps (the host tier included)
+and the verify steps run tensor parallel over a ``ShardedCache`` (also
+the ``kv_quant`` one) or a ``ShardedPool`` (the section at the end).
 
 The KV cache is updated **in place** (``k[l].index_put_``, slice
 copies), where the reference builds a new cache with ``.at[].set``; the
@@ -112,15 +113,22 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
     position, the KV heads of this rank's tensor-parallel heads, so that a
     chunk writes and reads it with no collective and a finished block
     leaves it for the pool (``serving.paged.device.write_prompt_block``).
-    One device has one layout: ``staging`` changes nothing there."""
+    One device has one layout: ``staging`` changes nothing there.  The
+    ``kv_quant`` cache's scales take the reference's logical axes, so a
+    rank holds the scales of the K/V it holds."""
     defs = cache_defs(cfg, batch, max_seq)
+    if cfg.kv_quant:
+        dt = {"k": torch.int8, "v": torch.int8, "k_scale": torch.bfloat16,
+              "v_scale": torch.bfloat16}
+    else:
+        dt = {"k": dtype, "v": dtype}
     if place is not None and staging:
         tp = tensor_parallel(place.specs)
         h0, h1 = place.part(tp.heads, cfg.n_kv_heads)
-        shape = (cfg.n_layers, batch, max_seq, h1 - h0, cfg.resolved_head_dim())
-        return ShardedCache({"k": torch.zeros(shape, dtype=dtype, device=device),
-                             "v": torch.zeros(shape, dtype=dtype, device=device),
-                             "lengths": torch.zeros(batch, dtype=torch.int32, device=device)},
+        return ShardedCache({k: torch.zeros((batch,) if k == "lengths" else
+                                            (*d.shape[:3], h1 - h0, *d.shape[4:]),
+                                            dtype=dt.get(k, torch.int32), device=device)
+                             for k, d in defs.items()},
                             batch=batch, max_seq=max_seq, n_kv=cfg.n_kv_heads, rows=(0, batch),
                             seq=(0, max_seq), heads=(h0, h1), head_axes=tp.heads)
     if place is not None:
@@ -128,16 +136,11 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
         sp = specs["k"]
         parts = [place.part(sp.axes(i), n) for i, n in enumerate(defs["k"].shape)]
         return ShardedCache({k: torch.zeros(place.local_shape(specs[k], d.shape),
-                                            dtype=dtype if k != "lengths" else torch.int32,
-                                            device=device) for k, d in defs.items()},
+                                            dtype=dt.get(k, torch.int32), device=device)
+                             for k, d in defs.items()},
                             batch=batch, max_seq=max_seq, n_kv=cfg.n_kv_heads, rows=parts[1],
                             seq=parts[2], heads=parts[3], row_axes=sp.axes(1),
                             seq_axes=sp.axes(2), head_axes=sp.axes(3))
-    if cfg.kv_quant:
-        dt = {"k": torch.int8, "v": torch.int8, "k_scale": torch.bfloat16,
-              "v_scale": torch.bfloat16}
-    else:
-        dt = {"k": dtype, "v": dtype}
     return {k: torch.zeros(d.shape, dtype=dt.get(k, torch.int32), device=device)
             for k, d in defs.items()}
 
@@ -247,8 +250,10 @@ def init_paged_cache(cfg, n_slots: int, n_blocks: int, block_size: int,
     ``v`` and the scale pools, at the shapes the KV policy's specs give
     (``Model.paged_cache_specs``), with ``block_tables`` and ``lengths``
     whole on every rank (a few KB; every lane reads every row's table):
-    a layout choice, which changes no result.  The host tier waits for a
-    later slice there."""
+    a layout choice, which changes no result.  The host tier's leaves take
+    the reference's specs (their block axis never split: every rank holds
+    its KV heads and positions of every host block), ``host_tables`` and
+    ``cold_lengths`` whole."""
     if cfg.kv_quant and kv_dtype == "bf16":
         kv_dtype = "int8"           # cfg-level quant maps onto the int8 tier
     defs = paged_cache_defs(cfg, n_slots, n_blocks, block_size, max_blocks,
@@ -260,20 +265,24 @@ def init_paged_cache(cfg, n_slots: int, n_blocks: int, block_size: int,
     if place is None:
         return {k: torch.zeros(d.shape, dtype=dt.get(k, torch.int32), device=device)
                 for k, d in defs.items()}
-    if host_blocks:
-        raise NotImplementedError("placement: the host KV tier waits for a later slice")
     specs = {k: place.env.kv_spec(d.logical, d.shape) for k, d in defs.items()}
     sp = specs["k"]
-    pool = {"k", "v", "k_scale", "v_scale"}
-    leaves = {k: torch.zeros(place.local_shape(specs[k], d.shape) if k in pool else d.shape,
+    split = {"k", "v", "k_scale", "v_scale", "host_k", "host_v", "host_k_scale",
+             "host_v_scale"}
+    leaves = {k: torch.zeros(place.local_shape(specs[k], d.shape) if k in split else d.shape,
                              dtype=dt.get(k, torch.int32), device=device)
               for k, d in defs.items()}
     nbytes = sum(math.prod(d.shape) * leaves[k].element_size() for k, d in defs.items())
+    host = {}
+    if host_blocks:             # its heads are the pool's: one rule on one count
+        hs = specs["host_k"]
+        host = dict(host_pos=place.part(hs.axes(3), block_size), host_pos_axes=hs.axes(3))
     return ShardedPool(leaves, place=place, n_blocks=n_blocks, n_kv=cfg.n_kv_heads,
                        block_size=block_size, blocks=place.part(sp.axes(1), n_blocks),
                        heads=place.part(sp.axes(2), cfg.n_kv_heads),
-                       pos=place.part(sp.axes(3), block_size), block_axes=sp.axes(1),
-                       head_axes=sp.axes(2), pos_axes=sp.axes(3), nbytes=nbytes)
+                       pos=place.part(sp.axes(3), block_size),
+                       block_axes=sp.axes(1), head_axes=sp.axes(2), pos_axes=sp.axes(3),
+                       nbytes=nbytes, **host)
 
 
 def paged_decode_step(cfg, params, cache: Pytree, tokens: torch.Tensor, *,
@@ -446,9 +455,7 @@ def prefill(cfg, params, tokens: torch.Tensor, cache: Pytree,
     attends over its unquantized K/V and writes them quantized, as the
     reference does.  On a mesh (``place``): :func:`_placed_prefill`."""
     if place is not None:
-        if embeds is not None:
-            raise NotImplementedError("placement: a frontend's embeds wait for a later slice")
-        return _placed_prefill(cfg, place, params, tokens, cache)
+        return _placed_prefill(cfg, place, params, tokens, cache, embeds)
     x, positions = _embed(params, tokens, embeds)
     S = x.shape[1]
     for l in range(cfg.n_layers):
@@ -612,7 +619,8 @@ def prefill_step(cfg, params, cache: Pytree, tokens: torch.Tensor, slot, q_offse
 # ---------------------------------------------------------------------------
 # speculative verify (draft-verify decoding; serving/engine.py)
 # ---------------------------------------------------------------------------
-def verify_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
+def verify_step(cfg, params, cache: Pytree, tokens: torch.Tensor, *,
+                place: Placement | None = None):
     """Score T speculative tokens per slot: ``tokens (B, T)`` are each
     slot's next inputs ``[t0, d_1 .. d_{T-1}]``, input ``t`` landing at
     position ``lengths[b] + t``.  Returns logits ``(B, T, V)``, position
@@ -624,25 +632,28 @@ def verify_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
     decoding (so T calls per layer of the decode kernel, not one T-wide
     attention): greedy speculative output must be token-identical to
     plain decoding, and a differently shaped attention rounds bf16 logits
-    differently."""
+    differently.  On a mesh (``place``) each pass is the placed
+    :func:`decode_step`, so every rank returns the whole batch's logits."""
     if cfg.kv_quant:
         raise NotImplementedError("verify_step does not support kv_quant yet")
     saved = cache["lengths"].clone()
     logits = []
     for t in range(tokens.shape[1]):
-        lg, _ = decode_step(cfg, params, cache, tokens[:, t])
+        lg, _ = decode_step(cfg, params, cache, tokens[:, t], place=place)
         logits.append(lg)
     cache["lengths"].copy_(saved)
     return torch.stack(logits, dim=1), cache
 
 
-def paged_verify_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
+def paged_verify_step(cfg, params, cache: Pytree, tokens: torch.Tensor, *,
+                      place: Placement | None = None):
     """Paged-pool analogue of :func:`verify_step`: T
     :func:`paged_decode_step` passes, except that a position past the
     block table (a verify window overshooting the cache's edge) goes to
     null block 0, the pool's garbage sink, and not through the clamped
     column, which may be a live block.  Quantized pools and the host tier
-    are refused, as in the reference."""
+    are refused, as in the reference.  On a mesh (``place``) each pass is
+    the placed step (:func:`_placed_paged`), its rows gathered."""
     if _kv_dtype_name(cache["k"].dtype):
         raise NotImplementedError("paged_verify_step: quantized pools unsupported")
     if "host_k" in cache:
@@ -650,7 +661,12 @@ def paged_verify_step(cfg, params, cache: Pytree, tokens: torch.Tensor):
     saved = cache["lengths"].clone()
     logits = []
     for t in range(tokens.shape[1]):
-        lg, _ = _paged_pass(cfg, params, cache, tokens[:, t], past_table_to_null=True)
+        if place is not None:
+            lg, rows = _placed_paged(cfg, place, params, cache, tokens[:, t],
+                                     past_table_to_null=True)
+            lg = place.gather(lg, 0, rows)
+        else:
+            lg, _ = _paged_pass(cfg, params, cache, tokens[:, t], past_table_to_null=True)
         logits.append(lg)
     cache["lengths"].copy_(saved)
     return torch.stack(logits, dim=1), cache
@@ -880,17 +896,24 @@ def _placed_loss(cfg, place: Placement, params, batch: dict) -> tuple[torch.Tens
 
 
 def _placed_prefill(cfg, place: Placement, params, tokens: torch.Tensor,
-                    cache: ShardedCache):
+                    cache: ShardedCache, embeds: torch.Tensor | None = None):
     """:func:`prefill` on a mesh: each rank runs the flash kernel over its
     rows and heads, and writes the K/V of the positions ``[0, S)`` that
     its shard of the cache holds (a slot's view: only on the rank that
-    owns the slot).  Every rank returns the whole batch's logits."""
+    owns the slot); a cache with scale leaves (``kv_quant``) takes them
+    quantized, per (row, position, head) vector over head_dim, which no
+    policy splits, so a rank writes the bytes one device writes there.  A
+    frontend's ``embeds`` (whole on every rank) are prepended to this
+    rank's rows.  Every rank returns the whole batch's logits."""
     tp = tensor_parallel(place.specs)
-    b, S = tokens.shape
+    b = tokens.shape[0]
     rows = _rows(place, b)
     a0, a1 = place.part(rows, b)
     table = _placed_table(place, params, "embed")
     x = _placed_embed(place, tp, table, tokens[a0:a1])
+    if embeds is not None:
+        x = torch.cat([embeds[a0:a1].to(x.dtype), x], dim=1)
+    S = x.shape[1]
     positions = torch.arange(S, device=x.device).expand(a1 - a0, S)
     s0, s1 = cache.seq
     w0, w1 = min(s0, S), min(s1, S)            # this shard's positions of the prompt
@@ -903,8 +926,11 @@ def _placed_prefill(cfg, place: Placement, params, tokens: torch.Tensor,
         x = _placed_ffn(cfg, place, tp, p, x)
         k, v = place.reshard_all([k, v], [rows, (), tp.heads, ()], [dst, dst], [full, full])
         if w1 > w0:                            # then w0 == s0
-            cache["k"][l, :, :w1 - w0].copy_(k)
-            cache["v"][l, :, :w1 - w0].copy_(v)
+            for name, new in (("k", k), ("v", v)):
+                if "k_scale" in cache:
+                    new, sc = _kv_quantize(new)
+                    cache[f"{name}_scale"][l, :, :w1 - w0].copy_(sc)
+                cache[name][l, :, :w1 - w0].copy_(new)
     x = cm.rmsnorm(x, _placed_table(place, params, "final_norm"), cfg.norm_eps)
     logits = _placed_logits(cfg, place, tp, params, table, x[:, -1])
     cache["lengths"].fill_(S)
@@ -947,7 +973,9 @@ def _placed_decode(cfg, place: Placement, params, cache: ShardedCache, tokens: t
     """:func:`decode_step` on a mesh, up to the logits of this rank's rows:
     ``(logits (b, V), the axes the rows are split over)``.  The new K/V
     go to the cache's layout and land where a row's append position
-    falls in this shard's window (skipped at or past ``max_seq``)."""
+    falls in this shard's window (skipped at or past ``max_seq``); the
+    ``kv_quant`` cache takes them quantized, and each rank dequantizes its
+    shard for the decode kernel (K in the query's dtype, V in bf16)."""
     B = tokens.shape[0]
     rows = _rows(place, B)
     lengths = cache["lengths"]
@@ -959,14 +987,26 @@ def _placed_decode(cfg, place: Placement, params, cache: ShardedCache, tokens: t
     bidx = torch.arange(lengths.shape[0], device=lengths.device)
     Dh = cache["k"].shape[-1]
 
+    quant = "k_scale" in cache
+
     def write(l, k, v):
-        _append(cache["k"][l], k, bidx, wpos, valid)
-        _append(cache["v"][l], v, bidx, wpos, valid)
+        for name, new in (("k", k), ("v", v)):
+            if quant:
+                new, sc = _kv_quantize(new)
+                _append(cache[f"{name}_scale"][l], sc, bidx, wpos, valid)
+            _append(cache[name][l], new, bidx, wpos, valid)
+
+    def attend(l, q, compute):
+        kv = None
+        if quant:                # this rank's shard dequantized, as one device does
+            kv = (_kv_dequantize(cache["k"][l], cache["k_scale"][l],
+                                 torch.promote_types(q.dtype, torch.bfloat16)),
+                  _kv_dequantize(cache["v"][l], cache["v_scale"][l]))
+        return offload.placed_decode_attention(place, cache, l, q, compute, lengths + 1, kv)
 
     logits = _placed_decode_layers(
         cfg, place, params, tokens, rows, pos, lambda n: offload.cache_layout(cache, n, Dh),
-        write, lambda l, q, compute: offload.placed_decode_attention(place, cache, l, q, compute,
-                                                                     lengths + 1))
+        write, attend)
     lengths.add_(1)
     return logits, rows
 
@@ -1070,7 +1110,8 @@ def _pool_put(pool: torch.Tensor, places, new: torch.Tensor) -> None:
     view[phys, :, off] = torch.where(writes.view(-1, *(1,) * (new.dim() - 1)), new, old)
 
 
-def _placed_paged(cfg, place: Placement, params, cache: ShardedPool, tokens: torch.Tensor):
+def _placed_paged(cfg, place: Placement, params, cache: ShardedPool, tokens: torch.Tensor,
+                  past_table_to_null: bool = False):
     """:func:`paged_decode_step` on a mesh, up to the logits of this rank's
     rows: ``(logits (b, V), the axes the rows are split over)``.  q, k and
     v go to the pool's layout (every row, this rank's KV heads); the new
@@ -1080,7 +1121,11 @@ def _placed_paged(cfg, place: Placement, params, cache: ShardedPool, tokens: tor
     and the offset in it (:func:`_lane_writes`); the attention runs on
     this lane's part of every row through its table
     (:meth:`ShardedPool.lane_tables`, built once a step on the device) and
-    :func:`offload.placed_paged_decode_attention` merges the lanes."""
+    :func:`offload.placed_paged_decode_attention` merges the lanes.  With
+    the host tier the hot window starts at each row's cold length and the
+    cold window ``[0, cold_len)`` is read on this rank's share of the host
+    tier through ``host_tables``; ``past_table_to_null`` sends an append
+    past the table to null block 0 (the verify step's overshoot)."""
     B = tokens.shape[0]
     rows = _rows(place, B)
     a0, a1 = place.part(rows, B)
@@ -1088,13 +1133,20 @@ def _placed_paged(cfg, place: Placement, params, cache: ShardedPool, tokens: tor
     bs, MB = cache.block_size, tables.shape[1]
     quant = _kv_dtype_name(cache["k"].dtype)
     pos = lengths.long()
-    phys = tables[torch.arange(B, device=pos.device), (pos // bs).clamp(max=MB - 1)].long()
+    blk = pos // bs
+    phys = tables[torch.arange(B, device=pos.device), blk.clamp(max=MB - 1)].long()
+    if past_table_to_null:
+        phys = torch.where(blk < MB, phys, 0)
     off = pos % bs
     (b0, b1), (p0, p1) = cache.blocks, cache.pos
     valid = (phys >= b0) & (phys < b1) & (off >= p0) & (off < p1)
     places = _lane_writes(valid, (phys - b0).clamp(0, b1 - b0 - 1),
                           (off - p0).clamp(0, p1 - p0 - 1))
-    lane_tables, lane_lengths = cache.lane_tables(tables, lengths + 1)
+    cold = None
+    if "host_k" in cache:
+        cold = cache.host_lane_tables(cache["host_tables"], cache["cold_lengths"])
+    lane_tables, lane_lengths = cache.lane_tables(
+        tables, lengths + 1, None if cold is None else cache["cold_lengths"])
     Dh = cache["k"].shape[-1]
 
     def write(l, k, v):
@@ -1107,7 +1159,7 @@ def _placed_paged(cfg, place: Placement, params, cache: ShardedPool, tokens: tor
     logits = _placed_decode_layers(
         cfg, place, params, tokens, rows, pos[a0:a1],
         lambda n: offload.pool_layout(cache, n, Dh, B), write,
-        lambda l, q, compute: offload.placed_paged_decode_attention(cache, l, q, compute,
-                                                                    lane_tables, lane_lengths))
+        lambda l, q, compute: offload.placed_paged_decode_attention(
+            cache, l, q, compute, lane_tables, lane_lengths, cold))
     lengths.add_(1)
     return logits, rows

@@ -13,14 +13,16 @@ With an ``Env`` whose ``axes`` are not empty and the mesh of this rank
 ``cache_specs`` / ``paged_cache_specs`` resolve the reference's rules,
 :meth:`Model.init` keeps this rank's shard of every weight,
 ``init_cache`` allocates a ``core.offload.ShardedCache`` and
-``init_paged_cache`` a ``core.offload.ShardedPool``, and the dense
-family's ``prefill``, ``decode_step``, ``decode_sample_step``, chunked
-``prefill_step`` / ``prefill_sample_step`` and ``paged_decode_step`` /
-``paged_decode_sample_step`` run tensor parallel on them, as its
-``loss_fn`` does for training (``training.trainer`` reduces the
-gradients and shards the optimizer state).  The other families and
-verify wait for later slices (verify is None on a placed model, and
-:func:`build_model` refuses another family).
+``init_paged_cache`` a ``core.offload.ShardedPool`` (the host tier
+included), and the dense family's ``prefill`` (with a frontend's
+``embeds``), ``decode_step``, ``decode_sample_step``, chunked
+``prefill_step`` / ``prefill_sample_step``, ``paged_decode_step`` /
+``paged_decode_sample_step`` and speculation's ``verify_step`` /
+``paged_verify_step`` run tensor parallel on them, on the bf16/f32 cache
+and on the int8 ``kv_quant`` one, as its ``loss_fn`` does for training
+(``training.trainer`` reduces the gradients and shards the optimizer
+state).  The other families wait for later slices (:func:`build_model`
+refuses them on a mesh).
 """
 from __future__ import annotations
 
@@ -173,12 +175,12 @@ def build_model(cfg: ModelConfig, device: str | torch.device | None = None,
 
 def _placed_model(cfg: ModelConfig, dev: torch.device, env: Env, mesh, fam, defs) -> Model:
     """The dense family on a mesh: its serving steps (dense cache and
-    paged pool, whole and chunked prefill) and its training ``loss_fn``
-    bound to this rank's :class:`Placement`."""
-    if cfg.family != DENSE or cfg.kv_quant:
-        what = "the int8 kv_quant cache" if cfg.family == DENSE else cfg.family
-        raise NotImplementedError(f"placement serves the dense family on its bf16/f32 cache "
-                                  f"only; {what} waits for a later slice")
+    paged pool, whole and chunked prefill, verify) and its training
+    ``loss_fn`` bound to this rank's :class:`Placement`."""
+    if cfg.family != DENSE:
+        raise NotImplementedError(
+            f"placement serves the dense family only; {cfg.family} waits for a later slice "
+            "(ROADMAP item 9b: the other families serving on a mesh)")
     if mesh is None or dict(zip(mesh.axis_names, mesh.shape)) != dict(env.axes):
         raise ValueError(f"a placed model needs this rank's mesh of axes {env.axes}, got {mesh}")
     specs = cm.specs_for(defs, env.param_rules(), env.axes, params=True)
@@ -201,6 +203,8 @@ def _placed_model(cfg: ModelConfig, dev: torch.device, env: Env, mesh, fam, defs
         paged_decode_step=functools.partial(fam.paged_decode_step, cfg, place=place),
         paged_decode_sample_step=functools.partial(fam.paged_decode_sample_step, cfg,
                                                    place=place),
+        verify_step=functools.partial(fam.verify_step, cfg, place=place),
+        paged_verify_step=functools.partial(fam.paged_verify_step, cfg, place=place),
         env=env,
         placement=place,
     )

@@ -8,9 +8,11 @@ or without speculative decoding, traced and profiled or not, as a
 replica of a :class:`~repro_torch.serving.cluster.Cluster` (router hooks,
 KV block migration, refold moves) or alone, and on the dense
 decode-only schedule with sub-batch pipelining (``sub_batches``), and
-for a placed model (one rank of a mesh: ``Model.placement``) on the dense
-cache or the paged pool (bf16, fp8 or int8, no host tier) on either
-schedule, eagerly (the staging cache is then in the compute layout:
+for a placed model (one rank of a mesh: ``Model.placement``) all of the
+above but the cluster: the dense cache (also ``kv_quant``) or the paged
+pool (bf16, fp8 or int8, with the host tier) on either schedule,
+speculation with a draft placed on the same mesh and sub-batches,
+eagerly (the staging cache is then in the compute layout:
 ``init_cache(..., staging=True)``).  A
 family whose :class:`Model` lacks a step (the MoE family has no paged
 decode, chunked prefill, verify or fused sampled step) is refused the
@@ -123,6 +125,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.offload import ShardedCache
 from repro_torch.core.pipeline import pipelined_step, sub_batch_streams
 from repro_torch.models.registry import Model
 from repro_torch.serving import kv_cache
@@ -299,6 +302,13 @@ class _PendingStep:
     charge: int = 1                      # in-flight charges per batch slot
 
 
+def _held_rows(cache: Pytree, x: torch.Tensor) -> torch.Tensor:
+    """The rows of a whole ``(B,)`` ``x`` that ``cache`` holds: this rank's
+    of a placed dense cache, all of them otherwise (the paged pool keeps
+    its lengths whole on every rank)."""
+    return cache.local(x) if isinstance(cache, ShardedCache) else x
+
+
 class Engine:
     def __init__(
         self,
@@ -328,7 +338,7 @@ class Engine:
         role: str = "mixed",
     ):
         if model.placement is not None:
-            self._check_placed(host_blocks, spec_depth, sub_batches, graphs, replica, role)
+            self._check_placed(graphs, replica, role)
         # speculation always runs on the dispatch-ahead machinery; sync mode
         # is that pipeline at depth zero (observe right after dispatch)
         if spec_depth < 0:
@@ -426,9 +436,10 @@ class Engine:
             self._decode_sampled = model.decode_sample_step
             if sub_batches != 1:
                 # one stream per sub-batch on the card, the device's own
-                # (pipeline.sub_batch_streams); the CPU runs them in order
+                # (pipeline.sub_batch_streams); the CPU and a placed model
+                # (gloo's collectives run eagerly) run them in order
                 streams = (sub_batch_streams(self.device, sub_batches)
-                           if self.device.type == "cuda" else None)
+                           if self.device.type == "cuda" and model.placement is None else None)
                 self._decode = pipelined_step(model.decode_step, sub_batches, streams)
                 self._decode_sampled = self._wrap_sampled(self._decode)
         if self._decode_sampled is None:        # a family without a fused sampled step
@@ -481,21 +492,22 @@ class Engine:
         return sampled
 
     @staticmethod
-    def _check_placed(host_blocks, spec_depth, sub_batches, graphs, replica, role) -> None:
-        """What a placed model (one rank of a mesh) serves: the dense cache
-        and the paged pool (bf16, fp8 or int8) on either schedule, eagerly,
-        as one engine; every rank runs the same host schedule.  The host
-        tier, speculation, sub-batches, replicas and roles wait for later
-        slices, and CUDA graphs cannot capture gloo's collectives."""
-        refused = {"host_blocks": (host_blocks, 0, "the host KV tier"),
-                   "spec_depth": (spec_depth, 0, "speculative decoding"),
-                   "sub_batches": (sub_batches, 1, "sub-batch pipelining"),
-                   "replica": (replica, 0, "a replica of a cluster"),
+    def _check_placed(graphs, replica, role) -> None:
+        """What a placed model (one rank of a mesh) serves: all that one
+        engine serves on the dense family — the dense cache (bf16/f32 or
+        int8 ``kv_quant``) and the paged pool (bf16, fp8 or int8, with the
+        host tier) on either schedule, speculation (its draft placed on the
+        same mesh) and sub-batches — eagerly; every rank runs the same host
+        schedule and reaches the same decisions from the same logits.
+        Replicas and roles wait for per-replica meshes, and CUDA graphs
+        cannot capture gloo's collectives."""
+        refused = {"replica": (replica, 0, "a replica of a cluster"),
                    "role": (role, "mixed", "a disaggregated role")}
         for name, (got, default, what) in refused.items():
             if got != default:
-                raise NotImplementedError(f"a placed model does not serve {what} yet "
-                                          f"(got {name}={got!r}): it waits for a later slice")
+                raise NotImplementedError(
+                    f"a placed model does not serve {what} yet (got {name}={got!r}): it waits "
+                    "for per-replica meshes (ROADMAP item 9b: replicas and roles)")
         if graphs:
             raise ValueError("a placed model runs eagerly: CUDA graphs cannot capture its "
                              "gloo collectives")
@@ -554,8 +566,8 @@ class Engine:
         # the commit is the rollback: lengths advance over the accepted
         # prefix and the bonus token only; the draft's k+1 decodes net back
         # to the same commit
-        self.cache["lengths"].add_(n_accept + 1)
-        self.d_cache["lengths"].add_(n_accept - k)
+        self.cache["lengths"].add_(_held_rows(self.cache, n_accept) + 1)
+        self.d_cache["lengths"].add_(_held_rows(self.d_cache, n_accept) - k)
         self._tok_state.copy_(emitted[torch.arange(emitted.shape[0], device=emitted.device),
                                       n_accept.long()])
         return emitted, n_accept

@@ -6,9 +6,10 @@ Counterpart of ``repro.serving.paged.device`` for every pool tier:
 fp8/int8 pool and dequantizing on the way out), :func:`spill_block` /
 :func:`rehydrate_block` (device pool <-> host tier, in storage dtype),
 :func:`sync_slot` / :func:`sync_host_slot` (one block-table row, one
-host-table row and cold length), migration's :func:`copy_blocks_out` /
-:func:`copy_blocks_in` (a sequence's blocks gathered out of one pool and
-scattered into another, in storage dtype), and the async engine's
+host-table row and cold length; whole on every rank of a placed pool),
+migration's :func:`copy_blocks_out` / :func:`copy_blocks_in` (a
+sequence's blocks gathered out of one pool and scattered into another, in
+storage dtype), and the async engine's
 :func:`feed_token` / :func:`set_stop_id`.
 
 The reference's donated ``jax.jit`` updates become in-place tensor ops on
@@ -177,6 +178,15 @@ def _to_lanes(pool: ShardedPool, staging, blks: list[torch.Tensor]) -> list[torc
                                   [[L, pool.n_kv, bs, Dh]] * 2)
 
 
+def _from_holder(pool: ShardedPool, phys: int, blks: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Leaves of block ``phys`` as this lane holds them (zeros where another
+    lane holds the block) as the holding lane holds them: taken from it over
+    the block axes (one collective; every rank of the group takes part)."""
+    if pool.place.split(pool.block_axes):
+        return [st[pool.owner(phys)] for st in pool.place.stack_all(blks, pool.block_axes)]
+    return blks
+
+
 def _from_lanes(pool: ShardedPool, staging, phys: int,
                 blks: list[torch.Tensor]) -> list[torch.Tensor]:
     """K and V of block ``phys`` as this lane holds them (or zeros, where
@@ -184,8 +194,7 @@ def _from_lanes(pool: ShardedPool, staging, phys: int,
     cache's heads: taken from the holder over the block axes, then
     gathered over the heads' and positions' axes."""
     place = pool.place
-    if place.split(pool.block_axes):
-        blks = [st[pool.owner(phys)] for st in place.stack_all(blks, pool.block_axes)]
+    blks = _from_holder(pool, phys, blks)
     L, _, _, Dh = blks[0].shape
     dst = [((), (0, L)), (staging.head_axes, staging.heads), ((), (0, pool.block_size)),
            ((), (0, Dh))]
@@ -196,18 +205,56 @@ def _from_lanes(pool: ShardedPool, staging, phys: int,
 def spill_block(cache: Pytree, dev: int, host: int) -> Pytree:
     """Apply a ``("spill", dev, host)`` directive: copy device block
     ``dev`` into host-tier block ``host`` (k, v, and their scales), in
-    storage dtype — a quantized block moves as its bytes."""
-    for key in _pool_keys(cache):
-        _copy(cache[f"host_{key}"][:, host], cache[key][:, dev])
+    storage dtype — a quantized block moves as its bytes.  On a placed pool
+    the block is taken from the lane that holds it (over the block axes,
+    as :func:`read_block` takes one) and every rank writes its share of the
+    host block: its heads and, where the host tier splits them, its
+    positions (:func:`_to_host`)."""
+    keys = _pool_keys(cache)
+    if not isinstance(cache, ShardedPool):
+        for key in keys:
+            _copy(cache[f"host_{key}"][:, host], cache[key][:, dev])
+        return cache
+    i = cache.local_block(dev)
+    blks = _from_holder(cache, dev, [ref.byte_view(cache[key][:, i] if i is not None
+                                                   else torch.zeros_like(cache[key][:, 0]))
+                                     for key in keys])
+    for key, blk in zip(keys, _to_host(cache, blks, host=True)):
+        ref.byte_view(cache[f"host_{key}"][:, host]).copy_(blk)
     return cache
 
 
 def rehydrate_block(cache: Pytree, host: int, dev: int) -> Pytree:
     """Apply a ``("rehydrate", host, dev)`` directive: copy host-tier
-    block ``host`` back into device block ``dev``, bit-exact."""
-    for key in _pool_keys(cache):
-        _copy(cache[key][:, dev], cache[f"host_{key}"][:, host])
+    block ``host`` back into device block ``dev``, bit-exact.  On a placed
+    pool only the lane that holds ``dev`` writes it, its heads and
+    positions of the host block (gathered over the host tier's position
+    axes where they differ from the pool's)."""
+    keys = _pool_keys(cache)
+    if not isinstance(cache, ShardedPool):
+        for key in keys:
+            _copy(cache[key][:, dev], cache[f"host_{key}"][:, host])
+        return cache
+    blks = _to_host(cache, [ref.byte_view(cache[f"host_{key}"][:, host]) for key in keys],
+                    host=False)
+    i = cache.local_block(dev)
+    if i is not None:
+        for key, blk in zip(keys, blks):
+            ref.byte_view(cache[key][:, i]).copy_(blk)
     return cache
+
+
+def _to_host(pool: ShardedPool, blks: list[torch.Tensor], host: bool) -> list[torch.Tensor]:
+    """Leaves of one block (``(L, h, p, Dh)`` payload bytes, ``(L, h, p)``
+    scales) from the device pool's cut of heads and positions to the host
+    tier's (``host``), or back: every rank of a group takes part."""
+    pool_cut = [(pool.head_axes, pool.heads), (pool.pos_axes, pool.pos)]
+    host_cut = [(pool.head_axes, pool.heads), (pool.host_pos_axes, pool.host_pos)]
+    src, dst = (pool_cut, host_cut) if host else (host_cut, pool_cut)
+    L, Dh = blks[0].shape[0], blks[0].shape[-1]
+    dsts = [[((), (0, L)), *dst, ((), (0, Dh))][:b.dim()] for b in blks]
+    fulls = [[L, pool.n_kv, pool.block_size, Dh][:b.dim()] for b in blks]
+    return pool.place.reshard_all(blks, [(), src[0][0], src[1][0], ()], dsts, fulls)
 
 
 def _block_index(ids, device: torch.device) -> torch.Tensor:

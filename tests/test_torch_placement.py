@@ -220,55 +220,62 @@ def test_placed_model_on_one_rank_equals_the_model(policy):
 
 def test_placed_engine_refusals():
     """What a placed engine does not serve yet is refused with a clear
-    error naming it: the host tier, speculation, sub-batches, replicas and
-    roles, CUDA graphs; the serve CLI's runs of them on a placed model
-    meet the same errors, and a family other than the dense one, or the
-    int8 cache, is refused when the model is built.  The paged pool and
-    the hybrid schedule are served (``test_torch_placement_paged.py``)."""
+    error naming it: replicas and roles (they wait for per-replica
+    meshes), CUDA graphs; the serve CLI's clustered runs on a placed model
+    meet the same errors, and a family other than the dense one is refused
+    when the model is built.  The host tier, speculation, sub-batches and
+    the int8 cache are served (``test_torch_placement_tiered.py``,
+    ``test_torch_placement_spec.py``), as are the paged pool and the
+    hybrid schedule (``test_torch_placement_paged.py``)."""
     model = _one_rank()
     params = model.init(0)
-    for kw, what in ((dict(cache_kind="paged", host_blocks=4), "host KV tier"),
-                     (dict(sub_batches=2), "sub-batch"),
-                     (dict(spec_depth=1, draft_model=model, draft_params=params),
-                      "speculative"),
-                     (dict(replica=1), "replica"), (dict(role="prefill"), "role")):
-        with pytest.raises(NotImplementedError, match=f"placed model does not serve.*{what}"):
+    for kw, what in ((dict(replica=1), "replica"), (dict(role="prefill"), "role"),
+                     (dict(cache_kind="paged", replica=1), "replica")):
+        with pytest.raises(NotImplementedError,
+                           match=f"placed model does not serve.*{what}.*per-replica meshes"):
             Engine(model, params, n_slots=2, max_seq=16, **kw)
     with pytest.raises(ValueError, match="eagerly"):
         Engine(model, params, n_slots=2, max_seq=16, graphs=True)
-    for kw in ({}, dict(cache_kind="paged", block_size=4, schedule="hybrid", prefill_chunk=4)):
+    for kw in ({}, dict(cache_kind="paged", block_size=4, schedule="hybrid", prefill_chunk=4),
+               dict(cache_kind="paged", block_size=4, host_blocks=4, kv_dtype="fp8"),
+               dict(sub_batches=2),
+               dict(spec_depth=1, draft_model=model, draft_params=params, prefill_chunk=8)):
         eng = Engine(model, params, n_slots=2, max_seq=16, **kw)
         reqs = [Request(uid=i, prompt=np.arange(1, 4 + i, dtype=np.int32), max_new_tokens=3)
                 for i in range(3)]
         for r in reqs:
             eng.submit(r)
         assert eng.run().generated == 9 and not eng.graphs
-    for flags, what in ((["--cache", "paged", "--host-blocks", "4"], "host_blocks=4"),
-                        (["--cache", "paged", "--schedule", "hybrid", "--kv-dtype", "fp8",
-                          "--host-blocks", "4"], "host_blocks=4"),
-                        (["--spec-depth", "2"], "spec_depth=2"),
-                        (["--cache", "paged", "--schedule", "hybrid", "--spec-depth", "2"],
-                         "spec_depth=2"),
-                        (["--replicas", "2"], "replica=1"),
-                        (["--replicas", "2", "--role-map", "1p+1d"], "role='prefill'"),
-                        (["--sub-batches", "2"], "sub_batches=2")):
+    for flags, what in ((["--replicas", "2"], "replica=1"),
+                        (["--replicas", "2", "--cache", "paged", "--host-blocks", "4"],
+                         "replica=1"),
+                        (["--replicas", "2", "--role-map", "1p+1d"], "role='prefill'")):
         args = serve.build_parser().parse_args(
             ["--reduced", "--device", "cpu", "--requests", "2", *flags])
         with pytest.raises(NotImplementedError, match=what):
             serve.serve(args, model, params, draft=(model, params))
-    for cfg in (reduce_config("rwkv6-7b"),
-                reduce_config("llama3.2-1b").with_overrides(kv_quant=True)):
-        with pytest.raises(NotImplementedError, match="placement serves the dense family"):
-            build_model(cfg, "cpu", Env(axes={"data": 1, "model": 1}),
+    for arch in ("rwkv6-7b", "moonshot-v1-16b-a3b"):
+        with pytest.raises(NotImplementedError, match="placement serves the dense family only"):
+            build_model(reduce_config(arch), "cpu", Env(axes={"data": 1, "model": 1}),
                         lmesh.DeviceMesh({"data": 1, "model": 1}))
+    quant = build_model(reduce_config("llama3.2-1b").with_overrides(kv_quant=True), "cpu",
+                        Env(axes={"data": 1, "model": 1}), lmesh.DeviceMesh({"data": 1,
+                                                                             "model": 1}))
+    assert quant.placement is not None and quant.verify_step is not None
 
 
-@pytest.mark.parametrize("field", sorted(placement.NOT_PLACED_YET))
+@pytest.mark.parametrize("field", sorted([*placement.NOT_PLACED_YET, "sub_batches"]))
 def test_env_refuses_the_fields_not_placed_yet(field):
     """``Env`` carries the reference's fields at the reference's defaults;
-    one the port does not run yet, set off its default, raises."""
-    default = placement.NOT_PLACED_YET[field]
+    one the port does not run yet, set off its default, raises, naming the
+    part of the ROADMAP it waits for.  ``sub_batches`` is placed now (the
+    engine runs its sub-batches on a mesh): ``Env`` takes it."""
+    default, why = placement.NOT_PLACED_YET.get(field, (1, None))
     assert getattr(jplacement.Env(), field) == getattr(Env(), field) == default
-    with pytest.raises(NotImplementedError, match=field):
-        Env(**{field: 2 if isinstance(default, int) and not isinstance(default, bool)
-               else not default})
+    off = {field: 2 if isinstance(default, int) and not isinstance(default, bool)
+           else not default}
+    if why is None:
+        assert Env(**off).sub_batches == 2
+        return
+    with pytest.raises(NotImplementedError, match=f"{field} waits for item 9"):
+        Env(**off)

@@ -75,7 +75,11 @@ def unflat(flat_dict: dict) -> dict:
     return tree
 
 
-def _model(task, policy, dtype):
+def _model(task, policy, dtype, weights: str | None = None, **overrides):
+    """The reduced llama placed on a ``(data, model)`` mesh of the world
+    (``task["model_parallel"]``) under ``policy``, with the config's
+    ``overrides``, and this rank's shards of ``params_{weights or
+    dtype}.npz``."""
     import torch
 
     from repro_torch.configs.reduced import reduce_config
@@ -85,9 +89,10 @@ def _model(task, policy, dtype):
     from repro_torch.models.registry import build_model
 
     mesh = make_host_mesh(task["model_parallel"])
-    cfg = reduce_config("llama3.2-1b", vocab=task["vocab"]).with_overrides(dtype=dtype)
+    cfg = reduce_config("llama3.2-1b", vocab=task["vocab"]).with_overrides(dtype=dtype,
+                                                                          **overrides)
     model = build_model(cfg, "cpu", Env(axes=mesh_axes(mesh), kv_policy=policy), mesh)
-    tree = unflat(dict(np.load(Path(task["out"]) / f"params_{dtype}.npz")))
+    tree = unflat(dict(np.load(Path(task["out"]) / f"params_{weights or dtype}.npz")))
     return model, shards_from_numpy(tree, model, getattr(torch, dtype))
 
 
@@ -293,7 +298,13 @@ def paged_engine_task(task) -> dict:
     """The float32 engine over the task's prompts per case (a name, the
     ``model`` axis size, the policies and the Engine's keywords) and mode:
     every request's tokens and step stamps, the EngineStats and the
-    PoolStats; then the serve CLI's lines under each ``cli`` flag list."""
+    PoolStats; then the serve CLI's lines under each ``cli`` flag list.
+    Two keywords are the task's, not the Engine's: ``kv_quant`` builds the
+    model with the int8 dense cache, ``draft`` (with ``spec_depth``) gives
+    the engine the model itself as its draft, placed alike, on the weights
+    of ``params_draft.npz``.  ``task["embeds"]`` (``[model axis size,
+    policy]`` pairs) also prefills ``embeds.npz``'s frontend embeds and
+    tokens and runs one decode step: the whole batch's logits."""
     import contextlib
     import dataclasses
     import io
@@ -311,8 +322,14 @@ def paged_engine_task(task) -> dict:
     out = {"ring_sum": collectives._ring_all_reduce(x, dist.group.WORLD).float().numpy(),
            "gloo_sum": collectives.all_reduce(x.clone(), dist.group.WORLD).float().numpy()}
     for name, mp, policies, kw in task["cases"]:
+        kw = dict(kw)
+        quant, draft = kw.pop("kv_quant", False), kw.pop("draft", False)
         for policy in policies:
-            model, params = _model(dict(task, model_parallel=mp), policy, "float32")
+            model, params = _model(dict(task, model_parallel=mp), policy, "float32",
+                                   kv_quant=quant)
+            if draft:
+                kw.update(draft_model=model, draft_params=_model(
+                    dict(task, model_parallel=mp), policy, "float32", weights="draft")[1])
             for async_mode in (False, True):
                 eng = Engine(model, params, n_slots=task["slots"], max_seq=task["max_seq"],
                              async_mode=async_mode, **kw)
@@ -332,7 +349,19 @@ def paged_engine_task(task) -> dict:
                     out[f"{key}/pool"] = np.asarray(json.dumps(dataclasses.asdict(
                         eng.pool.stats)))
                     out[f"{key}/kv_bytes"] = np.asarray(eng.kv_bytes())
-    serve.reduce_config = lambda arch: reduce_config(arch).with_overrides(dtype="float32")
+    for mp, policy in task.get("embeds", []):
+        # a frontend's embeds (embeds.npz: (B, F, d_model)) prefilled before
+        # the tokens, then one decode step: the whole batch's logits
+        model, params = _model(dict(task, model_parallel=mp), policy, "float32")
+        data = np.load(Path(task["out"]) / "embeds.npz")
+        toks = torch.from_numpy(data["tokens"].astype(np.int64))
+        cache = model.init_cache(toks.shape[0], task["max_seq"])
+        pre, _ = model.prefill(params, toks, cache, embeds=torch.from_numpy(data["embeds"]))
+        dec, _ = model.decode_step(params, cache, torch.from_numpy(data["feed"]))
+        out[f"embeds/{mp}/{policy}/prefill"] = pre.float().numpy()
+        out[f"embeds/{mp}/{policy}/decode"] = dec.float().numpy()
+    serve.reduce_config = lambda arch, **kw: reduce_config(arch, **kw).with_overrides(
+        dtype="float32")
     for i, flags in enumerate(task["cli"]):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
