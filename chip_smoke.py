@@ -163,6 +163,26 @@
       byte for byte to one rank's rows.  Every path's seconds are printed
       (``[placed] seconds per path``), and the script's phases' at the end
       (``phase seconds:``).
+   p. The cluster on meshes of its own (slice 21, ``world_phase``): ranks
+      of this script on the one card over gloo (``--world-worker``), each
+      running the whole cluster loop through the serve entry points with a
+      replica per slice of the world (``launch.mesh.replica_meshes``), the
+      other replicas mirrored: world-disagg, two ranks of one replica each
+      with graphs, ``DISAGG_FLAGS`` exactly at full width and depth:
+      ClusterStats and every replica's EngineStats and PoolStats equal the
+      in-process disagg path's on every rank (every request finishes at
+      max_new: the step clock does not depend on the tokens), no migration
+      lost, the two ranks' launches the step clock's, the tokens held to
+      disagg's by the token floor (the count equal printed); placed-disagg,
+      four ranks, two replicas of data 2 (eager) on placed-tiered-dp's fp8
+      pool and host tier at ``PLACED_LAYERS``: ClusterStats and PoolStats
+      equal one rank's cluster at the same flags and depth, every rank's
+      tokens equal, every spill's host copy byte-equal, every block a
+      migration lands on the decode replica's lanes byte-equal to the block
+      exported from the prefill replica's lanes (each read raw on its
+      lanes, gathered once at the end), each rank's launches its replica's
+      step clock's.  Each prints tok/s, ms a round, world
+      broadcasts a round and the migration payloads' bytes and ms.
    Paths a-k, m and n run async (dispatch-ahead) and then sync; the greedy tokens must
    be identical, each kernel row must have launched once per layer of
    every prefill, chunk and decode step of its path (twice per layer of a
@@ -211,8 +231,8 @@
    rest of the dense registry, one family per phase on a card freed of the
    one before (at most 0.1 GB allocated before each full-width load,
    moonshot's too, with the blocks still held by size): minicpm-2b,
-   llama3.2-3b at full width and depth and yi-34b at full width and 16
-   of its 60 layers (dense and paged-hybrid; yi-34b's also sync, and its
+   llama3.2-3b at full width and depth and yi-34b at full
+   width and 4 of its 60 layers (dense and paged-hybrid; yi-34b's also sync, and its
    dense eagerly) and internvl2-76b at full width and 16 of its 80
    layers (dense; prefilling 256
    ``embeds`` rows ``embed[u]`` before a prompt equals prefilling ``u``
@@ -222,8 +242,8 @@
    the CPU for minicpm-2b and yi-34b; and a graph profile of each dense
    path.
    After moonshot, the deepseek path on a card freed of it:
-   deepseek-v3-671b at full width cut to 5 of its 61 layers (its 3 dense
-   and first 2 MoE layers; 27,304,652,800 parameters, seeded random bf16
+   deepseek-v3-671b at full width cut to 4 of its 61 layers (its 3 dense
+   layers and its first MoE layer; 15,797,366,784 parameters, seeded random bf16
    weights drawn on the card: memory before and after the load, the peak),
    float32 at full width cut to its 2 first (dense MLA) layers on the card
    against the CPU, the MLA identity at full width (the absorbed decode
@@ -290,8 +310,9 @@
    placed-train-f32 (both meshes, float32, 2 layers, 3 steps at the
    reference's ``TrainConfig()``: step 0's loss and grad norm within
    1e-4 relative of one rank's, every step's within 1e-2); a checkpoint
-   written on data 2 x model 1 (``--ckpt-every 2``, 2 layers) restored on
-   data 1 x model 2, whose step-2 loss is the unbroken run's within 5e-2;
+   of the reduced model (since slice 21) written on data 2 x model 1
+   (``--ckpt-every 2``) restored on data 1 x model 2, whose step-2 loss
+   is the unbroken run's within 5e-2;
    GPipe over a ``stage`` axis of the two ranks (8 + 8 layers of the train
    block, 4 microbatches of 1 x 512: forward and the stage's weight
    gradients against ``sequential_reference`` over all 16 layers in each
@@ -379,6 +400,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 from typing import NamedTuple
 
@@ -404,7 +426,8 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.core.placement import Env  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.distributed import collectives  # noqa: E402
-from repro_torch.launch.mesh import DeviceMesh, make_host_mesh, mesh_axes, rank_device  # noqa: E402
+from repro_torch.launch.mesh import (DeviceMesh, make_host_mesh, mesh_axes,  # noqa: E402
+                                     rank_device, replica_meshes)
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
@@ -594,6 +617,16 @@ PLACED_SUB_TOL = 1e-3
 # (mesh, KV policy, tolerance against one rank)
 PLACED_KVQ = {"placed-kvq-dp": ((2, 1), "batch", 1e-3),
               "placed-kvq-seq": ((1, 2), "sequence", PLACED_LOGIT_TOL)}
+# slice 21, the cluster on meshes of its own: world-disagg, DISAGG_FLAGS on
+# two ranks of the card, one replica each (with graphs), held to the
+# in-process disagg path; placed-disagg, two replicas of data 2 (four ranks,
+# eager) on placed-tiered-dp's fp8 pool and host tier at PLACED_LAYERS, held
+# to one rank's cluster at the same flags and depth
+WORLD_RANKS = 2
+PLACED_DISAGG_RANKS = 4
+PLACED_DISAGG_FLAGS = (PLACED_FLAGS + ["--replicas", "2", "--role-map", "1p+1d"]
+                       + PLACED_TIERED_FLAGS + ["--kv-dtype", "fp8"])
+WORLD_TIMEOUT = 420
 # the serve CLI's balancer line for llama3.2-1b on a world of 1 and of 2
 # (data 2): tests/test_torch_placement.py pins the same strings
 BALANCER = {1: "balancer: policy=batch sub_batches=1 bottleneck=attention "
@@ -618,10 +651,11 @@ MOE_PARAMS = 4872112128
 MOE_CLOCK = {"prefills": 64, "decode_steps": 252, "engine_steps": 841, "generated": 4096}
 MOE_LAYER_TOL = 1e-4      # one MoE layer in float32, card vs CPU: f32 sums in other orders
 # the DeepSeek path: deepseek-v3-671b at full width, cut from 61 layers to its 3
-# dense and first 2 MoE layers (54.61 GB of bf16 weights; 6 layers would be 77.6)
+# dense layers and its first MoE layer (31.59 GB of bf16 weights; 5 layers, 54.61,
+# until slice 21)
 DS_FLAGS = ["--arch", "deepseek-v3-671b"]
-DS_LAYERS = 5
-DS_PARAMS = 27304652800
+DS_LAYERS = 4
+DS_PARAMS = 15797366784
 # its step clock as `scripts/torch_step_clock.py --arch deepseek-v3-671b` predicts it
 DS_CLOCK = {"prefills": 64, "decode_steps": 252, "engine_steps": 841, "generated": 4096}
 # the float32 MoE layer check: the router and the dispatch over all 256 experts, the
@@ -638,10 +672,10 @@ WIDE_TAGS = {"minicpm-2b": "minicpm", "llama3.2-3b": "llama3b", "yi-34b": "yi",
 # layers (141 GB of bf16 weights) to 16, which one card holds; the others
 # so that the whole script ends well inside its 1200 s limit on the
 # slowest host measured (PERF.md: at full depth it took 1408 s)
-SERVE_LAYERS = {"internvl2-76b": 16, "yi-34b": 16, "moonshot-v1-16b-a3b": 8,
+SERVE_LAYERS = {"internvl2-76b": 16, "yi-34b": 4, "moonshot-v1-16b-a3b": 8,
                 "rwkv6-7b": 8, "zamba2-1.2b": 12}
 # parameters at the depth run
-WIDE_PARAMS = {"minicpm-2b": 2725173504, "llama3.2-3b": 3212749824, "yi-34b": 9843219456,
+WIDE_PARAMS = {"minicpm-2b": 2725173504, "llama3.2-3b": 3212749824, "yi-34b": 3148938240,
                "internvl2-76b": 15791824896}
 # step clocks as `scripts/torch_step_clock.py --arch <id> [PAGED_FLAGS]` predicts them
 # on the CPU (the reduced model at the full vocabulary: the vocabulary, not the
@@ -2070,16 +2104,18 @@ def checked_spills():
     spills and of blocks whose host copy differs in any byte."""
     saved = pdev.spill_block
     counts = {"spills": 0, "differ": 0}
-    taken, dims = [], {}
+    taken = []
+    me = dist.get_rank() if dist.is_initialized() else 0
 
     def spill(cache, dev, host):
         before = _held_piece(cache, dev)
         saved(cache, dev, host)
-        taken.append((before, _held_piece(cache, host, host=True)))
-        k = cache["k"]
-        dims["shape"] = ((cache.n_kv, cache.block_size)
-                         if isinstance(cache, offload.ShardedPool) else tuple(k.shape[2:4]))
-        dims["placed"] = isinstance(cache, offload.ShardedPool)
+        placed = isinstance(cache, offload.ShardedPool)
+        # the pool's owner (its mesh's first rank): a cluster's replicas
+        # spill on their own meshes
+        taken.append((cache.place.mesh.ranks[0] if placed else me,
+                      (cache.n_kv, cache.block_size) if placed else tuple(cache["k"].shape[2:4]),
+                      before, _held_piece(cache, host, host=True)))
         return cache
 
     pdev.spill_block = spill
@@ -2087,15 +2123,18 @@ def checked_spills():
         yield counts
     finally:
         pdev.spill_block = saved
-    mine = [[None if x is None else (x[0], x[1], [t.cpu() for t in x[2]]) for x in pair]
-            for pair in taken]
+    mine = [(owner, dims, *[None if x is None else (x[0], x[1], [t.cpu() for t in x[2]])
+                            for x in pair]) for owner, dims, *pair in taken]
     ranks = [mine]
-    if dims.get("placed"):
+    if dist.is_initialized() and dist.get_world_size() > 1:
         ranks = [None] * dist.get_world_size()
         dist.all_gather_object(ranks, mine)
-    for i in range(len(taken)):
-        dev, host = ([r[i][j] for r in ranks if r[i][j] is not None] for j in (0, 1))
-        counts["differ"] += _spill_differs(*dims["shape"], dev, host)
+    for owner in sorted({t[0] for r in ranks for t in r}):
+        lists = [[t for t in r if t[0] == owner] for r in ranks]
+        lists = [x for x in lists if x]
+        for i in range(len(lists[0])):
+            dev, host = ([x[i][j] for x in lists if x[i][j] is not None] for j in (2, 3))
+            counts["differ"] += _spill_differs(*lists[0][i][1], dev, host)
     counts["spills"] = len(taken)
 
 
@@ -2355,20 +2394,20 @@ def _placed_dense_worker(args, mesh, env, out: Path, got: dict) -> None:
 
 
 def _spawn_ranks(out: Path, worker: str = "--placed-worker",
-                 timeout: float = PLACED_TIMEOUT) -> None:
-    """Start :data:`PLACED_RANKS` processes of this script (``worker``'s
-    role) as ``torchrun`` would (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
-    a rendezvous on a free localhost port) and wait for them, killing
-    every one of them on a failure or at ``timeout``."""
+                 timeout: float = PLACED_TIMEOUT, n_ranks: int = PLACED_RANKS) -> None:
+    """Start ``n_ranks`` processes of this script (``worker``'s role) as
+    ``torchrun`` would (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, a
+    rendezvous on a free localhost port) and wait for them, killing every
+    one of them on a failure or at ``timeout``."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    env = dict(os.environ, WORLD_SIZE=str(PLACED_RANKS), LOCAL_WORLD_SIZE=str(PLACED_RANKS),
+    env = dict(os.environ, WORLD_SIZE=str(n_ranks), LOCAL_WORLD_SIZE=str(n_ranks),
                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-    logs = [out / f"rank{r}.log" for r in range(PLACED_RANKS)]
+    logs = [out / f"rank{r}.log" for r in range(n_ranks)]
     procs = []
     try:
-        for r in range(PLACED_RANKS):
+        for r in range(n_ranks):
             with open(logs[r], "w") as log:
                 procs.append(subprocess.Popen(
                     [sys.executable, str(Path(__file__).resolve()), worker, str(out)],
@@ -2386,9 +2425,9 @@ def _spawn_ranks(out: Path, worker: str = "--placed-worker",
             p.wait()
     if any(p.returncode for p in procs):
         for r, log in enumerate(logs):
-            print(f"[placed] rank {r} exit {procs[r].returncode}, log tail:\n"
+            print(f"[{worker}] rank {r} exit {procs[r].returncode}, log tail:\n"
                   f"{log.read_text()[-4000:]}")
-        raise AssertionError("[placed] a rank failed or timed out")
+        raise AssertionError(f"[{worker}] a rank failed or timed out")
 
 
 def placed_phase(model, params, by_path: dict[str, PathRun]) -> dict[str, PathRun]:
@@ -2904,6 +2943,333 @@ def placed_logit_check(model, params, logits: dict, prompts) -> None:
               f"rounding as two vs one rank {_max_err(rounded, one['bfloat16']):.2e}")
         if not err <= PLACED_TP_ROUNDING_TOL:
             raise AssertionError(f"[{label}] bf16 logits {err} from one rank's with TP rounding")
+
+
+# ------------------------------------ the cluster on meshes of its own (slice 21)
+@contextlib.contextmanager
+def timed_handoffs():
+    """While open, count and time the migration payloads that move between
+    two meshes (``collectives.send_tree`` on the source's first rank, its
+    device-to-host copy included; ``recv_tree`` on a destination rank)."""
+    moves = {"sent": 0, "received": 0, "bytes": 0, "send_s": 0.0, "recv_s": 0.0}
+    send, recv = collectives.send_tree, collectives.recv_tree
+
+    def timed_send(tree, dst, group):
+        t0 = time.perf_counter()
+        send(tree, dst, group)
+        moves["send_s"] += time.perf_counter() - t0
+        moves["sent"] += 1
+        moves["bytes"] += sum(t.numel() * t.element_size() for t in tree.values())
+
+    def timed_recv(src, group, pin=False):
+        t0 = time.perf_counter()
+        out = recv(src, group, pin)
+        moves["recv_s"] += time.perf_counter() - t0
+        moves["received"] += 1
+        return out
+
+    collectives.send_tree, collectives.recv_tree = timed_send, timed_recv
+    try:
+        yield moves
+    finally:
+        collectives.send_tree, collectives.recv_tree = send, recv
+
+
+@contextlib.contextmanager
+def checked_migrations():
+    """While open, every migration keeps this rank's raw shards of the
+    blocks it moves (:func:`_held_piece`, none of the pool's own moves):
+    on the source's mesh those it exports, read just after
+    ``serving.paged.device.copy_blocks_out``; on the destination's those it
+    lands, read just after ``copy_blocks_in``, each tagged with the
+    migration's number (every rank exports every migration: mirrors keep
+    the bookkeeping).  On closing, every rank's shards are gathered on
+    rank 0 in one plain ``gather_object``, and each landed block, put
+    together from its lanes, is held to the exported block it lands, put
+    together from the source's lanes: on rank 0 the counts of migrations,
+    of blocks landed, and of those that differ in any byte or that the
+    lanes leave partly uncovered (None on the other ranks)."""
+    saved_out, saved_in, saved_export = pdev.copy_blocks_out, pdev.copy_blocks_in, \
+        Engine.export_request
+    number = [0]
+    taken = []
+
+    def dims(cache):
+        if isinstance(cache, offload.ShardedPool):
+            return cache.n_kv, cache.block_size
+        return tuple(cache["k"].shape[2:4])
+
+    def held(cache, ids):
+        pieces = [_held_piece(cache, i) for i in ids]
+        return [None if x is None else (x[0], x[1], [t.cpu() for t in x[2]]) for x in pieces]
+
+    def export(self, slot):
+        number[0] += 1
+        return saved_export(self, slot)
+
+    def blocks_out(cache, ids):
+        payload = saved_out(cache, ids)
+        taken.append(("out", number[0], dims(cache), None, held(cache, ids)))
+        return payload
+
+    def blocks_in(cache, payload, sel, dst):
+        saved_in(cache, payload, sel, dst)
+        taken.append(("in", number[0], dims(cache), list(sel), held(cache, dst)))
+        return cache
+
+    pdev.copy_blocks_out, pdev.copy_blocks_in = blocks_out, blocks_in
+    Engine.export_request = export
+    counts = {}
+    try:
+        yield counts
+    finally:
+        pdev.copy_blocks_out, pdev.copy_blocks_in = saved_out, saved_in
+        Engine.export_request = saved_export
+    ranks = [taken]
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        ranks = [None] * dist.get_world_size() if dist.get_rank() == 0 else None
+        dist.gather_object(taken, ranks, dst=0)
+    if ranks is None:
+        counts.update(migrations=None, blocks=None, differ=None)
+        return
+    events = [t for r in ranks for t in r]
+    moved = sorted({n for kind, n, *_ in events if kind == "in"})
+    blocks = differ = 0
+    for n in moved:
+        outs = [t for t in events if t[:2] == ("out", n)]
+        ins = [t for t in events if t[:2] == ("in", n)]
+        (n_kv, bs), sel = ins[0][2], ins[0][3]
+        for j, s in enumerate(sel):
+            src = [t[4][s] for t in outs if t[4][s] is not None]
+            dst = [t[4][j] for t in ins if t[4][j] is not None]
+            (a, a_full), (b, b_full) = _assembled(src, n_kv, bs), _assembled(dst, n_kv, bs)
+            blocks += 1
+            differ += not (a_full and b_full and all(map(torch.equal, a, b)))
+    counts.update(migrations=len(moved), blocks=blocks, differ=differ)
+
+
+def _world_run(flags: list[str], layers: int | None = None, device: str | None = None,
+               migrations: bool = False) -> dict:
+    """One cluster path on this rank of a world whose replicas each have a
+    mesh of their own, through the serve entry points: the world joined
+    (``serve.place``), ``replica_meshes``, a warm-up of 4 requests, then
+    the run with every launch counter zeroed before it and read after it,
+    every plain attention refused, every spill read back
+    (:func:`checked_spills`), every payload between meshes timed
+    (:func:`timed_handoffs`) and, with ``migrations``, every migrated
+    block read back on both meshes (:func:`checked_migrations`).
+    ``layers`` cuts the served model to that depth (the serve loader's
+    weights for the layers kept); ``device`` (default: this rank's card)
+    serves elsewhere (a CPU rehearsal)."""
+    saved = serve.load_config
+    if layers is not None:
+        serve.load_config = lambda a: saved(a).with_overrides(n_layers=layers)
+    try:
+        args = serve.build_parser().parse_args(SERVE_FLAGS + flags)
+        args.device = device             # the serve CLI's default: this rank's card
+        serve.place(args, serve.load_config(args))
+        meshes = replica_meshes(args.replicas, device=args.device)
+        warm = serve.build_parser().parse_args(SERVE_FLAGS + flags + ["--requests", "4"])
+        warm.device = args.device
+        serve.serve(warm, None, None, meshes=meshes)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        with (forbid_plain_serving(), checked_spills() as spills, timed_handoffs() as moves,
+              checked_migrations() if migrations else contextlib.nullcontext({}) as migrated):
+            res = serve.serve(args, None, None, meshes=meshes)
+    finally:
+        serve.load_config = saved
+    cl = res.cluster
+    row = {"stats": dataclasses.asdict(res.stats), "wall_s": res.wall_s,
+           "pools": [dataclasses.asdict(e.pool.stats) if args.cache == "paged" else None
+                     for e in cl.engines],
+           "tokens": [r.out_tokens for r in res.driver.submitted],
+           "placement": [cl.placement[r.uid] for r in res.driver.submitted],
+           "launches": {k: {f"{v}|{h}": n for (v, h), n in d.items()}
+                        for k, d in ops.shape_counts().items() if d},
+           "members": [e.member for e in cl.engines],
+           "graphs": [e.graphs for e in cl.engines],
+           "programs": [graph_summary(e) if e.member else None for e in cl.engines],
+           "broadcasts": sum(e._fanout.broadcasts for e in cl.engines if e._fanout),
+           "mirror_caches": [e.cache is not None for e in cl.engines if not e.member],
+           "handoffs": moves, "spill_check": dict(spills), "migration_check": dict(migrated),
+           "param_bytes": sum(t.numel() * t.element_size() for e in cl.engines if e.member
+                              for t in leaves(e.params)),
+           "lines": serve.report(args, res)}
+    del res, cl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def world_worker(out: Path, device: str | None = None) -> None:
+    """A rank of the cluster paths on meshes of their own (``chip_smoke.py
+    --world-worker DIR``, started by :func:`world_phase` as torchrun starts
+    one): on a world of WORLD_RANKS world-disagg, on one of
+    PLACED_DISAGG_RANKS placed-disagg; writes ``rank{r}.json``."""
+    n = int(os.environ["WORLD_SIZE"])
+    t0 = time.perf_counter()
+    if n == WORLD_RANKS:
+        label, got = "world-disagg", _world_run(DISAGG_FLAGS, device=device)
+    else:
+        label, got = "placed-disagg", _world_run(PLACED_DISAGG_FLAGS, layers=PLACED_LAYERS,
+                                                 device=device, migrations=True)
+    got.update(label=label, backend=dist.get_backend(), seconds=time.perf_counter() - t0)
+    (out / f"rank{dist.get_rank()}.json").write_text(json.dumps(got))
+    dist.destroy_process_group()
+
+
+def _world_spawn(n_ranks: int) -> list[dict]:
+    out = Path(tempfile.mkdtemp(prefix="world-"))
+    try:
+        _spawn_ranks(out, "--world-worker", WORLD_TIMEOUT, n_ranks)
+        return [json.loads((out / f"rank{r}.json").read_text()) for r in range(n_ranks)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def _world_common(label: str, got: list[dict], base_stats: dict, base_pools: list,
+                  n_requests: int) -> EngineStats:
+    """Checks every cluster path on meshes of its own passes: every rank's
+    ClusterStats, PoolStats, tokens and placements equal, and the
+    ClusterStats and PoolStats those of the cluster in one process
+    (``base_*``); no migration lost; mirrors hold no cache and the world
+    broadcasts its fetches; prints the path's lines and figures."""
+    r0 = got[0]
+    cs = r0["stats"]
+    for line in r0["lines"]:
+        print(f"[{label}] {line}")
+    for r, g in enumerate(got):
+        if not (g["stats"] == cs and g["pools"] == r0["pools"] and g["tokens"] == r0["tokens"]
+                and g["placement"] == r0["placement"] and not any(g["mirror_caches"])):
+            raise AssertionError(f"[{label}] rank {r}'s cluster differs from rank 0's")
+    if cs != base_stats or r0["pools"] != base_pools:
+        raise AssertionError(f"[{label}] ClusterStats or PoolStats differ from the cluster in one "
+                             f"process: {cs} {r0['pools']} vs {base_stats} {base_pools}")
+    st = [EngineStats(**rep["engine"]) for rep in cs["replicas"]]
+    out = sum(s.migrations_out for s in st)
+    into = sum(s.migrations_in for s in st)
+    home = sum(1 for p in r0["placement"] if p == 0)
+    if not (cs["migrations"] > 0 and out == into == cs["migrations"]
+            and cs["migrations"] + home == n_requests):
+        raise AssertionError(f"[{label}] a migration was lost: {cs['migrations']} migrations, "
+                             f"{out} out, {into} in, {home} finished at home")
+    rounds = cs["rounds"]
+    moved = [g["handoffs"] for g in got]
+    sent = sum(m["sent"] for m in moved)
+    nbytes = sum(m["bytes"] for m in moved)
+    gen = sum(s.generated for s in st)
+    wall = max(g["wall_s"] for g in got)
+    print(f"[{label}] {len(got)} ranks, backend {r0['backend']}: ClusterStats and PoolStats equal "
+          f"on every rank and to the cluster in one process; migrations {cs['migrations']} "
+          f"(out {out}, in {into}, {home} finished on the prefill replica); rounds {rounds}; "
+          f"{gen / wall:.1f} tok/s, {wall * 1e3 / rounds:.3f} ms per round; world broadcasts "
+          f"{r0['broadcasts']} ({r0['broadcasts'] / rounds:.2f} a round); payloads sent "
+          f"{sent}, {nbytes / max(sent, 1) / 1e6:.3f} MB each, send "
+          f"{sum(m['send_s'] for m in moved) * 1e3 / max(sent, 1):.3f} ms / receive "
+          f"{sum(m['recv_s'] for m in moved) * 1e3 / max(sent, 1):.3f} ms each; seconds per "
+          f"rank {[round(g['seconds'], 1) for g in got]}")
+    return st
+
+
+def world_phase(model, params, by_path: dict[str, PathRun],
+                rows: dict[str, dict]) -> dict[str, PathRun]:
+    """The cluster on meshes of its own (slice 21).  world-disagg: two
+    ranks of this script on the one card over gloo, one replica each
+    (``replica_meshes``: every rank runs the whole cluster loop, mirroring
+    the other's replica), ``DISAGG_FLAGS`` exactly at full width and depth
+    through the graphs: ClusterStats and every replica's EngineStats and
+    PoolStats equal the in-process disagg path's (every request finishes at
+    max_new, so the step clock does not depend on the tokens), no migration
+    lost, the launches of both ranks those the step clock gives, and the
+    tokens held to disagg's by the token floor (the count equal printed).
+    placed-disagg: four ranks, two replicas of data 2 on placed-tiered-dp's
+    fp8 pool and host tier at PLACED_LAYERS, eagerly, held to one rank's
+    cluster at the same flags and depth (ClusterStats and PoolStats), every
+    rank's tokens equal, every spill's host copy byte-equal to its device
+    block, every block a migration lands on the decode replica's lanes
+    byte-equal to the block exported from the prefill replica's lanes
+    (:func:`checked_migrations`), each rank's launches its replica's step
+    clock gives."""
+    t0 = time.perf_counter()
+    runs = {}
+    base = by_path["disagg"]
+    got = _world_spawn(WORLD_RANKS)
+    base_cl = base.res.cluster
+    st = _world_common("world-disagg", got, dataclasses.asdict(base.stats),
+                       [dataclasses.asdict(e.pool.stats) for e in base_cl.engines],
+                       len(base.tokens))
+    tot = _Summed([types.SimpleNamespace(stats=s) for s in st])
+    L = model.cfg.n_layers
+    per_row = {"prefill_attention[chunk]": tot.prefill_chunks * L,
+               "paged_decode_attention": tot.decode_steps * L}
+    want = {k: {f"{v}|{h}": n for (v, h), n in d.items()}
+            for k, d in _expected(per_row, rows)[1].items() if d}
+    summed: dict = {}
+    for r, g in enumerate(got):
+        for k, d in g["launches"].items():
+            for key, n in d.items():
+                summed.setdefault(k, {})[key] = summed.setdefault(k, {}).get(key, 0) + n
+        if not all(g["graphs"][i] for i, m in enumerate(g["members"]) if m):
+            raise AssertionError("[world-disagg] a replica ran without graphs")
+        print(f"[world-disagg] rank {r} holds replicas "
+              f"{[i for i, m in enumerate(g['members']) if m]}; graphs: "
+              f"{[p for p in g['programs'] if p]}")
+    print(f"[world-disagg] launches over both ranks {summed} expected {want}")
+    if summed != want:
+        raise AssertionError("[world-disagg] kernel launches differ from the step clock's")
+    same = sum(a == b for a, b in zip(got[0]["tokens"], base.tokens, strict=True))
+    print(f"[world-disagg] {same}/{len(base.tokens)} requests token-identical to disagg's")
+    agreement("world-disagg", [types.SimpleNamespace(out_tokens=t) for t in got[0]["tokens"]],
+              base)
+    runs["world-disagg"] = PathRun(per_row, st, got[0]["tokens"], got[0]["wall_s"], None)
+    # placed-disagg: one rank's cluster first, in this process
+    args = serve.build_parser().parse_args(SERVE_FLAGS + PLACED_DISAGG_FLAGS + ["--graphs", "on"])
+    res = serve.serve(args, *placed_one_rank(model))
+    one = {"stats": dataclasses.asdict(res.stats), "tokens": [r.out_tokens for r in
+                                                              res.driver.submitted],
+           "pools": [dataclasses.asdict(e.pool.stats) for e in res.cluster.engines]}
+    print(f"[placed-disagg] one rank's cluster, graphs: {res.stats.generated / res.wall_s:.1f} "
+          f"tok/s, {res.wall_s * 1e3 / res.stats.rounds:.3f} ms per round")
+    del res
+    got = _world_spawn(PLACED_DISAGG_RANKS)
+    st = _world_common("placed-disagg", got, one["stats"], one["pools"], len(one["tokens"]))
+    Lt = PLACED_LAYERS
+    heads = kernel_heads(8, 4, 64, 16)
+    per_row = {}
+    for r, g in enumerate(got):
+        rep = [i for i, m in enumerate(g["members"]) if m]
+        s = st[rep[0]]
+        want = {k: {key: n} for k, key, n in (
+            ("paged_decode_attention", f"fp8|{heads}", 2 * s.decode_steps * Lt),
+            ("prefill_attention", f"unscaled|{kernel_heads(8, 4, 64)}", s.prefill_chunks * Lt))
+                if n}
+        sc = g["spill_check"]
+        print(f"[placed-disagg] rank {r}: replica {rep}, launches {g['launches']} expected "
+              f"{want}; spills read back {sc}; {g['param_bytes'] / 1e9:.3f} GB of weights")
+        if g["launches"] != want or sc["spills"] != s.spills or sc["differ"]:
+            raise AssertionError(f"[placed-disagg] rank {r}'s launches or spills")
+        if r % 2 == 0:                   # one rank of each replica
+            for row, n in (("paged_decode_attention[lane-block2,fp8]", s.decode_steps * Lt),
+                           ("paged_decode_attention[host-whole,fp8]", s.decode_steps * Lt),
+                           ("prefill_attention[chunk]", s.prefill_chunks * Lt)):
+                per_row[row] = per_row.get(row, 0) + n
+    if not sum(s.spills for s in st) or any(s.preemptions for s in st):
+        raise AssertionError(f"[placed-disagg] spills {[s.spills for s in st]}, preemptions "
+                             f"{[s.preemptions for s in st]}")
+    mc = got[0]["migration_check"]
+    print(f"[placed-disagg] migrated blocks read back on both meshes: {mc}")
+    if not (mc["migrations"] == one["stats"]["migrations"] and mc["blocks"] and not mc["differ"]):
+        raise AssertionError(f"[placed-disagg] a migrated block differs from the one exported, "
+                             f"or a migration was not read back: {mc}")
+    pairs = list(zip(got[0]["tokens"], one["tokens"], strict=True))
+    print(f"[placed-disagg] vs one rank's cluster: {sum(a == b for a, b in pairs)}/{len(pairs)} "
+          f"requests token-identical, first tokens equal "
+          f"{sum(a[0] == b[0] for a, b in pairs)}/{len(pairs)}")
+    runs["placed-disagg"] = PathRun(per_row, st, got[0]["tokens"], got[0]["wall_s"], None)
+    print(f"[world] phase wall {time.perf_counter() - t0:.1f}s")
+    return runs
 
 
 def _concurrency(kernels: list[dict]) -> tuple[float, float, float]:
@@ -4191,8 +4557,8 @@ def expert_bmm_timing(model, params) -> float:
 
 def deepseek_phase(dev) -> PathRun:
     """deepseek-v3-671b at full width, cut to ``DS_LAYERS`` layers (its 3
-    dense and first 2 MoE layers: every kind of layer and the dense-to-MoE
-    transition), on a card that holds nothing of the phases before:
+    dense layers and its first MoE layer: every kind of layer and the
+    dense-to-MoE transition), on a card that holds nothing of the phases before:
     first the float32 check at full width cut to its 2 first (dense MLA)
     layers, card against CPU (:func:`wide_f32_check`); seed-0 bf16 weights
     drawn on the card (memory allocated before and after, the peak, the
@@ -5420,7 +5786,9 @@ def placed_train_worker(out: Path, device: str | None = None) -> None:
         walls[f"f32-mp{mp}"] = time.perf_counter() - t0
     # a checkpoint written on data 2 x model 1 restored on data 1 x model 2
     ck = out / "ckpt"
-    restore = dev_flags + ["--layers", str(PT_F32_LAYERS), "--steps", str(PT_STEPS),
+    # on the reduced model since slice 21: at full width the embedding's
+    # state made its three saves and one restore cost ~22 s of I/O
+    restore = dev_flags + ["--reduced", "--layers", str(PT_F32_LAYERS), "--steps", str(PT_STEPS),
                            "--ckpt-every", str(PT_CKPT), "--ckpt-dir", str(ck)]
     t0 = time.perf_counter()
     got["placed-train-restore-dp"] = _pt_cli(restore + ["--model-parallel", "1"])
@@ -5467,7 +5835,8 @@ def placed_train_phase(dev) -> dict[str, PathRun]:
     ``make_train_step`` at :data:`PT_FSDP_LAYERS` layers; placed-train-f32
     (both meshes, float32, :data:`PT_F32_LAYERS` layers): losses and grad
     norms within :data:`PT_F32_TOL` of one rank's; placed-train-restore: a
-    checkpoint written on data 2 x model 1 (every ``PT_CKPT`` steps)
+    checkpoint of the reduced model written on data 2 x model 1 (every
+    ``PT_CKPT`` steps)
     restored on data 1 x model 2, whose step ``PT_CKPT`` loss is the
     unbroken run's within :data:`PT_LOSS_TOL`; the GPipe pipeline over a
     ``stage`` axis against ``sequential_reference``; ``int8_psum`` of
@@ -5794,6 +6163,8 @@ def main() -> None:
     lap("sub-batches, dense-8")
     by_path.update(placed_phase(model, params, by_path))
     lap("placed")
+    by_path.update(world_phase(model, params, by_path, by_name))
+    lap("world (world-disagg, placed-disagg)")
     # the dense cache's int8 kv_quant form, on llama's weights (the same
     # parameters): the prefill attends over unquantized K/V, so every first
     # token must be the dense path's; the later ones are printed beside
@@ -5909,5 +6280,7 @@ if __name__ == "__main__":
         placed_worker(Path(sys.argv[2]))
     elif sys.argv[1:2] == ["--placed-train-worker"]:
         placed_train_worker(Path(sys.argv[2]))
+    elif sys.argv[1:2] == ["--world-worker"]:
+        world_worker(Path(sys.argv[2]))
     else:
         main()

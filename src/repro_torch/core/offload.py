@@ -137,6 +137,12 @@ class Placement:
         """Whether ``axes`` split a dim over more than one rank."""
         return self.mesh.size(axes) > 1
 
+    def stack_mesh(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        """:meth:`stack_all` over every axis of the mesh: each ``x`` of
+        every rank, ``(n_ranks, *x.shape)``, in one collective."""
+        mesh = self.mesh
+        return self.stack_all(xs, tuple(a for a in mesh.axis_names if mesh.size_of(a) > 1))
+
 
 class ShardedCache(dict):
     """This rank's shards of a dense cache (``k``/``v`` ``(L, b, s, h,
@@ -144,14 +150,17 @@ class ShardedCache(dict):
     rows ``rows`` split over ``row_axes``, positions ``seq`` over
     ``seq_axes``, KV heads ``heads`` over ``head_axes``.  A slot's view
     (:meth:`slot_view`) is a cache of one row, held by the rank that owns
-    it and empty elsewhere."""
+    it and empty elsewhere.  ``place`` is the rank's :class:`Placement`
+    (a slot gathered whole for migration runs its collective)."""
 
     def __init__(self, leaves: dict, *, batch: int, max_seq: int, n_kv: int, rows: Range,
-                 seq: Range, heads: Range, row_axes=(), seq_axes=(), head_axes=()):
+                 seq: Range, heads: Range, row_axes=(), seq_axes=(), head_axes=(),
+                 place: Placement | None = None):
         super().__init__(leaves)
         self.batch, self.max_seq, self.n_kv = batch, max_seq, n_kv
         self.rows, self.seq, self.heads = rows, seq, heads
         self.row_axes, self.seq_axes, self.head_axes = row_axes, seq_axes, head_axes
+        self.place = place
 
     def local_row(self, row: int) -> int | None:
         """The local index of global row ``row``, None when not held here."""
@@ -165,7 +174,7 @@ class ShardedCache(dict):
     def _view(self, leaves: dict, batch: int, rows: Range) -> "ShardedCache":
         return ShardedCache(leaves, batch=batch, max_seq=self.max_seq, n_kv=self.n_kv,
                             rows=rows, seq=self.seq, heads=self.heads, row_axes=self.row_axes,
-                            seq_axes=self.seq_axes, head_axes=self.head_axes)
+                            seq_axes=self.seq_axes, head_axes=self.head_axes, place=self.place)
 
     def split(self, n_sub: int) -> list["ShardedCache"]:
         """``n_sub`` sub-batch caches of views, each of ``batch // n_sub``
@@ -225,7 +234,7 @@ class ShardedCache(dict):
                              for k, v in self.items()},
                             batch=1, max_seq=self.max_seq, n_kv=self.n_kv, rows=(0, n),
                             seq=self.seq, heads=self.heads, seq_axes=self.seq_axes,
-                            head_axes=self.head_axes)
+                            head_axes=self.head_axes, place=self.place)
 
 
 def placed_decode_attention(place: Placement, cache: ShardedCache, layer: int,

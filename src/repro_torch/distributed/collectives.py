@@ -28,12 +28,23 @@ its transpose: :class:`CopyToGroup`, :class:`ReduceFromGroup`,
 the differentiable forms (``torch.autograd.Function``), in the pairs of
 Megatron's tensor parallelism and of ZeRO-3.  :func:`int8_psum` and
 :func:`collective_bytes_of_spec` are the reference's.
+
+Between the replicas of a serving cluster, each on a mesh of its own
+(``launch.mesh.replica_meshes``), only host data moves, over the world's
+gloo group (a replica mesh's ``host``): :class:`Fanout` broadcasts the
+small integer arrays a replica's device returned (sampled tokens, EOS
+flags) from its first rank to every rank, and :func:`send_tree` /
+:func:`recv_tree` carry a migrating request's KV payload from the source
+replica's first rank to each rank of the destination, through pinned
+host memory.
 """
 from __future__ import annotations
 
 import functools
+import json
 import math
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -283,3 +294,76 @@ def collective_bytes_of_spec(shape, dtype_bytes: int, n_shards: int, kind: str) 
     if kind == "collective-permute":
         return total
     raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# host data between the replicas of a cluster
+# ---------------------------------------------------------------------------
+class Fanout:
+    """A replica's host arrays shared with every rank of the world: the
+    replica's first rank (``src``, a world rank) broadcasts them over the
+    world's gloo ``group``, every rank at the same point of the cluster's
+    host schedule.  ``broadcasts`` counts the calls."""
+
+    def __init__(self, src: int, group):
+        self.src, self.group = src, group
+        self.broadcasts = 0
+
+    def share(self, arrays: list[np.ndarray] | None, shapes) -> list[np.ndarray]:
+        """``arrays`` (integer arrays of ``shapes``) as ``src`` holds them,
+        on every rank, as int64; ``arrays`` is read on ``src`` only (a rank
+        outside the replica passes None)."""
+        sizes = [math.prod(s) for s in shapes]
+        if dist.get_rank() == self.src:
+            flat = torch.from_numpy(np.concatenate(
+                [np.asarray(a, np.int64).reshape(-1) for a in arrays]))
+        else:
+            flat = torch.empty(sum(sizes), dtype=torch.int64)
+        dist.broadcast(flat, src=self.src, group=self.group)
+        self.broadcasts += 1
+        out = flat.numpy()
+        return [p.reshape(s) for p, s in zip(np.split(out, np.cumsum(sizes)[:-1]), shapes)]
+
+
+def send_tree(tree: dict[str, torch.Tensor], dst: int, group) -> None:
+    """Send a dict of tensors (any keys, dtypes and device) to world rank
+    ``dst`` over the gloo ``group``: the sizes of its header and body, then
+    one pinned host buffer of the header (each leaf's key, dtype and shape,
+    as JSON) and each leaf's bytes."""
+    head = json.dumps([[key, str(t.dtype).removeprefix("torch."), list(t.shape)]
+                       for key, t in tree.items()]).encode()
+    parts = []
+    for t in tree.values():
+        raw = t.contiguous().view(torch.uint8).reshape(-1)
+        parts += [raw, raw.new_zeros(_aligned(raw.numel()) - raw.numel())]
+    body = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.uint8)
+    off = _aligned(len(head))
+    buf = torch.zeros(off + body.numel(), dtype=torch.uint8, pin_memory=body.is_cuda)
+    buf[:len(head)] = torch.frombuffer(bytearray(head), dtype=torch.uint8)
+    buf[off:].copy_(body)
+    dist.send(torch.tensor([len(head), buf.numel()], dtype=torch.int64), dst, group=group)
+    dist.send(buf, dst, group=group)
+
+
+def recv_tree(src: int, group, pin: bool = False) -> dict[str, torch.Tensor]:
+    """Receive :func:`send_tree`'s dict from world rank ``src``: CPU
+    tensors, views of one buffer (pinned with ``pin``, for a non-blocking
+    copy to a card)."""
+    sizes = torch.zeros(2, dtype=torch.int64)
+    dist.recv(sizes, src, group=group)
+    n_head, n_buf = sizes.tolist()
+    buf = torch.empty(n_buf, dtype=torch.uint8, pin_memory=pin)
+    dist.recv(buf, src, group=group)
+    out, off = {}, _aligned(n_head)
+    for key, dtype, shape in json.loads(bytes(buf[:n_head].numpy())):
+        dt = getattr(torch, dtype)
+        n = math.prod(shape) * dt.itemsize
+        out[key] = buf[off:off + n].view(dt).reshape(shape)
+        off += _aligned(n)
+    return out
+
+
+def _aligned(n: int) -> int:
+    """``n`` bytes padded to 8: every leaf of a tree's buffer starts
+    aligned for its dtype."""
+    return -(-n // 8) * 8

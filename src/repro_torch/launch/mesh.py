@@ -16,6 +16,14 @@ chosen from the layout: ``nccl`` when every rank of a host has a card of
 its own, ``gloo`` on the CPU or when ranks share a card (NCCL refuses two
 ranks on one device).  ``make_production_mesh`` (the reference's
 512-chip dry-run mesh) comes with the dry run.
+
+A serving cluster gives each replica a mesh of its own slice of the
+world (:func:`replica_meshes`): every rank builds every replica's mesh,
+:attr:`DeviceMesh.ranks` names the replica's ranks (``ranks[0]`` its
+first) and :attr:`DeviceMesh.coords` is None where the rank is not a
+member.  What the replicas share on the host (their fetched tokens, the
+KV payloads that migrate between them) moves over each mesh's
+:attr:`DeviceMesh.host`, a gloo group of the whole world.
 """
 from __future__ import annotations
 
@@ -68,6 +76,16 @@ def init_world(device: str | torch.device | None = None) -> None:
     dist.init_process_group(backend_for(dev), init_method="env://", timeout=TIMEOUT)
 
 
+def host_group():
+    """A gloo group of the whole world, for host tensors (CPU tensors only
+    move over gloo): the default group when it is gloo, else a new one,
+    which every rank makes at the same point (group creation is
+    collective).  None without a world."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return None
+    return dist.group.WORLD if dist.get_backend() == "gloo" else dist.new_group(backend="gloo")
+
+
 def world() -> tuple[int, int]:
     """``(rank, world size)`` of the default group (``(0, 1)`` without)."""
     if dist.is_initialized():
@@ -78,7 +96,11 @@ def world() -> tuple[int, int]:
 class DeviceMesh:
     """``ranks`` of the world laid out row-major on named axes.  Every rank
     of the world constructs every mesh (group creation is collective);
-    ``coords`` is None on a rank outside it."""
+    ``coords`` is None on a rank outside it.  ``host`` is the world's gloo
+    group over which a replica's mesh shares host data with the ranks
+    outside it (:func:`replica_meshes` sets it)."""
+
+    host = None
 
     def __init__(self, shape: dict[str, int], ranks: list[int] | None = None):
         self.axis_names = tuple(shape)
@@ -179,7 +201,9 @@ def replica_meshes(n_replicas: int, model_parallel: int = 1,
     """One ``(data, model)`` mesh per serving replica, on disjoint
     contiguous slices of the world's ranks; when the world cannot be split
     so (fewer ranks than replicas, or a count that does not divide), every
-    replica shares the one host mesh, as in the reference."""
+    replica shares the one host mesh, as in the reference.  Split meshes
+    share the world's :func:`host_group` as their ``host``, over which the
+    replicas share their host arrays."""
     if n_replicas < 1:
         raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
     init_world(device)
@@ -188,5 +212,15 @@ def replica_meshes(n_replicas: int, model_parallel: int = 1,
         return [make_host_mesh(model_parallel)] * n_replicas
     per = n // n_replicas
     mp = model_parallel if per % model_parallel == 0 else 1
-    return [DeviceMesh({"data": per // mp, "model": mp}, range(i * per, (i + 1) * per))
-            for i in range(n_replicas)]
+    meshes = [DeviceMesh({"data": per // mp, "model": mp}, range(i * per, (i + 1) * per))
+              for i in range(n_replicas)]
+    host = host_group()
+    for m in meshes:
+        m.host = host
+    return meshes
+
+
+def split(meshes: list[DeviceMesh]) -> bool:
+    """Whether :func:`replica_meshes` gave the replicas meshes of their
+    own (else they share the one host mesh)."""
+    return len({id(m) for m in meshes}) > 1

@@ -48,8 +48,8 @@ cluster tier: ``--replicas N`` engine replicas behind one global queue
 (``--route round_robin|least_loaded|prefix_affinity``), disaggregated by
 ``--role-map`` (``1p+1d``, ``2p+2d+1m``, ``prefill,decode``: prompts
 prefill on prefill-role replicas and their KV blocks migrate to a
-decode-role one, with ``--decode-slots`` slots there).  Every replica
-runs on the one ``--device`` and shares the weights.
+decode-role one, with ``--decode-slots`` slots there).  In one process
+every replica runs on the one ``--device`` and shares the weights.
 Weights are random, drawn from ``--seed`` on the device; the draft's
 from seed 1.  The run is on the GPU; ``--device cpu`` runs the plain
 PyTorch path (with ``--reduced``, the test scale).
@@ -86,8 +86,24 @@ schedule, ``--spec-depth`` with the draft placed on the same mesh,
 CUDA graph), rank 0 reports, and every rank prints its ``pool:``, ``kv
 tier:`` and ``spec:`` lines (the same on every rank: the whole pool's
 bookkeeping and bytes, the host schedule, the accept decisions).  A
-clustered run, or a family other than the dense one, is refused on a
-world above 1: those wait for later slices.
+family other than the dense one is refused on a mesh: it waits for a
+later slice.
+
+A cluster under ``torchrun`` (``torchrun --nproc-per-node 2 -m
+repro_torch.launch.serve --replicas 2 --role-map 1p+1d --cache paged
+--schedule hybrid``) gives each replica its own slice of the world
+(``launch.mesh.replica_meshes``), as the reference does: replica *i*'s
+model is built on its mesh with the balancer's KV policy (made on the
+world's axes), placed there when the mesh has more than one rank
+(eagerly) and on its one rank otherwise (CUDA graphs on); its weights
+are drawn from ``--seed`` on its mesh, and the draft of ``--spec-depth``
+too.  Every rank runs the whole cluster loop, each replica's engine a
+mirror on the ranks outside its mesh (``serving.cluster``), and KV
+migrates between meshes.  When the world cannot be split so, every
+replica shares the one placed model of the host mesh.  Rank 0 prints the
+reference's lines; every other rank the ``pool[r{i}]:`` lines of the
+replicas it holds.  ``--trace`` / ``--profile`` on a cluster of more
+than one rank wait for ROADMAP item 9b.4.
 """
 from __future__ import annotations
 
@@ -103,7 +119,8 @@ from repro_torch.configs.reduced import reduce_config
 from repro_torch.core import balance
 from repro_torch.core.oi import DEVICES
 from repro_torch.core.placement import Env
-from repro_torch.launch.mesh import DeviceMesh, make_host_mesh, mesh_axes, rank_device, world
+from repro_torch.launch.mesh import (DeviceMesh, make_host_mesh, mesh_axes, rank_device,
+                                     replica_meshes, split, world)
 from repro_torch.models.registry import Model, build_model
 from repro_torch.serving.cluster import ROUTE_POLICIES, Cluster, parse_roles
 from repro_torch.serving.engine import Engine, EngineStats
@@ -246,12 +263,18 @@ def place(args, cfg) -> tuple[DeviceMesh, Env, str]:
     where its engine is (the rest)."""
     mesh = make_host_mesh(device=args.device)
     axes = mesh_axes(mesh)
-    plan = balance.plan(cfg, SHAPES["decode_32k"], axes)
+    plan = world_plan(cfg, axes)
     n = world()[1]
     if n > 1:
         args.device = str(rank_device(args.device))
     return mesh, Env(axes=axes if n > 1 else {}, kv_policy=plan.kv_policy), \
         balance.balancer_line(plan)
+
+
+def world_plan(cfg, axes: dict[str, int]) -> balance.Plan:
+    """The balancer's plan for ``cfg`` on the world's ``axes`` (the host
+    mesh's), as the reference makes it before any replica's."""
+    return balance.plan(cfg, SHAPES["decode_32k"], axes)
 
 
 @dataclasses.dataclass
@@ -285,9 +308,8 @@ def load_draft(args, model: Model) -> tuple[Model, dict]:
     reduced size with the target's vocab, on the target's device, weights
     from seed 1; on a mesh placed as the target is, with its ``Env`` (the
     reference builds the draft with the target's)."""
-    mesh = model.placement.mesh if model.placement is not None else None
     draft = build_model(reduce_config(args.draft or args.arch, vocab=model.cfg.vocab),
-                        model.device, model.env, mesh)
+                        model.device, model.env, model.mesh)
     return draft, draft.init(1)
 
 
@@ -311,7 +333,9 @@ def engine_kwargs(args, model: Model, draft=None) -> dict:
     _, sampler = make_sampler(args)
     spec = {}
     if args.spec_depth:
-        d_model, d_params = draft or load_draft(args, model)
+        # without a model (replicas on meshes of their own) each replica's
+        # draft comes from replica_factory
+        d_model, d_params = draft or ((None, None) if model is None else load_draft(args, model))
         spec = dict(spec_depth=args.spec_depth, draft_model=d_model, draft_params=d_params)
     return dict(n_slots=args.slots, max_seq=args.max_seq, sampler=sampler,
                 sub_batches=args.sub_batches, async_mode=args.async_mode == "on",
@@ -329,24 +353,54 @@ def make_engine(args, model: Model, params: dict, draft=None, tracer=None,
                   **engine_kwargs(args, model, draft))
 
 
-def make_server(args, model: Model, params: dict, draft=None, tracer=None,
-                profiler=None) -> Engine | Cluster:
-    """A fresh engine, or with ``--replicas`` > 1 a cluster of them, every
-    replica on the model's device, sharing ``params``."""
+def make_server(args, model: Model | None, params: dict | None, draft=None, tracer=None,
+                profiler=None, meshes: list[DeviceMesh] | None = None) -> Engine | Cluster:
+    """A fresh engine, or with ``--replicas`` > 1 a cluster of them: every
+    replica on the model's device sharing ``params``, or, when the world
+    splits into ``meshes`` of their own (``launch.mesh.replica_meshes``,
+    made here when not given), each replica built on its mesh by
+    :func:`replica_factory` (``model`` and ``params`` are then unused and
+    may be None)."""
     if args.replicas <= 1:
         return make_engine(args, model, params, draft, tracer, profiler)
     roles = parse_roles(args.role_map, args.replicas) if args.role_map else None
     role_kw = {"decode": {"n_slots": args.decode_slots}} if args.decode_slots else None
+    meshes = meshes or replica_meshes(args.replicas, device=args.device)
+    factory = replica_factory(args, meshes) if split(meshes) else None
     return Cluster(model, params, args.replicas, route=args.route, tracer=tracer,
-                   profiler=profiler, roles=roles, role_kw=role_kw,
-                   **engine_kwargs(args, model, draft))
+                   profiler=profiler, roles=roles, role_kw=role_kw, model_factory=factory,
+                   **engine_kwargs(args, None if factory else model, draft))
 
 
-def serve(args, model: Model, params: dict, draft=None) -> ServeResult:
-    """Run the workload of ``args`` through a fresh engine or cluster."""
+def replica_factory(args, meshes: list[DeviceMesh]):
+    """``factory(i) -> (model, weights, engine keywords)`` of replica ``i``:
+    its model on ``meshes[i]`` with the KV policy of the world's plan,
+    placed there when the mesh has more than one rank, its weights from
+    ``--seed`` and, with ``--spec-depth``, its draft built alike (a
+    stand-in with no weights on a rank outside the mesh)."""
+    cfg = load_config(args)
+    policy = world_plan(cfg, {"data": world()[1], "model": 1}).kv_policy
+
+    def factory(i: int):
+        mesh = meshes[i]
+        env = Env(axes=mesh_axes(mesh) if len(mesh.ranks) > 1 else {}, kv_policy=policy)
+        model = build_model(cfg, args.device, env, mesh)
+        extra = {}
+        if args.spec_depth:
+            extra = dict(zip(("draft_model", "draft_params"), load_draft(args, model)))
+        return model, model.init(args.seed), extra
+
+    return factory
+
+
+def serve(args, model: Model | None, params: dict | None, draft=None,
+          meshes: list[DeviceMesh] | None = None) -> ServeResult:
+    """Run the workload of ``args`` through a fresh engine or cluster
+    (:func:`make_server`)."""
     tracer, slo, profiler = make_telemetry(args)
     serv = make_server(args, model, params, draft, tracer,
-                      profiler if profiler.enabled else None)
+                       profiler if profiler.enabled else None, meshes)
+    model = serv.engines[0].model if isinstance(serv, Cluster) else serv.model
     arrivals = build_workload(args.workload, args.requests, vocab=model.cfg.vocab,
                               max_seq=args.max_seq, max_new=args.max_new,
                               seed=args.workload_seed, rate=args.arrival_rate,
@@ -485,20 +539,30 @@ def write_outputs(args, res: ServeResult) -> list[str]:
 RANK_LINES = ("pool:", "kv tier:", "spec:")
 
 
+def rank_lines(lines: list[str], res: ServeResult) -> list[str]:
+    """What a rank other than 0 prints of ``lines``: its ``pool:``, ``kv
+    tier:`` and ``spec:`` lines, and of a cluster the ``pool[r{i}]:``
+    lines of the replicas whose mesh holds it."""
+    mine = tuple(f"pool[r{i}]:" for i, e in enumerate(res.cluster.engines) if e.member
+                 ) if res.cluster else ()
+    return [line for line in lines if line.startswith(RANK_LINES + mine)]
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     mesh, env, line = place(args, load_config(args))
     rank0 = world()[0] == 0
     if rank0:
         print(line)
-    model, params = load_model(args, env, mesh)
-    res = serve(args, model, params)
+    meshes = replica_meshes(args.replicas, device=args.device) if args.replicas > 1 else None
+    # replicas on meshes of their own are each built by make_server
+    model, params = (None, None) if meshes and split(meshes) else load_model(args, env, mesh)
+    res = serve(args, model, params, meshes=meshes)
     lines = report(args, res)
     # every rank holds the whole pool's bookkeeping and runs the same host
-    # schedule: each prints its pool:, kv tier: and spec: lines, the same
-    # on every rank
-    lines = lines + write_outputs(args, res) if rank0 else [
-        line for line in lines if line.startswith(RANK_LINES)]
+    # schedule: each prints its pool:, kv tier: and spec: lines (of a
+    # cluster, its replicas' pool[r{i}]: lines), the same on every rank
+    lines = lines + write_outputs(args, res) if rank0 else rank_lines(lines, res)
     for line in lines:
         print(line)
 

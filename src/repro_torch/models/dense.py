@@ -130,7 +130,8 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                                             dtype=dt.get(k, torch.int32), device=device)
                              for k, d in defs.items()},
                             batch=batch, max_seq=max_seq, n_kv=cfg.n_kv_heads, rows=(0, batch),
-                            seq=(0, max_seq), heads=(h0, h1), head_axes=tp.heads)
+                            seq=(0, max_seq), heads=(h0, h1), head_axes=tp.heads,
+                            place=place)
     if place is not None:
         specs = {k: place.env.kv_spec(d.logical, d.shape) for k, d in defs.items()}
         sp = specs["k"]
@@ -140,7 +141,7 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                              for k, d in defs.items()},
                             batch=batch, max_seq=max_seq, n_kv=cfg.n_kv_heads, rows=parts[1],
                             seq=parts[2], heads=parts[3], row_axes=sp.axes(1),
-                            seq_axes=sp.axes(2), head_axes=sp.axes(3))
+                            seq_axes=sp.axes(2), head_axes=sp.axes(3), place=place)
     return {k: torch.zeros(d.shape, dtype=dt.get(k, torch.int32), device=device)
             for k, d in defs.items()}
 

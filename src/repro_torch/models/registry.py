@@ -23,6 +23,13 @@ and on the int8 ``kv_quant`` one, as its ``loss_fn`` does for training
 (``training.trainer`` reduces the gradients and shards the optimizer
 state).  The other families wait for later slices (:func:`build_model`
 refuses them on a mesh).
+
+A serving cluster builds each replica's model on the replica's own mesh
+(``launch.mesh.replica_meshes``), placed there or, for a mesh of one
+rank, on that rank alone; on every rank outside the mesh the same call
+gives a *stand-in* (:attr:`Model.mirror`): the model's config and steps
+with no device state (:meth:`Model.init` gives no weights), which lets
+the replica's engine keep the replica's host bookkeeping there.
 """
 from __future__ import annotations
 
@@ -82,11 +89,22 @@ class Model:
     env: Env = dataclasses.field(default_factory=Env)
     # this rank on the mesh, when ``env.axes`` is not empty
     placement: Placement | None = None
+    # the mesh whose ranks hold the model's device state (launch.mesh's
+    # DeviceMesh; None: this process alone)
+    mesh: Any = None
+
+    @property
+    def mirror(self) -> bool:
+        """Whether this rank is outside the model's mesh: a stand-in with no
+        device state."""
+        return self.mesh is not None and self.mesh.coords is None
 
     def init(self, seed: int = 0) -> Pytree:
         """Random weights from a seeded generator on the model's device; on
         a mesh every rank draws the whole of each leaf, the same numbers as
-        one device, and keeps its shard."""
+        one device, and keeps its shard.  A stand-in has none (None)."""
+        if self.mirror:
+            return None
         gen = torch.Generator(device=self.device).manual_seed(seed)
         take = None
         if self.placement is not None:
@@ -136,6 +154,10 @@ OPTIONAL_STEPS = ("decode_sample_step", "prefill_step", "prefill_sample_step",
 
 def build_model(cfg: ModelConfig, device: str | torch.device | None = None,
                 env: Env | None = None, mesh=None) -> Model:
+    """``cfg``'s model on ``device``; with ``env.axes``, placed on this
+    rank of ``mesh``.  ``mesh`` without axes (a replica's mesh of one rank)
+    names the rank that holds the model.  On a rank outside ``mesh`` the
+    model is a stand-in (:attr:`Model.mirror`)."""
     dev = resolve_device(device)
     env = env or Env()
     if cfg.family == DENSE:
@@ -155,6 +177,8 @@ def build_model(cfg: ModelConfig, device: str | torch.device | None = None,
     defs = fam.param_defs(cfg)
     if env.axes:
         return _placed_model(cfg, dev, env, mesh, fam, defs)
+    if mesh is not None and len(mesh.ranks) != 1:
+        raise ValueError(f"an unplaced model lives on one rank, not on {mesh}")
     optional = {name: functools.partial(getattr(fam, name), cfg)
                 for name in OPTIONAL_STEPS if hasattr(fam, name)}
     if hasattr(fam, "init_paged_cache"):
@@ -169,6 +193,7 @@ def build_model(cfg: ModelConfig, device: str | torch.device | None = None,
         init_cache=functools.partial(fam.init_cache, cfg, device=dev),
         loss_fn=functools.partial(fam.loss_fn, cfg),
         env=env,
+        mesh=mesh,
         **optional,
     )
 
@@ -207,4 +232,5 @@ def _placed_model(cfg: ModelConfig, dev: torch.device, env: Env, mesh, fam, defs
         paged_verify_step=functools.partial(fam.paged_verify_step, cfg, place=place),
         env=env,
         placement=place,
+        mesh=mesh,
     )

@@ -4,8 +4,21 @@ Counterpart of ``repro.serving.cluster.cluster``.  The paper scales KV
 capacity by adding HPU cards; the serving-tier analogue is data-parallel
 engine replicas — each :class:`Engine` owns its own cache, scheduler,
 block pool and CUDA graphs, and all of them share one params set on one
-device (``model_factory(i)``, when given, builds replica *i*'s model;
-one card needs none) — with a **shared global request queue** in front.
+device, or each holds its own (``model_factory(i)``, when given, builds
+replica *i*'s model and weights) — with a **shared global request queue**
+in front.
+
+Under a ``torch.distributed`` world the replicas may each have a mesh of
+their own (``launch.mesh.replica_meshes``; ``model_factory`` builds each
+on its mesh).  Every rank then runs this whole host loop — the global
+queue, the router, the roles, migration and refold moves — over every
+replica: on the ranks of a replica's mesh its engine has the device
+state, elsewhere it is a mirror (``Engine.member``) that keeps the same
+host bookkeeping and learns what the device returned by broadcast.
+Every rank reaches the same decisions, and :meth:`Cluster.stats` is the
+same on every rank.  A migrating request's KV is gathered whole on the
+source's mesh and sent from its first rank to each rank of the
+destination's (:meth:`Cluster._handoff`).
 Requests wait globally and are placed by a
 :class:`~repro_torch.serving.cluster.router.Router` the moment some replica
 can admit them, so placement decisions always see current load and
@@ -61,6 +74,8 @@ from __future__ import annotations
 import re
 from collections import deque
 
+from repro_torch.distributed import collectives
+from repro_torch.launch.mesh import world
 from repro_torch.serving.cluster.router import Router
 from repro_torch.serving.cluster.stats import ClusterStats, ReplicaStats
 from repro_torch.serving.engine import Engine, Request
@@ -134,6 +149,10 @@ class Cluster:
             raise ValueError(f"need >= 1 replica, got {n_replicas}")
         self.tracer = NULL_TRACER if tracer is None else tracer
         self.profiler = profiler
+        if world()[1] > 1 and (self.tracer.enabled or (profiler and profiler.enabled)):
+            raise NotImplementedError(
+                "tracing and profiling a cluster on more than one rank wait for "
+                "ROADMAP item 9b.4 (telemetry across ranks)")
         self.roles = parse_roles(roles, n_replicas)
         role_kw = role_kw or {}
         self.engines = []
@@ -142,9 +161,14 @@ class Cluster:
             # replicas run more slots: they hold the long decode phase
             # while prefill replicas only stage short-lived prefills)
             kw = {**engine_kw, **role_kw.get(role, {})}
-            mdl = model if model_factory is None else model_factory(i)
+            # the port's factory gives the replica's weights too (a rank
+            # holds shards of its own mesh's, none of another's) and engine
+            # keywords of its own (its draft)
+            mdl, prm, extra = ((model, params, {}) if model_factory is None
+                               else model_factory(i))
+            kw.update(extra)
             self.engines.append(
-                Engine(mdl, params, tracer=self.tracer,
+                Engine(mdl, prm, tracer=self.tracer,
                        profiler=self.profiler, replica=i, role=role, **kw)
             )
         self.router = Router(self.engines, route, tracer=self.tracer,
@@ -227,7 +251,7 @@ class Cluster:
                     continue        # finished while observing in-flight tokens
                 req, ticket, payload = exported
                 dst = self.engines[dst_idx]
-                dslot = dst.import_request(req, ticket, payload)
+                dslot = dst.import_request(req, ticket, self._handoff(src, dst, payload))
                 if dslot is None:
                     # capacity shifted between probe and import (cannot
                     # happen single-threaded; defensive): land it back
@@ -243,6 +267,23 @@ class Cluster:
                     dst_idx, dst.stats.engine_steps, dslot, ticket.n_blocks,
                 )
         return moved
+
+    def _handoff(self, src: Engine, dst: Engine, payload):
+        """A migration payload where ``dst`` lands it: the same on one mesh
+        (or one process); between two meshes, sent whole from the source's
+        first rank to every rank of the destination's, over the world's
+        gloo group (pinned host memory for a card).  None on a rank
+        outside the destination."""
+        s, d = src.model.mesh, dst.model.mesh
+        if s is None or d is None or s.ranks == d.ranks:
+            return payload
+        me = world()[0]
+        if me == s.ranks[0]:
+            for r in d.ranks:
+                collectives.send_tree(payload, r, s.host)
+        if me not in d.ranks:
+            return None
+        return collectives.recv_tree(s.ranks[0], s.host, pin=dst.device.type == "cuda")
 
     def _rebalance_refolds(self) -> int:
         """Router-driven refold placement: a preempted request waiting at

@@ -9,9 +9,9 @@ replica of a :class:`~repro_torch.serving.cluster.Cluster` (router hooks,
 KV block migration, refold moves) or alone, and on the dense
 decode-only schedule with sub-batch pipelining (``sub_batches``), and
 for a placed model (one rank of a mesh: ``Model.placement``) all of the
-above but the cluster: the dense cache (also ``kv_quant``) or the paged
-pool (bf16, fp8 or int8, with the host tier) on either schedule,
-speculation with a draft placed on the same mesh and sub-batches,
+above: the dense cache (also ``kv_quant``) or the paged pool (bf16, fp8
+or int8, with the host tier) on either schedule, speculation with a
+draft placed on the same mesh and sub-batches, alone or as a replica,
 eagerly (the staging cache is then in the compute layout:
 ``init_cache(..., staging=True)``).  A
 family whose :class:`Model` lacks a step (the MoE family has no paged
@@ -47,6 +47,21 @@ queued request is prefilled into it while the others keep decoding.
   the chunk(s) first, then the decode batch, the same calls in the same
   order.  The paged cache stages chunks in a two-lane dense staging
   cache and flushes completed blocks into the pool.
+
+* A replica of a cluster whose replicas each have a mesh of their own
+  (``launch.mesh.replica_meshes``) runs on every rank of the world: on
+  the ranks of its mesh with its device state (``member``), on every
+  other rank as a *mirror* built on the model's stand-in
+  (``Model.mirror``), which holds no device tensor, skips every device
+  operation and keeps the replica's whole host bookkeeping (scheduler,
+  pool manager, slots, stats), so the router reads the same load on
+  every rank.  What the device returns reaches the host at one point, a
+  fetch read (:class:`_Fetch`: the sampled ids and EOS flags, a
+  speculative window, a prefill's first token; in sync mode the host
+  sampler's tokens): there the replica's first rank broadcasts it to
+  every rank (``collectives.Fanout``), once per fetch, in the host
+  schedule every rank runs alike.  A one-rank replica keeps its CUDA
+  graphs: the broadcasts read host memory after the replays.
 
 * ``async_mode=False`` — synchronous: every decode step's logits come
   back to the host and are sampled there (:func:`sampler.sample`).
@@ -96,11 +111,14 @@ outside the graphs, in stream order around the replays.
 Cross-replica migration (disaggregated serving): :meth:`Engine.preview_export`
 sizes a move without side effects, :meth:`Engine.export_request` detaches
 a resident request with its KV (the paged pool's blocks gathered in
-storage dtype, scale pools included; the dense cache's stripe), and
+storage dtype, scale pools included; the dense cache's stripe; from a
+placed cache whole, on every rank of its mesh), and
 :meth:`Engine.can_import` / :meth:`Engine.import_request` land it on
 another replica, writing into that engine's tensors in place (the
-captured programs read them), deduped against the destination's prefix
-cache.  The cluster drives this; a declined export decodes in place.
+captured programs read them; a placed cache takes each rank's part),
+deduped against the destination's prefix cache.  The cluster drives
+this, and moves the payload between two meshes; a declined export
+decodes in place.
 
 Step accounting (``EngineStats.engine_steps``) matches the reference: a
 model dispatch is one step, a decode-only whole prefill of ``L`` tokens
@@ -127,6 +145,8 @@ import torch
 
 from repro_torch.core.offload import ShardedCache
 from repro_torch.core.pipeline import pipelined_step, sub_batch_streams
+from repro_torch.distributed.collectives import Fanout
+from repro_torch.launch.mesh import world
 from repro_torch.models.registry import Model
 from repro_torch.serving import kv_cache
 from repro_torch.serving.paged import BlockPool, PagedCacheManager
@@ -255,10 +275,19 @@ class _Fetch:
     """Small device tensors on their way to the host.  On CUDA: a
     non-blocking copy into pinned memory plus an event, enqueued in
     stream order (so later in-place writes to the tensors do not reach
-    it); :meth:`numpy` waits on that event only."""
+    it); :meth:`numpy` waits on that event only.  A mirror gives the
+    tensors' shapes instead.  With a ``fanout`` the first read broadcasts
+    the replica's first rank's arrays to every rank; every read returns
+    the same arrays."""
 
-    def __init__(self, *tensors: torch.Tensor):
-        self._event = None
+    def __init__(self, *items, fanout: Fanout | None = None):
+        self._event = self._host = self._arrays = None
+        self._fanout = fanout
+        self._shapes = [tuple(t.shape) if isinstance(t, torch.Tensor) else tuple(t)
+                        for t in items]
+        tensors = [t for t in items if isinstance(t, torch.Tensor)]
+        if not tensors:
+            return                      # a mirror: the arrays come by broadcast
         if tensors[0].is_cuda:
             self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                           for t in tensors]
@@ -270,9 +299,15 @@ class _Fetch:
             self._host = [t.clone() for t in tensors]
 
     def numpy(self) -> list[np.ndarray]:
-        if self._event is not None:
-            self._event.synchronize()
-        return [h.numpy() for h in self._host]
+        if self._arrays is None:
+            local = None
+            if self._host is not None:
+                if self._event is not None:
+                    self._event.synchronize()
+                local = [h.numpy() for h in self._host]
+            self._arrays = local if self._fanout is None else self._fanout.share(
+                local, self._shapes)
+        return self._arrays
 
 
 class _Dispatch(NamedTuple):
@@ -300,6 +335,16 @@ class _PendingStep:
     pre2: _Fetch | None = None
     spec: bool = False                   # a speculative window
     charge: int = 1                      # in-flight charges per batch slot
+
+
+def _fanout(model: Model) -> Fanout | None:
+    """The broadcast from ``model``'s first rank to the world's other ranks,
+    when some rank of the world is outside its mesh (a replica's mirror
+    runs there); None otherwise."""
+    n = world()[1]
+    if model.mesh is None or n == 1 or len(model.mesh.ranks) == n:
+        return None
+    return Fanout(model.mesh.ranks[0], model.mesh.host)
 
 
 def _held_rows(cache: Pytree, x: torch.Tensor) -> torch.Tensor:
@@ -338,7 +383,11 @@ class Engine:
         role: str = "mixed",
     ):
         if model.placement is not None:
-            self._check_placed(graphs, replica, role)
+            self._check_placed(graphs)
+        # a mirror (a replica whose mesh this rank is not on) keeps the host
+        # bookkeeping only; its device results come by broadcast (_Fetch)
+        self.member = not model.mirror
+        self._fanout = _fanout(model)
         # speculation always runs on the dispatch-ahead machinery; sync mode
         # is that pipeline at depth zero (observe right after dispatch)
         if spec_depth < 0:
@@ -403,12 +452,13 @@ class Engine:
         self.capture_steps: dict[str, int] = {}
         # explicit generators: one on the device for the fused sampler,
         # one on the host for the synchronous oracle sampler
-        self._gen_dev = torch.Generator(device=self.device).manual_seed(seed)
+        self._gen_dev = (torch.Generator(device=self.device).manual_seed(seed)
+                         if self.member else None)
         self._gen_host = torch.Generator().manual_seed(seed)
         # one program per dispatch kind (serving/programs.py), captured as
         # a CUDA graph on a CUDA device unless graphs=False; eager on the CPU
-        self.graphs = (self.device.type == "cuda" and model.placement is None
-                       if graphs is None else graphs)
+        self.graphs = self.member and (self.device.type == "cuda" and model.placement is None
+                                       if graphs is None else graphs)
         if self.graphs and self.device.type != "cuda":
             raise ValueError(f"graphs=True needs a CUDA device, not {self.device}")
         self.programs: dict[str, Program] = {}
@@ -425,13 +475,14 @@ class Engine:
                     f"max_seq={max_seq} sequence ({self.max_blocks} blocks)")
             self.pool = BlockPool(self.n_blocks, block_size, host_blocks=host_blocks)
             self.manager = PagedCacheManager(self.pool, n_slots, self.max_blocks)
-            self.cache = model.init_paged_cache(n_slots, self.n_blocks, block_size,
-                                                self.max_blocks, kv_dtype=kv_dtype,
-                                                host_blocks=host_blocks)
+            self.cache = (model.init_paged_cache(n_slots, self.n_blocks, block_size,
+                                                 self.max_blocks, kv_dtype=kv_dtype,
+                                                 host_blocks=host_blocks)
+                          if self.member else None)
             self._decode = model.paged_decode_step
             self._decode_sampled = model.paged_decode_sample_step
         else:
-            self.cache = model.init_cache(n_slots, max_seq)
+            self.cache = model.init_cache(n_slots, max_seq) if self.member else None
             self._decode = model.decode_step
             self._decode_sampled = model.decode_sample_step
             if sub_batches != 1:
@@ -439,14 +490,15 @@ class Engine:
                 # (pipeline.sub_batch_streams); the CPU and a placed model
                 # (gloo's collectives run eagerly) run them in order
                 streams = (sub_batch_streams(self.device, sub_batches)
-                           if self.device.type == "cuda" and model.placement is None else None)
+                           if self.member and self.device.type == "cuda"
+                           and model.placement is None else None)
                 self._decode = pipelined_step(model.decode_step, sub_batches, streams)
                 self._decode_sampled = self._wrap_sampled(self._decode)
         if self._decode_sampled is None:        # a family without a fused sampled step
             self._decode_sampled = self._wrap_sampled(self._decode)
         self._pending: deque[_PendingStep] = deque()
         self._first_pending: list[tuple[Request, _Fetch]] = []
-        if async_mode:
+        if async_mode and self.member:
             self._tok_state = torch.zeros(n_slots, dtype=torch.int32, device=self.device)
             self._eos_dev = torch.full((n_slots,), -1, dtype=torch.int32,
                                        device=self.device)
@@ -467,7 +519,7 @@ class Engine:
             self._pf_tokens: dict[int, np.ndarray] = {}
             self._pf_prefix: dict[int, int] = {}
             self._pf_lane: dict[int, int] = {}
-            if cache_kind == "paged":
+            if cache_kind == "paged" and self.member:
                 # persistent two-lane staging cache: chunks accumulate here
                 # and completed blocks flush into the pool
                 self.staging = model.init_cache(2, self.max_blocks * block_size,
@@ -475,7 +527,7 @@ class Engine:
         if spec_depth:
             # the draft's cache is always dense (the draft is small), its
             # lengths mirroring the target's committed lengths slot for slot
-            self.d_cache = draft_model.init_cache(n_slots, max_seq)
+            self.d_cache = draft_model.init_cache(n_slots, max_seq) if self.member else None
             self._verify = (model.paged_verify_step if cache_kind == "paged"
                             else model.verify_step)
 
@@ -492,22 +544,15 @@ class Engine:
         return sampled
 
     @staticmethod
-    def _check_placed(graphs, replica, role) -> None:
+    def _check_placed(graphs) -> None:
         """What a placed model (one rank of a mesh) serves: all that one
         engine serves on the dense family — the dense cache (bf16/f32 or
         int8 ``kv_quant``) and the paged pool (bf16, fp8 or int8, with the
         host tier) on either schedule, speculation (its draft placed on the
-        same mesh) and sub-batches — eagerly; every rank runs the same host
-        schedule and reaches the same decisions from the same logits.
-        Replicas and roles wait for per-replica meshes, and CUDA graphs
-        cannot capture gloo's collectives."""
-        refused = {"replica": (replica, 0, "a replica of a cluster"),
-                   "role": (role, "mixed", "a disaggregated role")}
-        for name, (got, default, what) in refused.items():
-            if got != default:
-                raise NotImplementedError(
-                    f"a placed model does not serve {what} yet (got {name}={got!r}): it waits "
-                    "for per-replica meshes (ROADMAP item 9b: replicas and roles)")
+        same mesh) and sub-batches, alone or as a cluster's replica —
+        eagerly; every rank runs the same host schedule and reaches the
+        same decisions from the same logits.  CUDA graphs cannot capture
+        gloo's collectives."""
         if graphs:
             raise ValueError("a placed model runs eagerly: CUDA graphs cannot capture its "
                              "gloo collectives")
@@ -517,7 +562,7 @@ class Engine:
                     host_blocks) -> None:
         """The reference's refusals of a speculative engine, in its order
         and with its exception types."""
-        if draft_model is None or draft_params is None:
+        if draft_model is None or (draft_params is None and not draft_model.mirror):
             raise ValueError("spec_depth > 0 needs a draft_model and draft_params")
         if sub_batches != 1:
             raise NotImplementedError(
@@ -581,12 +626,13 @@ class Engine:
         if not self.spec_depth:
             return
         chunk = self.prefill_chunk
-        prog = self._program("draft_prefill")
+        prog = self._program("draft_prefill") if self.member else None
         for start in range(0, len(tokens), chunk):
-            nv = min(chunk, len(tokens) - start)
-            buf = np.zeros((1, chunk), np.int32)
-            buf[0, :nv] = tokens[start:start + nv]
-            prog(tok0=buf, chunk0=(slot, 0, start, nv, 1))
+            if prog is not None:
+                nv = min(chunk, len(tokens) - start)
+                buf = np.zeros((1, chunk), np.int32)
+                buf[0, :nv] = tokens[start:start + nv]
+                prog(tok0=buf, chunk0=(slot, 0, start, nv, 1))
             self.stats.draft_steps += 1
 
     # ------------------------------------------------- one program per kind
@@ -761,20 +807,23 @@ class Engine:
         if self.cache_kind == "paged" and self.manager.cold_blocks[slot]:
             return None
         length = len(req.prompt) + len(req.out_tokens) - 1
+        payload = None                  # a mirror exports the bookkeeping only
         if self.cache_kind == "paged":
             ids = list(self.manager.blocks[slot])
-            payload = paged_dev.copy_blocks_out(self.cache, ids)
+            if self.member:
+                payload = paged_dev.copy_blocks_out(self.cache, ids)
             _, keys = self.manager.export_slot(slot)
             # dying private prefixes may spill host-ward: copy them before
             # the freed device blocks can be reallocated and rewritten
             self._apply_pool_directives()
-            paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot], 0)
+            self._sync_slot(slot, 0)
             ticket = MigrationTicket(length=length, kv_dtype=self.kv_dtype, keys=keys,
                                      n_blocks=len(ids), block_size=self.block_size,
                                      src_step=self.stats.engine_steps)
         else:
-            payload = kv_cache.export_slot(self.cache, slot)
-            kv_cache.reset_slot(self.cache, slot)
+            if self.member:
+                payload = kv_cache.export_slot(self.cache, slot)
+                kv_cache.reset_slot(self.cache, slot)
             ticket = MigrationTicket(length=length, kv_dtype=self.kv_dtype,
                                      src_step=self.stats.engine_steps)
         self.slots[slot] = None
@@ -852,11 +901,11 @@ class Engine:
             # only the columns the local prefix cache lacks (a trailing
             # headroom block has no payload column)
             sel = [j for j in range(ticket.n_blocks) if needs[j]]
-            if sel:
+            if sel and self.member:
                 paged_dev.copy_blocks_in(self.cache, self._localize(payload), sel,
                                          [ids[j] for j in sel])
-            paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot], ticket.length)
-        else:
+            self._sync_slot(slot, ticket.length)
+        elif self.member:
             kv_cache.insert(self.cache, self._localize(payload), slot)
         self.slots[slot] = req
         # carry decode-latency accounting onto this engine's step clock
@@ -864,9 +913,10 @@ class Engine:
             req.first_token_step = (
                 self.stats.engine_steps - (ticket.src_step - req.first_token_step))
         if self.async_mode:
-            # the last sampled token is the next decode input, as on the source
-            paged_dev.feed_token(self._tok_state, slot, int(req.out_tokens[-1]))
-            paged_dev.set_stop_id(self._eos_dev, slot, req.eos_id)
+            if self.member:
+                # the last sampled token is the next decode input, as on the source
+                paged_dev.feed_token(self._tok_state, slot, int(req.out_tokens[-1]))
+                paged_dev.set_stop_id(self._eos_dev, slot, req.eos_id)
             # the draft cache did not travel: rebuild it from the history
             # (all but the next input, the target's imported KV length)
             self._draft_prefill_slot(slot, self._refold(req)[:-1])
@@ -875,8 +925,10 @@ class Engine:
 
     def _localize(self, payload: Pytree) -> Pytree:
         """A migration payload on this engine's device: the same tensors
-        when source and destination share the card, else a copy."""
-        return {k: v.to(self.device) for k, v in payload.items()}
+        when they are there already (a source on the same card), else a
+        copy (from another card, or from the pinned host buffer a payload
+        from another mesh arrives in)."""
+        return {k: v.to(self.device, non_blocking=True) for k, v in payload.items()}
 
     # ---------------------------------------------- cluster refold leveling
     def can_admit_next(self) -> bool:
@@ -1069,7 +1121,7 @@ class Engine:
             # freed device blocks can be reallocated and rewritten
             self._apply_pool_directives()
             self._sync_freed(slot)
-        else:
+        elif self.member:
             kv_cache.reset_slot(self.cache, slot)
 
     def _sync_freed(self, slot: int) -> None:
@@ -1078,9 +1130,19 @@ class Engine:
         leaves a freed slot's device cold length as it was, so a later
         request in a slot that had spilled would attend with the old
         request's cold window; the port resets it here.)"""
-        paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot], 0)
+        self._sync_slot(slot, 0)
         if self.host_blocks:
-            paged_dev.sync_host_slot(self.cache, slot, self.manager.host_tables[slot], 0)
+            self._sync_host_slot(slot, 0)
+
+    def _sync_slot(self, slot: int, length: int | None = None) -> None:
+        """Push ``slot``'s block-table row (and length) to the device pool."""
+        if self.member:
+            paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot], length)
+
+    def _sync_host_slot(self, slot: int, cold_len: int) -> None:
+        """Push ``slot``'s host-table row and cold length to the device pool."""
+        if self.member:
+            paged_dev.sync_host_slot(self.cache, slot, self.manager.host_tables[slot], cold_len)
 
     # ------------------------------------------- admission (whole prefill)
     def _prefill_cost(self, n_tokens: int) -> int:
@@ -1100,11 +1162,13 @@ class Engine:
             if req.admit_step < 0:
                 req.admit_step = self.stats.engine_steps
             self._trace_admission(req, slot, step0, len(req.prompt), refold=False)
-            prompt = paged_dev.to_device(np.asarray(req.prompt, np.int64)[None],
-                                         self.device)
-            kv_cache.reset_slot(self.cache, slot)
-            logits, _ = self.model.prefill(self.params, prompt,
-                                           kv_cache.slot_view(self.cache, slot))
+            logits = None
+            if self.member:
+                prompt = paged_dev.to_device(np.asarray(req.prompt, np.int64)[None],
+                                             self.device)
+                kv_cache.reset_slot(self.cache, slot)
+                logits, _ = self.model.prefill(self.params, prompt,
+                                               kv_cache.slot_view(self.cache, slot))
             self.slots[slot] = req
             self._draft_prefill_slot(slot, np.asarray(req.prompt, np.int32))
             self._sample_prefill(req, slot, logits)
@@ -1132,33 +1196,44 @@ class Engine:
             # host-tier prefix hits re-hydrate: apply the copies before the
             # prefill's own block writes go out
             self._apply_pool_directives()
-            pad = -(-len(full) // bs) * bs
-            sub_cache = self.model.init_cache(1, pad, staging=True)
-            logits, _ = self.model.prefill(
-                self.params, paged_dev.to_device(full.astype(np.int64)[None], self.device),
-                sub_cache)
-            # fill only the blocks the prefix cache does not already hold
-            for j in range(n_cached, len(blocks)):
-                paged_dev.write_prompt_block(self.cache, sub_cache, blocks[j], j * bs)
-            paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot], len(full))
+            logits = None
+            if self.member:
+                pad = -(-len(full) // bs) * bs
+                sub_cache = self.model.init_cache(1, pad, staging=True)
+                logits, _ = self.model.prefill(
+                    self.params, paged_dev.to_device(full.astype(np.int64)[None], self.device),
+                    sub_cache)
+                # fill only the blocks the prefix cache does not already hold
+                for j in range(n_cached, len(blocks)):
+                    paged_dev.write_prompt_block(self.cache, sub_cache, blocks[j], j * bs)
+            self._sync_slot(slot, len(full))
             self.slots[slot] = req
             self._draft_prefill_slot(slot, full)
             self._sample_prefill(req, slot, logits)
 
-    def _sample_prefill(self, req: Request, slot: int, logits: torch.Tensor):
+    def _sample_prefill(self, req: Request, slot: int, logits: torch.Tensor | None):
         req.admit_base = len(req.out_tokens)
         if self.async_mode:
             # sample on the device and feed tok_state; the id is read
             # lazily with the step stream, the host never waits here
-            tok = sample_on_device(logits, self._gen_dev, self.sampler)
-            paged_dev.feed_token(self._tok_state, slot, tok)
-            paged_dev.set_stop_id(self._eos_dev, slot, req.eos_id)
+            tok = (1,)
+            if self.member:
+                tok = sample_on_device(logits, self._gen_dev, self.sampler)
+                paged_dev.feed_token(self._tok_state, slot, tok)
+                paged_dev.set_stop_id(self._eos_dev, slot, req.eos_id)
             req.in_flight += 1
             req.in_flight_steps += 1
-            self._first_pending.append((req, _Fetch(tok)))
+            self._first_pending.append((req, _Fetch(tok, fanout=self._fanout)))
         else:
-            req.out_tokens.append(int(sample(logits, self._gen_host, self.sampler)[0]))
+            req.out_tokens.append(int(self._host_sample(logits, 1)[0]))
         self._record_first_token(req, slot)
+
+    def _host_sample(self, logits: torch.Tensor | None, rows: int) -> np.ndarray:
+        """The synchronous oracle sampler's ``(rows,)`` tokens of ``logits``;
+        with a fanout, the replica's first rank's, broadcast (a mirror has
+        no logits)."""
+        local = [sample(logits, self._gen_host, self.sampler).numpy()] if self.member else None
+        return local[0] if self._fanout is None else self._fanout.share(local, [(rows,)])[0]
 
     def _record_first_token(self, req: Request, slot: int) -> None:
         first = req.first_token_step < 0
@@ -1197,7 +1272,8 @@ class Engine:
         self._apply_pool_directives()
         self._pf_prefix[slot] = len(matched)
         for j, phys in enumerate(matched):
-            paged_dev.read_block(self.staging, self.cache, phys, j * bs, lane)
+            if self.member:
+                paged_dev.read_block(self.staging, self.cache, phys, j * bs, lane)
         # a fully prefix-cached prompt still recomputes its last chunk for
         # the first-token logits (pool writes for matched blocks skip)
         start = min(len(matched) * bs, (len(full) - 1) // bs * bs)
@@ -1234,8 +1310,7 @@ class Engine:
             req = work.req
             self.slots[work.slot] = req
             if self.cache_kind == "paged":
-                paged_dev.sync_slot(self.cache, work.slot, self.manager.tables[work.slot],
-                                    work.start + work.n_valid)
+                self._sync_slot(work.slot, work.start + work.n_valid)
             self._end_prefill(work.slot)
             self._sample_prefill(req, work.slot, pre_logits)
 
@@ -1252,14 +1327,14 @@ class Engine:
             req = work.req
             self.slots[work.slot] = req
             if self.cache_kind == "paged":
-                paged_dev.sync_slot(self.cache, work.slot, self.manager.tables[work.slot],
-                                    work.start + work.n_valid)
+                self._sync_slot(work.slot, work.start + work.n_valid)
             self._draft_prefill_slot(work.slot, self._pf_tokens[work.slot])
             self._end_prefill(work.slot)
             req.admit_base = len(req.out_tokens)
             req.in_flight += 1
             req.in_flight_steps += 1
-            paged_dev.set_stop_id(self._eos_dev, work.slot, req.eos_id)
+            if self.member:
+                paged_dev.set_stop_id(self._eos_dev, work.slot, req.eos_id)
             self._record_first_token(req, work.slot)
 
     def _end_prefill(self, slot: int) -> None:
@@ -1280,7 +1355,7 @@ class Engine:
         return frozenset(self.manager.blocks[work.slot][j] for j in self._chunk_block_range(work))
 
     def _flush_chunk_blocks(self, work: PrefillChunk) -> None:
-        if self.cache_kind != "paged":
+        if self.cache_kind != "paged" or not self.member:
             return
         lane = self._pf_lane.get(work.slot, 0)
         for j in self._chunk_block_range(work):
@@ -1296,11 +1371,13 @@ class Engine:
         block: stream order then puts the copy ahead of it."""
         for kind, a, b in self.pool.drain_directives():
             if kind == "spill":
-                paged_dev.spill_block(self.cache, a, b)
+                if self.member:
+                    paged_dev.spill_block(self.cache, a, b)
                 self.stats.spills += 1
                 self.tracer.on_spill(self.replica, self.stats.engine_steps, a, b)
             else:
-                paged_dev.rehydrate_block(self.cache, a, b)
+                if self.member:
+                    paged_dev.rehydrate_block(self.cache, a, b)
                 self.stats.rehydrations += 1
                 self.tracer.on_rehydrate(self.replica, self.stats.engine_steps, a, b)
 
@@ -1315,9 +1392,8 @@ class Engine:
                 continue
             if self.manager.spill_live_prefix(s, self._kv_len(s)):
                 self._apply_pool_directives()
-                paged_dev.sync_slot(self.cache, s, self.manager.tables[s])
-                paged_dev.sync_host_slot(self.cache, s, self.manager.host_tables[s],
-                                         self.manager.cold_len(s))
+                self._sync_slot(s)
+                self._sync_host_slot(s, self.manager.cold_len(s))
                 return True
         return False
 
@@ -1392,11 +1468,11 @@ class Engine:
                     self._preempt(victim)
                     alive.discard(victim)
                     continue
-                if directive == "cow":
+                if directive == "cow" and self.member:
                     src, dst = payload
                     paged_dev.copy_block(self.cache, src, dst)
                 if directive in ("cow", "new"):
-                    paged_dev.sync_slot(self.cache, slot, self.manager.tables[slot])
+                    self._sync_slot(slot)
                 pos += 1
         return [s for s in active if s in alive]
 
@@ -1519,13 +1595,18 @@ class Engine:
         this dispatch.  A dispatch that captures its kind's graph is not
         counted by the profiler."""
         kind = self._dispatch_kind(active, chunks)
+        self.dispatch_counts[kind] += 1
+        if not self.member:
+            if len(chunks) == 2:
+                self.tracer.on_boundary_pack(self.replica, chunks[1][0].req,
+                                             self.stats.engine_steps, chunks[1][0].slot)
+            return self._mirror_outputs(kind), _Dispatch(kind, False, False)
         values = {}
         if active and not self.async_mode:
             values["tokens"] = self._decode_tokens()
         for i, (work, tokens) in enumerate(chunks):
             values[f"tok{i}"] = tokens
             values[f"chunk{i}"] = self._chunk_scalars(work)
-        self.dispatch_counts[kind] += 1
         prog = self._program(kind)
         captures = prog.graphs and prog.graph is None
         prof = self.profiler
@@ -1540,6 +1621,19 @@ class Engine:
         if sampled:
             prof.end(self.device)
         return out, _Dispatch(kind, sampled, captures)
+
+    def _mirror_outputs(self, kind: str) -> tuple:
+        """What a mirror has of a dispatch's outputs: in async mode the
+        shapes of those the host fetches (the decode batch's ids and EOS
+        flags or speculative window, each chunk's first token), in sync
+        mode None for each logits tensor (the host sampler's tokens come by
+        broadcast)."""
+        n_chunks, decode = self.KINDS[kind]
+        if not self.async_mode:
+            return (None,) * (int(decode) + n_chunks)
+        B = len(self.slots)
+        out = [(B, self.spec_depth + 1) if self.spec_depth else (B,), (B,)] if decode else []
+        return (*out, *[(1,)] * n_chunks)
 
     # ------------------------------------------------------------ telemetry
     def _trace_admission(self, req: Request, slot: int, step0: int, n_tokens: int,
@@ -1644,8 +1738,8 @@ class Engine:
                 tokens[i] = req.out_tokens[-1]
         return tokens
 
-    def _finish_decode(self, active: list[int], logits: torch.Tensor):
-        next_host = sample(logits, self._gen_host, self.sampler).numpy()
+    def _finish_decode(self, active: list[int], logits: torch.Tensor | None):
+        next_host = self._host_sample(logits, len(self.slots))
         for i in active:
             req = self.slots[i]
             tok = int(next_host[i])
@@ -1692,7 +1786,7 @@ class Engine:
             return self._busy()
         self.stats.peak_active = max(self.stats.peak_active, len(active))
         out, d = self._exec(active, [])
-        fetch = _Fetch(*out)
+        fetch = _Fetch(*out, fanout=self._fanout)
         self.stats.decode_steps += 1
         self.stats.engine_steps += 1
         self._trace_dispatch(d, active, [])
@@ -1761,8 +1855,8 @@ class Engine:
         self.stats.peak_active = max(self.stats.peak_active, len(active))
         chunks, pre_advanced = self._pack(active, work)
         out, d = self._exec(active, chunks)
-        fetch = _Fetch(*out[:2]) if active else None
-        pre = [_Fetch(t) for t in out[2 if active else 0:]]
+        fetch = _Fetch(*out[:2], fanout=self._fanout) if active else None
+        pre = [_Fetch(t, fanout=self._fanout) for t in out[2 if active else 0:]]
         if active:
             self.stats.decode_steps += 1
         self._trace_dispatch(d, active, [w for w, _ in chunks])

@@ -9,7 +9,10 @@ fp8/int8 pool and dequantizing on the way out), :func:`spill_block` /
 host-table row and cold length; whole on every rank of a placed pool),
 migration's :func:`copy_blocks_out` / :func:`copy_blocks_in` (a
 sequence's blocks gathered out of one pool and scattered into another, in
-storage dtype), and the async engine's
+storage dtype; out of a placed pool whole, from every lane's
+:func:`blocks_piece` in one collective, and into a placed pool by each
+lane's share, so the two pools may be cut differently), and the async
+engine's
 :func:`feed_token` / :func:`set_stop_id`.
 
 The reference's donated ``jax.jit`` updates become in-place tensor ops on
@@ -278,9 +281,51 @@ def copy_blocks_out(cache: Pytree, ids: list[int]) -> Pytree:
     matching scale-pool tiles, so a migration between pools of one
     ``kv_dtype`` is bit exact.  Returns ``{"k": (L, n, Hkv, bs, Dh), ...}``,
     new tensors: the source keeps stepping after the export, and stream
-    order puts the gather after every step already issued."""
+    order puts the gather after every step already issued.  A placed pool
+    gives the whole blocks on every rank of its mesh: every lane's
+    :func:`blocks_piece`, stacked over the mesh in one collective, put
+    together by :func:`blocks_assemble`."""
+    if isinstance(cache, ShardedPool):
+        keys = _pool_keys(cache)
+        stacks = cache.place.stack_mesh(blocks_piece(cache, ids))
+        return blocks_assemble([[st[r] for st in stacks] for r in range(stacks[0].shape[0])],
+                               ids, keys, [cache[k].dtype for k in keys], cache.n_kv,
+                               cache.block_size)
     idx = _block_index(ids, cache["k"].device)
     return {key: _gather_blocks(cache[key], idx) for key in _pool_keys(cache)}
+
+
+def blocks_piece(pool: ShardedPool, ids: list[int]) -> list[torch.Tensor]:
+    """This lane's part of pool blocks ``ids``: per pool leaf (k, v and the
+    scale pools) ``(L, n, h, p[, Dh])`` of this lane's heads and positions
+    (the payload as bytes, zeros where another lane holds the block), then
+    ``[b0, b1, h0, h1, p0, p1]``, the lane's ranges."""
+    b0, b1 = pool.blocks
+    out = []
+    for key in _pool_keys(pool):
+        leaf = ref.byte_view(pool[key])
+        out.append(torch.stack([leaf[:, i - b0] if b0 <= i < b1 else torch.zeros_like(leaf[:, 0])
+                                for i in ids], dim=1))
+    out.append(torch.tensor([*pool.blocks, *pool.heads, *pool.pos], device=out[0].device))
+    return out
+
+
+def blocks_assemble(pieces: list[list[torch.Tensor]], ids: list[int], keys, dtypes,
+                    n_kv: int, block_size: int) -> Pytree:
+    """The whole blocks ``ids`` from every lane's :func:`blocks_piece`: each
+    lane's part of the blocks it holds written at its heads and positions,
+    in the pool's storage ``dtypes``."""
+    out = {}
+    for j, (key, dt) in enumerate(zip(keys, dtypes)):
+        first = pieces[0][j]
+        whole = first.new_zeros((*first.shape[:2], n_kv, block_size, *first.shape[4:]))
+        for p in pieces:
+            b0, b1, h0, h1, p0, p1 = (int(x) for x in p[-1].tolist())
+            cols = [c for c, i in enumerate(ids) if b0 <= i < b1]
+            if cols:
+                whole[:, cols, h0:h1, p0:p1] = p[j][:, cols]
+        out[key] = whole.view(dt)
+    return out
 
 
 def copy_blocks_in(cache: Pytree, payload: Pytree, src_sel: list[int],
@@ -288,14 +333,22 @@ def copy_blocks_in(cache: Pytree, payload: Pytree, src_sel: list[int],
     """Scatter payload columns ``src_sel`` (positions in the exported block
     list) into pool blocks ``dst_ids``, in place.  The selection skips the
     positions the importer's own prefix cache already holds.  Storage dtype
-    on both sides: a migration moves bytes, never values."""
+    on both sides: a migration moves bytes, never values.  On a placed
+    pool each lane writes its heads and positions of the blocks it holds
+    from the whole payload (no collective)."""
     dev = cache["k"].device
-    sel, idx = _block_index(src_sel, dev), _block_index(dst_ids, dev)
+    pairs = list(zip(src_sel, dst_ids))
+    cut = (slice(None),) * 2
+    if isinstance(cache, ShardedPool):
+        pairs = [(j, cache.local_block(d)) for j, d in pairs if cache.local_block(d) is not None]
+        cut += (slice(*cache.heads), slice(*cache.pos))
     for key in _pool_keys(cache):
         if payload[key].dtype != cache[key].dtype:
             raise ValueError(f"migration payload {key} is {payload[key].dtype}, the pool "
                              f"stores {cache[key].dtype}")
-        _scatter_blocks(cache[key], payload[key], sel, idx)
+        if pairs:
+            sel, idx = (_block_index([p[i] for p in pairs], dev) for i in (0, 1))
+            _scatter_blocks(cache[key], payload[key][cut], sel, idx)
     return cache
 
 

@@ -219,41 +219,38 @@ def test_placed_model_on_one_rank_equals_the_model(policy):
 
 
 def test_placed_engine_refusals():
-    """What a placed engine does not serve yet is refused with a clear
-    error naming it: replicas and roles (they wait for per-replica
-    meshes), CUDA graphs; the serve CLI's clustered runs on a placed model
-    meet the same errors, and a family other than the dense one is refused
-    when the model is built.  The host tier, speculation, sub-batches and
-    the int8 cache are served (``test_torch_placement_tiered.py``,
-    ``test_torch_placement_spec.py``), as are the paged pool and the
-    hybrid schedule (``test_torch_placement_paged.py``)."""
+    """What a placed engine does not serve is refused with a clear error
+    naming it: CUDA graphs; and a family other than the dense one is
+    refused when the model is built.  A replica of a cluster and a
+    disaggregated role are served since per-replica meshes (the serve
+    CLI's clustered runs on a placed model finish every request;
+    ``test_torch_cluster_world.py`` holds them to the reference), as are
+    the host tier, speculation, sub-batches and the int8 cache
+    (``test_torch_placement_tiered.py``, ``test_torch_placement_spec.py``),
+    the paged pool and the hybrid schedule
+    (``test_torch_placement_paged.py``)."""
     model = _one_rank()
     params = model.init(0)
-    for kw, what in ((dict(replica=1), "replica"), (dict(role="prefill"), "role"),
-                     (dict(cache_kind="paged", replica=1), "replica")):
-        with pytest.raises(NotImplementedError,
-                           match=f"placed model does not serve.*{what}.*per-replica meshes"):
-            Engine(model, params, n_slots=2, max_seq=16, **kw)
     with pytest.raises(ValueError, match="eagerly"):
         Engine(model, params, n_slots=2, max_seq=16, graphs=True)
     for kw in ({}, dict(cache_kind="paged", block_size=4, schedule="hybrid", prefill_chunk=4),
                dict(cache_kind="paged", block_size=4, host_blocks=4, kv_dtype="fp8"),
                dict(sub_batches=2),
-               dict(spec_depth=1, draft_model=model, draft_params=params, prefill_chunk=8)):
+               dict(spec_depth=1, draft_model=model, draft_params=params, prefill_chunk=8),
+               dict(replica=1), dict(role="prefill"), dict(cache_kind="paged", replica=1)):
         eng = Engine(model, params, n_slots=2, max_seq=16, **kw)
         reqs = [Request(uid=i, prompt=np.arange(1, 4 + i, dtype=np.int32), max_new_tokens=3)
                 for i in range(3)]
         for r in reqs:
             eng.submit(r)
         assert eng.run().generated == 9 and not eng.graphs
-    for flags, what in ((["--replicas", "2"], "replica=1"),
-                        (["--replicas", "2", "--cache", "paged", "--host-blocks", "4"],
-                         "replica=1"),
-                        (["--replicas", "2", "--role-map", "1p+1d"], "role='prefill'")):
+    for flags in (["--replicas", "2"], ["--replicas", "2", "--cache", "paged", "--host-blocks", "4"],
+                  ["--replicas", "2", "--role-map", "1p+1d"]):
         args = serve.build_parser().parse_args(
             ["--reduced", "--device", "cpu", "--requests", "2", *flags])
-        with pytest.raises(NotImplementedError, match=what):
-            serve.serve(args, model, params, draft=(model, params))
+        res = serve.serve(args, model, params, draft=(model, params))
+        assert all(r.done for r in res.driver.submitted)
+        assert all(e.model is model and e.member for e in res.cluster.engines)
     for arch in ("rwkv6-7b", "moonshot-v1-16b-a3b"):
         with pytest.raises(NotImplementedError, match="placement serves the dense family only"):
             build_model(reduce_config(arch), "cpu", Env(axes={"data": 1, "model": 1}),

@@ -370,6 +370,124 @@ def paged_engine_task(task) -> dict:
     return out
 
 
+def _device_tensors(eng) -> int:
+    """The tensors an engine holds: in its attributes and in the dicts,
+    lists and objects they hold, three levels down (its caches, weights,
+    programs' buffers, token state)."""
+    import torch
+
+    def count(v, depth: int) -> int:
+        if isinstance(v, torch.Tensor):
+            return 1
+        if depth == 0:
+            return 0
+        if isinstance(v, dict):
+            items = v.values()
+        elif isinstance(v, (list, tuple)):
+            items = v
+        elif hasattr(v, "__dict__") and not isinstance(v, type):
+            items = vars(v).values()
+        else:
+            return 0
+        return sum(count(x, depth - 1) for x in items)
+
+    return count(eng, 3)
+
+
+def cluster_task(task) -> dict:
+    """The port's ``Cluster`` per case over ``replica_meshes(n_replicas,
+    model_parallel)`` of this world, each replica's model built on its mesh
+    under the case's policy (placed there when the mesh has more than one
+    rank; a stand-in on the other ranks) from the float32 weights of
+    ``params_float32.npz``, or, when the world cannot be split so, every
+    replica on the host mesh's one placed model (a case's ``arch``, when it
+    names one, is that reduced model, its weights ``params_{arch}.npz``):
+    per mode every request's
+    tokens and step stamps, the ``ClusterStats``, ``RouterStats``, each
+    replica's ``EngineStats`` and ``PoolStats``, which replicas this rank
+    holds, and how many tensors each of the others (the mirrors) holds.
+    Then the refusal of a traced cluster, and the serve CLI's lines under
+    each ``cli`` flag list."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.core.placement import Env
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh, mesh_axes, replica_meshes, split
+    from repro_torch.models.bridge import params_from_numpy, shards_from_numpy
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.cluster import Cluster
+    from repro_torch.serving.engine import Request
+
+    llama = reduce_config("llama3.2-1b", vocab=task["vocab"]).with_overrides(dtype="float32")
+    trees = {}
+
+    def built(mesh, policy, arch=None):
+        cfg = llama if arch is None else reduce_config(arch).with_overrides(dtype="float32")
+        name = "params_float32.npz" if arch is None else f"params_{arch}.npz"
+        if name not in trees:
+            trees[name] = unflat(dict(np.load(Path(task["out"]) / name)))
+        tree = trees[name]
+        env = Env(axes=mesh_axes(mesh) if len(mesh.ranks) > 1 else {}, kv_policy=policy)
+        model = build_model(cfg, "cpu", env, mesh)
+        params = (None if model.mirror else params_from_numpy(tree, "cpu", torch.float32)
+                  if model.placement is None else shards_from_numpy(tree, model, torch.float32))
+        return model, params
+
+    out = {}
+    for case in task["cases"]:
+        meshes = replica_meshes(case["replicas"], case["model_parallel"])
+        factory, model, params = None, None, None
+        if split(meshes):
+            def factory(i, meshes=meshes, policy=case["policy"], arch=case.get("arch")):
+                return (*built(meshes[i], policy, arch), {})
+        else:
+            model, params = built(make_host_mesh(case["model_parallel"]), case["policy"],
+                                  case.get("arch"))
+        for mode in case["modes"]:
+            cl = Cluster(model, params, case["replicas"], model_factory=factory,
+                         async_mode=mode == "async", **case["cluster"])
+            reqs = [Request(uid=i, prompt=np.asarray(p, np.int32),
+                            max_new_tokens=case["max_new"])
+                    for i, p in enumerate(case["prompts"])]
+            for r in reqs:
+                cl.submit(r)
+            stats = cl.run()
+            key = f"{case['name']}/{mode}"
+            for r in reqs:
+                out[f"{key}/tokens{r.uid}"] = np.asarray(r.out_tokens)
+                out[f"{key}/stamps{r.uid}"] = np.asarray(
+                    [r.submit_step, r.admit_step, r.first_token_step, r.finish_step])
+            out[f"{key}/stats"] = np.asarray(json.dumps(dataclasses.asdict(stats)))
+            out[f"{key}/router"] = np.asarray(json.dumps(dataclasses.asdict(cl.router.stats)))
+            out[f"{key}/pools"] = np.asarray(json.dumps(
+                [dataclasses.asdict(e.pool.stats) if e.cache_kind == "paged" else None
+                 for e in cl.engines]))
+            out[f"{key}/members"] = np.asarray([e.member for e in cl.engines])
+            out[f"{key}/mirror_tensors"] = np.asarray(
+                [0 if e.member else _device_tensors(e) for e in cl.engines])
+            out[f"{key}/member_tensors"] = np.asarray(
+                [_device_tensors(e) if e.member else 0 for e in cl.engines])
+    # a tracer on a cluster of more than one rank is refused (ROADMAP 9b.4)
+    from repro_torch.serving.telemetry import Tracer
+    try:
+        Cluster(None, None, 2, tracer=Tracer(wall=False))
+    except NotImplementedError as e:
+        out["traced"] = np.asarray(str(e))
+    serve.reduce_config = lambda arch, **kw: reduce_config(arch, **kw).with_overrides(
+        dtype="float32")
+    for i, flags in enumerate(task.get("cli", [])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--reduced", "--device", "cpu", *flags])
+        out[f"cli{i}"] = np.asarray(json.dumps(buf.getvalue().splitlines()))
+    return out
+
+
 def pipeline_task(task) -> dict:
     """``pipeline_forward`` over a ``stage`` mesh of the whole world on the
     reference's toy (``pipe.npz``: stacked ``w`` (L, D, D) and ``x``
@@ -462,7 +580,8 @@ def main(path: str) -> None:
     try:
         out = {"model": model_task, "engine": engine_task, "train": train_task,
                "paged_model": paged_model_task, "paged_engine": paged_engine_task,
-               "pipeline": pipeline_task, "train_cli": train_cli_task}[task["kind"]](task)
+               "pipeline": pipeline_task, "train_cli": train_cli_task,
+               "cluster": cluster_task}[task["kind"]](task)
         np.savez(Path(task["out"]) / f"rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
